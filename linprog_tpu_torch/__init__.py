@@ -1,0 +1,38 @@
+"""linprog_tpu_torch: the PyTorch / CUDA port of linprog_tpu.
+
+Batched dense LP solving on an NVIDIA GPU.  This package runs the exact
+pipeline (batched IPM -> simplex crossover -> two-phase fallback -> dd-KKT
+certificate) with two hand-written CUDA kernels: the whole-segment simplex
+kernel (``ops/solve_kernel.py``) and the panel inverse-Cholesky kernel
+(``ops/cholinv_kernel.py``).  Each kernel has a plain PyTorch version that
+a CPU tensor takes; a CUDA tensor always launches the kernel.
+
+f32 means IEEE f32: the package never enables TF32, which would break the
+exact split products of the double-word arithmetic and pick wrong pivots.
+"""
+
+from .batch import solve_batch_two_phase
+from .certify import certificate_summary, certify_vertex_batch
+from .config import DEFAULT_CONFIG, FAST_CONFIG, SolverConfig, tuned_config
+from .crossover import crossover_batch_canonical, ipm_crossover_batch_canonical
+from .ipm import DEFAULT_IPM_CONFIG, IPMConfig, ipm_solve_batch_canonical
+from .results import BatchResult
+from .router import exact_cleanup_config, solve_batch_exact
+
+__all__ = [
+    "BatchResult",
+    "DEFAULT_CONFIG",
+    "DEFAULT_IPM_CONFIG",
+    "FAST_CONFIG",
+    "IPMConfig",
+    "SolverConfig",
+    "certificate_summary",
+    "certify_vertex_batch",
+    "crossover_batch_canonical",
+    "exact_cleanup_config",
+    "ipm_crossover_batch_canonical",
+    "ipm_solve_batch_canonical",
+    "solve_batch_exact",
+    "solve_batch_two_phase",
+    "tuned_config",
+]

@@ -1,0 +1,76 @@
+"""Simplex solver configuration (counterpart of :mod:`linprog_tpu.config`).
+
+The fields keep the reference's names and defaults.  Knobs of the reference
+that the port leaves out (``split_pricing``, ``partial_pricing``,
+``refactor_method="ns"``, ``scaling``) and knobs its kernel path never reads
+(``update``, ``dtype``, ``compact_refactor``) are not fields here;
+:func:`linprog_tpu_torch.convert.config_from_reference` checks them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .calibration import seg_for_m
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Configuration of the batched simplex engine.
+
+    ``opt_tol`` is the ABSOLUTE optimality tolerance on reduced costs, as the
+    segment kernel applies it (the reference's XLA path scales it by
+    ``max(1, max|c|)``; the port follows the kernel).  ``feas_tol`` bounds
+    basic-variable infeasibility, ``pivot_tol`` is the smallest accepted
+    pivot element.  ``pricing`` is ``"bland"``, ``"dantzig"`` or ``"devex"``
+    (devex only in the kernel's plain version).  ``refactor_every`` is the
+    segment length between exact refactorizations (0: one unbounded
+    segment).  ``stall_limit`` pivots without objective progress switch a
+    lane to Bland's rule.  ``unroll`` is accepted for parity and does not
+    change results.  ``packed_select`` fuses min, argmin and eligibility
+    into one integer min.  ``polish_pivots`` bounds the double-word terminal
+    polish.  ``kernels`` names the kernel family: ``"cuda"``.
+    """
+
+    opt_tol: float = 1e-6
+    feas_tol: float = 1e-6
+    pivot_tol: float = 1e-7
+    pricing: str = "bland"
+    refactor_every: int = 0
+    stall_limit: int = 24
+    unroll: int = 1
+    packed_select: bool = False
+    polish_pivots: int = 0
+    kernels: str = "cuda"
+
+    def __post_init__(self):
+        if self.pricing not in ("bland", "dantzig", "devex"):
+            raise ValueError(f"unknown pricing rule: {self.pricing!r}")
+        if self.kernels != "cuda":
+            raise ValueError(f"unknown kernels impl: {self.kernels!r}")
+        if self.unroll < 1:
+            raise ValueError(f"unroll must be >= 1, got {self.unroll}")
+
+    def replace(self, **kw) -> "SolverConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_CONFIG = SolverConfig()
+
+# The reference's throughput configuration: dantzig pricing with stall
+# escalation, a refactorization every 512 pivots, packed selection and the
+# double-word polish.
+FAST_CONFIG = SolverConfig(
+    pricing="dantzig",
+    refactor_every=512,
+    polish_pivots=8,
+    unroll=4,
+    packed_select=True,
+)
+
+
+def tuned_config(m: int, **overrides) -> SolverConfig:
+    """:data:`FAST_CONFIG` with the segment length for size ``m``
+    (:func:`linprog_tpu_torch.calibration.seg_for_m`); ``overrides`` last."""
+    seg = overrides.pop("refactor_every", seg_for_m(m))
+    return FAST_CONFIG.replace(refactor_every=seg, **overrides)

@@ -1,0 +1,141 @@
+"""Carry the reference package's configuration and solver state across.
+
+An LP solver has no weights: its state is the instance plus the basis,
+factor and iterate.  These helpers move that state between the reference's
+layouts (numpy arrays, e.g. ``np.asarray`` of its JAX arrays) and this
+package's torch tensors on a device, so both packages can be fed the same
+state.  None of them imports the reference package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import SolverConfig
+from .engine import SimplexState
+from .ipm import IPMConfig, IPMState
+from .ops.solve_kernel import SegmentState
+
+# reference knobs the port leaves out: allowed only at their defaults
+_DROPPED_SOLVER = {"split_pricing": False, "partial_pricing": False,
+                   "refactor_method": "inv", "scaling": False,
+                   "dtype": "float32"}
+# reference knobs the kernel path never reads
+_IGNORED_SOLVER = ("update", "compact_refactor")
+_DROPPED_IPM = {"gondzio": 0, "newton_solver": "w2"}
+
+
+def _fields(obj) -> dict:
+    if isinstance(obj, dict):
+        return dict(obj)
+    if hasattr(obj, "_asdict"):
+        return dict(obj._asdict())
+    raise TypeError(f"expected a dict or NamedTuple, got {type(obj)!r}")
+
+
+def config_from_reference(d: dict):
+    """A port config from a reference ``SolverConfig`` or ``IPMConfig``
+    given as a dict (``dataclasses.asdict``).
+
+    ``kernels="pallas"`` maps to ``"cuda"``.  ``kernels="xla"`` is refused:
+    the reference's XLA path scales ``opt_tol`` by ``max(1, max|c|)`` and
+    the port implements only the kernel semantics.  A dropped knob at a
+    non-default value is refused too.
+    """
+    d = dict(d)
+    is_ipm = "eps_rel" in d
+    dropped = _DROPPED_IPM if is_ipm else _DROPPED_SOLVER
+    for key, default in dropped.items():
+        if key in d and d.pop(key) != default:
+            raise ValueError(f"{key} is not ported (only {default!r})")
+    if is_ipm:
+        return IPMConfig(**d)
+    for key in _IGNORED_SOLVER:
+        d.pop(key, None)
+    kernels = d.pop("kernels", "pallas")
+    if kernels != "pallas":
+        raise ValueError(
+            f"kernels={kernels!r}: only the reference's kernel path "
+            "('pallas') has a counterpart in the port ('cuda')"
+        )
+    return SolverConfig(kernels="cuda", **d)
+
+
+def _t(a, device, dtype=None):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)  # a copy
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def simplex_state_from_numpy(state, device="cpu") -> SimplexState:
+    """Reference ``SimplexState`` (batched arrays) -> port state."""
+    f = _fields(state)
+    return SimplexState(
+        basis=_t(f["basis"], device, torch.int32),
+        inv_B=_t(f["inv_B"], device, torch.float32),
+        bfs=_t(f["bfs"], device, torch.float32),
+        iters=_t(f["iters"], device, torch.int32),
+        status=_t(f["status"], device, torch.int32),
+    )
+
+
+def simplex_state_to_numpy(state: SimplexState) -> dict:
+    return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def ipm_state_from_numpy(state, device="cpu", dtype=torch.float32) -> IPMState:
+    """Reference ``IPMState`` -> port state."""
+    f = _fields(state)
+    return IPMState(
+        x=_t(f["x"], device, dtype),
+        y=_t(f["y"], device, dtype),
+        s=_t(f["s"], device, dtype),
+        iters=_t(f["iters"], device, torch.int32),
+        status=_t(f["status"], device, torch.int32),
+    )
+
+
+def ipm_state_to_numpy(state: IPMState) -> dict:
+    return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def packed_from_numpy(packed, device="cpu"):
+    """The reference kernel's packed layout -> ``(c, apen, SegmentState)``.
+
+    ``packed`` is the 10-tuple of the reference's ``_pallas_pack``:
+    ``(c_row[B,1,n], apen[B,1,n], invBT[B,m,m], bfs[B,1,m], cB[B,1,m],
+    basis[B,1,m], pen[B,1,n], gamma[B,1,n], iters[B,1,1], status[B,1,1])``.
+    The port drops the singleton row dimensions.
+    """
+    c_row, apen, invBT, bfs, cB, basis, pen, gamma, iters, status = (
+        np.asarray(a) for a in packed
+    )
+    B = invBT.shape[0]
+    f32 = torch.float32
+    return (
+        _t(c_row.reshape(B, -1), device, f32),
+        _t(np.broadcast_to(apen, (B,) + apen.shape[1:]).reshape(B, -1),
+           device, f32),
+        SegmentState(
+            invBT=_t(invBT, device, f32),
+            bfs=_t(bfs.reshape(B, -1), device, f32),
+            cB=_t(cB.reshape(B, -1), device, f32),
+            basis=_t(basis.reshape(B, -1), device, torch.int32),
+            pen=_t(pen.reshape(B, -1), device, f32),
+            gamma=_t(gamma.reshape(B, -1), device, f32),
+            iters=_t(iters.reshape(B), device, torch.int32),
+            status=_t(status.reshape(B), device, torch.int32),
+        ),
+    )
+
+
+def packed_to_numpy(c, apen, seg: SegmentState):
+    """Inverse of :func:`packed_from_numpy`: the reference's 10-tuple."""
+    B = seg.invBT.shape[0]
+    row = lambda t: _np(t).reshape(B, 1, -1)  # noqa: E731
+    return (row(c), row(apen), _np(seg.invBT), row(seg.bfs), row(seg.cB),
+            row(seg.basis), row(seg.pen), row(seg.gamma),
+            _np(seg.iters).reshape(B, 1, 1), _np(seg.status).reshape(B, 1, 1))

@@ -1,0 +1,64 @@
+"""Random LP instances (counterpart of :mod:`linprog_tpu.generators`).
+
+Every instance is feasible and bounded by construction:
+``h = G x0 + s0`` with ``x0, s0 >= 0`` and ``c = s - G' y0`` with
+``y0, s >= 0``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def random_inequality_lps(
+    batch: int,
+    m: int,
+    n: int,
+    seed: int = 0,
+    dtype=np.float32,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host batch ``(c[B, n], G[B, m, n], h[B, m])`` of
+    ``min c'x s.t. Gx <= h, x >= 0``; the same numbers as the reference's
+    generator for the same seed."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal(size=(batch, m, n), dtype=np.float32).astype(dtype, copy=False)
+    x0 = rng.random(size=(batch, n), dtype=np.float32).astype(dtype, copy=False)
+    slack = rng.random(size=(batch, m), dtype=np.float32).astype(dtype, copy=False)
+    h = np.einsum("bmn,bn->bm", G, x0) + slack
+
+    y0 = rng.random(size=(batch, m), dtype=np.float32).astype(dtype, copy=False)
+    s = 0.1 + 0.9 * rng.random(size=(batch, n), dtype=np.float32).astype(dtype, copy=False)
+    c = s - np.einsum("bmn,bm->bn", G, y0)
+    return c.astype(dtype, copy=False), G, h.astype(dtype, copy=False)
+
+
+def device_inequality_lps(gen: torch.Generator, batch: int, m: int, n: int,
+                          device):
+    """The same construction made on ``device`` from the generator ``gen``
+    (which must live on that device); only the seed crosses to the card."""
+    kw = dict(generator=gen, device=device, dtype=torch.float32)
+    G = torch.randn((batch, m, n), **kw)
+    x0 = torch.rand((batch, n), **kw)
+    slack = torch.rand((batch, m), **kw)
+    h = torch.einsum("bmn,bn->bm", G, x0) + slack
+    y0 = torch.rand((batch, m), **kw)
+    s = 0.1 + 0.9 * torch.rand((batch, n), **kw)
+    c = s - torch.einsum("bmn,bm->bn", G, y0)
+    return c, G, h
+
+
+def device_standard_form_batch(c, G, h):
+    """``min c'x, Gx <= h`` -> ``[G | I] x = h`` with rows of ``h < 0``
+    sign-flipped so that ``b >= 0``."""
+    B, m, n = G.shape
+    eye = torch.eye(m, dtype=G.dtype, device=G.device).expand(B, m, m)
+    A = torch.cat([G, eye], dim=2)
+    neg = (h < 0)[:, :, None]
+    A = torch.where(neg, -A, A)
+    b = torch.abs(h)
+    c_std = torch.cat([c, torch.zeros((B, m), dtype=G.dtype, device=G.device)],
+                      dim=1)
+    return c_std, A, b

@@ -1,0 +1,127 @@
+"""Build the package's CUDA sources with ``nvcc`` at first use.
+
+All ``csrc/*.cu`` files compile into ONE shared library with a plain C
+interface, loaded with :mod:`ctypes`.  The library goes to
+``build/linprog_tpu_torch/<hash>/`` beside the package, keyed by a hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+loads at once.  A build failure raises with nvcc's own message.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                           "linprog_tpu_torch")
+
+# --fmad=false: every a*b + c rounds twice, as the plain PyTorch versions
+# (separate eager ops) do, so a kernel and its plain version differ only by
+# summation order.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib = None
+build_seconds = None  # wall time of the last build in this process
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def _sources():
+    names = sorted(f for f in os.listdir(_CSRC) if f.endswith((".cu", ".cuh")))
+    return [os.path.join(_CSRC, f) for f in names]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise KernelBuildError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "cannot be built"
+        )
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_ROOT, h.hexdigest()[:16],
+                        "liblinprog_kernels.so")
+
+
+def build() -> str:
+    """Compile the library if it is not built yet; return its path."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *cu]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    build_seconds = time.time() - t0
+    return out
+
+
+def _declare(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lp_panel_cholinv.argtypes = [p, p, i, i, p]
+    lib.lp_panel_cholinv.restype = i
+    lib.lp_solve_segment.argtypes = [
+        p, p, p,  # A, c, apen
+        p, p, p, p, p, p, p,  # invBT, bfs, cB, basis, pen, iters, status
+        i, i, i, i, i,  # B, m, n, seg_len, maxiters
+        f, f, f,  # opt_tol, pivot_tol, feas_tol
+        i, i, i, i,  # dual, pricing, packed, stall_limit
+        p,  # stream
+    ]
+    lib.lp_solve_segment.restype = i
+    lib.lp_error_string.argtypes = [i]
+    lib.lp_error_string.restype = ctypes.c_char_p
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch function returned a nonzero ``cudaError_t``."""
+    if code != 0:
+        msg = library().lp_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,378 @@
+"""Whole-segment simplex kernel: up to ``seg_len`` revised-simplex
+iterations per lane in one launch, with the lane's state updated in place.
+
+Replaces the Pallas kernel ``linprog_tpu/ops/solve_kernel.py ::
+solve_segment`` (body ``_solve_segment_kernel``, helper ``pack_min_keys``).
+One iteration (primal): duals ``y = c_B B^-1``, reduced costs
+``r = c - yA + pen``, the entering column (bland, dantzig or devex; a lane
+that stalls falls back to Bland), the direction ``d = B^-1 a``, the
+min-ratio leaving row, a rank-1 eta update of ``B^-T``, and the bfs, c_B,
+basis, penalty and status updates.  Dual mode picks the leaving row first
+(most infeasible, or first infeasible under Bland), then the entering
+column by the dual ratio test over the row ``B^-1[leave, :] A``.
+
+What must carry over exactly, and does here in both versions:
+
+* the optimality test uses the ABSOLUTE ``opt_tol`` (the reference's XLA
+  path scales it by ``max(1, max|c|)``; its kernel, which the main path
+  runs, does not);
+* packed keys: the float's bits with the index in the low
+  ``(k - 1).bit_length()`` bits, complemented for negative values,
+  ``INT32_MAX`` for "no candidate", the lowest index on an exact tie; dual
+  ratios clamp to ``+0.0`` before packing;
+* stall state is local to a segment (``z0 = sum(c_B bfs)``, ``dz = inf``,
+  ``stall = bland = 0`` at entry) and ``dz`` uses the mantissa-truncated
+  ratio of the packed path;
+* a lane that is not RUNNING, or has reached ``maxiters``, is untouched;
+* ``unroll`` does not change results (it is accepted and ignored).
+
+On the H100 (``csrc/solve_segment.cu``): one thread block per lane.  A lane
+does not fit in shared memory (at m = 256, n = 512: A 512 KB and ``B^-T``
+256 KB, against 227 KB per block), so A and ``B^-T`` stay in device memory
+and only the O(m + n) vectors live in shared memory.  Each primal iteration
+streams A once (pricing) and ``B^-T`` four times (duals, direction, the
+eta read and write): about 1.5 MB per lane-iteration at that shape, so the
+kernel is bound by device-memory bandwidth.  Warp-per-row GEMVs read
+``B^-T`` rows, column-per-thread GEMVs read A and ``B^-T`` coalesced, and
+selections are block-wide integer or float min reductions.  Devex runs
+only in the plain version; the CUDA wrapper raises for it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import status as st
+from . import _build
+
+INTMAX = 0x7FFFFFFF
+
+launches = 0  # CUDA launches of the kernel (never the plain version)
+
+
+class SegmentState(NamedTuple):
+    """The kernel's in-place state: ``invBT[B, m, m]`` (the TRANSPOSED basis
+    inverse), ``bfs[B, m]``, ``cB[B, m]``, ``basis[B, m]`` i32, ``pen[B, n]``
+    (+inf on basis and disallowed columns), ``gamma[B, n]`` (devex weights),
+    ``iters[B]`` i32, ``status[B]`` i32."""
+
+    invBT: torch.Tensor
+    bfs: torch.Tensor
+    cB: torch.Tensor
+    basis: torch.Tensor
+    pen: torch.Tensor
+    gamma: torch.Tensor
+    iters: torch.Tensor
+    status: torch.Tensor
+
+
+def pack_min_keys(vals, mask, idx, bits: int, negate: bool):
+    """i32 keys whose min fuses value-min, argmin and any-eligible.
+
+    ``negate=False`` for nonnegative ``vals``, ``negate=True`` for negative
+    ones; masked-out entries get ``INT32_MAX``.
+    """
+    u = vals.view(torch.int32)
+    if negate:
+        u = torch.bitwise_not(u)
+    key = torch.bitwise_or(torch.bitwise_and(u, -(1 << bits)), idx)
+    return torch.where(mask, key, torch.full_like(key, INTMAX))
+
+
+def _unpack_value(key, bits: int):
+    return torch.bitwise_and(key, -(1 << bits)).view(torch.float32)
+
+
+def _nonneg(x):
+    """``max(x, 0)`` with ``-0.0 -> +0.0`` and NaN kept (XLA's maximum)."""
+    return torch.clamp_min(x, 0.0) + 0.0
+
+
+def _take(v, idx):
+    """``v[b, idx[b]]`` per lane, read as the reference's masked sum reads
+    it (``-0.0`` comes back ``+0.0``)."""
+    out = torch.gather(v, 1, idx.long()[:, None])[:, 0]
+    return out + 0 if out.dtype == torch.int32 else out + 0.0
+
+
+def _column(M, idx):
+    """``M[b, :, idx[b]]`` per lane: ``[B, rows]``."""
+    B, rows, _ = M.shape
+    return torch.gather(M, 2, idx.long()[:, None, None].expand(B, rows, 1))[:, :, 0]
+
+
+def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
+                        seg_len: int, pricing: int, opt_tol: float,
+                        pivot_tol: float, dual: bool = False,
+                        feas_tol: float = 1e-6, stall_limit: int = 0,
+                        packed: bool = False) -> SegmentState:
+    """The plain PyTorch version, batched over lanes; updates ``state`` in
+    place and returns it.  Each pass of the loop is one gated iteration of
+    every lane (the reference's ``unroll > 1`` form)."""
+    invBT, bfs, cB, basis, pen, gamma, iters, status = (
+        t.clone() for t in state
+    )
+    B, m, n = A.shape
+    dev = A.device
+    inf = float("inf")
+    lane_n = torch.arange(n, dtype=torch.int32, device=dev)
+    lane_m = torch.arange(m, dtype=torch.int32, device=dev)
+    bits_n = max(1, (n - 1).bit_length())
+    bits_m = max(1, (m - 1).bit_length())
+    lo_n = (1 << bits_n) - 1
+    lo_m = (1 << bits_m) - 1
+    dantzig = pricing >= 1
+    track_stall = stall_limit > 0 and pricing >= 1
+    zero_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    n_i = torch.full((B,), n, dtype=torch.int32, device=dev)
+    m_i = torch.full((B,), m, dtype=torch.int32, device=dev)
+
+    def first_where(mask, lanes, size):
+        return torch.where(mask, lanes, size).min(dim=1).values
+
+    z = (cB * bfs).sum(dim=1) if track_stall else torch.zeros_like(bfs[:, 0])
+    dz_prev = torch.full_like(z, inf)
+    stall = zero_i.clone()
+    bland = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    for _ in range(seg_len):
+        run = (status == st.RUNNING) & (iters < maxiters)
+        if not bool(run.any()):
+            break
+        if track_stall:
+            progressed = torch.abs(dz_prev) > 1e-6 * (torch.abs(z) + 1.0)
+            stall_new = torch.where(progressed, zero_i, stall + 1)
+            bland_new = ~progressed & ((stall_new >= stall_limit) | bland)
+            stall = torch.where(run, stall_new, stall)
+            bland = torch.where(run, bland_new, bland)
+        use_bland = bland if track_stall else torch.zeros_like(bland)
+
+        r = None
+        if dual:
+            neg = bfs < -feas_tol
+            first = first_where(neg, lane_m, m)
+            if dantzig and packed:
+                k0 = pack_min_keys(bfs, neg, lane_m, bits_m, True).min(dim=1).values
+                viable = k0 != INTMAX
+                leave = torch.where(use_bland, first,
+                                    torch.bitwise_and(k0, lo_m))
+            elif dantzig:
+                worst = bfs.min(dim=1).values
+                viable = worst < -feas_tol
+                hot = first_where(bfs == worst[:, None], lane_m, m)
+                leave = torch.where(use_bland, first, hot)
+            else:
+                leave = first
+                viable = leave < m
+            leave = torch.where(viable, leave, zero_i)
+            w = _column(invBT, leave)  # row `leave` of B^-1
+            urow = torch.einsum("bj,bjk->bk", w, A)
+            y = torch.einsum("bi,bji->bj", cB, invBT)
+            r = c - torch.einsum("bj,bjk->bk", y, A)
+            cand = (urow < -pivot_tol) & (pen == 0.0)
+            theta_d = torch.where(
+                cand, -r / torch.where(cand, urow, -1.0), inf
+            )
+            if packed:
+                d0 = pack_min_keys(_nonneg(theta_d), cand, lane_n, bits_n,
+                                   False).min(dim=1).values
+                any_cand = d0 != INTMAX
+                enter = torch.where(any_cand, torch.bitwise_and(d0, lo_n),
+                                    zero_i)
+                best_d = torch.where(any_cand, _unpack_value(d0, bits_n), inf)
+            else:
+                best_d = theta_d.min(dim=1).values
+                any_cand = best_d < inf
+                enter = first_where(cand & (theta_d == best_d[:, None]),
+                                    lane_n, n)
+                enter = torch.where(any_cand, enter, zero_i)
+            do_pivot = viable & any_cand & run
+            stop_status = torch.where(
+                ~viable, st.OPTIMAL,
+                torch.where(~any_cand, st.DUAL_UNBOUNDED, st.RUNNING),
+            ).to(torch.int32)
+            d = torch.einsum("bj,bji->bi", _column(A, enter), invBT)
+        else:
+            y = torch.einsum("bi,bji->bj", cB, invBT)
+            r = c - torch.einsum("bj,bjk->bk", y, A) + pen
+            neg = r < -opt_tol
+            first = first_where(neg, lane_n, n)
+            if packed and pricing == 1:
+                k0 = pack_min_keys(r, neg, lane_n, bits_n, True).min(dim=1).values
+                eligible = k0 != INTMAX
+                enter = torch.where(use_bland, first,
+                                    torch.bitwise_and(k0, lo_n))
+            else:
+                if pricing == 2:  # devex: maximize r^2 / gamma
+                    score = torch.where(neg, (r * r) / gamma, -inf)
+                    best_s = score.max(dim=1).values
+                    eligible = best_s > -inf
+                    hot = first_where(score == best_s[:, None], lane_n, n)
+                elif dantzig:
+                    best = r.min(dim=1).values
+                    eligible = best < -opt_tol
+                    hot = first_where(r == best[:, None], lane_n, n)
+                else:
+                    hot = first
+                    eligible = hot < n
+                enter = torch.where(use_bland, first, hot)
+            enter = torch.where(eligible, enter, zero_i)
+            d = torch.einsum("bj,bji->bi", _column(A, enter), invBT)
+            pos = d > pivot_tol
+            theta = torch.where(
+                pos, _nonneg(bfs) / torch.where(pos, d, 1.0), inf
+            )
+            if packed:
+                t0 = pack_min_keys(theta, pos, lane_m, bits_m,
+                                   False).min(dim=1).values
+                any_pos = t0 != INTMAX
+                leave = torch.where(any_pos, torch.bitwise_and(t0, lo_m),
+                                    zero_i)
+                best_t = torch.where(any_pos, _unpack_value(t0, bits_m), inf)
+            else:
+                best_t = theta.min(dim=1).values
+                any_pos = best_t < inf
+                leave = first_where(pos & (theta == best_t[:, None]),
+                                    lane_m, m)
+                leave = torch.where(any_pos, leave, zero_i)
+            do_pivot = eligible & any_pos & run
+            stop_status = torch.where(
+                ~eligible, st.OPTIMAL,
+                torch.where(~any_pos, st.PRIMAL_UNBOUNDED, st.RUNNING),
+            ).to(torch.int32)
+
+        at_leave = lane_m[None, :] == leave[:, None]
+        at_enter = lane_n[None, :] == enter[:, None]
+        d_l = _take(d, leave)
+        bfs_l = _take(bfs, leave)
+        leaving_col = _take(basis, leave)
+        c_enter = _take(c, enter)
+        safe = torch.where(d_l == 0, 1.0, d_l)
+        u = -d / safe[:, None]
+        u = torch.where(at_leave, (1.0 / safe - 1.0)[:, None], u)
+        u = torch.where(do_pivot[:, None], u, 0.0)
+
+        col_l = _column(invBT, leave)  # column `leave` of B^-T
+        invBT = invBT + col_l[:, :, None] * u[:, None, :]
+        bfs = bfs + u * bfs_l[:, None]
+        piv = do_pivot[:, None]
+        basis = torch.where(at_leave & piv, enter[:, None], basis)
+        cB = torch.where(piv & at_leave, c_enter[:, None], cB)
+        pen_new = torch.where(
+            at_enter, inf,
+            torch.where(lane_n[None, :] == leaving_col[:, None], apen, pen),
+        )
+        pen = torch.where(piv, pen_new, pen)
+
+        if pricing == 2:
+            # devex reference weights from the pivot row of the old tableau
+            w = torch.einsum("bj,bjk->bk", col_l, A)
+            gamma_q = torch.clamp_min(_take(gamma, enter), 1.0)
+            ratio2 = (w / safe[:, None]) * (w / safe[:, None])
+            gamma_new = torch.maximum(gamma, ratio2 * gamma_q[:, None])
+            g_leave = torch.clamp_min(gamma_q / (safe * safe), 1.0)
+            gamma_new = torch.where(
+                lane_n[None, :] == leaving_col[:, None], g_leave[:, None],
+                gamma_new,
+            )
+            gamma_new = torch.clamp_max(gamma_new, 1e12)
+            gamma = torch.where(piv, gamma_new, gamma)
+
+        if track_stall:
+            if dual:
+                dz = -best_d * bfs_l
+            else:
+                dz = best_t * _take(r, enter)
+            dz = torch.where(do_pivot, dz, 0.0)
+        else:
+            dz = torch.zeros_like(z)
+        status = torch.where(run, stop_status, status)
+        iters = iters + run.to(torch.int32)
+        z = z + dz
+        dz_prev = dz
+
+    for dst, src in zip(state, (invBT, bfs, cB, basis, pen, gamma, iters,
+                                status)):
+        dst.copy_(src)
+    return state
+
+
+def _check(A, c, apen, state: SegmentState):
+    B, m, n = A.shape
+    want = {
+        "A": (A, (B, m, n), torch.float32),
+        "c": (c, (B, n), torch.float32),
+        "apen": (apen, (B, n), torch.float32),
+        "invBT": (state.invBT, (B, m, m), torch.float32),
+        "bfs": (state.bfs, (B, m), torch.float32),
+        "cB": (state.cB, (B, m), torch.float32),
+        "basis": (state.basis, (B, m), torch.int32),
+        "pen": (state.pen, (B, n), torch.float32),
+        "gamma": (state.gamma, (B, n), torch.float32),
+        "iters": (state.iters, (B,), torch.int32),
+        "status": (state.status, (B,), torch.int32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"solve_segment: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"solve_segment: {name} is {t.dtype}, "
+                            f"expected {dtype}")
+        if t.device != A.device:
+            raise ValueError(f"solve_segment: {name} on {t.device}, A on "
+                             f"{A.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"solve_segment: {name} must be contiguous "
+                             "(the state is updated in place)")
+
+
+def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
+                  seg_len: int, pricing: int, opt_tol: float,
+                  pivot_tol: float, dual: bool = False,
+                  feas_tol: float = 1e-6, stall_limit: int = 0,
+                  unroll: int = 1, packed: bool = False) -> SegmentState:
+    """Run up to ``seg_len`` simplex iterations per lane; updates ``state``
+    in place and returns it.
+
+    ``A[B, m, n]``, ``c[B, n]``, ``apen[B, n]`` (+inf on columns that may
+    never enter), ``maxiters`` (host int), ``pricing`` 0 = bland,
+    1 = dantzig, 2 = devex.  ``unroll`` is accepted for parity with the
+    reference and ignored: it never changed results.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel.
+    """
+    global launches
+    del unroll
+    _check(A, c, apen, state)
+    kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
+              pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
+              stall_limit=stall_limit, packed=packed)
+    if A.device.type == "cpu":
+        return solve_segment_plain(A, c, apen, maxiters, state, **kw)
+    if A.device.type != "cuda":
+        raise ValueError(f"solve_segment: unsupported device {A.device}")
+    if pricing not in (0, 1):
+        raise NotImplementedError(
+            "solve_segment: devex pricing runs only in the plain version; "
+            "the CUDA kernel takes bland (0) and dantzig (1)"
+        )
+    B, m, n = A.shape
+    if B == 0 or seg_len <= 0:
+        return state
+    lib = _build.library()
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    code = lib.lp_solve_segment(
+        A.data_ptr(), c.data_ptr(), apen.data_ptr(),
+        state.invBT.data_ptr(), state.bfs.data_ptr(), state.cB.data_ptr(),
+        state.basis.data_ptr(), state.pen.data_ptr(),
+        state.iters.data_ptr(), state.status.data_ptr(),
+        B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
+        float(opt_tol), float(pivot_tol), float(feas_tol),
+        int(bool(dual)), int(pricing), int(bool(packed)), int(stall_limit),
+        stream,
+    )
+    _build.check(code, "solve_segment launch")
+    launches += 1
+    return state

@@ -1,0 +1,210 @@
+"""Double-word (split-float) terminal polish (counterpart of
+:mod:`linprog_tpu.refine`).
+
+f32 pricing inherits the basis inverse's error, so a solve can stop at a
+near-optimal vertex it cannot tell from the optimum.  This module reprices
+in double-word arithmetic: Dekker-split products (exact in f32), chunked
+compensated sums, iterative refinement of duals and basic values, and a few
+dd-guided cleanup pivots.
+
+Ported faithfully in f32.  Every elementwise step is its own eager op:
+a fused multiply-add (``addcmul``, ``addmm``/``baddbmm``, ``lerp`` or a
+compiled kernel) would round differently and break the error-free
+transformations, and TF32 matmuls would break the exact split products.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .engine import basis_matrix, in_basis_mask, inv_or_nan
+
+
+def _split(x):
+    """Dekker split ``x = hi + lo`` (hi: top 12 mantissa bits in f32), so
+    products of two halves are exact."""
+    c = 4097.0 if x.dtype == torch.float32 else float(1 << 27) + 1.0
+    t = x * c
+    hi = t - (t - x)
+    return hi, x - hi
+
+
+def _kahan_sum_chunks(P):
+    """Compensated (Sum2) sum of ``P[B, K, n]`` over K -> ``[B, n]``."""
+    K = P.shape[1]
+    s = P[:, 0]
+    comp = torch.zeros_like(s)
+    for k in range(1, K):
+        x = P[:, k]
+        t = s + x
+        z = t - s
+        comp = comp + ((s - (t - z)) + (x - z))
+        s = t
+    return s + comp
+
+
+def _pad_rows(y, M, chunk: int):
+    B, m, n = M.shape
+    pad = (-m) % chunk
+    if pad:
+        y = torch.nn.functional.pad(y, (0, pad))
+        M = torch.nn.functional.pad(M, (0, 0, 0, pad))
+    return y, M
+
+
+def dd_rowmat(y, M, chunk: int = 8):
+    """High-accuracy ``y[B, m] @ M[B, m, n] -> [B, n]``: split products,
+    chunk-of-``chunk`` partial sums, compensated sum over chunks."""
+    y, M = _pad_rows(y, M, chunk)
+    B, m, n = M.shape
+    K = m // chunk
+    yh, yl = _split(y)
+    Mh, Ml = _split(M)
+
+    def part(u, V):
+        return torch.einsum("bkc,bkcn->bkn", u.reshape(B, K, chunk),
+                            V.reshape(B, K, chunk, n))
+
+    P = (part(yh, Mh) + part(yh, Ml)) + part(yl, Mh)
+    P = P + part(yl, Ml)
+    return _kahan_sum_chunks(P)
+
+
+def _dd_chunk_products(y, M, chunk: int):
+    """Per-chunk double-float partial sums ``(s, e)`` of ``y @ M``, each
+    ``[B, K, n]`` with ``sum == s + e`` to ~eps^2 (TwoProd + TwoSum)."""
+    y, M = _pad_rows(y, M, chunk)
+    B, m, n = M.shape
+    K = m // chunk
+    yh, yl = _split(y)
+    Mh, Ml = _split(M)
+    yr = y.reshape(B, K, chunk)
+    yhr = yh.reshape(B, K, chunk)
+    ylr = yl.reshape(B, K, chunk)
+    Mr = M.reshape(B, K, chunk, n)
+    Mhr = Mh.reshape(B, K, chunk, n)
+    Mlr = Ml.reshape(B, K, chunk, n)
+
+    s = torch.zeros((B, K, n), dtype=M.dtype, device=M.device)
+    e = torch.zeros_like(s)
+    for c in range(chunk):
+        yc = yr[:, :, c, None]
+        yhc = yhr[:, :, c, None]
+        ylc = ylr[:, :, c, None]
+        p = yc * Mr[:, :, c, :]
+        # TwoProd: exact rounding error of p from the 12-bit splits
+        pe = yhc * Mhr[:, :, c, :] - p
+        pe = pe + yhc * Mlr[:, :, c, :]
+        pe = pe + ylc * Mhr[:, :, c, :]
+        pe = pe + ylc * Mlr[:, :, c, :]
+        # TwoSum(s, p)
+        t = s + p
+        z = t - s
+        err = (s - (t - z)) + (p - z)
+        s = t
+        e = e + (pe + err)
+    return s, e
+
+
+def dd_rowmat_dd(y, M, chunk: int = 8):
+    """Double-float ``y[B, m] @ M[B, m, n] -> [B, n]``."""
+    s, e = _dd_chunk_products(y, M, chunk)
+    return _kahan_sum_chunks(torch.cat([s, e], dim=1))
+
+
+def dd_residual_rowmat(bvec, y, M, chunk: int = 8):
+    """Double-float residual ``bvec[B, n] - y[B, m] @ M[B, m, n]`` with
+    ``bvec`` folded into the compensated chain."""
+    s, e = _dd_chunk_products(y, M, chunk)
+    return _kahan_sum_chunks(torch.cat([bvec[:, None, :], -s, -e], dim=1))
+
+
+def dd_residual(bvec, M, x, chunk: int = 8):
+    """Double-float residual ``bvec[B, m] - M[B, m, k] @ x[B, k]``."""
+    return dd_residual_rowmat(bvec, x, M.transpose(1, 2), chunk=chunk)
+
+
+def dd_matvec(M, x, chunk: int = 8):
+    """Double-float ``M[B, m, k] @ x[B, k] -> [B, m]``."""
+    return dd_rowmat_dd(x, M.transpose(1, 2), chunk=chunk)
+
+
+def dd_dot(u, v, chunk: int = 8):
+    """High-accuracy per-lane dot ``sum(u * v)`` for ``u, v [B, m]``."""
+    return dd_rowmat(u, v[:, :, None], chunk=chunk)[:, 0]
+
+
+def refine_duals(cB, Bmat, inv_B, steps: int = 2):
+    """Iteratively refined duals ``y`` with ``y B = c_B`` (dd residual)."""
+    y = torch.einsum("bm,bmk->bk", cB, inv_B)
+    for _ in range(steps):
+        s = dd_residual_rowmat(cB, y, Bmat)
+        y = y + torch.einsum("bm,bmk->bk", s, inv_B)
+    return y
+
+
+def refine_bfs(Bmat, b, inv_B, xB, steps: int = 2):
+    """Iteratively refined ``x_B`` with ``B x_B = b`` (dd residual)."""
+    for _ in range(steps):
+        r = dd_residual(b, Bmat, xB)
+        xB = xB + torch.einsum("bmk,bk->bm", inv_B, r)
+    return xB
+
+
+def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
+                 dd_tol: float = 2e-6, pivot_tol: float = 1e-9, inv_B=None):
+    """dd-guided cleanup pivots at a terminal basis.
+
+    ``c[B, n], A[B, m, n], b[B, m], basis[B, m] i32, allowed[n]`` bool,
+    ``active[B]`` bool.  ``inv_B`` may pass the engine's running factor.
+    Returns ``(basis, xB, y, inv_B, rounds)``.
+    """
+    Bsz, m, n = A.shape
+    lanes = torch.arange(Bsz, device=A.device)
+    scale = torch.clamp_min(torch.abs(c).max(dim=1).values, 1.0)
+
+    def price(basis, inv_B):
+        Bmat = basis_matrix(A, basis)
+        cB = torch.gather(c, 1, basis.long())
+        y = refine_duals(cB, Bmat, inv_B)
+        r = c - dd_rowmat(y, A)
+        blocked = in_basis_mask(basis, n) | ~allowed[None, :]
+        return torch.where(blocked, float("inf"), r)
+
+    if inv_B is None:
+        inv_B = inv_or_nan(basis_matrix(A, basis))
+    act = active
+    k = 0
+    while k < max_pivots and bool(act.any()):
+        r = price(basis, inv_B)
+        enter = torch.argmin(r, dim=1)
+        r_min = r[lanes, enter]
+        go = act & (r_min < -dd_tol * scale)
+
+        acol = A[lanes, :, enter]
+        d = torch.einsum("bmk,bk->bm", inv_B, acol)
+        xB = torch.einsum("bmk,bk->bm", inv_B, b)
+        pos = d > pivot_tol
+        go = go & pos.any(dim=1)  # no positive direction: leave the lane
+        theta = torch.where(pos, xB / torch.where(pos, d, 1.0), float("inf"))
+        leave = torch.argmin(theta, dim=1)
+
+        d_l = d[lanes, leave]
+        safe = torch.where(d_l == 0, 1.0, d_l)
+        u = -d / safe[:, None]
+        u[lanes, leave] = 1.0 / safe - 1.0
+        u = torch.where(go[:, None], u, 0.0)
+        row = inv_B[lanes, leave][:, None, :]
+        inv_B = inv_B + u[:, :, None] * row
+        new_basis = basis.clone()
+        new_basis[lanes, leave] = enter.to(torch.int32)
+        basis = torch.where(go[:, None], new_basis, basis)
+        act = go
+        k += int(bool(go.any()))
+
+    Bmat = basis_matrix(A, basis)
+    xB = torch.einsum("bmk,bk->bm", inv_B, b)
+    xB = refine_bfs(Bmat, b, inv_B, xB, steps=3)
+    cB = torch.gather(c, 1, basis.long())
+    y = refine_duals(cB, Bmat, inv_B)
+    return basis, xB, y, inv_B, k

@@ -1,0 +1,195 @@
+"""Package-level checks of linprog_tpu_torch: it never imports JAX or the
+reference package, the converters round-trip, and the kernel wrappers
+refuse what their kernels do not take."""
+
+import ast
+import dataclasses
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from linprog_tpu import engine as jengine
+from linprog_tpu.config import FAST_CONFIG as JAX_FAST_CONFIG
+from linprog_tpu.config import SolverConfig as JaxSolverConfig
+from linprog_tpu.engine_batched import _pallas_pack
+from linprog_tpu.ipm import IPMConfig as JaxIPMConfig
+
+import linprog_tpu_torch
+from linprog_tpu_torch import FAST_CONFIG, IPMConfig, SolverConfig
+from linprog_tpu_torch.convert import (
+    config_from_reference,
+    ipm_state_from_numpy,
+    ipm_state_to_numpy,
+    packed_from_numpy,
+    packed_to_numpy,
+    simplex_state_from_numpy,
+    simplex_state_to_numpy,
+)
+from linprog_tpu_torch.engine_batched import run_batched
+from linprog_tpu_torch.engine import make_state
+from linprog_tpu_torch.ops.cholinv_kernel import panel_cholinv
+from linprog_tpu_torch.ops.solve_kernel import SegmentState, solve_segment
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "linprog_tpu_torch"
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_jax_or_reference_import(path):
+    """The port (and its chip smoke) imports neither ``jax`` nor the
+    reference package, at any depth of any function."""
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "linprog_tpu", "linprog"), (
+            f"{path.name} imports {mod}"
+        )
+
+
+def test_config_from_reference():
+    assert config_from_reference(dataclasses.asdict(JAX_FAST_CONFIG)) == FAST_CONFIG
+    assert config_from_reference(
+        dataclasses.asdict(JaxIPMConfig(eps_rel=1e-4))) == IPMConfig(eps_rel=1e-4)
+    with pytest.raises(ValueError, match="kernels"):
+        config_from_reference(dataclasses.asdict(JaxSolverConfig()))  # "xla"
+    with pytest.raises(ValueError, match="split_pricing"):
+        config_from_reference(dataclasses.asdict(
+            JAX_FAST_CONFIG.replace(split_pricing=True)))
+    with pytest.raises(ValueError, match="gondzio"):
+        config_from_reference(dataclasses.asdict(JaxIPMConfig(gondzio=2)))
+    with pytest.raises(ValueError):
+        SolverConfig(kernels="pallas")
+
+
+def test_simplex_and_ipm_state_round_trip():
+    rng = np.random.default_rng(0)
+    B, m = 3, 4
+    simplex = {
+        "basis": rng.integers(0, 9, (B, m)).astype(np.int32),
+        "inv_B": rng.normal(size=(B, m, m)).astype(np.float32),
+        "bfs": rng.normal(size=(B, m)).astype(np.float32),
+        "iters": np.arange(B, dtype=np.int32),
+        "status": np.array([0, 1, 9], np.int32),
+    }
+    back = simplex_state_to_numpy(simplex_state_from_numpy(simplex))
+    for k, v in simplex.items():
+        np.testing.assert_array_equal(back[k], v)
+        assert back[k].dtype == v.dtype
+    ipm = {"x": rng.random((B, 6)), "y": rng.normal(size=(B, m)),
+           "s": rng.random((B, 6)), "iters": np.ones(B, np.int32),
+           "status": np.zeros(B, np.int32)}
+    back = ipm_state_to_numpy(ipm_state_from_numpy(ipm, dtype=torch.float64))
+    for k, v in ipm.items():
+        np.testing.assert_array_equal(back[k], v)
+
+
+def test_packed_layout_round_trip():
+    """The reference kernel's packed layout survives the trip to torch
+    and back, and matches the port's own packing of the same state."""
+    from linprog_tpu_torch.engine_batched import _segment_pack
+
+    rng = np.random.default_rng(1)
+    B, m, n = 3, 4, 7
+    A = rng.normal(size=(B, m, n)).astype(np.float32)
+    c = rng.normal(size=(B, n)).astype(np.float32)
+    basis = np.stack([rng.permutation(n)[:m] for _ in range(B)]).astype(np.int32)
+    allowed = np.arange(n) < 6
+    jstate = jengine.SimplexState(
+        basis=jnp.asarray(basis),
+        inv_B=jnp.asarray(rng.normal(size=(B, m, m)).astype(np.float32)),
+        bfs=jnp.asarray(rng.random((B, m)).astype(np.float32)),
+        iters=jnp.asarray([0, 3, 5], jnp.int32),
+        status=jnp.asarray([0, 0, 1], jnp.int32),
+    )
+    ref = [np.asarray(a) for a in _pallas_pack(jnp.asarray(c), jnp.asarray(A),
+                                                jstate, jnp.asarray(allowed))]
+    c_t, apen_t, seg = packed_from_numpy(ref)
+    back = packed_to_numpy(c_t, apen_t, seg)
+    for want, got in zip(ref, back):
+        np.testing.assert_array_equal(got, np.broadcast_to(want, got.shape))
+
+    state = simplex_state_from_numpy(jstate._asdict())
+    apen, own = _segment_pack(torch.tensor(c), torch.tensor(A), state,
+                              torch.tensor(allowed))
+    np.testing.assert_array_equal(apen.numpy(), apen_t.numpy())
+    for a, b in zip(own, seg):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _segment_args(B=2, m=3, n=5):
+    A = torch.zeros((B, m, n))
+    c = torch.zeros((B, n))
+    state = SegmentState(
+        invBT=torch.eye(m).expand(B, m, m).clone(),
+        bfs=torch.ones((B, m)), cB=torch.zeros((B, m)),
+        basis=torch.zeros((B, m), dtype=torch.int32),
+        pen=torch.zeros((B, n)), gamma=torch.ones((B, n)),
+        iters=torch.zeros(B, dtype=torch.int32),
+        status=torch.zeros(B, dtype=torch.int32),
+    )
+    return A, c, c.clone(), state
+
+
+def test_solve_segment_wrapper_validates():
+    kw = dict(seg_len=1, pricing=1, opt_tol=1e-6, pivot_tol=1e-7)
+    A, c, apen, state = _segment_args()
+    with pytest.raises(TypeError, match="A is torch.float64"):
+        solve_segment(A.double(), c, apen, 5, state, **kw)
+    with pytest.raises(TypeError, match="basis"):
+        solve_segment(A, c, apen, 5, state._replace(basis=state.basis.long()), **kw)
+    with pytest.raises(ValueError, match="c has shape"):
+        solve_segment(A, c[:, :4], apen, 5, state, **kw)
+    with pytest.raises(ValueError, match="invBT has shape"):
+        solve_segment(A, c, apen, 5, state._replace(invBT=state.invBT[:, :2]), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = torch.ones((2, 6))[:, ::2]
+        solve_segment(A, c, apen, 5, state._replace(bfs=bad), **kw)
+
+
+def test_panel_cholinv_wrapper_validates():
+    with pytest.raises(TypeError):
+        panel_cholinv(torch.eye(4, dtype=torch.float64)[None])
+    with pytest.raises(ValueError):
+        panel_cholinv(torch.eye(65)[None])
+    with pytest.raises(ValueError):
+        panel_cholinv(torch.zeros((2, 4, 5)))
+    with pytest.raises(ValueError, match="contiguous"):
+        panel_cholinv(torch.eye(4).expand(2, 4, 4))
+
+
+def test_large_m_is_not_ported_yet():
+    G = torch.zeros((1, 513, 2))
+    with pytest.raises(NotImplementedError):
+        linprog_tpu_torch.solve_batch_exact(torch.zeros((1, 2)), G,
+                                            torch.zeros((1, 513)))
+    m, n = 1200, 2400  # past the whole-segment kernel's range
+    A = torch.zeros((1, m, n))
+    state = make_state(torch.eye(m)[None], torch.zeros((1, m)),
+                       torch.arange(m)[None])
+    with pytest.raises(NotImplementedError):
+        run_batched(torch.zeros((1, n)), A, torch.zeros((1, m)), state,
+                    torch.ones(n, dtype=torch.bool), 10)
+
+
+def test_singular_basis_is_a_status_not_an_exception():
+    """A singular starting basis gives NUMERICAL_ERROR (torch.linalg.inv
+    would raise)."""
+    A = torch.tensor([[[1.0, 2.0, 0.0], [2.0, 4.0, 1.0]]])
+    state = make_state(A, torch.ones((1, 2)), torch.tensor([[0, 1]]))
+    assert int(state.status[0]) == linprog_tpu_torch.status.NUMERICAL_ERROR
