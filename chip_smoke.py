@@ -6,17 +6,28 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, each printing one JSON line:
   0. environment: the card (nvidia-smi name and power limit), torch, CUDA
      and nvcc versions; TF32 is switched off and checked;
-  1. build: compiles the CUDA kernels from csrc/ with nvcc;
+  1. build: compiles the CUDA kernels from csrc/ with nvcc, one process per
+     source, all started together, and reports ptxas's registers and
+     spills per kernel;
   2. panel_cholinv: CUDA kernel against its plain PyTorch version at the
      IPM's [1024, 32, 32] panels (SPD, cond ~1e3; a planted non-SPD lane);
   3. solve_segment: CUDA kernel against its plain version at crossover
      shapes (B = 1024, m = 256, n = 512), primal and dual mode, one
      iteration and a full segment;
-  4. the main path: solve_batch_exact at B = 1024, m = n = 256 (wall: the
-     median of 10 runs after a warm-up; launch counts from the first), then
-     the dd-KKT certificate and a HiGHS check on 16 lanes.
-The line before the last lists each kernel (launches on the main path,
-error against its plain version, times).  The last line is
+  4. the m = 256 path: solve_batch_exact at B = 1024, m = n = 256 (wall:
+     the median of 10 runs after a warm-up; launch counts from the first),
+     then the dd-KKT certificate and a HiGHS check on 16 lanes;
+  5. solve_segment_stream: the cluster kernel against its plain version at
+     B = 64, (m, n) = (2048, 4096), primal and dual (one iteration in
+     lockstep, then a 64-pivot segment), and at the two-phase shape
+     (1024, 3072) and a ragged (1000, 2999), primal;
+  6. the m = 2048 path: solve_batch_exact at B = 64, m = n = 2048 (wall:
+     the median of 3 runs after a warm-up; launch counts from the first),
+     the dd-KKT certificate on every lane, and one more run with stage
+     timers.  HiGHS is skipped at this size (minutes per lane on the host);
+     the oracle-free certificate is the check.
+The line before the last lists each kernel (launches on its path, error
+against its plain version, times).  The last line is
 {"ok": true, "device": {...}} and is printed only if every phase passed;
 any failure exits nonzero.  Without a CUDA device it exits nonzero at once.
 """
@@ -37,12 +48,15 @@ from linprog_tpu_torch.generators import device_inequality_lps
 from linprog_tpu_torch.ops import _build
 from linprog_tpu_torch.ops import cholinv_kernel as ck
 from linprog_tpu_torch.ops import solve_kernel as sk
+from linprog_tpu_torch.ops import stream_kernel as ssk
 
 B = 1024
 M = N = 256
 SEED = 0
 DEVICE = "cuda"
-REPEATS = 10  # timed main-path runs after the warm-up (median reported)
+REPEATS = 10  # timed m = 256 runs after the warm-up (median reported)
+XB, XM = 64, 2048  # the m = 2048 path: lanes, m = n
+X_REPEATS = 3  # timed m = 2048 runs after the warm-up (median reported)
 
 
 def emit(obj):
@@ -105,7 +119,10 @@ def phase_build():
     path = _build.build()
     _build.library()
     emit({"phase": "build", "seconds": time.time() - t0,
-          "nvcc_seconds": _build.build_seconds, "library": path})
+          "nvcc_seconds": _build.build_seconds, "library": path,
+          "ptxas": {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, log in _build.build_log.items()}})
 
 
 def spd_batch(gen, b, mb, cond):
@@ -146,34 +163,34 @@ def phase_cholinv():
     return out
 
 
-def _segment_instance(dual):
-    """A crossover-shaped lane batch ([G | I], B x 256 x 512) from the slack
-    basis: primal mode on Gx <= |h| (feasible start), dual mode on
+def _segment_instance(dual, b=B, m=M, n_g=N, seed=SEED + 2):
+    """A crossover-shaped lane batch ([G | I], b x m x (n_g + m)) from the
+    slack basis: primal mode on Gx <= |h| (feasible start), dual mode on
     min |c|'x, Gx <= h (dual-feasible start)."""
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    c, G, h = device_inequality_lps(gen, B, M, N, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    c, G, h = device_inequality_lps(gen, b, m, n_g, DEVICE)
     if dual:
         c = c.abs()
     else:
         h = h.abs()
-    eye = torch.eye(M, device=DEVICE).expand(B, M, M)
+    eye = torch.eye(m, device=DEVICE).expand(b, m, m)
     A = torch.cat([G, eye], dim=2).contiguous()
-    cs = torch.cat([c, torch.zeros((B, M), device=DEVICE)], dim=1).contiguous()
-    n = N + M
-    basis = torch.arange(N, n, dtype=torch.int32, device=DEVICE).expand(B, M)
-    pen = torch.zeros((B, n), device=DEVICE)
-    pen[:, N:] = float("inf")
+    cs = torch.cat([c, torch.zeros((b, m), device=DEVICE)], dim=1).contiguous()
+    n = n_g + m
+    basis = torch.arange(n_g, n, dtype=torch.int32, device=DEVICE).expand(b, m)
+    pen = torch.zeros((b, n), device=DEVICE)
+    pen[:, n_g:] = float("inf")
     state = sk.SegmentState(
         invBT=eye.contiguous().clone(),
         bfs=h.contiguous().clone(),
-        cB=torch.zeros((B, M), device=DEVICE),
+        cB=torch.zeros((b, m), device=DEVICE),
         basis=basis.contiguous().clone(),
         pen=pen,
-        gamma=torch.ones((B, n), device=DEVICE),
-        iters=torch.zeros(B, dtype=torch.int32, device=DEVICE),
-        status=torch.zeros(B, dtype=torch.int32, device=DEVICE),
+        gamma=torch.ones((b, n), device=DEVICE),
+        iters=torch.zeros(b, dtype=torch.int32, device=DEVICE),
+        status=torch.zeros(b, dtype=torch.int32, device=DEVICE),
     )
-    apen = torch.zeros((B, n), device=DEVICE)
+    apen = torch.zeros((b, n), device=DEVICE)
     return A, cs, apen, h, state
 
 
@@ -320,6 +337,7 @@ def phase_segment():
 
 
 def phase_main_path():
+    """Phase 4: solve_batch_exact at B = 1024, m = n = 256."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     c, G, h = device_inequality_lps(gen, B, M, N, DEVICE)
 
@@ -405,12 +423,229 @@ def phase_main_path():
     return launches
 
 
+def _hold_stream(label, A, c, apen, h, state0, cfg, dual, seg_len, reps):
+    """The cluster kernel against its plain version from one state: one
+    iteration in lockstep (the same basis and status on every lane that
+    _tie_lanes does not exclude), then a ``seg_len``-pivot segment (the
+    same statuses, float64 objectives at the final bases within 1e-5
+    relative).  Returns a report with CUDA-event times of both."""
+    kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              dual=dual, feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
+              packed=cfg.packed_select, a_resident=False, n_blk=512)
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    k1 = ssk.solve_segment_stream(A, c, apen, 1 << 20, fresh(), seg_len=1, **kw)
+    p1 = ssk.solve_segment_stream_plain(A, c, apen, 1 << 20, fresh(),
+                                        seg_len=1, **kw)
+    torch.cuda.synchronize()
+    keep = ~_tie_lanes(A, c, state0, dual, cfg)
+    same = (k1.basis == p1.basis).all(dim=1) & (k1.status == p1.status)
+    if (keep & ~same).any():
+        fail(f"solve_segment_stream {label}: one-iteration basis/status "
+             f"differ on {int((keep & ~same).sum())} non-tied lanes")
+    err1 = (k1.bfs[keep] - p1.bfs[keep]).abs().max().item()
+    pivoted = int((k1.basis != state0.basis).any(dim=1).sum())
+    del k1, p1
+
+    # one-iteration times (state copies outside the timed region)
+    times = {}
+    for name, fn in (("kernel", ssk.solve_segment_stream),
+                     ("plain", ssk.solve_segment_stream_plain)):
+        states = iter([fresh() for _ in range(reps)])
+        times[name] = cuda_ms(lambda: fn(A, c, apen, 1 << 20, next(states),
+                                         seg_len=1, **kw), reps)
+        del states
+
+    full = {}
+    for name, fn in (("kernel", ssk.solve_segment_stream),
+                     ("plain", ssk.solve_segment_stream_plain)):
+        s = fresh()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(A, c, apen, 1 << 20, s, seg_len=seg_len, **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        full[name] = (s, t0.elapsed_time(t1))
+    sk_full, sp_full = full["kernel"][0], full["plain"][0]
+    if not torch.equal(sk_full.status, sp_full.status):
+        fail(f"solve_segment_stream {label}: {seg_len}-pivot statuses differ "
+             f"on {int((sk_full.status != sp_full.status).sum())} lanes")
+    ok_k = _exact_objective(A, c, h, sk_full)
+    ok_p = _exact_objective(A, c, h, sp_full)
+    rel = ((ok_k - ok_p).abs() / ok_p.abs().clamp_min(1.0)).max().item()
+    split = int((sk_full.basis != sp_full.basis).any(dim=1).sum())
+    if not rel <= 1e-5:
+        fail(f"solve_segment_stream {label}: {seg_len}-pivot objectives "
+             f"differ by {rel:.3e} relative (> 1e-5); bases split on {split} "
+             "lanes")
+    return {
+        "shape": list(A.shape), "mode": "dual" if dual else "primal",
+        "resident_clusters": _build.library()
+        .lp_solve_segment_stream_max_clusters(A.shape[1], A.shape[2]),
+        "one_iter": {"excluded_tie_lanes": int((~keep).sum()),
+                     "pivoted_lanes": pivoted,
+                     "max_abs_err_bfs": err1, "ms": times["kernel"],
+                     "plain_ms": times["plain"], "reps": reps},
+        "segment": {"seg_len": seg_len,
+                    "status_counts": {st.status_name(k): int(v) for k, v in
+                                      zip(*torch.unique(sk_full.status,
+                                                        return_counts=True))},
+                    "lanes_with_other_basis": split,
+                    "max_rel_obj_diff": rel, "tol_rel": 1e-5,
+                    "ms": full["kernel"][1], "plain_ms": full["plain"][1]},
+    }
+
+
+def phase_stream():
+    """Phase 5: the cluster kernel at the m = 2048 path's shapes."""
+    cfg = tuned_config(XM, refactor_every=128, unroll=2)
+    out = {"phase": "solve_segment_stream",
+           "config": {"pricing": cfg.pricing, "packed": cfg.packed_select,
+                      "stall_limit": cfg.stall_limit}, "runs": []}
+    cases = [("crossover primal", False, XB, XM, XM),
+             ("crossover dual", True, XB, XM, XM),
+             ("two-phase 1024", False, XB, 1024, 2048),
+             ("ragged", False, XB, 1000, 1999)]
+    for label, dual, b, m, n_g in cases:
+        A, c, apen, h, state0 = _segment_instance(dual, b, m, n_g, SEED + 3)
+        out["runs"].append(_hold_stream(label, A, c, apen, h, state0, cfg,
+                                        dual, 64, 5))
+        del A, c, apen, h, state0
+        torch.cuda.empty_cache()
+    emit(out)
+    first = out["runs"][0]
+    return {"max_abs_err": max(r["one_iter"]["max_abs_err_bfs"]
+                               for r in out["runs"]),
+            "ms": first["one_iter"]["ms"],
+            "plain_ms": first["one_iter"]["plain_ms"]}
+
+
+def _stage_walls(run):
+    """Run ``run()`` once with stage timers: each listed function wrapped
+    with torch.cuda.synchronize() on both sides (nested stages overlap
+    their parents, and the syncs slow the run).  Returns seconds per
+    stage and the run's wall."""
+    import linprog_tpu_torch.batch as lb
+    import linprog_tpu_torch.crossover as lx
+    import linprog_tpu_torch.engine_batched as le
+    import linprog_tpu_torch.ipm as li
+    import linprog_tpu_torch.refine as lr
+
+    acc = {}
+    saved = []
+
+    def wrap(mod, name, label):
+        fn = getattr(mod, name)
+
+        def timed(*a, **k):
+            key = label(a) if callable(label) else label
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc[key] = acc.get(key, 0.0) + time.time() - t0
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    wrap(li, "ipm_canonical_state", "ipm")
+    wrap(lx, "_run_chunked", lambda a: f"crossover_{a[7]}_phases")
+    wrap(lr, "polish_batch", "polish")
+    wrap(lb, "solve_batch_two_phase", "fallback")
+    wrap(le, "solve_segment_stream", "stream_kernel")
+    wrap(le, "compact_refactorize", "refactorize")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return {k: round(v, 4) for k, v in acc.items()}, wall
+
+
+def phase_exact_m2048():
+    """Phase 6: solve_batch_exact at B = 64, m = n = 2048."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, G, h = device_inequality_lps(gen, XB, XM, XM, DEVICE)
+
+    t0 = time.time()
+    lt.solve_batch_exact(c, G, h)  # warm-up
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+
+    sk.launches = ck.launches = ssk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res, info = lt.solve_batch_exact(c, G, h)
+    torch.cuda.synchronize()
+    walls = [time.time() - t0]
+    launches = {"solve_segment_stream": ssk.launches,
+                "panel_cholinv": ck.launches, "solve_segment": sk.launches}
+    for _ in range(X_REPEATS - 1):
+        t0 = time.time()
+        lt.solve_batch_exact(c, G, h)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall_med = float(np.median(walls))
+
+    t1 = time.time()
+    cert = lt.certify_vertex_batch(c, G, h, res.basis)
+    summ = lt.certificate_summary(cert)
+    torch.cuda.synchronize()
+    cert_wall = time.time() - t1
+
+    stages, stage_run_wall = _stage_walls(lambda: lt.solve_batch_exact(c, G, h))
+    uncertified = [
+        {"lane": i, **{k: float(cert[k][i]) for k in
+                       ("primal_residual", "min_xB", "min_reduced_cost", "gap")}}
+        for i in torch.nonzero(~cert["certified"]).flatten().tolist()
+    ]
+
+    status = res.status.cpu().numpy()
+    counts = {st.status_name(k): int(v)
+              for k, v in zip(*np.unique(status, return_counts=True))}
+    out = {
+        "phase": "exact_m2048", "lanes": XB, "m": XM, "n": XM, "seed": SEED,
+        "lane_status": counts, "crossed": info["crossed"],
+        "retry_crossed": info["retry_crossed"], "fallback": info["fallback"],
+        "certified": summ["certified"], "certificate": summ,
+        "uncertified": uncertified,
+        "wall_s": wall_med, "walls_s": walls, "warmup_wall_s": warm,
+        "lps_per_sec": XB / wall_med, "cert_wall_s": cert_wall,
+        "launches": launches, "iters_total": int(res.iters.sum()),
+        "stage_s": stages, "stage_run_wall_s": stage_run_wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(out)
+    if res.x.shape != (XB, XM) or not torch.isfinite(res.cost).all():
+        fail("m = 2048 path: result has the wrong shape or non-finite costs")
+    n_opt = int((status == st.OPTIMAL).sum())
+    if n_opt != XB:
+        fail(f"m = 2048 path: {n_opt}/{XB} lanes OPTIMAL")
+    if summ["certified"] < XB - 1:
+        fail(f"m = 2048 path: {summ['certified']}/{XB} certified (< {XB - 1})")
+    for name in ("solve_segment_stream", "panel_cholinv"):
+        if launches[name] <= 0:
+            fail(f"m = 2048 path: kernel {name} was never launched")
+    return launches
+
+
 def main():
     phase_environment()
     phase_build()
     chol = phase_cholinv()
     seg = phase_segment()
     launches = phase_main_path()
+    stream = phase_stream()
+    x_launches = phase_exact_m2048()
     emit({"kernels": [
         {"name": "solve_segment", "route": "cuda",
          "source": "linprog_tpu_torch/csrc/solve_segment.cu",
@@ -424,6 +659,12 @@ def main():
          "launches": launches["panel_cholinv"],
          "max_abs_err": chol["max_abs_err"],
          "ms": chol["ms"], "plain_ms": chol["plain_ms"]},
+        {"name": "solve_segment_stream", "route": "cuda",
+         "source": "linprog_tpu_torch/csrc/solve_segment_stream.cu",
+         "replaces": "linprog_tpu/ops/stream_kernel.py:609",
+         "launches": x_launches["solve_segment_stream"],
+         "max_abs_err": stream["max_abs_err"],
+         "ms": stream["ms"], "plain_ms": stream["plain_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

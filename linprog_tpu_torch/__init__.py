@@ -2,10 +2,12 @@
 
 Batched dense LP solving on an NVIDIA GPU.  This package runs the exact
 pipeline (batched IPM -> simplex crossover -> two-phase fallback -> dd-KKT
-certificate) with two hand-written CUDA kernels: the whole-segment simplex
-kernel (``ops/solve_kernel.py``) and the panel inverse-Cholesky kernel
-(``ops/cholinv_kernel.py``).  Each kernel has a plain PyTorch version that
-a CPU tensor takes; a CUDA tensor always launches the kernel.
+certificate) for m < 3072 with three hand-written CUDA kernels: the
+whole-segment simplex kernel (``ops/solve_kernel.py``), its streaming
+counterpart for large m (``ops/stream_kernel.py``) and the panel
+inverse-Cholesky kernel (``ops/cholinv_kernel.py``).  Each kernel has a
+plain PyTorch version that a CPU tensor takes; a CUDA tensor always
+launches the kernel.
 
 f32 means IEEE f32: the package never enables TF32, which would break the
 exact split products of the double-word arithmetic and pick wrong pivots.

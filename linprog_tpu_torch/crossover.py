@@ -16,7 +16,8 @@ from . import engine
 from . import status as st
 from .batch import _run_chunked, _to_result
 from .config import DEFAULT_CONFIG, SolverConfig
-from .engine import basis_matrix, inv_or_nan, solve_or_nan
+from .engine import basis_matrix, inv_or_nan
+from .refine import solve_dd
 from .results import BatchResult
 
 
@@ -118,9 +119,12 @@ def crossover_batch_canonical(c, G, h, x, maxiters: int = 512,
         states = _run_chunked(cs, As, h, states, allowed, maxiters, cfg,
                               "primal")
 
-        # exact terminal solve plus primal-feasibility verification
+        # terminal solve plus primal-feasibility verification, dd-refined
+        # past the whole-segment regime: there a plain f32 solve (~1e-4
+        # relative error at m = 2048) passes bases whose basic values the
+        # certificate finds negative
         if any_p:
-            bfs_exact = solve_or_nan(basis_matrix(As, states.basis), h)
+            bfs_exact = solve_dd(basis_matrix(As, states.basis), h)
         else:
             bfs_exact = torch.zeros_like(states.bfs)
         ok = torch.isfinite(bfs_exact).all(dim=1)

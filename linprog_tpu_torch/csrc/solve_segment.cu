@@ -31,99 +31,21 @@
 
 namespace {
 
+using lp::block_min;
+using lp::block_min2;
+using lp::block_sum;
+using lp::bits_for;
+using lp::kDualUnbounded;
 using lp::kIntMax;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRunning = 0;
-constexpr int kOptimal = 1;
-constexpr int kPrimalUnbounded = 3;
-constexpr int kDualUnbounded = 5;
-
-struct Scratch {
-  int a[kWarps];
-  int b[kWarps];
-  float f[kWarps];
-  int out_a, out_b;
-  float out_f;
-};
-
-// Block-wide min of two ints (every thread gets both). Each thread's
-// partial must start at the reduction's identity for its use.
-__device__ int2 block_min2(int a, int b, Scratch& s) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  a = lp::warp_min_int(a);
-  b = lp::warp_min_int(b);
-  if (l == 0) {
-    s.a[w] = a;
-    s.b[w] = b;
-  }
-  __syncthreads();
-  if (w == 0) {
-    a = lp::warp_min_int(l < kWarps ? s.a[l] : kIntMax);
-    b = lp::warp_min_int(l < kWarps ? s.b[l] : kIntMax);
-    if (l == 0) {
-      s.out_a = a;
-      s.out_b = b;
-    }
-  }
-  __syncthreads();
-  const int2 r = make_int2(s.out_a, s.out_b);
-  __syncthreads();
-  return r;
-}
-
-__device__ float block_min(float v, Scratch& s) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  v = lp::warp_min_float(v);
-  if (l == 0) s.f[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = lp::warp_min_float(l < kWarps ? s.f[l] : INFINITY);
-    if (l == 0) s.out_f = v;
-  }
-  __syncthreads();
-  const float r = s.out_f;
-  __syncthreads();
-  return r;
-}
-
-__device__ float block_sum(float v, Scratch& s) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  v = lp::warp_sum(v);
-  if (l == 0) s.f[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = lp::warp_sum(l < kWarps ? s.f[l] : 0.0f);
-    if (l == 0) s.out_f = v;
-  }
-  __syncthreads();
-  const float r = s.out_f;
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ int pack_key(float v, int idx, int bits,
-                                        bool negate) {
-  int u = __float_as_int(v);
-  if (negate) u = ~u;
-  return (u & -(1 << bits)) | idx;
-}
-
-__device__ __forceinline__ float unpack_value(int key, int bits) {
-  return __int_as_float(key & -(1 << bits));
-}
-
-// max(x, 0) with -0.0 -> +0.0 and NaN kept, as XLA's maximum.
-__device__ __forceinline__ float nonneg(float x) {
-  return x > 0.0f ? x : (x != x ? x : 0.0f);
-}
-
-__device__ __forceinline__ int bits_for(int size) {
-  const int v = size - 1;
-  const int bl = v <= 0 ? 0 : 32 - __clz(v);
-  return bl < 1 ? 1 : bl;
-}
+using lp::kOptimal;
+using lp::kPrimalUnbounded;
+using lp::kRunning;
+using lp::kThreads;
+using lp::kWarps;
+using lp::nonneg;
+using lp::pack_key;
+using lp::Scratch;
+using lp::unpack_value;
 
 // y[j] = sum_i cB[i] invBT[j, i]: one warp per row of invBT.
 __device__ void duals(const float* invBT, const float* s_cB, float* s_y,
@@ -458,12 +380,11 @@ extern "C" int lp_solve_segment(const float* A, const float* c,
   if (pricing < 0 || pricing > 1 || m < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(7 * m + 4 * n) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        solve_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // always: static shared memory counts against the 48 KB default too
+  const cudaError_t e = cudaFuncSetAttribute(
+      solve_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
   solve_segment_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       A, c, apen, invBT, bfs, cB, basis, pen, iters, status, m, n, seg_len,
       maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, packed,

@@ -1,10 +1,13 @@
 """Build the package's CUDA sources with ``nvcc`` at first use.
 
-All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface, loaded with :mod:`ctypes`.  The library goes to
+Each ``csrc/*.cu`` file compiles to an object in its own ``nvcc``
+process, all started together; the objects link into ONE shared library
+with a plain C interface, loaded with :mod:`ctypes`.  The library goes to
 ``build/linprog_tpu_torch/<hash>/`` beside the package, keyed by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
-loads at once.  A build failure raises with nvcc's own message.
+loads at once.  A build failure raises with nvcc's own message; ptxas's
+report of each kernel's registers, shared memory and spills is kept in
+:data:`build_log`.
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
+build_log = {}  # source name -> nvcc's stderr (ptxas -v) of the last build
 
 
 class KernelBuildError(RuntimeError):
@@ -69,6 +73,22 @@ def library_path() -> str:
                         "liblinprog_kernels.so")
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the first failure's output.
+    Returns each command's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{out}\n{err}"
+            )
+    return [err for _, err in outs]
+
+
 def build() -> str:
     """Compile the library if it is not built yet; return its path."""
     global build_seconds
@@ -77,18 +97,17 @@ def build() -> str:
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        logs = _run([[nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", o, p]
+                     for p, o in zip(cu, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: concurrent builders never see half a file
+    build_log.clear()
+    build_log.update({os.path.basename(p): log for p, log in zip(cu, logs)})
     build_seconds = time.time() - t0
     return out
 
@@ -106,6 +125,12 @@ def _declare(lib):
         p,  # stream
     ]
     lib.lp_solve_segment.restype = i
+    lib.lp_solve_segment_stream.argtypes = lib.lp_solve_segment.argtypes
+    lib.lp_solve_segment_stream.restype = i
+    lib.lp_solve_segment_stream_smem.argtypes = [i, i]
+    lib.lp_solve_segment_stream_smem.restype = ctypes.c_size_t
+    lib.lp_solve_segment_stream_max_clusters.argtypes = [i, i]
+    lib.lp_solve_segment_stream_max_clusters.restype = i
     lib.lp_error_string.argtypes = [i]
     lib.lp_error_string.restype = ctypes.c_char_p
 

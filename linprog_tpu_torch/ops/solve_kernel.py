@@ -103,14 +103,30 @@ def _column(M, idx):
     return torch.gather(M, 2, idx.long()[:, None, None].expand(B, rows, 1))[:, :, 0]
 
 
+def _direction(a, invBT, factor_rb: int):
+    """``d[b, i] = sum_j a[b, j] invBT[b, j, i]``; with ``factor_rb > 0`` the
+    sum runs block by block over ``factor_rb`` rows of the factor."""
+    if factor_rb <= 0:
+        return torch.einsum("bj,bji->bi", a, invBT)
+    d = torch.zeros_like(a)
+    for k0 in range(0, a.shape[1], factor_rb):
+        d = d + torch.einsum("bj,bji->bi", a[:, k0:k0 + factor_rb],
+                             invBT[:, k0:k0 + factor_rb])
+    return d
+
+
 def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
                         seg_len: int, pricing: int, opt_tol: float,
                         pivot_tol: float, dual: bool = False,
                         feas_tol: float = 1e-6, stall_limit: int = 0,
-                        packed: bool = False) -> SegmentState:
+                        packed: bool = False,
+                        factor_rb: int = 0) -> SegmentState:
     """The plain PyTorch version, batched over lanes; updates ``state`` in
     place and returns it.  Each pass of the loop is one gated iteration of
-    every lane (the reference's ``unroll > 1`` form)."""
+    every lane (the reference's ``unroll > 1`` form).  ``factor_rb > 0``
+    accumulates the direction ``d = B^-1 a`` over row blocks of that many
+    factor rows, in the summation order of the streaming kernel's
+    blocked-factor mode."""
     invBT, bfs, cB, basis, pen, gamma, iters, status = (
         t.clone() for t in state
     )
@@ -193,7 +209,7 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
                 ~viable, st.OPTIMAL,
                 torch.where(~any_cand, st.DUAL_UNBOUNDED, st.RUNNING),
             ).to(torch.int32)
-            d = torch.einsum("bj,bji->bi", _column(A, enter), invBT)
+            d = _direction(_column(A, enter), invBT, factor_rb)
         else:
             y = torch.einsum("bi,bji->bj", cB, invBT)
             r = c - torch.einsum("bj,bjk->bk", y, A) + pen
@@ -219,7 +235,7 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
                     eligible = hot < n
                 enter = torch.where(use_bland, first, hot)
             enter = torch.where(eligible, enter, zero_i)
-            d = torch.einsum("bj,bji->bi", _column(A, enter), invBT)
+            d = _direction(_column(A, enter), invBT, factor_rb)
             pos = d > pivot_tol
             theta = torch.where(
                 pos, _nonneg(bfs) / torch.where(pos, d, 1.0), inf
@@ -299,7 +315,10 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
     return state
 
 
-def _check(A, c, apen, state: SegmentState):
+def check_segment_args(A, c, apen, state: SegmentState,
+                       what: str = "solve_segment") -> None:
+    """Raise unless the arguments have the kernels' shapes, types, device
+    and contiguity."""
     B, m, n = A.shape
     want = {
         "A": (A, (B, m, n), torch.float32),
@@ -316,16 +335,16 @@ def _check(A, c, apen, state: SegmentState):
     }
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"solve_segment: {name} has shape "
+            raise ValueError(f"{what}: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
         if t.dtype != dtype:
-            raise TypeError(f"solve_segment: {name} is {t.dtype}, "
+            raise TypeError(f"{what}: {name} is {t.dtype}, "
                             f"expected {dtype}")
         if t.device != A.device:
-            raise ValueError(f"solve_segment: {name} on {t.device}, A on "
+            raise ValueError(f"{what}: {name} on {t.device}, A on "
                              f"{A.device}")
         if not t.is_contiguous():
-            raise ValueError(f"solve_segment: {name} must be contiguous "
+            raise ValueError(f"{what}: {name} must be contiguous "
                              "(the state is updated in place)")
 
 
@@ -345,7 +364,7 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     """
     global launches
     del unroll
-    _check(A, c, apen, state)
+    check_segment_args(A, c, apen, state)
     kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
               pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
               stall_limit=stall_limit, packed=packed)

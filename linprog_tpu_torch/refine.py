@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .engine import basis_matrix, in_basis_mask, inv_or_nan
+from .calibration import get_table
+from .engine import basis_matrix, in_basis_mask, inv_or_nan, solve_or_nan
 
 
 def _split(x):
@@ -151,6 +152,31 @@ def refine_bfs(Bmat, b, inv_B, xB, steps: int = 2):
     return xB
 
 
+def dd_steps(m: int) -> int:
+    """dd-refinement rounds that :func:`solve_dd` spends at size ``m``.
+
+    A plain f32 solve is off by about cond(B) eps relative.  Up to the
+    whole-segment kernel's boundary (``xover_pallas_max_m``) that stays
+    inside the certificate's 1e-5 (1,024 of 1,024 lanes certified at
+    m = 256 on the card); past it, it does not (57 of 64 at m = 2048, 63 of
+    64 with one round), and one round costs ~15 % of the m = 256 wall.
+    """
+    return 0 if m <= get_table()["xover_pallas_max_m"] else 1
+
+
+def solve_dd(M, rhs, inv_M=None):
+    """``M x = rhs`` with :func:`dd_steps` rounds of dd-residual refinement
+    through the f32 inverse ``inv_M`` (computed if None).  Without
+    refinement it is the plain solve: ``inv_M @ rhs``, or an LU solve."""
+    steps = dd_steps(M.shape[1])
+    if steps == 0 and inv_M is None:
+        return solve_or_nan(M, rhs)
+    if inv_M is None:
+        inv_M = inv_or_nan(M)
+    x = torch.einsum("bmk,bk->bm", inv_M, rhs)
+    return refine_bfs(M, rhs, inv_M, x, steps=steps)
+
+
 def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
                  dd_tol: float = 2e-6, pivot_tol: float = 1e-9, inv_B=None):
     """dd-guided cleanup pivots at a terminal basis.
@@ -163,8 +189,7 @@ def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
     lanes = torch.arange(Bsz, device=A.device)
     scale = torch.clamp_min(torch.abs(c).max(dim=1).values, 1.0)
 
-    def price(basis, inv_B):
-        Bmat = basis_matrix(A, basis)
+    def price(basis, Bmat, inv_B):
         cB = torch.gather(c, 1, basis.long())
         y = refine_duals(cB, Bmat, inv_B)
         r = c - dd_rowmat(y, A)
@@ -176,14 +201,19 @@ def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
     act = active
     k = 0
     while k < max_pivots and bool(act.any()):
-        r = price(basis, inv_B)
+        Bmat = basis_matrix(A, basis)
+        r = price(basis, Bmat, inv_B)
         enter = torch.argmin(r, dim=1)
         r_min = r[lanes, enter]
         go = act & (r_min < -dd_tol * scale)
 
+        # the ratio test on dd-refined solves past the whole-segment
+        # regime: with plain f32 ones a pivot there can pick a row whose
+        # true ratio is not the least and leave a basic value negative past
+        # the certificate's tolerance
         acol = A[lanes, :, enter]
-        d = torch.einsum("bmk,bk->bm", inv_B, acol)
-        xB = torch.einsum("bmk,bk->bm", inv_B, b)
+        d = solve_dd(Bmat, acol, inv_B)
+        xB = solve_dd(Bmat, b, inv_B)
         pos = d > pivot_tol
         go = go & pos.any(dim=1)  # no positive direction: leave the lane
         theta = torch.where(pos, xB / torch.where(pos, d, 1.0), float("inf"))

@@ -15,7 +15,7 @@ import torch
 from linprog_tpu_torch import status as st
 from linprog_tpu_torch.engine import basis_matrix, solve_or_nan
 from linprog_tpu_torch.generators import random_inequality_lps
-from linprog_tpu_torch.ops import cholinv_kernel, solve_kernel
+from linprog_tpu_torch.ops import cholinv_kernel, solve_kernel, stream_kernel
 from linprog_tpu_torch.ops.solve_kernel import SegmentState
 
 
@@ -221,3 +221,164 @@ def test_exact_pipeline_on_card_matches_cpu(cuda):
     cert = lt.certify_vertex_batch(c.to(cuda), G.to(cuda), h.to(cuda),
                                    res.basis)
     assert int(cert["certified"].sum()) >= 15
+
+
+def _stream_both(A, c, apen, state0, **kw):
+    """The cluster kernel and its plain version from copies of one state."""
+    before = stream_kernel.launches
+    k = stream_kernel.solve_segment_stream(
+        A, c, apen, 512, SegmentState(*(t.clone() for t in state0)), **kw)
+    p = stream_kernel.solve_segment_stream_plain(
+        A, c, apen, 512, SegmentState(*(t.clone() for t in state0)), **kw)
+    torch.cuda.synchronize()
+    assert stream_kernel.launches == before + 1
+    return k, p
+
+
+def _residuals(A, h, s):
+    """float64 max residuals of the factor and the basic values against
+    the final basis."""
+    Bm = basis_matrix(A, s.basis).double()
+    eye = torch.eye(Bm.shape[1], dtype=torch.float64, device=A.device)
+    f = (Bm @ s.invBT.transpose(1, 2).double() - eye).abs().amax()
+    x = (torch.einsum("bij,bj->bi", Bm, s.bfs.double()) - h.double()).abs().amax()
+    return f.item(), x.item()
+
+
+def _assert_lockstep(A, h, k, p):
+    for name in ("basis", "status", "iters", "pen", "cB"):
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=0, atol=0)
+    (fk, xk), (fp, xp) = _residuals(A, h, k), _residuals(A, h, p)
+    assert fk <= 2.0 * fp + 1e-6, (fk, fp)
+    assert xk <= 2.0 * xp + 1e-6, (xk, xp)
+
+
+@pytest.mark.parametrize("degenerate", [True, False],
+                         ids=["degenerate", "nondegenerate"])
+@_modes
+def test_stream_kernel_matches_plain(cuda, dual, pricing, packed, degenerate):
+    """16 pivots of the cluster kernel in lockstep with the plain version
+    (stall escalation at 2): the same basis, status, iteration count, c_B
+    and penalties on every lane, and a factor and basic values as accurate
+    as the plain version's by float64 residual (the versions sum in
+    different orders, so factors are not compared entry by entry).  These
+    are the instances of the whole-segment kernel's lockstep test; each
+    CTA owns 4 rows and 10 columns, so the direction splits its rows over
+    groups of threads."""
+    A, c, apen, h, state0 = _slack_instance(64, 32, 48, seed=pricing + 2 * dual,
+                                            dual=dual, dev=cuda,
+                                            degenerate=degenerate)
+    k, p = _stream_both(A, c, apen, state0, seg_len=16, pricing=pricing,
+                        opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+                        feas_tol=1e-6, stall_limit=2, packed=packed)
+    _assert_lockstep(A, h, k, p)
+    assert bool((k.iters > 0).any())
+
+
+@pytest.mark.parametrize("m,n", [(37, 50), (5, 6), (3, 2)],
+                         ids=["ragged", "m5", "m3"])
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_stream_kernel_ragged_and_tiny_lanes(cuda, m, n, dual):
+    """Slices of unequal length (m, n + m not divisible by 8) and lanes
+    smaller than the cluster (CTAs with empty slices) run nondegenerate
+    instances to the end in lockstep with the plain version."""
+    A, c, apen, h, state0 = _slack_instance(16, m, n, seed=m + dual,
+                                            dual=dual, dev=cuda,
+                                            degenerate=False)
+    k, p = _stream_both(A, c, apen, state0, seg_len=512, pricing=1,
+                        opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+                        feas_tol=1e-6, stall_limit=24, packed=True)
+    _assert_lockstep(A, h, k, p)
+    assert bool((k.status != st.RUNNING).all())
+
+
+def test_stream_kernel_negative_zero_ratio_ties_at_lowest_row(cuda):
+    """A basic value of -0.0 ratios to +0.0 in every CTA's partial key, so
+    the tie at zero goes to row 0 as in the plain version."""
+    A = torch.tensor([[[1.0, 1.0, 1.0, 0.0], [1.0, 1.0, 0.0, 1.0]]],
+                     device=cuda)
+    c = torch.tensor([[-1.0, 0.0, 0.0, 0.0]], device=cuda)
+    inf = float("inf")
+    state0 = SegmentState(
+        invBT=torch.eye(2, device=cuda)[None].contiguous(),
+        bfs=torch.tensor([[0.0, -0.0]], device=cuda),
+        cB=torch.zeros((1, 2), device=cuda),
+        basis=torch.tensor([[2, 3]], dtype=torch.int32, device=cuda),
+        pen=torch.tensor([[0.0, 0.0, inf, inf]], device=cuda),
+        gamma=torch.ones((1, 4), device=cuda),
+        iters=torch.zeros(1, dtype=torch.int32, device=cuda),
+        status=torch.zeros(1, dtype=torch.int32, device=cuda),
+    )
+    k, p = _stream_both(A, c, torch.zeros_like(c), state0, seg_len=1,
+                        pricing=1, opt_tol=1e-6, pivot_tol=1e-7, packed=True)
+    assert k.basis.tolist() == p.basis.tolist() == [[0, 3]]
+
+
+def test_stream_kernel_refuses_devex_and_blocked_dual(cuda):
+    A, c, apen, h, state = _slack_instance(4, 8, 8, seed=0, dual=False, dev=cuda)
+    kw = dict(seg_len=4, opt_tol=1e-6, pivot_tol=1e-7)
+    before = stream_kernel.launches
+    with pytest.raises(ValueError, match="devex"):
+        stream_kernel.solve_segment_stream(A, c, apen, 10, state, pricing=2,
+                                           **kw)
+    with pytest.raises(ValueError, match="primal only"):
+        stream_kernel.solve_segment_stream(A, c, apen, 10, state, pricing=1,
+                                           dual=True, factor_blocked=True,
+                                           **kw)
+    assert stream_kernel.launches == before
+
+
+def test_exact_large_m_route_on_card_matches_cpu(cuda, monkeypatch):
+    """solve_batch_exact on the large-m route (boundary shrunk to 8, every
+    segment on the streaming kernel, a one-pivot budget so the retry and
+    the fallback run) on the card against the CPU run of the same
+    instances: the same statuses and objectives to 1e-5."""
+    import linprog_tpu_torch as lt
+    import linprog_tpu_torch.engine_batched as teb
+    from linprog_tpu_torch import calibration
+
+    monkeypatch.setattr(teb, "_mega_kernel_fits",
+                        lambda m, n, with_at, **kw: False)
+    table = calibration.get_table()
+    table["xover_pallas_max_m"] = 8
+    calibration.set_table({"default": table})
+    try:
+        c, G, h = (torch.tensor(a) for a in random_inequality_lps(8, 24, 24, seed=58))
+        res_cpu, info_cpu = lt.solve_batch_exact(c, G, h, maxiters=1)
+        before = stream_kernel.launches
+        res, info = lt.solve_batch_exact(c.to(cuda), G.to(cuda), h.to(cuda),
+                                         maxiters=1)
+    finally:
+        calibration.reset_table()
+    assert stream_kernel.launches > before
+    assert info["crossed"] + info["fallback"] == 8
+    np.testing.assert_array_equal(res.status.cpu().numpy(),
+                                  res_cpu.status.numpy())
+    rel = ((res.cost.cpu() - res_cpu.cost).abs()
+           / res_cpu.cost.abs().clamp_min(1.0)).max().item()
+    assert rel <= 1e-5
+
+
+@pytest.mark.parametrize("kernel,m,n", [("stream", 2048, 4096),
+                                        ("segment", 256, 2368)],
+                         ids=["stream", "segment"])
+def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
+    """Shapes whose vectors take exactly 48 KB of dynamic shared memory
+    (the stream kernel at the two-phase fallback shape of m = 2048): with
+    the static shared memory on top they need the opt-in limit, which
+    both wrappers set at every launch."""
+    A, c, apen, h, state0 = _slack_instance(2, m, n, seed=1, dual=False,
+                                            dev=cuda, degenerate=False)
+    kw = dict(seg_len=2, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
+              packed=True)
+    if kernel == "stream":
+        from linprog_tpu_torch.ops import _build
+
+        assert _build.library().lp_solve_segment_stream_smem(m, n + m) == 48 * 1024
+        k, p = _stream_both(A, c, apen, state0, **kw)
+    else:
+        assert (7 * m + 4 * (n + m)) * 4 == 48 * 1024
+        k, p = _both(A, c, apen, state0, **kw)
+    torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
+    assert bool((k.iters == 2).all())

@@ -25,6 +25,8 @@ def _fresh_compiler_state():
     yield
 
 
+import linprog_tpu.engine_batched as jeb  # noqa: E402
+from linprog_tpu import calibration as jax_calibration  # noqa: E402
 from linprog_tpu.batch import solve_batch_two_phase as jax_two_phase  # noqa: E402
 from linprog_tpu.certify import certify_vertex_batch as jax_certify  # noqa: E402
 from linprog_tpu.config import SolverConfig as JaxSolverConfig  # noqa: E402
@@ -39,6 +41,8 @@ from linprog_tpu_torch import (  # noqa: E402
     solve_batch_two_phase,
     tuned_config,
 )
+import linprog_tpu_torch.engine_batched as teb  # noqa: E402
+from linprog_tpu_torch import calibration as torch_calibration  # noqa: E402
 from linprog_tpu_torch import status as st  # noqa: E402
 from linprog_tpu_torch.convert import config_from_reference  # noqa: E402
 from linprog_tpu_torch.generators import (  # noqa: E402
@@ -155,3 +159,81 @@ def test_forced_fallback_matches_reference():
     cert = certify_vertex_batch(torch.tensor(c), torch.tensor(G),
                                 torch.tensor(h), res.basis)
     assert bool(cert["certified"].all())
+
+
+@pytest.fixture
+def large_m_route(monkeypatch):
+    """Both packages take their large-m route at m = 24: the whole-segment
+    boundary ``xover_pallas_max_m`` shrinks to 8 (so the alternate-guess
+    retry runs) and the whole-segment gate is shut (so every simplex
+    segment runs on the streaming kernel).  Counts the port's streaming
+    kernel calls."""
+    jt = dict(jax_calibration.get_table("default"))
+    tt = torch_calibration.get_table()
+    jt["xover_pallas_max_m"] = tt["xover_pallas_max_m"] = 8
+    for eb in (jeb, teb):
+        monkeypatch.setattr(eb, "_mega_kernel_fits",
+                            lambda m, n, with_at, **kw: False)
+    calls = []
+    kernel = teb.solve_segment_stream
+
+    def counting(*a, **k):
+        calls.append(k["dual"])
+        return kernel(*a, **k)
+
+    monkeypatch.setattr(teb, "solve_segment_stream", counting)
+    jax_calibration.set_table({"default": jt})
+    torch_calibration.set_table({"default": tt})
+    try:
+        yield calls
+    finally:
+        jax_calibration.reset_table()
+        torch_calibration.reset_table()
+
+
+@pytest.mark.parametrize("guess,seed", [("tapia", 58), ("magnitude", 44)])
+def test_large_m_route_matches_reference(large_m_route, guess, seed):
+    """A one-pivot crossover budget leaves lanes uncrossed; the retry from
+    the alternate guess crosses some and the two-phase fallback repairs the
+    rest.  Both packages count the same crossed, retried and fallback
+    lanes, reach the same statuses, agree with each other and with HiGHS to
+    1e-5 relative, and certify the same number of lanes.  (The seeds are
+    ones where the two IPMs take the same steps on every lane: where an
+    f32 IPM straggles at the KKT floor the two packages guess different
+    bases, and a one-pivot budget then crosses different lanes.)"""
+    from scipy.optimize import linprog
+
+    c, G, h = random_inequality_lps(B, M, N, seed=seed)
+    jres, jinfo = jax_solve_batch_exact(jnp.asarray(c), jnp.asarray(G),
+                                        jnp.asarray(h), maxiters=1,
+                                        guess=guess)
+    tc, tG, th = torch.tensor(c), torch.tensor(G), torch.tensor(h)
+    res, info = solve_batch_exact(tc, tG, th, maxiters=1, guess=guess)
+    assert info == jinfo
+    assert info["retry_crossed"] > 0 and info["fallback"] > 0
+    assert True in large_m_route and False in large_m_route  # dual, primal
+    np.testing.assert_array_equal(res.status.numpy(), np.asarray(jres.status))
+    assert (res.status.numpy() == st.OPTIMAL).all()
+    assert _rel(res.cost.numpy(), np.asarray(jres.cost)).max() < 1e-5
+    highs = np.array([linprog(c[i], A_ub=G[i], b_ub=h[i], bounds=(0, None),
+                              method="highs").fun for i in range(B)])
+    assert _rel(res.cost.numpy(), highs).max() < 1e-5
+    cert = certify_vertex_batch(tc, tG, th, res.basis)
+    jcert = jax_certify(jnp.asarray(c), jnp.asarray(G), jnp.asarray(h),
+                        jres.basis)
+    assert int(cert["certified"].sum()) == int(np.asarray(jcert["certified"]).sum())
+
+
+def test_crossover_from_an_optimal_vertex_verifies_it(instance):
+    """The fallback's repair pass: a crossover started at a two-phase
+    vertex verifies every lane (dd-refined) and keeps its objective."""
+    from linprog_tpu_torch import crossover_batch_canonical
+
+    c, G, h = (torch.tensor(a) for a in instance)
+    cfg = tuned_config(M)
+    cs, As, bs = device_standard_form_batch(c, G, h)
+    two = solve_batch_two_phase(cs, As, bs, 4 * M, 4 * M, cfg)
+    res, crossed = crossover_batch_canonical(c, G, h, two.x[:, :N], cfg=cfg)
+    assert bool(crossed.all())
+    assert _rel(res.cost.numpy(), two.cost.numpy()).max() < 1e-6
+    assert int(res.iters.max()) <= 2 * M  # a repair, not a fresh solve

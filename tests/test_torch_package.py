@@ -174,17 +174,33 @@ def test_panel_cholinv_wrapper_validates():
 
 
 def test_large_m_is_not_ported_yet():
-    G = torch.zeros((1, 513, 2))
-    with pytest.raises(NotImplementedError):
+    """m >= 3072 stays out of the port: the exact router raises (the
+    reference's crossover runs its dual phase on the vmapped per-lane
+    engine there), and so does a dual-mode ``run_batched`` at a
+    blocked-factor shape.  Zero-stride tensors: nothing is computed before
+    the check."""
+    from linprog_tpu_torch.engine import SimplexState
+    from linprog_tpu_torch.engine_batched import _stream_variant
+
+    with pytest.raises(NotImplementedError, match="per-lane"):
+        linprog_tpu_torch.exact_cleanup_config(3072)
+    G = torch.zeros(()).expand(1, 4096, 2)
+    with pytest.raises(NotImplementedError, match="3072"):
         linprog_tpu_torch.solve_batch_exact(torch.zeros((1, 2)), G,
-                                            torch.zeros((1, 513)))
-    m, n = 1200, 2400  # past the whole-segment kernel's range
-    A = torch.zeros((1, m, n))
-    state = make_state(torch.eye(m)[None], torch.zeros((1, m)),
-                       torch.arange(m)[None])
-    with pytest.raises(NotImplementedError):
-        run_batched(torch.zeros((1, n)), A, torch.zeros((1, m)), state,
-                    torch.ones(n, dtype=torch.bool), 10)
+                                            torch.zeros((1, 4096)))
+    linprog_tpu_torch.exact_cleanup_config(2048)  # the stream regime is in
+
+    m, n = 3072, 9216
+    assert _stream_variant(m, n)[0] == "stream_blocked"
+    zero = torch.zeros(())
+    state = SimplexState(basis=torch.zeros((), dtype=torch.int32).expand(1, m),
+                         inv_B=zero.expand(1, m, m), bfs=zero.expand(1, m),
+                         iters=torch.zeros(1, dtype=torch.int32),
+                         status=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="per-lane dual engine"):
+        run_batched(torch.zeros((1, n)), zero.expand(1, m, n),
+                    zero.expand(1, m), state,
+                    torch.ones(n, dtype=torch.bool), 10, mode="dual")
 
 
 def test_singular_basis_is_a_status_not_an_exception():

@@ -114,3 +114,39 @@ def test_raise_for_status_matches_reference(code):
             return type(exc).__name__
 
     assert outcome(st.raise_for_status) == outcome(jstatus.raise_for_status)
+
+
+def test_solve_dd_is_accurate_where_a_plain_f32_solve_is_not():
+    """On systems with cond ~1e4 a plain f32 solve through the inverse is
+    off by ~1e-4 relative (cond x eps), past the certificate's 1e-5; one
+    dd-refinement round past the whole-segment regime brings it to ~1e-6
+    of the float64 answer.  Inside the regime it is the plain solve."""
+    from linprog_tpu_torch import calibration
+
+    assert refine.dd_steps(512) == 0 and refine.dd_steps(513) == 1
+    rng = np.random.default_rng(3)
+    B, m = 4, 64
+    Q1, _ = np.linalg.qr(rng.normal(size=(B, m, m)))
+    Q2, _ = np.linalg.qr(rng.normal(size=(B, m, m)))
+    M = ((Q1 * np.logspace(0, -4, m)[None, None, :]) @ Q2).astype(np.float32)
+    rhs = rng.normal(size=(B, m)).astype(np.float32)
+    want = np.linalg.solve(M.astype(np.float64),
+                           rhs.astype(np.float64)[..., None])[..., 0]
+    Mt, rt = torch.tensor(M), torch.tensor(rhs)
+    inv = torch.linalg.inv(Mt)
+    plain = torch.einsum("bmk,bk->bm", inv, rt).numpy()
+    np.testing.assert_array_equal(refine.solve_dd(Mt, rt, inv).numpy(), plain)
+    table = calibration.get_table()
+    table["xover_pallas_max_m"] = 8  # m = 64 is now past the boundary
+    calibration.set_table({"default": table})
+    try:
+        dd = refine.solve_dd(Mt, rt).numpy()
+        dd_inv = refine.solve_dd(Mt, rt, inv).numpy()
+    finally:
+        calibration.reset_table()
+
+    def rel(x):
+        return (np.abs(x - want).max(axis=1) / np.abs(want).max(axis=1)).max()
+
+    assert rel(plain) > 1e-5
+    assert rel(dd) < 1e-6 and rel(dd_inv) < 1e-6
