@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of linprog_tpu_torch's exact pipeline on one NVIDIA GPU.
+"""Smoke run of linprog_tpu_torch on one NVIDIA GPU: the exact pipeline,
+bounded-variable batches and the per-step batched engine.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -13,7 +14,10 @@ Phases, each printing one JSON line:
      IPM's [1024, 32, 32] panels (SPD, cond ~1e3; a planted non-SPD lane);
   3. solve_segment: CUDA kernel against its plain version at crossover
      shapes (B = 1024, m = 256, n = 512), primal and dual mode, one
-     iteration and a full segment;
+     iteration and a full segment; then devex pricing: one iteration and a
+     16-pivot segment against the plain version, and a full
+     solve_batch_two_phase run with pricing="devex" at B = 1024,
+     m = n = 256 (all OPTIMAL, HiGHS gap on 4 lanes);
   4. the m = 256 path: solve_batch_exact at B = 1024, m = n = 256 (wall:
      the median of 10 runs after a warm-up; launch counts from the first),
      then the dd-KKT certificate and a HiGHS check on 16 lanes;
@@ -21,13 +25,27 @@ Phases, each printing one JSON line:
      B = 64, (m, n) = (2048, 4096), primal and dual (one iteration in
      lockstep, then a 64-pivot segment), and at the two-phase shape
      (1024, 3072) and a ragged (1000, 2999), primal;
-  6. the m = 2048 path: solve_batch_exact at B = 64, m = n = 2048 (wall:
-     the median of 3 runs after a warm-up; launch counts from the first),
-     the dd-KKT certificate on every lane, and one more run with stage
-     timers.  HiGHS is skipped at this size (minutes per lane on the host);
-     the oracle-free certificate is the check.
+  6. the m = 2048 path: solve_batch_exact at B = 64, m = n = 2048 (a
+     warm-up and one timed run, whose launch counts are kept) and the
+     dd-KKT certificate on every lane.  HiGHS is skipped at this size
+     (minutes per lane on the host); the oracle-free certificate is the
+     check;
+  7. solve_bounded_segment: CUDA kernel against its plain version at
+     [1024, 256, 512] from the all-slack start of device_bounded_lps: one
+     iteration (bit for bit), a 16-iteration segment, a full run by status
+     and objective;
+  8. the bounded path: solve_batch_bounded at B = 1024, m = n = 256 (wall:
+     the median of 5 runs after a warm-up; launch counts from the first):
+     all lanes OPTIMAL, HiGHS gap on 4 lanes, x within its bounds, Ax = b;
+  9. step kernels: price_entering and ratio_eta_pivot against their plain
+     versions at the Phase-I shape [1024, 256, 768], then 64 calls of
+     batched_primal_step on the kernels, each held against the same step
+     on the plain versions from the same state.
 The line before the last lists each kernel (launches on its path, error
-against its plain version, times).  The last line is
+against its plain version, times, and the least time the card could take:
+each input byte read once and each output byte written once at 3.35 TB/s,
+or the operations at 67 TFLOP/s of f32, whichever is larger).  The last
+line is
 {"ok": true, "device": {...}} and is printed only if every phase passed;
 any failure exits nonzero.  Without a CUDA device it exits nonzero at once.
 """
@@ -44,10 +62,15 @@ import linprog_tpu_torch as lt
 from linprog_tpu_torch import status as st
 from linprog_tpu_torch.config import tuned_config
 from linprog_tpu_torch.engine import basis_matrix, solve_or_nan
-from linprog_tpu_torch.generators import device_inequality_lps
+from linprog_tpu_torch.generators import (
+    device_bounded_lps,
+    device_inequality_lps,
+)
 from linprog_tpu_torch.ops import _build
+from linprog_tpu_torch.ops import bounded_kernel as bk
 from linprog_tpu_torch.ops import cholinv_kernel as ck
 from linprog_tpu_torch.ops import solve_kernel as sk
+from linprog_tpu_torch.ops import step_kernels as stk
 from linprog_tpu_torch.ops import stream_kernel as ssk
 
 B = 1024
@@ -56,7 +79,11 @@ SEED = 0
 DEVICE = "cuda"
 REPEATS = 10  # timed m = 256 runs after the warm-up (median reported)
 XB, XM = 64, 2048  # the m = 2048 path: lanes, m = n
-X_REPEATS = 3  # timed m = 2048 runs after the warm-up (median reported)
+BOUNDED_REPEATS = 5  # timed bounded runs after the warm-up (median)
+BOUNDED_MAXITERS = 6000
+SPLIT_LANES = 16  # lanes of 1024 that may leave lockstep over 16 pivots
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
 def emit(obj):
@@ -80,6 +107,51 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def bound_ms(n_bytes, n_flops):
+    """The least milliseconds the card could take: each input byte read
+    once and each output byte written once at the device-memory rate, or
+    the operations at the f32 rate, whichever is larger."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * n_flops / F32_FLOPS_PER_S
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+def segment_bound_ms(lanes, pivoting, m, n):
+    """One batch-iteration of a whole-segment simplex kernel: A and the
+    factor read once per lane, the factor written once per pivoting lane,
+    the O(m + n) rows read and written once."""
+    n_bytes = 4 * (lanes * (m * n + m * m + 2 * (5 * m + 3 * n))
+                   + pivoting * m * m)
+    n_flops = lanes * (2 * m * n + 4 * m * m) + pivoting * 2 * m * m
+    return bound_ms(n_bytes, n_flops)
+
+
+def status_counts(status):
+    return {st.status_name(k): int(v) for k, v in
+            zip(*torch.unique(status, return_counts=True))}
+
+
+def highs_gap(cost, c, lanes, **problem):
+    """Largest relative objective gap of ``cost`` against HiGHS on the
+    first ``lanes`` lanes; ``problem`` holds per-lane keyword arrays of
+    scipy's linprog (``bounds`` as a [B, n, 2] array with inf for none)."""
+    from scipy.optimize import linprog
+
+    gaps = []
+    for i in range(lanes):
+        kw = {k: v[i].double().cpu().numpy() for k, v in problem.items()}
+        if "bounds" in kw:
+            kw["bounds"] = [(lo, None if np.isinf(hi) else hi)
+                            for lo, hi in kw["bounds"]]
+        ref = linprog(c[i].double().cpu().numpy(), method="highs", **kw)
+        if ref.status != 0:
+            fail(f"HiGHS did not solve lane {i} ({ref.message})")
+        gaps.append(abs(float(cost[i]) - ref.fun) / max(1.0, abs(ref.fun)))
+    return float(max(gaps))
 
 
 def phase_environment():
@@ -156,9 +228,23 @@ def phase_cholinv():
         fail(f"panel_cholinv: kernel vs plain max relative diff {rel:.3e} > 1e-4")
     ms = cuda_ms(lambda: ck.panel_cholinv(Mat), 20)
     plain_ms = cuda_ms(lambda: ck.panel_cholinv_plain(Mat), 20)
+    # no single PyTorch call computes the inverse factor; the nearest is a
+    # pair of calls, timed as a yardstick (the port never uses it)
+    eye = torch.eye(32, device=DEVICE).expand(B, 32, 32)
+    spd = Mat[good]
+
+    def two_calls():
+        L, _ = torch.linalg.cholesky_ex(spd)
+        return torch.linalg.solve_triangular(L, eye[:spd.shape[0]],
+                                             upper=False)
+
+    two_call_ms = cuda_ms(two_calls, 20)
+    b_ms, b_by = bound_ms(2 * B * 32 * 32 * 4, B * 2 * 32 ** 3 // 3)
     out = {"phase": "panel_cholinv", "shape": [B, 32, 32], "cond": 1e3,
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": 1e-4,
-           "ms": ms, "plain_ms": plain_ms, "reps": 20}
+           "ms": ms, "plain_ms": plain_ms, "reps": 20,
+           "cholesky_ex_plus_solve_triangular_ms": two_call_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     emit(out)
     return out
 
@@ -331,9 +417,114 @@ def phase_segment():
                 "ms": ms_full_k, "plain_ms": ms_full_p,
             },
         }
+    b_ms, b_by = segment_bound_ms(
+        B, out["primal"]["one_iter"]["pivoted_lanes"], M, N + M)
+    out["bound_ms"], out["bound_by"] = b_ms, b_by
     emit(out)
     return {"max_abs_err": worst_err, "ms": one_ms["primal"][0],
-            "plain_ms": one_ms["primal"][1]}
+            "plain_ms": one_ms["primal"][1], "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def _lockstep_lanes(k, p, names):
+    """bool[B]: lanes on which every named field of the two states is
+    equal."""
+    same = torch.ones(k.iters.shape[0], dtype=torch.bool, device=DEVICE)
+    for name in names:
+        a, b = getattr(k, name), getattr(p, name)
+        same &= (a == b).reshape(a.shape[0], -1).all(dim=1)
+    return same
+
+
+def phase_segment_devex():
+    """Phase 3, devex: kernel 1 with pricing = 2 against its plain version
+    at [1024, 256, 512] (one iteration from the slack basis, where every
+    sum has one nonzero term, so bit for bit; then a 16-pivot segment, where
+    summation order may flip a near tie on a few lanes), and a full
+    two-phase run with devex pricing."""
+    cfg = tuned_config(M, pricing="devex")
+    A, c, apen, h, state0 = _segment_instance(False)
+    kw = dict(pricing=2, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
+              packed=cfg.packed_select)
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    ints = ("basis", "status", "iters", "pen", "cB")
+    k1 = sk.solve_segment(A, c, apen, 1 << 20, fresh(), seg_len=1, **kw)
+    p1 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=1, **kw)
+    torch.cuda.synchronize()
+    same1 = _lockstep_lanes(k1, p1, ints)
+    if not same1.all():
+        fail(f"solve_segment devex: one iteration differs on "
+             f"{int((~same1).sum())} lanes")
+    err_gamma = ((k1.gamma - p1.gamma).abs()
+                 / p1.gamma.abs().clamp_min(1.0)).max().item()
+    if not err_gamma <= 1e-4:
+        fail(f"solve_segment devex: weights differ by {err_gamma:.3e} "
+             "relative after one iteration (> 1e-4)")
+    if not (k1.gamma != 1.0).any():
+        fail("solve_segment devex: no weight moved off 1")
+    states = iter([fresh() for _ in range(20)])
+    ms_k = cuda_ms(lambda: sk.solve_segment(A, c, apen, 1 << 20, next(states),
+                                            seg_len=1, **kw), 20)
+    states = iter([fresh() for _ in range(20)])
+    ms_p = cuda_ms(lambda: sk.solve_segment_plain(
+        A, c, apen, 1 << 20, next(states), seg_len=1, **kw), 20)
+    del states
+
+    k16 = sk.solve_segment(A, c, apen, 1 << 20, fresh(), seg_len=16, **kw)
+    p16 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=16,
+                                 **kw)
+    torch.cuda.synchronize()
+    same16 = _lockstep_lanes(k16, p16, ints)
+    split = int((~same16).sum())
+    if split > SPLIT_LANES:
+        fail(f"solve_segment devex: the 16-pivot segment left lockstep on "
+             f"{split} lanes (> {SPLIT_LANES})")
+    if not torch.equal(k16.iters, p16.iters):
+        fail("solve_segment devex: 16-pivot iteration counts differ")
+    err16 = ((k16.gamma - p16.gamma).abs()
+             / p16.gamma.abs().clamp_min(1.0))[same16].max().item()
+    if not err16 <= 1e-3:
+        fail(f"solve_segment devex: weights differ by {err16:.3e} relative "
+             "after 16 pivots (> 1e-3)")
+    del A, c, apen, state0, k1, p1, k16, p16
+
+    # the full two-phase run on devex
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cc, G, hh = device_inequality_lps(gen, B, M, N, DEVICE)
+    from linprog_tpu_torch.generators import device_standard_form_batch
+    cs, As, bs = device_standard_form_batch(cc, G, hh)
+    lt.solve_batch_two_phase(cs, As, bs, 4000, 4000, cfg)  # warm-up
+    sk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = lt.solve_batch_two_phase(cs, As, bs, 4000, 4000, cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = sk.launches
+    gap = highs_gap(res.cost, cc, 4, A_ub=G, b_ub=hh)
+    out = {"phase": "solve_segment_devex", "shape": [B, M, N + M],
+           "one_iter": {"lanes_equal": int(same1.sum()),
+                        "max_rel_err_gamma": err_gamma, "ms": ms_k,
+                        "plain_ms": ms_p, "reps": 20},
+           "segment16": {"lanes_in_lockstep": int(same16.sum()),
+                         "allowed_split": SPLIT_LANES,
+                         "max_rel_err_gamma": err16},
+           "two_phase": {"lanes": B, "m": M, "n": N,
+                         "lane_status": status_counts(res.status),
+                         "wall_s": wall, "launches": launches,
+                         "iters_total": int(res.iters.sum()),
+                         "highs_lanes": 4, "max_rel_gap_vs_highs": gap}}
+    emit(out)
+    if int((res.status == st.OPTIMAL).sum()) != B:
+        fail(f"devex two-phase: {out['two_phase']['lane_status']}")
+    if not gap <= 1e-5:
+        fail(f"devex two-phase: HiGHS gap {gap:.3e} > 1e-5")
+    if launches <= 0:
+        fail("devex two-phase: kernel solve_segment was never launched")
 
 
 def phase_main_path():
@@ -517,58 +708,13 @@ def phase_stream():
         torch.cuda.empty_cache()
     emit(out)
     first = out["runs"][0]
+    b_ms, b_by = segment_bound_ms(XB, first["one_iter"]["pivoted_lanes"],
+                                  XM, 2 * XM)
     return {"max_abs_err": max(r["one_iter"]["max_abs_err_bfs"]
                                for r in out["runs"]),
             "ms": first["one_iter"]["ms"],
-            "plain_ms": first["one_iter"]["plain_ms"]}
-
-
-def _stage_walls(run):
-    """Run ``run()`` once with stage timers: each listed function wrapped
-    with torch.cuda.synchronize() on both sides (nested stages overlap
-    their parents, and the syncs slow the run).  Returns seconds per
-    stage and the run's wall."""
-    import linprog_tpu_torch.batch as lb
-    import linprog_tpu_torch.crossover as lx
-    import linprog_tpu_torch.engine_batched as le
-    import linprog_tpu_torch.ipm as li
-    import linprog_tpu_torch.refine as lr
-
-    acc = {}
-    saved = []
-
-    def wrap(mod, name, label):
-        fn = getattr(mod, name)
-
-        def timed(*a, **k):
-            key = label(a) if callable(label) else label
-            torch.cuda.synchronize()
-            t0 = time.time()
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                acc[key] = acc.get(key, 0.0) + time.time() - t0
-
-        saved.append((mod, name, fn))
-        setattr(mod, name, timed)
-
-    wrap(li, "ipm_canonical_state", "ipm")
-    wrap(lx, "_run_chunked", lambda a: f"crossover_{a[7]}_phases")
-    wrap(lr, "polish_batch", "polish")
-    wrap(lb, "solve_batch_two_phase", "fallback")
-    wrap(le, "solve_segment_stream", "stream_kernel")
-    wrap(le, "compact_refactorize", "refactorize")
-    try:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return {k: round(v, 4) for k, v in acc.items()}, wall
+            "plain_ms": first["one_iter"]["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_exact_m2048():
@@ -586,15 +732,9 @@ def phase_exact_m2048():
     t0 = time.time()
     res, info = lt.solve_batch_exact(c, G, h)
     torch.cuda.synchronize()
-    walls = [time.time() - t0]
+    wall = time.time() - t0
     launches = {"solve_segment_stream": ssk.launches,
                 "panel_cholinv": ck.launches, "solve_segment": sk.launches}
-    for _ in range(X_REPEATS - 1):
-        t0 = time.time()
-        lt.solve_batch_exact(c, G, h)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    wall_med = float(np.median(walls))
 
     t1 = time.time()
     cert = lt.certify_vertex_batch(c, G, h, res.basis)
@@ -602,7 +742,6 @@ def phase_exact_m2048():
     torch.cuda.synchronize()
     cert_wall = time.time() - t1
 
-    stages, stage_run_wall = _stage_walls(lambda: lt.solve_batch_exact(c, G, h))
     uncertified = [
         {"lane": i, **{k: float(cert[k][i]) for k in
                        ("primal_residual", "min_xB", "min_reduced_cost", "gap")}}
@@ -618,10 +757,9 @@ def phase_exact_m2048():
         "retry_crossed": info["retry_crossed"], "fallback": info["fallback"],
         "certified": summ["certified"], "certificate": summ,
         "uncertified": uncertified,
-        "wall_s": wall_med, "walls_s": walls, "warmup_wall_s": warm,
-        "lps_per_sec": XB / wall_med, "cert_wall_s": cert_wall,
+        "wall_s": wall, "warmup_wall_s": warm,
+        "lps_per_sec": XB / wall, "cert_wall_s": cert_wall,
         "launches": launches, "iters_total": int(res.iters.sum()),
-        "stage_s": stages, "stage_run_wall_s": stage_run_wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(out)
@@ -638,33 +776,458 @@ def phase_exact_m2048():
     return launches
 
 
+def _bounded_start(seed=SEED):
+    """device_bounded_lps at [1024, 256, 256 + 256] with its all-slack
+    start: the problem, the (basis, var_state) a user passes, and the same
+    start in the kernel's layout."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    c, A, b, lb, ub = device_bounded_lps(gen, B, M, N, DEVICE)
+    ntot = N + M
+    basis = torch.arange(N, ntot, dtype=torch.int32,
+                         device=DEVICE).expand(B, M).contiguous()
+    vs = torch.zeros((B, ntot), dtype=torch.int8, device=DEVICE)
+    vs[:, N:] = bk.BASIC
+    zeros = torch.zeros((B, M), device=DEVICE)
+    state = bk.BoundedSegmentState(
+        invBT=torch.eye(M, device=DEVICE).expand(B, M, M).contiguous(),
+        bfs=b.clone(), cB=zeros.clone(), basis=basis.clone(),
+        vstate=vs.clone(), lbB=zeros.clone(),
+        ubB=torch.full((B, M), float("inf"), device=DEVICE),
+        iters=torch.zeros(B, dtype=torch.int32, device=DEVICE),
+        status=torch.zeros(B, dtype=torch.int32, device=DEVICE))
+    prob = tuple(t.contiguous() for t in (c, A, b, lb, ub))
+    return prob, basis, vs, state
+
+
+def _bounded_objective(prob, s):
+    """float64 objective at a kernel state's basis and bound assignment
+    (exact solve of B x_B = b - A x_N)."""
+    c, A, b, lb, ub = prob
+    x_n = torch.where(s.vstate == bk.AT_UB, ub, torch.zeros_like(ub))
+    rhs = b - torch.einsum("bmn,bn->bm", A, x_n)
+    xB = solve_or_nan(basis_matrix(A, s.basis), rhs)
+    x = x_n.scatter(1, s.basis.long(), xB)
+    return (c.double() * x.double()).sum(dim=1)
+
+
+def phase_bounded_segment():
+    """Phase 7: kernel 4 against its plain version at [1024, 256, 512]."""
+    cfg = tuned_config(M)
+    prob, _, _, state0 = _bounded_start()
+    c, A, b, lb, ub = prob
+    kw = dict(opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              packed=cfg.packed_select)
+    names = ("basis", "vstate", "status", "iters", "cB", "lbB", "ubB")
+
+    def fresh(s=state0):
+        return bk.BoundedSegmentState(*(t.clone() for t in s))
+
+    def both(seg_len, s=state0):
+        k = bk.solve_bounded_segment(A, c, lb, ub, 1 << 20, fresh(s),
+                                     seg_len=seg_len, **kw)
+        p = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(s),
+                                           seg_len=seg_len, **kw)
+        torch.cuda.synchronize()
+        return k, p
+
+    # (a) one iteration from the all-slack start: the duals are zero and
+    # the factor is the identity, so every sum has one nonzero term and the
+    # kernel must equal the plain version on every lane, bit for bit
+    k1, p1 = both(1)
+    same1 = _lockstep_lanes(k1, p1, names + ("bfs",))
+    if not same1.all():
+        fail(f"solve_bounded_segment: one iteration differs on "
+             f"{int((~same1).sum())} lanes")
+    err1 = (k1.bfs - p1.bfs).abs().max().item()
+    flips1 = int(((k1.vstate != state0.vstate).any(dim=1)
+                  & (k1.basis == state0.basis).all(dim=1)).sum())
+
+    # (b) a 16-iteration segment: summation order differs, so a near tie
+    # may flip on a few of the 1024 lanes
+    k16, p16 = both(16)
+    same16 = _lockstep_lanes(k16, p16, names)
+    split = int((~same16).sum())
+    if split > SPLIT_LANES:
+        fail(f"solve_bounded_segment: the 16-iteration segment left "
+             f"lockstep on {split} lanes (> {SPLIT_LANES})")
+    if not (torch.equal(k16.iters, p16.iters)
+            and torch.equal(k16.status, p16.status)):
+        fail("solve_bounded_segment: 16-iteration counts or statuses differ")
+    err16 = (k16.bfs - p16.bfs).abs()[same16].max().item()
+    scale16 = p16.bfs.abs().max().item()
+    if not err16 <= 1e-4 * max(scale16, 1.0):
+        fail(f"solve_bounded_segment: bfs differs by {err16:.3e} after 16 "
+             "iterations (> 1e-4 of scale)")
+
+    # one-iteration times from the mid-solve state (state copies outside
+    # the timed region); the bound counts what this iteration moves
+    k17, _ = both(1, k16)
+    pivoting = int((k17.basis != k16.basis).any(dim=1).sum())
+    flipping = int(((k17.vstate != k16.vstate).any(dim=1)
+                    & (k17.basis == k16.basis).all(dim=1)).sum())
+    states = iter([fresh(k16) for _ in range(20)])
+    ms_k = cuda_ms(lambda: bk.solve_bounded_segment(
+        A, c, lb, ub, 1 << 20, next(states), seg_len=1, **kw), 20)
+    states = iter([fresh(k16) for _ in range(20)])
+    ms_p = cuda_ms(lambda: bk.solve_bounded_segment_plain(
+        A, c, lb, ub, 1 << 20, next(states), seg_len=1, **kw), 20)
+    del states, k1, p1, p16, k17
+
+    # (c) a full run in one segment: every lane terminates
+    full = {}
+    for name, fn in (("kernel", bk.solve_bounded_segment),
+                     ("plain", bk.solve_bounded_segment_plain)):
+        sfull = fresh()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(A, c, lb, ub, BOUNDED_MAXITERS, sfull, seg_len=BOUNDED_MAXITERS,
+           **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        full[name] = (sfull, t0.elapsed_time(t1))
+    kf, pf = full["kernel"][0], full["plain"][0]
+    if not torch.equal(kf.status, pf.status):
+        fail(f"solve_bounded_segment: full-run statuses differ on "
+             f"{int((kf.status != pf.status).sum())} lanes")
+    if not (kf.status == st.OPTIMAL).all():
+        fail(f"solve_bounded_segment: full run {status_counts(kf.status)}")
+    ok, op = _bounded_objective(prob, kf), _bounded_objective(prob, pf)
+    rel = ((ok - op).abs() / op.abs().clamp_min(1.0)).max().item()
+    if not rel <= 1e-5:
+        fail(f"solve_bounded_segment: full-run objectives differ by "
+             f"{rel:.3e} relative (> 1e-5)")
+    b_ms, b_by = segment_bound_ms(B, pivoting, M, N + M)
+    out = {"phase": "solve_bounded_segment", "shape": [B, M, N + M],
+           "config": {"packed": cfg.packed_select},
+           "one_iter_from_start": {"lanes_equal": int(same1.sum()),
+                                   "bound_flips": flips1,
+                                   "max_abs_err_bfs": err1},
+           "segment16": {"lanes_in_lockstep": int(same16.sum()),
+                         "allowed_split": SPLIT_LANES,
+                         "max_abs_err_bfs": err16, "tol": "1e-4 of scale"},
+           "one_iter_mid_solve": {"pivoting_lanes": pivoting,
+                                  "flipping_lanes": flipping, "ms": ms_k,
+                                  "plain_ms": ms_p, "reps": 20,
+                                  "bound_ms": b_ms, "bound_by": b_by},
+           "full_run": {"status_counts": status_counts(kf.status),
+                        "max_rel_obj_diff": rel, "tol_rel": 1e-5,
+                        "max_iters_kernel": int(kf.iters.max()),
+                        "max_iters_plain": int(pf.iters.max()),
+                        "ms": full["kernel"][1], "plain_ms": full["plain"][1]}}
+    emit(out)
+    return {"max_abs_err": max(err1, err16), "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_bounded_path():
+    """Phase 8: solve_batch_bounded at B = 1024, m = n = 256."""
+    cfg = tuned_config(M, pricing="dantzig", polish_pivots=8,
+                       refactor_every=2048)
+    prob, basis, vs, _ = _bounded_start()
+    c, A, b, lb, ub = prob
+
+    def solve():
+        return lt.solve_batch_bounded(c, A, b, lb, ub, basis, vs,
+                                      BOUNDED_MAXITERS, cfg)
+
+    t0 = time.time()
+    solve()  # warm-up
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+
+    bk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = solve()
+    torch.cuda.synchronize()
+    walls = [time.time() - t0]
+    launches = bk.launches
+    for _ in range(BOUNDED_REPEATS - 1):
+        t0 = time.time()
+        solve()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall_med = float(np.median(walls))
+
+    bounds = torch.stack([lb, ub], dim=2)
+    gap = highs_gap(res.cost, c, 4, A_eq=A, b_eq=b, bounds=bounds)
+    # feasibility of the returned vertex against the lane's scale
+    # max(1, max|b|): the engine's f32 basic values drift over ~3000
+    # unrefactored iterations, so the terminal basis may sit ~1e-5 of scale
+    # outside a bound (the exact terminal solve shows it, not causes it)
+    x = res.x.double()
+    scale = b.abs().max(dim=1).values.double().clamp_min(1.0)
+    out_of = torch.maximum(lb.double() - x, x - ub.double()).clamp_min(0.0)
+    viol_abs = out_of.max().item()
+    viol_rel = (out_of.max(dim=1).values / scale).max().item()
+    resid = (torch.einsum("bmn,bn->bm", A.double(), x) - b.double()).abs()
+    resid_rel = (resid.max(dim=1).values / scale).max().item()
+    out = {"phase": "bounded_m256", "lanes": B, "m": M, "n": N, "seed": SEED,
+           "config": {"pricing": cfg.pricing, "packed": cfg.packed_select,
+                      "refactor_every": cfg.refactor_every,
+                      "polish_pivots": cfg.polish_pivots,
+                      "maxiters": BOUNDED_MAXITERS},
+           "lane_status": status_counts(res.status),
+           "wall_s": wall_med, "walls_s": walls, "warmup_wall_s": warm,
+           "lps_per_sec": B / wall_med, "launches": launches,
+           "iters_total": int(res.iters.sum()),
+           "iters_max": int(res.iters.max()),
+           "highs_lanes": 4, "max_rel_gap_vs_highs": gap,
+           "max_bound_violation": viol_abs,
+           "max_rel_bound_violation": viol_rel, "tol_rel_bound": 1e-4,
+           "max_rel_residual": resid_rel, "tol_residual": 1e-4}
+    emit(out)
+    if res.x.shape != (B, N + M) or not torch.isfinite(res.cost).all():
+        fail("bounded path: result has the wrong shape or non-finite costs")
+    n_opt = int((res.status == st.OPTIMAL).sum())
+    if n_opt != B:
+        fail(f"bounded path: {n_opt}/{B} lanes OPTIMAL")
+    if not gap <= 1e-5:
+        fail(f"bounded path: HiGHS gap {gap:.3e} > 1e-5")
+    if not viol_rel <= 1e-4:
+        fail(f"bounded path: x leaves its bounds by {viol_rel:.3e} of scale "
+             "(> 1e-4)")
+    if not resid_rel <= 1e-4:
+        fail(f"bounded path: |Ax - b| = {resid_rel:.3e} of scale (> 1e-4)")
+    if launches <= 0:
+        fail("bounded path: kernel solve_bounded_segment was never launched")
+    return launches
+
+
+def _near_tied(values, chosen_a, chosen_b, tol=1e-4):
+    """bool[B]: the entries of ``values[B, k]`` at the two chosen indices
+    are within ``tol`` of the row's scale (either choice is the minimum up
+    to summation-order noise)."""
+    va = torch.gather(values, 1, chosen_a.long()[:, None])[:, 0]
+    vb = torch.gather(values, 1, chosen_b.long()[:, None])[:, 0]
+    finite = torch.where(torch.isfinite(values), values.abs(), 0.0)
+    scale = finite.max(dim=1).values.clamp_min(1.0)
+    return (va - vb).abs() <= tol * scale
+
+
+def phase_step_kernels():
+    """Phase 9: kernels 5 and 6 at the Phase-I shape of m = n = 256, and
+    the step that runs them."""
+    import linprog_tpu_torch.engine_batched as le
+    from linprog_tpu_torch import engine
+    from linprog_tpu_torch.generators import device_standard_form_batch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    cc, G, hh = device_inequality_lps(gen, B, M, N, DEVICE)
+    _, As, b = device_standard_form_batch(cc, G, hh)
+    ns = N + M  # structural and slack columns
+    n1 = ns + M
+    A1 = torch.cat([As, torch.eye(M, device=DEVICE).expand(B, M, M)],
+                   dim=2).contiguous()
+    c1 = torch.cat([torch.zeros((B, ns), device=DEVICE),
+                    torch.ones((B, M), device=DEVICE)], dim=1).contiguous()
+    allowed = torch.ones(n1, dtype=torch.bool, device=DEVICE)
+    cfg = lt.SolverConfig(pricing="dantzig")
+    state = engine.slack_crash_state(A1, b, ns)
+    state = state._replace(inv_B=state.inv_B.contiguous(),
+                           bfs=state.bfs.contiguous())
+
+    def plain_step(s):
+        """The step on the plain versions of both kernels, on a copy."""
+        s = s._replace(inv_B=s.inv_B.clone(), bfs=s.bfs.clone())
+        saved = le.price_entering, le.ratio_eta_pivot
+        le.price_entering = stk.price_entering_plain
+        le.ratio_eta_pivot = stk.ratio_eta_pivot_plain
+        try:
+            return le.batched_primal_step(c1, A1, b, allowed, s, cfg, 1 << 20)
+        finally:
+            le.price_entering, le.ratio_eta_pivot = saved
+
+    # 64 steps on the kernels, each held against the plain versions' step
+    # from the same state.  A lane may differ only at a near tie (the two
+    # choices within 1e-4 of scale in the plain arithmetic).
+    stk.launches["price_entering"] = stk.launches["ratio_eta_pivot"] = 0
+    differing = 0
+    worst_inv = worst_bfs = 0.0
+    steps = 64
+    for k in range(steps):
+        want = plain_step(state)
+        cB = torch.gather(c1, 1, state.basis.long())
+        pen = le.batched_in_basis_penalty(state.basis, n1, allowed)
+        y = torch.einsum("bm,bmk->bk", cB, state.inv_B)
+        r = c1 - torch.einsum("bm,bmn->bn", y, A1) + pen
+        old_basis = state.basis
+        old_inv, old_bfs = state.inv_B.clone(), state.bfs.clone()
+        state = le.batched_primal_step(c1, A1, b, allowed, state, cfg,
+                                       1 << 20)
+        torch.cuda.synchronize()
+        if not torch.equal(state.iters, want.iters):
+            fail(f"step_kernels: iteration counts differ at step {k}")
+        same = ((state.basis == want.basis).all(dim=1)
+                & (state.status == want.status))
+        if not same.all():
+            # the entering column and leaving row of either version
+            moved_k = state.basis != old_basis
+            moved_p = want.basis != old_basis
+            piv_k, piv_p = moved_k.any(dim=1), moved_p.any(dim=1)
+            row_k = moved_k.to(torch.int8).argmax(dim=1)
+            row_p = moved_p.to(torch.int8).argmax(dim=1)
+            ent_k = torch.gather(state.basis, 1, row_k[:, None])[:, 0]
+            ent_p = torch.gather(want.basis, 1, row_p[:, None])[:, 0]
+            d = torch.einsum("bmk,bk->bm", old_inv,
+                             le._gather_cols(A1, ent_p))
+            pos = d > cfg.pivot_tol
+            theta = torch.where(pos, old_bfs / torch.where(pos, d, 1.0),
+                                float("inf"))
+            both_piv = piv_k & piv_p
+            tie = both_piv & (ent_k != ent_p) & _near_tied(r, ent_k, ent_p)
+            tie |= (both_piv & (ent_k == ent_p)
+                    & _near_tied(theta, row_k, row_p))
+            # one version found no eligible column: the best reduced cost
+            # sits at the tolerance
+            tie |= (piv_k != piv_p) & (r.min(dim=1).values.abs() <= 1e-4)
+            bad = ~same & ~tie
+            if bad.any():
+                fail(f"step_kernels: step {k} differs from the plain "
+                     f"versions on {int(bad.sum())} lanes that are not near "
+                     "ties")
+            differing += int((~same).sum())
+        scale = want.inv_B.abs().amax().item()
+        worst_inv = max(worst_inv, ((state.inv_B - want.inv_B).abs()
+                                    [same].max().item()) / max(scale, 1.0))
+        worst_bfs = max(worst_bfs, (state.bfs - want.bfs).abs()[same]
+                        .max().item())
+        del want, old_bfs, old_inv, r
+    launches = dict(stk.launches)
+    if differing > 4 * steps:
+        fail(f"step_kernels: {differing} lane-steps at near ties over "
+             f"{steps} steps (> {4 * steps})")
+    if not worst_inv <= 1e-4:
+        fail(f"step_kernels: inv_B differs by {worst_inv:.3e} of scale after "
+             "one step (> 1e-4)")
+
+    # each kernel against its plain version at the mid-solve state, and
+    # their times (copies of the factor outside the timed region)
+    cB = torch.gather(c1, 1, state.basis.long()).contiguous()
+    pen = le.batched_in_basis_penalty(state.basis, n1, allowed)
+    price_kw = dict(dantzig=True, opt_tol=cfg.opt_tol)
+    ek, gk = stk.price_entering(cB, state.inv_B, A1, c1, pen, **price_kw)
+    ep, gp = stk.price_entering_plain(cB, state.inv_B, A1, c1, pen,
+                                      **price_kw)
+    y = torch.einsum("bm,bmk->bk", cB, state.inv_B)
+    r = c1 - torch.einsum("bm,bmn->bn", y, A1) + pen
+    ok_enter = (ek == ep) | _near_tied(r, ek.clamp_max(n1 - 1),
+                                       ep.clamp_max(n1 - 1))
+    if not (ok_enter.all() and torch.equal(gk, gp)):
+        fail("step_kernels: price_entering differs from its plain version "
+             f"on {int((~ok_enter).sum())} lanes off near ties, or in a flag")
+    r_k = torch.gather(r, 1, ek.clamp_max(n1 - 1).long()[:, None])[:, 0]
+    r_p = torch.gather(r, 1, ep.clamp_max(n1 - 1).long()[:, None])[:, 0]
+    err_price = (r_k - r_p).abs().max().item()
+    ms_price = cuda_ms(lambda: stk.price_entering(
+        cB, state.inv_B, A1, c1, pen, **price_kw), 20)
+    ms_price_p = cuda_ms(lambda: stk.price_entering_plain(
+        cB, state.inv_B, A1, c1, pen, **price_kw), 20)
+
+    acol = le._gather_cols(A1, ep.clamp_max(n1 - 1)).contiguous()
+    go = (gp > 0).to(torch.int32)[:, None].contiguous()
+    ik, bk_ = state.inv_B.clone(), state.bfs.clone()
+    ip, bp = state.inv_B.clone(), state.bfs.clone()
+    _, _, lk, uk = stk.ratio_eta_pivot(ik, bk_, acol, go,
+                                       pivot_tol=cfg.pivot_tol)
+    _, _, lp_, up = stk.ratio_eta_pivot_plain(ip, bp, acol, go,
+                                              pivot_tol=cfg.pivot_tol)
+    torch.cuda.synchronize()
+    same_l = lk == lp_
+    if not torch.equal(uk, up) or int((~same_l).sum()) > 4:
+        fail("step_kernels: ratio_eta_pivot differs from its plain version "
+             f"on {int((~same_l).sum())} lanes (> 4), or in a flag")
+    err_ratio = ((ik - ip).abs()[same_l].max().item()
+                 / max(ip.abs().max().item(), 1.0))
+    if not err_ratio <= 1e-4:
+        fail(f"step_kernels: ratio_eta_pivot's factor differs by "
+             f"{err_ratio:.3e} of scale (> 1e-4)")
+    pivoting = int(((go[:, 0] > 0) & (uk == 0)).sum())
+    del ik, bk_, ip, bp
+    copies = iter([(state.inv_B.clone(), state.bfs.clone())
+                   for _ in range(20)])
+    ms_ratio = cuda_ms(lambda: stk.ratio_eta_pivot(
+        *next(copies), acol, go, pivot_tol=cfg.pivot_tol), 20)
+    copies = iter([(state.inv_B.clone(), state.bfs.clone())
+                   for _ in range(20)])
+    ms_ratio_p = cuda_ms(lambda: stk.ratio_eta_pivot_plain(
+        *next(copies), acol, go, pivot_tol=cfg.pivot_tol), 20)
+    del copies
+
+    pb_ms, pb_by = bound_ms(4 * B * (M * M + M * n1 + M + 2 * n1 + 2),
+                            B * 2 * (M * M + M * n1))
+    rb_ms, rb_by = bound_ms(
+        4 * (B * (M * M + 3 * M + 3) + pivoting * (M * M + M)),
+        B * 2 * M * M + pivoting * 2 * M * M)
+    out = {"phase": "step_kernels", "shape": [B, M, n1],
+           "steps": {"count": steps, "lane_steps_at_near_ties": differing,
+                     "max_rel_err_inv_B": worst_inv,
+                     "max_abs_err_bfs": worst_bfs, "tol": "1e-4 of scale",
+                     "launches": launches,
+                     "lane_status": status_counts(state.status)},
+           "price_entering": {"lanes_equal": int((ek == ep).sum()),
+                              "max_abs_err_r_enter": err_price,
+                              "ms": ms_price, "plain_ms": ms_price_p,
+                              "bound_ms": pb_ms, "bound_by": pb_by,
+                              "reps": 20},
+           "ratio_eta_pivot": {"lanes_equal": int(same_l.sum()),
+                               "pivoting_lanes": pivoting,
+                               "max_rel_err_inv_B": err_ratio,
+                               "ms": ms_ratio, "plain_ms": ms_ratio_p,
+                               "bound_ms": rb_ms, "bound_by": rb_by,
+                               "reps": 20}}
+    emit(out)
+    for name, cnt in launches.items():
+        if cnt != steps:
+            fail(f"step_kernels: {name} launched {cnt} times over {steps} "
+                 "steps")
+    return out
+
+
 def main():
     phase_environment()
     phase_build()
     chol = phase_cholinv()
     seg = phase_segment()
+    phase_segment_devex()
     launches = phase_main_path()
     stream = phase_stream()
     x_launches = phase_exact_m2048()
+    bnd = phase_bounded_segment()
+    bnd_launches = phase_bounded_path()
+    steps = phase_step_kernels()
+
+    def entry(name, source, replaces, n_launches, rep):
+        return {"name": name, "route": "cuda",
+                "source": f"linprog_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+                "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+                "bound_by": rep["bound_by"], "library_ms": None}
+
+    price = dict(steps["price_entering"],
+                 max_abs_err=steps["price_entering"]["max_abs_err_r_enter"])
+    ratio = dict(steps["ratio_eta_pivot"],
+                 max_abs_err=steps["steps"]["max_abs_err_bfs"])
     emit({"kernels": [
-        {"name": "solve_segment", "route": "cuda",
-         "source": "linprog_tpu_torch/csrc/solve_segment.cu",
-         "replaces": "linprog_tpu/ops/solve_kernel.py:552",
-         "launches": launches["solve_segment"],
-         "max_abs_err": seg["max_abs_err"],
-         "ms": seg["ms"], "plain_ms": seg["plain_ms"]},
-        {"name": "panel_cholinv", "route": "cuda",
-         "source": "linprog_tpu_torch/csrc/panel_cholinv.cu",
-         "replaces": "linprog_tpu/ops/cholinv_kernel.py:80",
-         "launches": launches["panel_cholinv"],
-         "max_abs_err": chol["max_abs_err"],
-         "ms": chol["ms"], "plain_ms": chol["plain_ms"]},
-        {"name": "solve_segment_stream", "route": "cuda",
-         "source": "linprog_tpu_torch/csrc/solve_segment_stream.cu",
-         "replaces": "linprog_tpu/ops/stream_kernel.py:609",
-         "launches": x_launches["solve_segment_stream"],
-         "max_abs_err": stream["max_abs_err"],
-         "ms": stream["ms"], "plain_ms": stream["plain_ms"]},
+        entry("solve_segment", "solve_segment.cu",
+              "linprog_tpu/ops/solve_kernel.py:552",
+              launches["solve_segment"], seg),
+        entry("panel_cholinv", "panel_cholinv.cu",
+              "linprog_tpu/ops/cholinv_kernel.py:80",
+              launches["panel_cholinv"], chol),
+        entry("solve_segment_stream", "solve_segment_stream.cu",
+              "linprog_tpu/ops/stream_kernel.py:609",
+              x_launches["solve_segment_stream"], stream),
+        entry("solve_bounded_segment", "solve_bounded_segment.cu",
+              "linprog_tpu/ops/bounded_kernel.py:279", bnd_launches, bnd),
+        entry("price_entering", "price_entering.cu",
+              "linprog_tpu/ops/pallas_kernels.py:85",
+              steps["steps"]["launches"]["price_entering"], price),
+        entry("ratio_eta_pivot", "ratio_eta_pivot.cu",
+              "linprog_tpu/ops/pallas_kernels.py:168",
+              steps["steps"]["launches"]["ratio_eta_pivot"], ratio),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

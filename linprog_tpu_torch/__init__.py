@@ -2,18 +2,21 @@
 
 Batched dense LP solving on an NVIDIA GPU.  This package runs the exact
 pipeline (batched IPM -> simplex crossover -> two-phase fallback -> dd-KKT
-certificate) for m < 3072 with three hand-written CUDA kernels: the
-whole-segment simplex kernel (``ops/solve_kernel.py``), its streaming
-counterpart for large m (``ops/stream_kernel.py``) and the panel
-inverse-Cholesky kernel (``ops/cholinv_kernel.py``).  Each kernel has a
-plain PyTorch version that a CPU tensor takes; a CUDA tensor always
-launches the kernel.
+certificate) for m < 3072, bounded-variable batches
+(:func:`solve_batch_bounded`) and the per-step batched engine, with six
+hand-written CUDA kernels: the whole-segment simplex kernel
+(``ops/solve_kernel.py``), its streaming counterpart for large m
+(``ops/stream_kernel.py``), the panel inverse-Cholesky kernel
+(``ops/cholinv_kernel.py``), the bounded-variable segment kernel
+(``ops/bounded_kernel.py``) and the two per-step kernels
+(``ops/step_kernels.py``).  Each kernel has a plain PyTorch version that a
+CPU tensor takes; a CUDA tensor always launches the kernel.
 
 f32 means IEEE f32: the package never enables TF32, which would break the
 exact split products of the double-word arithmetic and pick wrong pivots.
 """
 
-from .batch import solve_batch_two_phase
+from .batch import solve_batch_bounded, solve_batch_two_phase
 from .certify import certificate_summary, certify_vertex_batch
 from .config import DEFAULT_CONFIG, FAST_CONFIG, SolverConfig, tuned_config
 from .crossover import crossover_batch_canonical, ipm_crossover_batch_canonical
@@ -34,6 +37,7 @@ __all__ = [
     "exact_cleanup_config",
     "ipm_crossover_batch_canonical",
     "ipm_solve_batch_canonical",
+    "solve_batch_bounded",
     "solve_batch_exact",
     "solve_batch_two_phase",
     "tuned_config",

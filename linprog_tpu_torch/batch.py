@@ -1,10 +1,12 @@
-"""Batched two-phase simplex (counterpart of the two-phase half of
-:mod:`linprog_tpu.batch`).
+"""Batched two-phase and bounded-variable simplex (counterpart of those
+halves of :mod:`linprog_tpu.batch`).
 
-Phase I keeps the artificial columns in the matrix for Phase II and masks
-them out of pricing; redundant rows keep their artificial basic at zero
-level.  Both phases run on the segment kernel through
-:func:`linprog_tpu_torch.engine_batched.run_batched`.
+Two-phase: Phase I keeps the artificial columns in the matrix for Phase II
+and masks them out of pricing; redundant rows keep their artificial basic
+at zero level.  Both phases run on the segment kernel through
+:func:`linprog_tpu_torch.engine_batched.run_batched`.  Bounded variables:
+:func:`solve_batch_bounded` runs the bounded-variable kernel from a given
+basis and bound assignment.
 """
 
 from __future__ import annotations
@@ -123,6 +125,83 @@ def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
         status=res.status,
         y=y,
     )
+
+
+def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
+                        cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
+    """Batched bounded-variable simplex: ``min c'x, Ax = b, lb <= x <= ub``.
+
+    ``c[B, n], A[B, m, n], b[B, m], lb[B, n], ub[B, n], basis[B, m]``,
+    ``var_state[B, n]`` (int8 in {AT_LB = 0, AT_UB = 1, BASIC = 2}): a
+    starting basis with a bound assignment whose basic solution is within
+    its bounds.  A variable at an infinite upper bound counts as zero.
+    """
+    from . import bounded as bnd
+    from .engine_batched import _mega_kernel_fits
+    from .refine import (
+        dd_dot,
+        dd_residual,
+        polish_bounded_batch,
+        refine_bfs,
+    )
+
+    B, m, n = A.shape
+    if cfg.kernels != "cuda" or not _mega_kernel_fits(m, n, with_at=False):
+        raise NotImplementedError(
+            f"solve_batch_bounded at m={m}, n={n} with kernels="
+            f"{cfg.kernels!r}: the reference leaves its bounded kernel there "
+            "for the vmapped per-lane bounded engine (bounded.run_bounded), "
+            "which is not ported (ROADMAP Queue 1 item 9)"
+        )
+    states = bnd.make_bounded_state(A, b, lb, ub, basis, var_state)
+    out = bnd.run_bounded_batched(c, A, b, lb, ub, states, maxiters, cfg)
+    basis_out, var_out = out.basis, out.var_state
+    status = torch.where(out.status == st.RUNNING, st.ITER_LIMIT, out.status)
+
+    # terminal accuracy pass: re-solve B x_B = b - A x_N exactly at the
+    # terminal basis, with the rhs itself computed double-word
+    def rhs_of(vs):
+        x_n = torch.where(
+            vs == bnd.AT_LB, lb,
+            torch.where((vs == bnd.AT_UB) & torch.isfinite(ub), ub,
+                        torch.zeros_like(lb)))
+        return x_n, dd_residual(b, A, x_n)
+
+    Bmat = basis_matrix(A, basis_out)
+    _, rhs = rhs_of(var_out)
+    inv_B = engine.inv_or_nan(Bmat)
+    xB = torch.einsum("bmk,bk->bm", inv_B, rhs)
+    ok = (torch.isfinite(inv_B).all(dim=2).all(dim=1)
+          & torch.isfinite(xB).all(dim=1))
+    xB = torch.where(ok[:, None], refine_bfs(Bmat, rhs, inv_B, xB), out.bfs)
+    status = torch.where(ok, status, st.NUMERICAL_ERROR).to(torch.int32)
+
+    obj_corr = None
+    if cfg.polish_pivots > 0:
+        # bound-aware dd polish, then the duality objective correction
+        # y'(rhs - B x_B)
+        act = (status == st.OPTIMAL) & ok
+        pbasis, pvs, pxB, py, _ = polish_bounded_batch(
+            c, A, b, lb, ub, basis_out, var_out, act,
+            max_pivots=cfg.polish_pivots, pivot_tol=cfg.pivot_tol,
+            inv_B=inv_B,
+        )
+        basis_out = torch.where(act[:, None], pbasis, basis_out)
+        var_out = torch.where(act[:, None], pvs, var_out)
+        xB = torch.where(act[:, None], pxB, xB)
+        Bmat = basis_matrix(A, basis_out)
+        _, rhs = rhs_of(var_out)
+        corr = dd_dot(py, dd_residual(rhs, Bmat, xB))
+        obj_corr = torch.where(act & torch.isfinite(corr), corr, 0.0)
+
+    x_n, _ = rhs_of(var_out)
+    x = x_n.scatter(1, basis_out.long(), xB)
+    if obj_corr is not None:
+        cost = dd_dot(c, x) + obj_corr
+    else:
+        cost = (c * x).sum(dim=1)
+    return BatchResult(x=x, basis=basis_out, cost=cost, iters=out.iters,
+                       status=status)
 
 
 def _to_result(c, states: engine.SimplexState, n: int) -> BatchResult:

@@ -23,13 +23,19 @@ class SolverConfig:
     ``max(1, max|c|)``; the port follows the kernel).  ``feas_tol`` bounds
     basic-variable infeasibility, ``pivot_tol`` is the smallest accepted
     pivot element.  ``pricing`` is ``"bland"``, ``"dantzig"`` or ``"devex"``
-    (devex only in the kernel's plain version).  ``refactor_every`` is the
+    (the streaming kernel has no devex, as in the reference; the
+    bounded-variable kernel always prices by Dantzig's rule).
+    ``refactor_every`` is the
     segment length between exact refactorizations (0: one unbounded
     segment).  ``stall_limit`` pivots without objective progress switch a
     lane to Bland's rule.  ``unroll`` is accepted for parity and does not
     change results.  ``packed_select`` fuses min, argmin and eligibility
     into one integer min.  ``polish_pivots`` bounds the double-word terminal
-    polish.  ``kernels`` names the kernel family: ``"cuda"``.
+    polish.  ``kernels`` is ``"cuda"`` (the hand-written kernels; the
+    counterpart of the reference's ``"pallas"``) or ``"torch"`` (the
+    per-step loop in plain PyTorch, primal only, with the optimality
+    tolerance scaled by ``max(1, max|c|)`` per lane; the counterpart of the
+    reference's ``"xla"``).
     """
 
     opt_tol: float = 1e-6
@@ -46,7 +52,7 @@ class SolverConfig:
     def __post_init__(self):
         if self.pricing not in ("bland", "dantzig", "devex"):
             raise ValueError(f"unknown pricing rule: {self.pricing!r}")
-        if self.kernels != "cuda":
+        if self.kernels not in ("cuda", "torch"):
             raise ValueError(f"unknown kernels impl: {self.kernels!r}")
         if self.unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {self.unroll}")

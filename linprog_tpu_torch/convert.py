@@ -12,16 +12,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bounded import BoundedState
 from .config import SolverConfig
 from .engine import SimplexState
 from .ipm import IPMConfig, IPMState
+from .ops.bounded_kernel import BoundedSegmentState
 from .ops.solve_kernel import SegmentState
 
 # reference knobs the port leaves out: allowed only at their defaults
 _DROPPED_SOLVER = {"split_pricing": False, "partial_pricing": False,
                    "refactor_method": "inv", "scaling": False,
                    "dtype": "float32"}
-# reference knobs the kernel path never reads
+# reference knobs the port never reads ("update" only where the kernels
+# run: the per-step loop refactorizes in chunks only under "eta")
 _IGNORED_SOLVER = ("update", "compact_refactor")
 _DROPPED_IPM = {"gondzio": 0, "newton_solver": "w2"}
 
@@ -38,10 +41,10 @@ def config_from_reference(d: dict):
     """A port config from a reference ``SolverConfig`` or ``IPMConfig``
     given as a dict (``dataclasses.asdict``).
 
-    ``kernels="pallas"`` maps to ``"cuda"``.  ``kernels="xla"`` is refused:
-    the reference's XLA path scales ``opt_tol`` by ``max(1, max|c|)`` and
-    the port implements only the kernel semantics.  A dropped knob at a
-    non-default value is refused too.
+    ``kernels="pallas"`` maps to ``"cuda"`` and ``kernels="xla"`` to
+    ``"torch"`` (the per-step loop, which scales ``opt_tol`` by
+    ``max(1, max|c|)`` as the reference's XLA path does; ``update`` must
+    then be ``"eta"``).  A dropped knob at a non-default value is refused.
     """
     d = dict(d)
     is_ipm = "eps_rel" in d
@@ -51,15 +54,16 @@ def config_from_reference(d: dict):
             raise ValueError(f"{key} is not ported (only {default!r})")
     if is_ipm:
         return IPMConfig(**d)
+    kernels = d.pop("kernels", "xla")
+    if kernels not in ("pallas", "xla"):
+        raise ValueError(f"unknown reference kernels value {kernels!r}")
+    if kernels == "xla" and d.get("update", "eta") != "eta":
+        raise ValueError("update is not ported (only 'eta') on the "
+                         "per-step loop")
     for key in _IGNORED_SOLVER:
         d.pop(key, None)
-    kernels = d.pop("kernels", "pallas")
-    if kernels != "pallas":
-        raise ValueError(
-            f"kernels={kernels!r}: only the reference's kernel path "
-            "('pallas') has a counterpart in the port ('cuda')"
-        )
-    return SolverConfig(kernels="cuda", **d)
+    return SolverConfig(kernels={"pallas": "cuda", "xla": "torch"}[kernels],
+                        **d)
 
 
 def _t(a, device, dtype=None):
@@ -139,3 +143,47 @@ def packed_to_numpy(c, apen, seg: SegmentState):
     return (row(c), row(apen), _np(seg.invBT), row(seg.bfs), row(seg.cB),
             row(seg.basis), row(seg.pen), row(seg.gamma),
             _np(seg.iters).reshape(B, 1, 1), _np(seg.status).reshape(B, 1, 1))
+
+
+def bounded_state_from_numpy(state, device="cpu") -> BoundedState:
+    """Reference ``BoundedState`` (batched arrays) -> port state."""
+    f = _fields(state)
+    return BoundedState(
+        basis=_t(f["basis"], device, torch.int32),
+        inv_B=_t(f["inv_B"], device, torch.float32),
+        bfs=_t(f["bfs"], device, torch.float32),
+        var_state=_t(f["var_state"], device, torch.int8),
+        iters=_t(f["iters"], device, torch.int32),
+        status=_t(f["status"], device, torch.int32),
+    )
+
+
+def bounded_state_to_numpy(state: BoundedState) -> dict:
+    return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def bounded_packed_from_numpy(packed, device="cpu") -> BoundedSegmentState:
+    """The reference bounded kernel's state layout -> the port's.
+
+    ``packed`` is the 9-tuple that ``solve_bounded_segment`` takes and
+    returns: ``(invBT[B,m,m], bfs[B,1,m], cB[B,1,m], basis[B,1,m],
+    vstate[B,1,n] (f32 codes), lbB[B,1,m], ubB[B,1,m], iters[B,1,1],
+    status[B,1,1])``.  The port drops the singleton row dimensions and
+    carries the variable states as int8.
+    """
+    invBT, bfs, cB, basis, vstate, lbB, ubB, iters, status = (
+        np.asarray(a) for a in packed
+    )
+    B = invBT.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    return BoundedSegmentState(
+        invBT=_t(invBT, device, f32),
+        bfs=_t(bfs.reshape(B, -1), device, f32),
+        cB=_t(cB.reshape(B, -1), device, f32),
+        basis=_t(basis.reshape(B, -1), device, i32),
+        vstate=_t(vstate.reshape(B, -1), device, torch.int8),
+        lbB=_t(lbB.reshape(B, -1), device, f32),
+        ubB=_t(ubB.reshape(B, -1), device, f32),
+        iters=_t(iters.reshape(B), device, i32),
+        status=_t(status.reshape(B), device, i32),
+    )

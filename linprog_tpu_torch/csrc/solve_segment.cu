@@ -15,6 +15,13 @@
 //   invBT += invBT[:, l] u  warp per row
 // Dual mode picks the leaving row first, prices the row B^-1[l, :] A and
 // r = c - y A in one pass over A, and takes the dual ratio test.
+// Devex pricing (pricing = 2) keeps the reference weights gamma[n] in shared
+// memory: the entering column maximises r^2 / gamma over r < -opt_tol (first
+// index on ties; a stalled lane takes Bland's column instead), and each
+// pivot reads A once more for the pivot row w = B^-1[l, :] A of the old
+// tableau: gamma_j <- max(gamma_j, (w_j / d_l)^2 gamma_q) with
+// gamma_q = max(gamma[enter], 1); the leaving column re-enters at
+// max(gamma_q / d_l^2, 1); everything is capped at 1e12.
 //
 // Semantics follow the Pallas kernel and the plain PyTorch version
 // (linprog_tpu_torch/ops/solve_kernel.py): absolute opt_tol, packed keys
@@ -22,7 +29,6 @@
 // INT32_MAX for "none", lowest index on exact ties), ratios clamped to +0.0
 // before packing, segment-local stall state, untouched non-RUNNING lanes.
 // The reference's `unroll` never changed results; this kernel has none.
-// Devex pricing is not implemented here (the wrapper raises for it).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,54 +41,26 @@ using lp::block_min;
 using lp::block_min2;
 using lp::block_sum;
 using lp::bits_for;
+using lp::direction;
+using lp::duals;
 using lp::kDualUnbounded;
 using lp::kIntMax;
 using lp::kOptimal;
 using lp::kPrimalUnbounded;
 using lp::kRunning;
 using lp::kThreads;
-using lp::kWarps;
 using lp::nonneg;
 using lp::pack_key;
 using lp::Scratch;
 using lp::unpack_value;
 
-// y[j] = sum_i cB[i] invBT[j, i]: one warp per row of invBT.
-__device__ void duals(const float* invBT, const float* s_cB, float* s_y,
-                      int m) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  for (int j = w; j < m; j += kWarps) {
-    const float* row = invBT + (size_t)j * m;
-    float acc = 0.0f;
-    for (int i = l; i < m; i += 32) acc += row[i] * s_cB[i];
-    acc = lp::warp_sum(acc);
-    if (l == 0) s_y[j] = acc;
-  }
-}
-
-// s_col = A[:, enter]; s_d[i] = sum_j s_col[j] invBT[j, i]. Ends synced.
-__device__ void direction(const float* __restrict__ A, const float* invBT,
-                          float* s_col, float* s_d, int m, int n,
-                          int enter) {
-  for (int j = threadIdx.x; j < m; j += kThreads)
-    s_col[j] = __ldg(A + (size_t)j * n + enter);
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < m; ++j) acc += s_col[j] * invBT[(size_t)j * m + i];
-    s_d[i] = acc;
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
     const float* __restrict__ A_all, const float* __restrict__ c_all,
     const float* __restrict__ apen_all, float* invBT_all, float* bfs_all,
-    float* cB_all, int* basis_all, float* pen_all, int* iters_all,
-    int* status_all, int m, int n, int seg_len, int maxiters, float opt_tol,
-    float pivot_tol, float feas_tol, int dual, int pricing, int packed,
-    int stall_limit) {
+    float* cB_all, int* basis_all, float* pen_all, float* gamma_all,
+    int* iters_all, int* status_all, int m, int n, int seg_len, int maxiters,
+    float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
+    int packed, int stall_limit) {
   extern __shared__ float smem[];
   __shared__ Scratch red;
   const int tid = threadIdx.x;
@@ -102,6 +80,8 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
   float* s_pen = s_c + n;
   float* s_r = s_pen + n;
   float* s_urow = s_r + n;
+  float* s_gamma = s_urow + n;  // devex only (not allocated otherwise)
+  const bool devex = pricing == 2;
 
   for (int i = tid; i < m; i += kThreads) {
     s_bfs[i] = bfs_all[lane * m + i];
@@ -111,6 +91,7 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
   for (int k = tid; k < n; k += kThreads) {
     s_c[k] = c_all[lane * n + k];
     s_pen[k] = pen_all[lane * n + k];
+    if (devex) s_gamma[k] = gamma_all[lane * n + k];
   }
   int status = status_all[lane];
   int iters = iters_all[lane];
@@ -259,6 +240,25 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
         const int2 res = block_min2(key, first, red);
         eligible = res.x != kIntMax;
         enter = use_bland ? res.y : (res.x & lo_n);
+      } else if (devex) {
+        // maximise r^2 / gamma over r < -opt_tol (as the min of its negative)
+        float part = INFINITY;
+        for (int k = tid; k < n; k += kThreads) {
+          const float r = s_r[k];
+          if (r < -opt_tol) part = lp::nan_min(part, -((r * r) / s_gamma[k]));
+        }
+        const float best = block_min(part, red);
+        eligible = best < INFINITY;  // false for a NaN score, as max() > -inf
+        int hot = n, first = n;
+        for (int k = tid; k < n; k += kThreads) {
+          const float r = s_r[k];
+          if (r < -opt_tol) {
+            if (-((r * r) / s_gamma[k]) == best) hot = min(hot, k);
+            first = min(first, k);
+          }
+        }
+        const int2 res = block_min2(hot, first, red);
+        enter = use_bland ? res.y : res.x;
       } else if (dantzig) {
         float part = INFINITY;
         for (int k = tid; k < n; k += kThreads)
@@ -324,6 +324,8 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
     const int leaving_col = s_basis[leave];
     const float c_enter = s_c[enter] + 0.0f;
     const float r_enter = s_r[enter] + 0.0f;
+    const float gamma_q =
+        devex ? lp::nan_max(s_gamma[enter] + 0.0f, 1.0f) : 1.0f;
     float dz = 0.0f;
     if (do_pivot) {
       const float safe = d_l == 0.0f ? 1.0f : d_l;
@@ -332,12 +334,21 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
         s_col[i] = invBT[(size_t)i * m + leave];
       }
       __syncthreads();
-      const int w = tid >> 5, l = tid & 31;
-      for (int j = w; j < m; j += kWarps) {
-        const float cj = s_col[j];
-        float* row = invBT + (size_t)j * m;
-        for (int i = l; i < m; i += 32) row[i] = row[i] + cj * s_u[i];
+      if (devex) {
+        // reference weights from the pivot row of the OLD tableau
+        const float g_leave = lp::nan_max(gamma_q / (safe * safe), 1.0f);
+        for (int k = tid; k < n; k += kThreads) {
+          float w = 0.0f;
+#pragma unroll 4
+          for (int j = 0; j < m; ++j)
+            w += s_col[j] * __ldg(A + (size_t)j * n + k);
+          const float ws = w / safe;
+          float g = lp::nan_max(s_gamma[k], (ws * ws) * gamma_q);
+          if (k == leaving_col) g = g_leave;
+          s_gamma[k] = lp::nan_min(g, 1e12f);
+        }
       }
+      lp::eta_update(invBT, s_col, s_u, m);
       for (int i = tid; i < m; i += kThreads)
         s_bfs[i] = s_bfs[i] + s_u[i] * bfs_l;
       __syncthreads();
@@ -361,7 +372,10 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
     cB_all[lane * m + i] = s_cB[i];
     basis_all[lane * m + i] = s_basis[i];
   }
-  for (int k = tid; k < n; k += kThreads) pen_all[lane * n + k] = s_pen[k];
+  for (int k = tid; k < n; k += kThreads) {
+    pen_all[lane * n + k] = s_pen[k];
+    if (devex) gamma_all[lane * n + k] = s_gamma[k];
+  }
   if (tid == 0) {
     status_all[lane] = status;
     iters_all[lane] = iters;
@@ -372,22 +386,25 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
 
 extern "C" int lp_solve_segment(const float* A, const float* c,
                                 const float* apen, float* invBT, float* bfs,
-                                float* cB, int* basis, float* pen, int* iters,
-                                int* status, int B, int m, int n, int seg_len,
-                                int maxiters, float opt_tol, float pivot_tol,
-                                float feas_tol, int dual, int pricing,
-                                int packed, int stall_limit, void* stream) {
-  if (pricing < 0 || pricing > 1 || m < 1 || n < 1)
+                                float* cB, int* basis, float* pen,
+                                float* gamma, int* iters, int* status, int B,
+                                int m, int n, int seg_len, int maxiters,
+                                float opt_tol, float pivot_tol, float feas_tol,
+                                int dual, int pricing, int packed,
+                                int stall_limit, void* stream) {
+  if (pricing < 0 || pricing > 2 || m < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(7 * m + 4 * n) * sizeof(float);
+  // the devex weights take a fifth row of n floats
+  const size_t smem =
+      (size_t)(7 * m + (pricing == 2 ? 5 : 4) * n) * sizeof(float);
   // always: static shared memory counts against the 48 KB default too
   const cudaError_t e = cudaFuncSetAttribute(
       solve_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   solve_segment_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      A, c, apen, invBT, bfs, cB, basis, pen, iters, status, m, n, seg_len,
-      maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, packed,
+      A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status, m, n,
+      seg_len, maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, packed,
       stall_limit);
   return (int)cudaGetLastError();
 }

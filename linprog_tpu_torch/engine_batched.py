@@ -1,17 +1,22 @@
-"""Batched simplex loop over the segment kernels
-(counterpart of the kernel half of :mod:`linprog_tpu.engine_batched`).
+"""Batched simplex engine (counterpart of
+:mod:`linprog_tpu.engine_batched`).
 
 :func:`run_batched` runs a whole-segment kernel in segments of
 ``cfg.refactor_every`` iterations and refactorizes the still-running lanes
-exactly in between, to bound eta-product drift.  It takes the kernel the
-reference takes at that shape: the whole-segment kernel
-(:func:`linprog_tpu_torch.ops.solve_kernel.solve_segment`) where the
+exactly in between, to bound eta-product drift.  With ``kernels="cuda"`` it
+takes the kernel the reference takes at that shape: the whole-segment
+kernel (:func:`linprog_tpu_torch.ops.solve_kernel.solve_segment`) where the
 reference's fits in VMEM, else the streaming kernel
 (:func:`linprog_tpu_torch.ops.stream_kernel.solve_segment_stream`) in the
-reference's variant.  The reference's XLA path and its vmapped per-lane
-dual engine are not part of the port: a shape or mode that reaches them in
-the reference raises ``NotImplementedError`` here instead of running
-something else.
+reference's variant.  With ``kernels="torch"`` (the counterpart of the
+reference's ``"xla"``), and for a primal shape past every streaming
+variant, it takes the per-step loop :func:`run_batched_steps` over
+:func:`batched_primal_step`'s einsum branch.  The step's kernel branch (the
+two per-step kernels of :mod:`linprog_tpu_torch.ops.step_kernels`) is
+reached, as in the reference, only by calling :func:`batched_primal_step`
+with ``kernels="cuda"``.  The reference's vmapped per-lane dual engine is
+not part of the port: a mode that reaches it in the reference raises
+``NotImplementedError`` here instead of running something else.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
 from .engine import SimplexState, basis_matrix, inv_or_nan
 from .ops.solve_kernel import SegmentState, solve_segment
+from .ops.step_kernels import price_entering, ratio_eta_pivot
 from .ops.stream_kernel import solve_segment_stream
 
 _PRICING_CODES = {"bland": 0, "dantzig": 1, "devex": 2}
@@ -59,6 +65,22 @@ def compact_refactorize(A, b, basis, run):
         inv[idx] = invp
         bfs[idx] = torch.einsum("bmk,bk->bm", invp, b[idx])
     return inv, bfs
+
+
+def refresh_running_lanes(A, rhs, seg) -> None:
+    """Exact refactorization between two segments, in place on a packed
+    kernel state (``invBT``, ``bfs``, ``basis``, ``status``): the RUNNING
+    lanes get a fresh factor and ``bfs = inv_B rhs``; one whose fresh
+    factors are not finite freezes as ``NUMERICAL_ERROR`` instead."""
+    run = seg.status == st.RUNNING
+    inv, fresh_bfs = compact_refactorize(A, rhs, seg.basis, run)
+    ok = _finite_lanes(inv, fresh_bfs)
+    seg.status.copy_(torch.where(run & ~ok, st.NUMERICAL_ERROR,
+                                 seg.status).to(torch.int32))
+    take = run & ok
+    seg.invBT.copy_(torch.where(take[:, None, None], inv.transpose(1, 2),
+                                seg.invBT))
+    seg.bfs.copy_(torch.where(take[:, None], fresh_bfs, seg.bfs))
 
 
 def _segment_pack(c, A, state: SimplexState, allowed):
@@ -101,15 +123,7 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
     if cfg.refactor_every > 0:
         while any_running():
             kernel(A, c, apen, maxiters, seg, **kw)
-            run = seg.status == st.RUNNING
-            inv, fresh_bfs = compact_refactorize(A, b, seg.basis, run)
-            ok = _finite_lanes(inv, fresh_bfs)
-            seg.status.copy_(torch.where(run & ~ok, st.NUMERICAL_ERROR,
-                                         seg.status).to(torch.int32))
-            take = run & ok
-            seg.invBT.copy_(torch.where(take[:, None, None],
-                                        inv.transpose(1, 2), seg.invBT))
-            seg.bfs.copy_(torch.where(take[:, None], fresh_bfs, seg.bfs))
+            refresh_running_lanes(A, b, seg)
             seg.gamma.fill_(1.0)  # devex weights: fresh reference framework
     else:
         kernel(A, c, apen, maxiters, seg, **kw)
@@ -149,7 +163,7 @@ def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters: int,
             "pricing='devex' is not implemented on the streaming (large-m) "
             "kernel -- the weight update would need a second pass over A; "
             "use pricing='dantzig' here (devex runs on the whole-segment "
-            "kernel's plain version)"
+            "kernel and the per-step loop)"
         )
     if variant not in ("resident", "stream", "stream_blocked"):
         raise ValueError(f"unknown streaming variant {variant!r}")
@@ -202,33 +216,236 @@ def _stream_variant(m: int, n: int, itemsize: int = 4,
     return None
 
 
+def _gather_cols(A, idx):
+    """``A[b, :, idx[b]]`` for each lane: ``[B, m]``."""
+    B, m, _ = A.shape
+    return torch.gather(A, 2, idx.long()[:, None, None].expand(B, m, 1))[:, :, 0]
+
+
+def batched_primal_step(c, A, b, allowed, state: SimplexState,
+                        cfg: SolverConfig, maxiters, bland=None, gamma=None):
+    """One batched primal iteration over all lanes (finished lanes frozen).
+
+    With ``cfg.kernels == "cuda"`` the two hot ops go through the per-step
+    kernels (:func:`~linprog_tpu_torch.ops.step_kernels.price_entering`,
+    then :func:`~linprog_tpu_torch.ops.step_kernels.ratio_eta_pivot`) with
+    the ABSOLUTE ``opt_tol``; that branch updates ``state.inv_B`` and
+    ``state.bfs`` in place where they are contiguous (the reference donates
+    them).  With ``"torch"`` the step is plain einsum code with the
+    per-lane tolerance ``opt_tol * max(1, max|c|)`` and ``bfs`` clamped at
+    zero in the ratio test.
+
+    ``bland`` (optional bool[B], einsum branch only): lanes flagged True use
+    Bland's first-eligible entering rule whatever ``cfg.pricing`` says.
+    ``gamma`` (optional f32[B, n], einsum branch only): devex reference
+    weights; with ``cfg.pricing == "devex"`` it must be given, and the
+    return value becomes ``(state, gamma_updated)``.  ``maxiters`` is an int
+    or an i32 tensor.
+    """
+    B, m, n = A.shape
+    lanes = torch.arange(B, device=A.device)
+    inf = float("inf")
+    running = (state.status == st.RUNNING) & (state.iters < maxiters)
+
+    cB = torch.gather(c, 1, state.basis.long())
+    penalty = batched_in_basis_penalty(state.basis, n, allowed)
+
+    if cfg.pricing == "devex" and (cfg.kernels == "cuda" or gamma is None):
+        raise ValueError(
+            "pricing='devex' on the batched step requires the per-step loop "
+            "(run_batched_steps threads the weight vector, kernels='torch'); "
+            "the per-step kernels do not implement reference-weight devex "
+            "-- use the whole-segment kernel (kernels='cuda' via "
+            "run_batched) or pricing='dantzig'"
+        )
+    if cfg.kernels == "cuda":
+        enter, elig = price_entering(
+            cB.contiguous(), state.inv_B.contiguous(), A.contiguous(),
+            c.contiguous(), penalty,
+            dantzig=(cfg.pricing == "dantzig"), opt_tol=cfg.opt_tol,
+        )
+        eligible = elig > 0
+        # a NaN reduced cost leaves `enter` at n: the reference's gather
+        # clamps, so the port clamps before it gathers
+        enter = enter.clamp_max(n - 1)
+        acol = _gather_cols(A, enter)
+        go = (running & eligible).to(torch.int32)
+        inv_B, bfs, leave, unb = ratio_eta_pivot(
+            state.inv_B.contiguous(), state.bfs.contiguous(), acol,
+            go[:, None].contiguous(), pivot_tol=cfg.pivot_tol,
+        )
+        unbounded = unb > 0
+        # an unbounded lane got leave = 0 and must keep its basis
+        pivoted = (go > 0) & ~unbounded
+    else:
+        y = torch.einsum("bm,bmk->bk", cB, state.inv_B)
+        r = c - torch.einsum("bm,bmn->bn", y, A) + penalty
+        tol = (cfg.opt_tol
+               * torch.clamp_min(torch.abs(c).max(dim=1).values, 1.0))[:, None]
+        neg = r < -tol
+        first_neg = neg.to(torch.int8).argmax(dim=1)  # first eligible column
+        if cfg.pricing == "devex":
+            score = torch.where(neg, (r * r) / gamma, -inf)
+            enter = score.argmax(dim=1)
+            eligible = neg[lanes, enter]
+            if bland is not None:
+                enter = torch.where(bland, first_neg, enter)
+        elif cfg.pricing == "dantzig":
+            enter = r.argmin(dim=1)
+            eligible = neg[lanes, enter]
+            if bland is not None:
+                enter = torch.where(bland, first_neg, enter)
+        else:
+            enter = first_neg
+            eligible = neg[lanes, enter]
+        acol = _gather_cols(A, enter)
+        d = torch.einsum("bmk,bk->bm", state.inv_B, acol)
+        pos = d > cfg.pivot_tol
+        any_pos = pos.any(dim=1)
+        bfs_nn = torch.clamp_min(state.bfs, 0.0) + 0.0
+        theta = torch.where(pos, bfs_nn / torch.where(pos, d, 1.0), inf)
+        leave = theta.argmin(dim=1)
+        go = running & eligible & any_pos
+        d_l = d[lanes, leave]
+        safe = torch.where(d_l == 0, 1.0, d_l)
+        u = -d / safe[:, None]
+        u[lanes, leave] = 1.0 / safe - 1.0
+        u = torch.where(go[:, None], u, 0.0)
+        row = state.inv_B[lanes, leave]
+        inv_B = state.inv_B + u[:, :, None] * row[:, None, :]
+        bfs = state.bfs + u * state.bfs[lanes, leave][:, None]
+        unbounded = eligible & ~any_pos
+        pivoted = go
+        if cfg.pricing == "devex":
+            # the whole-segment kernel's rule: weights from the pivot row of
+            # the OLD tableau; the leaving variable re-enters the nonbasic
+            # pool at max(gamma_q / alpha_q^2, 1)
+            w = torch.einsum("bm,bmn->bn", row, A)
+            ws = w / safe[:, None]
+            gamma_q = torch.clamp_min(gamma[lanes, enter], 1.0)
+            gamma_new = torch.maximum(gamma, (ws * ws) * gamma_q[:, None])
+            leaving_col = state.basis[lanes, leave].long()
+            gamma_new[lanes, leaving_col] = torch.clamp_min(
+                gamma_q / (safe * safe), 1.0)
+            gamma_new = torch.clamp_max(gamma_new, 1e12)
+            gamma = torch.where(pivoted[:, None], gamma_new, gamma)
+
+    new_basis = state.basis.clone()
+    new_basis[lanes, leave.long()] = enter.to(torch.int32)
+    basis = torch.where(pivoted[:, None], new_basis, state.basis)
+    new_status = torch.where(
+        running & ~eligible, st.OPTIMAL,
+        torch.where(running & unbounded, st.PRIMAL_UNBOUNDED, state.status),
+    ).to(torch.int32)
+    out = SimplexState(basis=basis, inv_B=inv_B, bfs=bfs,
+                       iters=state.iters + running.to(torch.int32),
+                       status=new_status)
+    return (out, gamma) if gamma is not None else out
+
+
+def batched_refactorize(A, b, state: SimplexState) -> SimplexState:
+    """Fresh ``inv_B`` and ``bfs`` of every lane (a singular basis gives
+    NaN factors, never an exception)."""
+    inv_B = inv_or_nan(basis_matrix(A, state.basis))
+    return state._replace(inv_B=inv_B,
+                          bfs=torch.einsum("bmk,bk->bm", inv_B, b))
+
+
+def run_batched_steps(c, A, b, state: SimplexState, allowed, maxiters: int,
+                      cfg: SolverConfig) -> SimplexState:
+    """Per-step primal loop (counterpart of the reference's XLA batched
+    path in ``run_batched``): one :func:`batched_primal_step` (einsum
+    branch) per pass until every lane is terminal or at ``maxiters``, in
+    chunks of ``cfg.refactor_every`` steps with an exact refactorization of
+    the still-running lanes after each.  A lane without relative objective
+    progress over ``cfg.stall_limit`` pivots prices by Bland's rule until
+    progress resumes; devex weights ride along and are reset at each
+    refactorization."""
+    cfg = cfg.replace(kernels="torch")
+    B, _, n = A.shape
+    dev = A.device
+    track = cfg.stall_limit > 0 and cfg.pricing in ("dantzig", "devex")
+    use_devex = cfg.pricing == "devex"
+    z_prev = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    stall = torch.zeros((B,), dtype=torch.int32, device=dev)
+    bland = torch.zeros((B,), dtype=torch.bool, device=dev)
+    gamma = torch.ones((B, n), dtype=torch.float32, device=dev) \
+        if use_devex else None
+
+    def any_running(ss, hi):
+        return bool(((ss.status == st.RUNNING) & (ss.iters < hi)).any())
+
+    def step(ss, hi):
+        nonlocal z_prev, stall, bland, gamma
+        if track:
+            cB = torch.gather(c, 1, ss.basis.long())
+            z = (cB * ss.bfs).sum(dim=1)
+            progressed = torch.abs(z - z_prev) > 1e-6 * (torch.abs(z) + 1.0)
+            stall = torch.where(progressed, 0, stall + 1).to(torch.int32)
+            bland = ~progressed & (bland | (stall >= cfg.stall_limit))
+            z_prev = z
+        out = batched_primal_step(c, A, b, allowed, ss, cfg, hi,
+                                  bland=bland if track else None, gamma=gamma)
+        if use_devex:
+            ss, gamma = out
+            return ss
+        return out
+
+    if cfg.refactor_every <= 0:
+        while any_running(state, maxiters):
+            state = step(state, maxiters)
+        return state
+    while any_running(state, maxiters):
+        iters_run = torch.where(state.status == st.RUNNING, state.iters,
+                                maxiters)
+        hi = min(int(iters_run.min()) + cfg.refactor_every, maxiters)
+        while any_running(state, hi):
+            state = step(state, hi)
+        run = state.status == st.RUNNING
+        inv, fresh_bfs = compact_refactorize(A, b, state.basis, run)
+        ok = _finite_lanes(inv, fresh_bfs)
+        take = run & ok
+        state = state._replace(
+            inv_B=torch.where(take[:, None, None], inv, state.inv_B),
+            bfs=torch.where(take[:, None], fresh_bfs, state.bfs),
+            status=torch.where(run & ~ok, st.NUMERICAL_ERROR,
+                               state.status).to(torch.int32),
+        )
+        if use_devex:  # weights: fresh reference framework
+            gamma = torch.ones_like(gamma)
+    return state
+
+
 def run_batched(c, A, b, state: SimplexState, allowed, maxiters: int,
                 cfg: SolverConfig = DEFAULT_CONFIG,
                 mode: str = "primal") -> SimplexState:
-    """Drive the batch (primal or dual mode) to termination: the
-    whole-segment kernel where the reference's fits, else the streaming
-    kernel in the reference's variant.  Raises ``NotImplementedError``
-    where the reference leaves its kernels: the blocked-factor variant in
-    dual mode (the reference's vmapped per-lane dual engine) and shapes
-    past every streaming variant (its XLA batched path)."""
+    """Drive the batch (primal or dual mode) to termination.
+
+    ``kernels="cuda"``: the whole-segment kernel where the reference's
+    fits, else the streaming kernel in the reference's variant, else (a
+    primal shape past every streaming variant) the per-step loop on the
+    einsum branch, as the reference switches to ``"xla"`` there.
+    ``kernels="torch"``: the per-step loop, primal mode only.  Dual mode
+    off the kernels raises ``NotImplementedError``: the reference runs its
+    vmapped per-lane dual engine there, which is not ported."""
     if mode not in ("primal", "dual"):
         raise ValueError(f"unknown mode {mode!r}")
     _, m, n = A.shape
-    if _mega_kernel_fits(m, n, with_at=False):
-        return run_batched_segments(c, A, b, state, allowed, maxiters, cfg,
-                                    mode)
-    variant = _stream_variant(m, n)
-    if variant is None:
+    if cfg.kernels == "cuda":
+        if _mega_kernel_fits(m, n, with_at=False):
+            return run_batched_segments(c, A, b, state, allowed, maxiters,
+                                        cfg, mode)
+        variant = _stream_variant(m, n)
+        if variant is not None and not (variant[0] == "stream_blocked"
+                                        and mode == "dual"):
+            return run_batched_stream(c, A, b, state, allowed, maxiters, cfg,
+                                      mode, variant=variant[0],
+                                      n_blk=variant[1])
+    if mode == "dual":
         raise NotImplementedError(
-            f"m={m}, n={n} is past the reference's streaming-kernel "
-            "variants; the reference runs its XLA batched path there, which "
-            "is not ported"
+            f"dual mode at m={m}, n={n} with kernels={cfg.kernels!r} (off "
+            "the segment kernels): the reference runs its vmapped per-lane "
+            "dual engine there (engine.run), which is not ported (ROADMAP "
+            "Queue 1 item 9)"
         )
-    if variant[0] == "stream_blocked" and mode == "dual":
-        raise NotImplementedError(
-            f"dual mode at m={m}, n={n} (blocked-factor shape): the "
-            "reference runs its vmapped per-lane dual engine there "
-            "(engine.run), which is not ported (ROADMAP Queue 1 item 9)"
-        )
-    return run_batched_stream(c, A, b, state, allowed, maxiters, cfg, mode,
-                              variant=variant[0], n_blk=variant[1])
+    return run_batched_steps(c, A, b, state, allowed, maxiters, cfg)

@@ -50,6 +50,36 @@ def device_inequality_lps(gen: torch.Generator, batch: int, m: int, n: int,
     return c, G, h
 
 
+def device_bounded_lps(gen: torch.Generator, batch: int, m: int, n: int,
+                       device, ub_hi: float = 2.0):
+    """Batch of bounded-variable LPs with a known feasible start, made on
+    ``device`` from the generator ``gen`` (which must live there).
+
+    ``min c'z  s.t.  [G' | I] z = b,  0 <= x <= ub (in [0.5, ub_hi)),
+    0 <= s < inf`` where ``G'`` is row-sign-fixed so that ``b >= 0``: the
+    all-slack basis with every structural variable at its lower bound is
+    feasible (``bfs = b``), and the feasible region is compact, so every
+    instance is bounded.
+
+    Returns ``(c[B, n+m], A[B, m, n+m], b[B, m], lb[B, n+m], ub[B, n+m])``.
+    """
+    kw = dict(generator=gen, device=device, dtype=torch.float32)
+    G = torch.randn((batch, m, n), **kw)
+    x0 = torch.rand((batch, n), **kw)
+    slack = torch.rand((batch, m), **kw)
+    h = torch.einsum("bmn,bn->bm", G, x0) + slack
+    Gf = torch.where((h < 0)[:, :, None], -G, G)
+    b = torch.abs(h)
+    eye = torch.eye(m, dtype=torch.float32, device=device).expand(batch, m, m)
+    A = torch.cat([Gf, eye], dim=2)
+    zeros = torch.zeros((batch, m), dtype=torch.float32, device=device)
+    c = torch.cat([2.0 * torch.rand((batch, n), **kw) - 1.0, zeros], dim=1)
+    ubx = 0.5 + (ub_hi - 0.5) * torch.rand((batch, n), **kw)
+    lb = torch.zeros((batch, n + m), dtype=torch.float32, device=device)
+    ub = torch.cat([ubx, torch.full_like(zeros, float("inf"))], dim=1)
+    return c, A, b, lb, ub
+
+
 def device_standard_form_batch(c, G, h):
     """``min c'x, Gx <= h`` -> ``[G | I] x = h`` with rows of ``h < 0``
     sign-flipped so that ``b >= 0``."""

@@ -116,17 +116,42 @@ def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lp_panel_cholinv.argtypes = [p, p, i, i, p]
     lib.lp_panel_cholinv.restype = i
-    lib.lp_solve_segment.argtypes = [
-        p, p, p,  # A, c, apen
-        p, p, p, p, p, p, p,  # invBT, bfs, cB, basis, pen, iters, status
+    tail = [
         i, i, i, i, i,  # B, m, n, seg_len, maxiters
         f, f, f,  # opt_tol, pivot_tol, feas_tol
         i, i, i, i,  # dual, pricing, packed, stall_limit
         p,  # stream
     ]
+    # A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status
+    lib.lp_solve_segment.argtypes = [p] * 11 + tail
     lib.lp_solve_segment.restype = i
-    lib.lp_solve_segment_stream.argtypes = lib.lp_solve_segment.argtypes
+    # the same without gamma (the streaming kernel has no devex)
+    lib.lp_solve_segment_stream.argtypes = [p] * 10 + tail
     lib.lp_solve_segment_stream.restype = i
+    lib.lp_solve_bounded_segment.argtypes = [
+        p, p, p, p,  # A, c, lb, ub
+        p, p, p, p, p, p, p, p, p,  # invBT, bfs, cB, basis, vstate, lbB,
+        # ubB, iters, status
+        i, i, i, i, i,  # B, m, n, seg_len, maxiters
+        f, f,  # opt_tol, pivot_tol
+        i,  # packed
+        p,  # stream
+    ]
+    lib.lp_solve_bounded_segment.restype = i
+    lib.lp_price_entering.argtypes = [
+        p, p, p, p, p,  # cB, invB, A, c, penalty
+        p, p,  # enter, eligible
+        i, i, i, i, f,  # B, m, n, dantzig, opt_tol
+        p,  # stream
+    ]
+    lib.lp_price_entering.restype = i
+    lib.lp_ratio_eta_pivot.argtypes = [
+        p, p, p, p,  # invB, bfs, acol, go
+        p, p,  # leave, unbounded
+        i, i, f,  # B, m, pivot_tol
+        p,  # stream
+    ]
+    lib.lp_ratio_eta_pivot.restype = i
     lib.lp_solve_segment_stream_smem.argtypes = [i, i]
     lib.lp_solve_segment_stream_smem.restype = ctypes.c_size_t
     lib.lp_solve_segment_stream_max_clusters.argtypes = [i, i]

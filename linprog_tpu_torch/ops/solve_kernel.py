@@ -34,8 +34,9 @@ streams A once (pricing) and ``B^-T`` four times (duals, direction, the
 eta read and write): about 1.5 MB per lane-iteration at that shape, so the
 kernel is bound by device-memory bandwidth.  Warp-per-row GEMVs read
 ``B^-T`` rows, column-per-thread GEMVs read A and ``B^-T`` coalesced, and
-selections are block-wide integer or float min reductions.  Devex runs
-only in the plain version; the CUDA wrapper raises for it.
+selections are block-wide integer or float min reductions.  Devex keeps
+its weights in shared memory and reads A once more per pivot for the pivot
+row.
 """
 
 from __future__ import annotations
@@ -315,37 +316,42 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
     return state
 
 
+def check_tensors(what: str, want: dict, device) -> None:
+    """Raise unless every ``name: (tensor, shape, dtype)`` of ``want`` has
+    that shape and type, lies on ``device`` and is contiguous (the kernels
+    index raw pointers, and update their state in place)."""
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
 def check_segment_args(A, c, apen, state: SegmentState,
                        what: str = "solve_segment") -> None:
     """Raise unless the arguments have the kernels' shapes, types, device
     and contiguity."""
     B, m, n = A.shape
-    want = {
-        "A": (A, (B, m, n), torch.float32),
-        "c": (c, (B, n), torch.float32),
-        "apen": (apen, (B, n), torch.float32),
-        "invBT": (state.invBT, (B, m, m), torch.float32),
-        "bfs": (state.bfs, (B, m), torch.float32),
-        "cB": (state.cB, (B, m), torch.float32),
-        "basis": (state.basis, (B, m), torch.int32),
-        "pen": (state.pen, (B, n), torch.float32),
-        "gamma": (state.gamma, (B, n), torch.float32),
-        "iters": (state.iters, (B,), torch.int32),
-        "status": (state.status, (B,), torch.int32),
-    }
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{what}: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype:
-            raise TypeError(f"{what}: {name} is {t.dtype}, "
-                            f"expected {dtype}")
-        if t.device != A.device:
-            raise ValueError(f"{what}: {name} on {t.device}, A on "
-                             f"{A.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous "
-                             "(the state is updated in place)")
+    f32, i32 = torch.float32, torch.int32
+    check_tensors(what, {
+        "A": (A, (B, m, n), f32),
+        "c": (c, (B, n), f32),
+        "apen": (apen, (B, n), f32),
+        "invBT": (state.invBT, (B, m, m), f32),
+        "bfs": (state.bfs, (B, m), f32),
+        "cB": (state.cB, (B, m), f32),
+        "basis": (state.basis, (B, m), i32),
+        "pen": (state.pen, (B, n), f32),
+        "gamma": (state.gamma, (B, n), f32),
+        "iters": (state.iters, (B,), i32),
+        "status": (state.status, (B,), i32),
+    }, A.device)
 
 
 def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
@@ -365,6 +371,8 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     global launches
     del unroll
     check_segment_args(A, c, apen, state)
+    if pricing not in (0, 1, 2):
+        raise ValueError(f"solve_segment: unknown pricing code {pricing}")
     kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
               pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
               stall_limit=stall_limit, packed=packed)
@@ -372,11 +380,6 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
         return solve_segment_plain(A, c, apen, maxiters, state, **kw)
     if A.device.type != "cuda":
         raise ValueError(f"solve_segment: unsupported device {A.device}")
-    if pricing not in (0, 1):
-        raise NotImplementedError(
-            "solve_segment: devex pricing runs only in the plain version; "
-            "the CUDA kernel takes bland (0) and dantzig (1)"
-        )
     B, m, n = A.shape
     if B == 0 or seg_len <= 0:
         return state
@@ -385,7 +388,7 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     code = lib.lp_solve_segment(
         A.data_ptr(), c.data_ptr(), apen.data_ptr(),
         state.invBT.data_ptr(), state.bfs.data_ptr(), state.cB.data_ptr(),
-        state.basis.data_ptr(), state.pen.data_ptr(),
+        state.basis.data_ptr(), state.pen.data_ptr(), state.gamma.data_ptr(),
         state.iters.data_ptr(), state.status.data_ptr(),
         B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
         float(opt_tol), float(pivot_tol), float(feas_tol),

@@ -177,6 +177,104 @@ def solve_dd(M, rhs, inv_M=None):
     return refine_bfs(M, rhs, inv_M, x, steps=steps)
 
 
+def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
+                         max_pivots: int = 16, dd_tol: float = 2e-6,
+                         pivot_tol: float = 1e-9, inv_B=None):
+    """dd-guided cleanup steps for the bounded-variable engine (the bounded
+    counterpart of :func:`polish_batch`).
+
+    Reduced costs are recomputed in double-word arithmetic with the
+    bound-aware sign flip (a variable at its upper bound prices as
+    ``-(z - c)``), and each cleanup step runs the engine's three-way ratio
+    test: a basic variable to its lower bound, to its upper bound, or a
+    bound flip of the entering variable.
+
+    ``c[B, n], A[B, m, n], b[B, m], lb[B, n], ub[B, n], basis[B, m]`` i32,
+    ``var_state[B, n]`` i8 (AT_LB 0 / AT_UB 1 / BASIC 2), ``active[B]``
+    bool.  Returns ``(basis, var_state, xB, y, inv_B)`` with ``xB``
+    dd-refined at the final basis and bound assignment.
+    """
+    Bsz, m, n = A.shape
+    lanes = torch.arange(Bsz, device=A.device)
+    AT_LB, AT_UB, BASIC = 0, 1, 2
+    inf = float("inf")
+    basis = basis.to(torch.int32)
+    var_state = var_state.to(torch.int8)
+    scale = torch.clamp_min(torch.abs(c).max(dim=1).values, 1.0)
+    ub_fin = torch.where(torch.isfinite(ub), ub, 0.0)
+
+    if inv_B is None:
+        inv_B = inv_or_nan(basis_matrix(A, basis))
+
+    def rhs_of(var_state):
+        x_n = torch.where(var_state == AT_LB, lb,
+                          torch.where(var_state == AT_UB, ub_fin, 0.0))
+        return dd_residual(b, A, x_n)  # b - A x_N, compensated
+
+    act = active
+    k = 0
+    while k < max_pivots and bool(act.any()):
+        Bmat = basis_matrix(A, basis)
+        cB = torch.gather(c, 1, basis.long())
+        y = refine_duals(cB, Bmat, inv_B)
+        zc = -dd_residual_rowmat(c, y, A)  # y'A - c, compensated
+        rc = torch.where(var_state == AT_UB, -zc, zc)
+        rc = torch.where(var_state == BASIC, -inf, rc)
+        enter = rc.argmax(dim=1)
+        go = act & (rc[lanes, enter] > dd_tol * scale)
+
+        vs_e = var_state[lanes, enter]
+        sigma = torch.where(vs_e == AT_LB, 1.0, -1.0).to(A.dtype)
+        d = torch.einsum("bmk,bk->bm", inv_B, A[lanes, :, enter])
+        sd = sigma[:, None] * d
+        xB = torch.einsum("bmk,bk->bm", inv_B, rhs_of(var_state))
+        lb_B = torch.gather(lb, 1, basis.long())
+        ub_B = torch.gather(ub, 1, basis.long())
+        up, down = sd > pivot_tol, -sd > pivot_tol
+        g1 = torch.where(up, (xB - lb_B) / torch.where(up, sd, 1.0), inf)
+        g2 = torch.where(down, (ub_B - xB) / torch.where(down, -sd, 1.0), inf)
+        g1m = g1.min(dim=1).values
+        g2m = g2.min(dim=1).values
+        gamma3 = ub[lanes, enter] - lb[lanes, enter]
+        delta = torch.minimum(g1m, g2m)
+        flip = go & (gamma3 <= delta) & torch.isfinite(gamma3)
+        piv = go & ~flip & torch.isfinite(delta)
+
+        # bound flip: the entering variable jumps to its opposite bound
+        vs_flip = torch.where(vs_e == AT_LB, AT_UB, AT_LB).to(torch.int8)
+        var_state = var_state.clone()
+        var_state[lanes, enter] = torch.where(
+            flip, vs_flip, torch.where(piv, BASIC, vs_e).to(torch.int8))
+
+        # pivot: the leaving basic lands on the bound that bound its step
+        to_lb = g1m < g2m
+        leave = torch.where(to_lb, g1.argmin(dim=1), g2.argmin(dim=1))
+        leaving_col = basis[lanes, leave].long()
+        leave_vs = torch.where(to_lb, AT_LB, AT_UB).to(torch.int8)
+        var_state[lanes, leaving_col] = torch.where(
+            piv, leave_vs, var_state[lanes, leaving_col])
+        d_l = d[lanes, leave]
+        safe = torch.where(d_l == 0, 1.0, d_l)
+        u = -d / safe[:, None]
+        u[lanes, leave] = 1.0 / safe - 1.0
+        u = torch.where(piv[:, None], u, 0.0)
+        row = inv_B[lanes, leave][:, None, :]
+        inv_B = inv_B + u[:, :, None] * row
+        new_basis = basis.clone()
+        new_basis[lanes, leave] = enter.to(torch.int32)
+        basis = torch.where(piv[:, None], new_basis, basis)
+        act = go
+        k += int(bool(go.any()))
+
+    Bmat = basis_matrix(A, basis)
+    rhs = rhs_of(var_state)
+    xB = torch.einsum("bmk,bk->bm", inv_B, rhs)
+    xB = refine_bfs(Bmat, rhs, inv_B, xB, steps=3)
+    cB = torch.gather(c, 1, basis.long())
+    y = refine_duals(cB, Bmat, inv_B)
+    return basis, var_state, xB, y, inv_B
+
+
 def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
                  dd_tol: float = 2e-6, pivot_tol: float = 1e-9, inv_B=None):
     """dd-guided cleanup pivots at a terminal basis.

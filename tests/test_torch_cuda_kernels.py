@@ -14,8 +14,18 @@ import torch
 
 from linprog_tpu_torch import status as st
 from linprog_tpu_torch.engine import basis_matrix, solve_or_nan
-from linprog_tpu_torch.generators import random_inequality_lps
-from linprog_tpu_torch.ops import cholinv_kernel, solve_kernel, stream_kernel
+from linprog_tpu_torch.generators import (
+    device_bounded_lps,
+    random_inequality_lps,
+)
+from linprog_tpu_torch.ops import (
+    bounded_kernel,
+    cholinv_kernel,
+    solve_kernel,
+    step_kernels,
+    stream_kernel,
+)
+from linprog_tpu_torch.ops.bounded_kernel import BoundedSegmentState
 from linprog_tpu_torch.ops.solve_kernel import SegmentState
 
 
@@ -177,11 +187,32 @@ def test_segment_kernel_negative_zero_ratio_ties_at_lowest_row(cuda):
     assert k.basis.tolist() == p.basis.tolist() == [[0, 3]]
 
 
-def test_segment_kernel_refuses_devex(cuda):
+@pytest.mark.parametrize("seg_len", [1, 16], ids=["one", "sixteen"])
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_kernel_devex_matches_plain(cuda, dual, seg_len):
+    """Devex on nondegenerate lanes, one iteration and a 16-pivot segment:
+    the same basis, status, iteration count, c_B and penalties; weights
+    within 1e-4 relative (their products amplify summation-order noise);
+    factors by float64 residual.  The weights moved off 1 on some lane."""
+    A, c, apen, h, state0 = _slack_instance(64, 32, 48, seed=21 + dual,
+                                            dual=dual, dev=cuda,
+                                            degenerate=False)
+    k, p = _both(A, c, apen, state0, seg_len=seg_len, pricing=2,
+                 opt_tol=1e-6, pivot_tol=1e-7, dual=dual, feas_tol=1e-6,
+                 stall_limit=24, packed=False)
+    _assert_lockstep(A, h, k, p)
+    torch.testing.assert_close(k.gamma, p.gamma, rtol=1e-4, atol=1e-6)
+    assert bool((k.gamma != 1.0).any())
+    assert bool((k.iters == seg_len).any())
+
+
+def test_segment_kernel_refuses_an_unknown_pricing_code(cuda):
     A, c, apen, h, state = _slack_instance(4, 8, 8, seed=0, dual=False, dev=cuda)
-    with pytest.raises(NotImplementedError):
+    before = solve_kernel.launches
+    with pytest.raises(ValueError, match="pricing"):
         solve_kernel.solve_segment(A, c, apen, 10, state, seg_len=4,
-                                   pricing=2, opt_tol=1e-6, pivot_tol=1e-7)
+                                   pricing=3, opt_tol=1e-6, pivot_tol=1e-7)
+    assert solve_kernel.launches == before
 
 
 @pytest.mark.parametrize("mb", [8, 16, 32, 64])
@@ -382,3 +413,307 @@ def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
         k, p = _both(A, c, apen, state0, **kw)
     torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
     assert bool((k.iters == 2).all())
+
+
+# ---- the bounded-variable segment kernel ----------------------------------
+
+
+def _bounded_instance(B, m, n, seed, dev):
+    """``device_bounded_lps`` with its all-slack start in the kernel's
+    layout."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, A, b, lb, ub = device_bounded_lps(gen, B, m, n, dev)
+    ntot = n + m
+    basis = torch.arange(n, ntot, dtype=torch.int32, device=dev).expand(B, m)
+    vs = torch.zeros((B, ntot), dtype=torch.int8, device=dev)
+    vs[:, n:] = bounded_kernel.BASIC
+    zeros = torch.zeros((B, m), device=dev)
+    state = BoundedSegmentState(
+        invBT=torch.eye(m, device=dev).expand(B, m, m).contiguous(),
+        bfs=b.clone(), cB=zeros.clone(), basis=basis.contiguous(),
+        vstate=vs, lbB=zeros.clone(),
+        ubB=torch.full((B, m), float("inf"), device=dev),
+        iters=torch.zeros(B, dtype=torch.int32, device=dev),
+        status=torch.zeros(B, dtype=torch.int32, device=dev),
+    )
+    return (A.contiguous(), c.contiguous(), lb.contiguous(), ub.contiguous(),
+            b, state)
+
+
+def _bounded_both(A, c, lb, ub, state0, maxiters=1 << 20, **kw):
+    before = bounded_kernel.launches
+    k = bounded_kernel.solve_bounded_segment(
+        A, c, lb, ub, maxiters,
+        BoundedSegmentState(*(t.clone() for t in state0)), **kw)
+    p = bounded_kernel.solve_bounded_segment_plain(
+        A, c, lb, ub, maxiters,
+        BoundedSegmentState(*(t.clone() for t in state0)), **kw)
+    torch.cuda.synchronize()
+    assert bounded_kernel.launches == before + 1
+    return k, p
+
+
+def _assert_bounded_lockstep(k, p):
+    for name in ("basis", "vstate", "status", "iters", "cB", "lbB", "ubB"):
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=0, atol=0)
+    # summation order only: 1e-4 of scale after at most 16 updates
+    scale = p.invBT.abs().amax().item()
+    assert (k.invBT - p.invBT).abs().amax().item() <= 1e-4 * max(scale, 1.0)
+    assert (k.bfs - p.bfs).abs().amax().item() <= 1e-4 * max(
+        p.bfs.abs().amax().item(), 1.0)
+
+
+@pytest.mark.parametrize("m,n", [(32, 48), (37, 50)], ids=["m32", "ragged"])
+@pytest.mark.parametrize("seg_len", [1, 16], ids=["one", "sixteen"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_matches_plain(cuda, packed, seg_len, m, n):
+    """One iteration and a 16-iteration segment from the all-slack start,
+    at sizes that are and are not multiples of 32: the same basis, variable
+    states, status, iteration count and basis rows on every lane."""
+    A, c, lb, ub, b, state0 = _bounded_instance(64, m, n, seed=m + seg_len,
+                                                dev=cuda)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=seg_len, opt_tol=1e-6,
+                         pivot_tol=1e-7, packed=packed)
+    _assert_bounded_lockstep(k, p)
+    assert bool((k.iters == seg_len).all())
+    if seg_len == 16:
+        assert bool((k.vstate == bounded_kernel.AT_UB).any())  # flips
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_full_run_matches_plain(cuda, packed):
+    """Every lane runs to optimality in one segment in both versions, with
+    the same objective (exact solve at the final basis and bounds) to 1e-5
+    relative; maxiters stops a second run short."""
+    A, c, lb, ub, b, state0 = _bounded_instance(64, 32, 48, seed=5, dev=cuda)
+    kw = dict(opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=4096, **kw)
+    assert bool((k.status == st.OPTIMAL).all())
+    assert bool((p.status == st.OPTIMAL).all())
+
+    def objective(s):
+        x_n = torch.where(s.vstate == 1, ub, torch.zeros_like(ub))
+        rhs = b - torch.einsum("bmn,bn->bm", A, x_n)
+        xB = solve_or_nan(basis_matrix(A, s.basis), rhs)
+        x = x_n.scatter(1, s.basis.long(), xB)
+        return (c.double() * x.double()).sum(1)
+
+    ok, op = objective(k), objective(p)
+    assert ((ok - op).abs() / op.abs().clamp_min(1.0)).max().item() <= 1e-5
+    k, p = _bounded_both(A, c, lb, ub, state0, maxiters=5, seg_len=4096, **kw)
+    _assert_bounded_lockstep(k, p)
+    assert bool((k.iters == 5).all()) and bool((k.status == 0).all())
+
+
+def _hand_bounded(dev, c, A, b, lb, ub, basis, vstate):
+    t = lambda v, dt=torch.float32: torch.tensor([v], dtype=dt, device=dev)  # noqa: E731
+    c, A, b, lb, ub = t(c), t(A), t(b), t(lb), t(ub)
+    basis = t(basis, torch.int32)
+    idx = basis.long()
+    m = basis.shape[1]
+    state = BoundedSegmentState(
+        invBT=torch.eye(m, device=dev)[None].contiguous(), bfs=b.clone(),
+        cB=torch.gather(c, 1, idx), basis=basis, vstate=t(vstate, torch.int8),
+        lbB=torch.gather(lb, 1, idx), ubB=torch.gather(ub, 1, idx),
+        iters=torch.zeros(1, dtype=torch.int32, device=dev),
+        status=torch.zeros(1, dtype=torch.int32, device=dev))
+    return A, c, lb, ub, state
+
+
+INF = float("inf")
+_HAND_CASES = {
+    # a pure bound flip: x0 crosses to its upper bound, no basis change
+    "flip": (([-1.0, 0.0], [[1.0, 1.0]], [5.0], [0.0, 0.0], [2.0, INF],
+              [1], [0, 2]), [[1]], [[1, 2]], 0),
+    # the leaving variable lands on its upper bound
+    "leave-to-ub": (([-1.0, 0.0], [[-1.0, 1.0]], [1.0], [0.0, 0.0],
+                     [10.0, 3.0], [1], [0, 2]), [[0]], [[2, 1]], 0),
+    # no finite step of any kind
+    "unbounded": (([-1.0, 0.0], [[1.0, -1.0]], [1.0], [0.0, 0.0], [INF, INF],
+                   [0], [2, 0]), [[0]], [[2, 0]], st.PRIMAL_UNBOUNDED),
+    # a -0.0 basic value ties at zero with row 0: the lowest row leaves
+    "negative-zero": (([-1.0, 0.0, 0.0, 0.0],
+                       [[1.0, 1.0, 1.0, 0.0], [1.0, 1.0, 0.0, 1.0]],
+                       [0.0, -0.0], [0.0] * 4, [5.0, 5.0, INF, INF], [2, 3],
+                       [0, 0, 2, 2]), [[0, 3]], [[2, 0, 0, 2]], 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_HAND_CASES))
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_hand_built_steps(cuda, packed, case):
+    prob, basis, vstate, status = _HAND_CASES[case]
+    A, c, lb, ub, state0 = _hand_bounded(cuda, *prob)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=1, opt_tol=1e-6,
+                         pivot_tol=1e-7, packed=packed)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert k.basis.tolist() == basis and k.vstate.tolist() == vstate
+    assert k.status.tolist() == [status] and k.iters.tolist() == [1]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_tie_between_the_two_ratio_minima(cuda, packed):
+    """Equal step lengths to a lower and to an upper bound: unpacked mode
+    compares the values (row 1 leaves to its upper bound), packed mode the
+    keys (row 0 leaves to its lower bound)."""
+    A, c, lb, ub, state0 = _hand_bounded(
+        cuda, [-1.0, 0.0, 0.0], [[1.0, 1.0, 0.0], [-1.0, 0.0, 1.0]],
+        [1.0, 1.0], [0.0] * 3, [10.0, INF, 2.0], [1, 2], [0, 2, 2])
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=1, opt_tol=1e-6,
+                         pivot_tol=1e-7, packed=packed)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert k.basis.tolist() == ([[0, 2]] if packed else [[1, 0]])
+    assert k.vstate.tolist() == ([[2, 0, 2]] if packed else [[2, 2, 1]])
+
+
+def test_bounded_kernel_launches_at_48kb_of_dynamic_shared_memory(cuda):
+    """m = 32, n = 2400: the lane's vectors take exactly 48 KB of dynamic
+    shared memory; with the static part on top the launch needs the opt-in
+    limit, which the wrapper sets at every launch."""
+    m, n = 32, 2400 - 32
+    assert (9 * m + 5 * (n + m)) * 4 == 48 * 1024
+    A, c, lb, ub, b, state0 = _bounded_instance(2, m, n, seed=1, dev=cuda)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=2, opt_tol=1e-6,
+                         pivot_tol=1e-7, packed=True)
+    torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
+    torch.testing.assert_close(k.vstate, p.vstate, rtol=0, atol=0)
+    assert bool((k.iters == 2).all())
+
+
+def test_bounded_path_on_card_matches_cpu(cuda):
+    """solve_batch_bounded on the card (kernel) against the CPU run (plain
+    version) of the same instances: same statuses, objectives to 1e-5."""
+    import linprog_tpu_torch as lt
+
+    B, m, n = 16, 24, 24
+    gen = torch.Generator().manual_seed(3)
+    prob = device_bounded_lps(gen, B, m, n, "cpu")
+    basis = torch.arange(n, n + m, dtype=torch.int32).expand(B, m)
+    vs = torch.zeros((B, n + m), dtype=torch.int8)
+    vs[:, n:] = 2
+    cfg = lt.SolverConfig(pricing="dantzig", refactor_every=16,
+                          polish_pivots=8, packed_select=True)
+    res_cpu = lt.solve_batch_bounded(*prob, basis, vs, 2000, cfg)
+    before = bounded_kernel.launches
+    res = lt.solve_batch_bounded(*(t.to(cuda) for t in prob), basis.to(cuda),
+                                 vs.to(cuda), 2000, cfg)
+    assert bounded_kernel.launches > before
+    assert bool((res.status == st.OPTIMAL).all())
+    np.testing.assert_array_equal(res.status.cpu().numpy(),
+                                  res_cpu.status.numpy())
+    rel = ((res.cost.cpu() - res_cpu.cost).abs()
+           / res_cpu.cost.abs().clamp_min(1.0)).max().item()
+    assert rel <= 1e-5
+
+
+# ---- the two per-step kernels ----------------------------------------------
+
+
+def _step_inputs(B, m, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    invB = np.eye(m, dtype=np.float32) + 0.2 * f(B, m, m)
+    pen = np.zeros((B, n), np.float32)
+    pen[:, ::5] = np.inf
+    c = f(B, n)
+    c[1] = 1e4  # a lane with no eligible column
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    return (t(f(B, m)), t(invB), t(f(B, m, n)), t(c), t(pen),
+            t(rng.random((B, m)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("m,n", [(32, 96), (37, 83), (256, 768)],
+                         ids=["m32", "ragged", "m256"])
+@pytest.mark.parametrize("dantzig", [True, False], ids=["dantzig", "bland"])
+def test_price_entering_kernel_matches_plain(cuda, dantzig, m, n):
+    cB, invB, A, c, pen, _ = _step_inputs(64, m, n, seed=m, dev=cuda)
+    c[2] = 1.0
+    cB[2] = 0.0
+    c[2, [3, 7]] = -2.0  # an exact tie: the first index wins
+    c[3, 0] = float("nan")  # dantzig: enter == n
+    before = step_kernels.launches["price_entering"]
+    k = step_kernels.price_entering(cB, invB, A, c, pen, dantzig=dantzig,
+                                    opt_tol=1e-6)
+    p = step_kernels.price_entering_plain(cB, invB, A, c, pen,
+                                          dantzig=dantzig, opt_tol=1e-6)
+    torch.cuda.synchronize()
+    assert step_kernels.launches["price_entering"] == before + 1
+    y = torch.einsum("bm,bmk->bk", cB.double(), invB.double())
+    r = c.double() - torch.einsum("bm,bmn->bn", y, A.double()) + pen.double()
+    # lanes whose two smallest reduced costs are closer than summation-order
+    # noise may pick either; everywhere else the integers are equal
+    two = r.nan_to_num(nan=float("inf")).topk(2, dim=1, largest=False).values
+    clear = (two[:, 1] - two[:, 0] > 1e-4) | (two[:, 1] == two[:, 0])
+    clear[3] = True
+    if not dantzig:
+        clear = torch.ones_like(clear)
+    assert int(clear.sum()) >= 60
+    torch.testing.assert_close(k[0][clear], p[0][clear], rtol=0, atol=0)
+    torch.testing.assert_close(k[1], p[1], rtol=0, atol=0)
+    assert int(k[1][1]) == 0 and int(k[0][2]) == 3
+    if dantzig:
+        assert int(k[0][3]) == n and int(k[1][3]) == 0
+
+
+@pytest.mark.parametrize("m", [32, 37, 256], ids=["m32", "ragged", "m256"])
+def test_ratio_eta_pivot_kernel_matches_plain(cuda, m):
+    _, invB, A, _, _, bfs = _step_inputs(64, m, 2 * m, seed=100 + m, dev=cuda)
+    acol = A[:, :, 4].contiguous()
+    invB[0] = -torch.eye(m, device=cuda)
+    acol[0] = acol[0].abs() + 0.1  # no positive direction entry: unbounded
+    go = torch.ones((64, 1), dtype=torch.int32, device=cuda)
+    go[1] = 0
+    ki, kb = invB.clone(), bfs.clone()
+    pi, pb = invB.clone(), bfs.clone()
+    before = step_kernels.launches["ratio_eta_pivot"]
+    k = step_kernels.ratio_eta_pivot(ki, kb, acol, go, pivot_tol=1e-7)
+    p = step_kernels.ratio_eta_pivot_plain(pi, pb, acol, go, pivot_tol=1e-7)
+    torch.cuda.synchronize()
+    assert step_kernels.launches["ratio_eta_pivot"] == before + 1
+    assert k[0] is ki and k[1] is kb  # in place
+    torch.testing.assert_close(k[2], p[2], rtol=0, atol=0)
+    torch.testing.assert_close(k[3], p[3], rtol=0, atol=0)
+    assert int(k[3][0]) == 1 and int(k[2][0]) == 0 and int(k[3][1]) == 0
+    for lane in (0, 1):  # nothing changes without a pivot
+        torch.testing.assert_close(ki[lane], invB[lane], rtol=0, atol=0)
+        torch.testing.assert_close(kb[lane], bfs[lane], rtol=0, atol=0)
+    # one rank-1 update from equal inputs: summation order of d only
+    scale = pi.abs().amax().item()
+    assert (ki - pi).abs().amax().item() <= 1e-5 * scale
+    assert (kb - pb).abs().amax().item() <= 1e-5 * pb.abs().amax().item()
+    assert bool((ki[2] != invB[2]).any())
+
+
+def test_batched_primal_step_on_card_matches_cpu(cuda):
+    """16 steps of the kernel branch on the card in lockstep with the same
+    steps on the CPU (plain versions): basis, iteration count and status
+    equal after every step."""
+    from linprog_tpu_torch import engine
+    from linprog_tpu_torch.config import SolverConfig
+    from linprog_tpu_torch.engine_batched import batched_primal_step
+
+    B, m, n = 16, 12, 16
+    c, G, h = (torch.tensor(a) for a in random_inequality_lps(B, m, n, seed=9))
+    eye = torch.eye(m).expand(B, m, m)
+    A1 = torch.cat([torch.where((h < 0)[:, :, None], -1.0, 1.0)
+                    * torch.cat([G, eye], dim=2), eye], dim=2).contiguous()
+    b = h.abs()
+    c1 = torch.cat([torch.zeros((B, n + m)), torch.ones((B, m))], dim=1)
+    allowed = torch.ones(n + 2 * m, dtype=torch.bool)
+    cfg = SolverConfig(pricing="dantzig")
+    s_cpu = engine.slack_crash_state(A1, b, n + m)
+    s_dev = engine.SimplexState(*(t.to(cuda).contiguous() for t in s_cpu))
+    dev_args = tuple(t.to(cuda) for t in (c1, A1, b, allowed))
+    before = dict(step_kernels.launches)
+    for _ in range(16):
+        s_cpu = batched_primal_step(c1, A1, b, allowed, s_cpu, cfg, 100)
+        s_dev = batched_primal_step(*dev_args, s_dev, cfg, 100)
+        for name in ("basis", "iters", "status"):
+            np.testing.assert_array_equal(
+                getattr(s_dev, name).cpu().numpy(),
+                getattr(s_cpu, name).numpy(), err_msg=name)
+    assert step_kernels.launches["price_entering"] == before["price_entering"] + 16
+    assert step_kernels.launches["ratio_eta_pivot"] == before["ratio_eta_pivot"] + 16

@@ -66,15 +66,87 @@ def test_config_from_reference():
     assert config_from_reference(dataclasses.asdict(JAX_FAST_CONFIG)) == FAST_CONFIG
     assert config_from_reference(
         dataclasses.asdict(JaxIPMConfig(eps_rel=1e-4))) == IPMConfig(eps_rel=1e-4)
+    # the reference's default is its XLA path: the port's per-step loop
+    assert config_from_reference(
+        dataclasses.asdict(JaxSolverConfig())) == SolverConfig(kernels="torch")
+    assert config_from_reference(dataclasses.asdict(
+        JaxSolverConfig(kernels="pallas"))) == SolverConfig(kernels="cuda")
+    with pytest.raises(ValueError, match="update"):
+        config_from_reference(dataclasses.asdict(
+            JaxSolverConfig(update="naive")))
+    config_from_reference(dataclasses.asdict(
+        JaxSolverConfig(kernels="pallas", update="naive")))  # never read there
     with pytest.raises(ValueError, match="kernels"):
-        config_from_reference(dataclasses.asdict(JaxSolverConfig()))  # "xla"
+        config_from_reference(dict(dataclasses.asdict(JaxSolverConfig()),
+                                   kernels="triton"))
     with pytest.raises(ValueError, match="split_pricing"):
         config_from_reference(dataclasses.asdict(
             JAX_FAST_CONFIG.replace(split_pricing=True)))
     with pytest.raises(ValueError, match="gondzio"):
         config_from_reference(dataclasses.asdict(JaxIPMConfig(gondzio=2)))
-    with pytest.raises(ValueError):
-        SolverConfig(kernels="pallas")
+    for name in ("pallas", "xla"):
+        with pytest.raises(ValueError, match="kernels"):
+            SolverConfig(kernels=name)
+    assert SolverConfig().kernels == "cuda"
+    assert SolverConfig(kernels="torch").kernels == "torch"
+
+
+def test_package_exports_and_kernel_sources():
+    """The public surface, and one CUDA source with a C entry point for
+    each of the six kernels."""
+    for name in ("solve_batch_exact", "solve_batch_two_phase",
+                 "solve_batch_bounded", "certify_vertex_batch",
+                 "ipm_solve_batch_canonical", "SolverConfig", "tuned_config"):
+        assert name in linprog_tpu_torch.__all__
+        assert callable(getattr(linprog_tpu_torch, name))
+    entry_points = {
+        "solve_segment.cu": "lp_solve_segment",
+        "panel_cholinv.cu": "lp_panel_cholinv",
+        "solve_segment_stream.cu": "lp_solve_segment_stream",
+        "solve_bounded_segment.cu": "lp_solve_bounded_segment",
+        "price_entering.cu": "lp_price_entering",
+        "ratio_eta_pivot.cu": "lp_ratio_eta_pivot",
+    }
+    build_src = (PKG / "ops" / "_build.py").read_text()
+    for source, entry in entry_points.items():
+        text = (PKG / "csrc" / source).read_text()
+        assert f'extern "C" int {entry}(' in text, source
+        assert "__global__" in text and "Replaces linprog_tpu/ops/" in text
+        assert f"lib.{entry}.argtypes" in build_src
+    from linprog_tpu_torch.ops import (
+        bounded_kernel,
+        cholinv_kernel,
+        solve_kernel,
+        step_kernels,
+        stream_kernel,
+    )
+    for mod in (bounded_kernel, cholinv_kernel, solve_kernel, stream_kernel):
+        assert isinstance(mod.launches, int)
+    assert set(step_kernels.launches) == {"price_entering", "ratio_eta_pivot"}
+
+
+def test_bounded_packed_layout_carries_across():
+    """The reference bounded kernel's [B, 1, .] rows and f32 state codes
+    become the port's flat rows and int8 codes."""
+    from linprog_tpu_torch.convert import bounded_packed_from_numpy
+
+    rng = np.random.default_rng(2)
+    B, m, n = 3, 4, 9
+    packed = (rng.normal(size=(B, m, m)).astype(np.float32),
+              rng.random((B, 1, m)).astype(np.float32),
+              rng.normal(size=(B, 1, m)).astype(np.float32),
+              rng.integers(0, n, (B, 1, m)).astype(np.int32),
+              rng.integers(0, 3, (B, 1, n)).astype(np.float32),
+              np.zeros((B, 1, m), np.float32),
+              np.full((B, 1, m), np.inf, np.float32),
+              np.arange(B, dtype=np.int32).reshape(B, 1, 1),
+              np.array([0, 1, 3], np.int32).reshape(B, 1, 1))
+    seg = bounded_packed_from_numpy(packed)
+    assert seg.vstate.dtype == torch.int8 and seg.basis.dtype == torch.int32
+    for got, want in zip(seg, packed):
+        np.testing.assert_array_equal(got.numpy().reshape(want.shape)
+                                      .astype(want.dtype), want)
+    assert seg.iters.shape == seg.status.shape == (B,)
 
 
 def test_simplex_and_ipm_state_round_trip():
@@ -177,7 +249,8 @@ def test_large_m_is_not_ported_yet():
     """m >= 3072 stays out of the port: the exact router raises (the
     reference's crossover runs its dual phase on the vmapped per-lane
     engine there), and so does a dual-mode ``run_batched`` at a
-    blocked-factor shape.  Zero-stride tensors: nothing is computed before
+    blocked-factor shape (primal mode past every streaming variant runs
+    the per-step loop; ``tests/test_torch_step_kernels.py`` holds that).  Zero-stride tensors: nothing is computed before
     the check."""
     from linprog_tpu_torch.engine import SimplexState
     from linprog_tpu_torch.engine_batched import _stream_variant

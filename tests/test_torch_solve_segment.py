@@ -127,8 +127,8 @@ def test_segment_matches_pallas_kernel(dual, pricing, packed):
 
 
 def test_segment_devex_matches_pallas_kernel():
-    """Devex (plain version only) against the Pallas kernel's devex, on a
-    nondegenerate instance: the weights' products amplify the summation-order
+    """Devex (the plain version; the card tests hold the CUDA kernel to it)
+    against the Pallas kernel's devex, on a nondegenerate instance: the weights' products amplify the summation-order
     noise of degenerate paths past the 1e-5 bound."""
     cs, A, state = _slack_state(6, 10, 12, seed=11, dual=False,
                                 degenerate=False)
