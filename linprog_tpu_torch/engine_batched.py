@@ -8,15 +8,18 @@ takes the kernel the reference takes at that shape: the whole-segment
 kernel (:func:`linprog_tpu_torch.ops.solve_kernel.solve_segment`) where the
 reference's fits in VMEM, else the streaming kernel
 (:func:`linprog_tpu_torch.ops.stream_kernel.solve_segment_stream`) in the
-reference's variant.  With ``kernels="torch"`` (the counterpart of the
-reference's ``"xla"``), and for a primal shape past every streaming
-variant, it takes the per-step loop :func:`run_batched_steps` over
-:func:`batched_primal_step`'s einsum branch.  The step's kernel branch (the
-two per-step kernels of :mod:`linprog_tpu_torch.ops.step_kernels`) is
-reached, as in the reference, only by calling :func:`batched_primal_step`
-with ``kernels="cuda"``.  The reference's vmapped per-lane dual engine is
-not part of the port: a mode that reaches it in the reference raises
-``NotImplementedError`` here instead of running something else.
+reference's variant.  A shape past every streaming variant raises
+``NotImplementedError`` under ``"cuda"``: the kernel setting never gives
+way to plain PyTorch on its own.  ``kernels="torch"`` (the counterpart of
+the reference's ``"xla"``) is the explicit choice of the per-step loop
+:func:`run_batched_steps` over :func:`batched_primal_step`'s einsum branch:
+plain PyTorch, kept as the parity target of the reference's XLA batched
+path.  The step's kernel branch (the two per-step kernels of
+:mod:`linprog_tpu_torch.ops.step_kernels`) is reached, as in the reference,
+only by calling :func:`batched_primal_step` with ``kernels="cuda"``.  The
+reference's vmapped per-lane dual engine is not part of the port: a mode
+that reaches it in the reference raises ``NotImplementedError`` here instead
+of running something else.
 """
 
 from __future__ import annotations
@@ -422,9 +425,10 @@ def run_batched(c, A, b, state: SimplexState, allowed, maxiters: int,
     """Drive the batch (primal or dual mode) to termination.
 
     ``kernels="cuda"``: the whole-segment kernel where the reference's
-    fits, else the streaming kernel in the reference's variant, else (a
-    primal shape past every streaming variant) the per-step loop on the
-    einsum branch, as the reference switches to ``"xla"`` there.
+    fits, else the streaming kernel in the reference's variant; a shape
+    past every streaming variant raises ``NotImplementedError`` (the
+    reference switches to ``"xla"`` there; here the caller asks for
+    ``kernels="torch"`` to get plain PyTorch).
     ``kernels="torch"``: the per-step loop, primal mode only.  Dual mode
     off the kernels raises ``NotImplementedError``: the reference runs its
     vmapped per-lane dual engine there, which is not ported."""
@@ -447,5 +451,12 @@ def run_batched(c, A, b, state: SimplexState, allowed, maxiters: int,
             "the segment kernels): the reference runs its vmapped per-lane "
             "dual engine there (engine.run), which is not ported (ROADMAP "
             "Queue 1 item 9)"
+        )
+    if cfg.kernels == "cuda":
+        raise NotImplementedError(
+            f"m={m}, n={n} is past every streaming-kernel variant, so no "
+            "kernel of kernels='cuda' runs it; ask for kernels='torch' to "
+            "run the per-step loop in plain PyTorch (the reference's XLA "
+            "batched path)"
         )
     return run_batched_steps(c, A, b, state, allowed, maxiters, cfg)

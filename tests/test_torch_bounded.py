@@ -263,3 +263,31 @@ def test_shapes_off_the_bounded_kernel_are_not_ported():
         lt.solve_batch_bounded(*(torch.tensor(a) for a in small),
                                torch.tensor(basis), torch.tensor(vs), 10,
                                lt.SolverConfig(kernels="torch"))
+
+
+def test_unrefactored_vertex_leaves_its_bounds_as_the_reference_does():
+    """One long segment with no refactorization (the bench leg's
+    ``refactor_every`` exceeds most lanes' iteration counts): the f32 basic
+    values drift, so the float64 vertex of the terminal basis may sit a
+    little outside a bound.  That is the algorithm's, not the port's: both
+    packages end on the same bases and leave the bounds by the same amount
+    (within 1e-6 of the lane's scale ``max(1, max|b|)``)."""
+    B, m, n = 4, 48, 48
+    prob = bounded_lps(B, m, n, seed=11)
+    basis, vs = slack_start(B, m, n)
+    jcfg = JaxSolverConfig(kernels="pallas", refactor_every=4096,
+                           pricing="dantzig", polish_pivots=8)
+    ref, out = solve_both(prob, basis, vs, 4000, jcfg)
+    assert (out.status.numpy() == st.OPTIMAL).all()
+    np.testing.assert_array_equal(out.basis.numpy(), np.asarray(ref.basis))
+    np.testing.assert_array_equal(out.iters.numpy(), np.asarray(ref.iters))
+    _, _, b, lb, ub = prob
+    scale = np.maximum(1.0, np.abs(b).max(axis=1)).astype(np.float64)
+
+    def violation(x):
+        x = np.asarray(x, np.float64)
+        return (np.maximum(lb - x, x - ub).clip(min=0.0).max(axis=1) / scale)
+
+    got, want = violation(out.x.numpy()), violation(ref.x)
+    assert (np.abs(got - want) <= 1e-6).all(), (got, want)
+    assert (got <= 1e-5).all(), got  # small m: little drift to speak of

@@ -249,9 +249,10 @@ def test_large_m_is_not_ported_yet():
     """m >= 3072 stays out of the port: the exact router raises (the
     reference's crossover runs its dual phase on the vmapped per-lane
     engine there), and so does a dual-mode ``run_batched`` at a
-    blocked-factor shape (primal mode past every streaming variant runs
-    the per-step loop; ``tests/test_torch_step_kernels.py`` holds that).  Zero-stride tensors: nothing is computed before
-    the check."""
+    blocked-factor shape (primal mode past every streaming variant raises
+    too and names ``kernels="torch"``; ``tests/test_torch_step_kernels.py``
+    holds that).  Zero-stride tensors: nothing is computed before the
+    check."""
     from linprog_tpu_torch.engine import SimplexState
     from linprog_tpu_torch.engine_batched import _stream_variant
 

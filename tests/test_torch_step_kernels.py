@@ -330,8 +330,10 @@ def test_run_batched_torch_matches_reference_xla(pricing, degenerate, refactor):
 def test_run_batched_takes_the_per_step_loop_past_every_streaming_variant(
         monkeypatch):
     """With ``kernels="cuda"`` a primal shape past every streaming variant
-    runs the per-step loop's einsum branch (as the reference switches to
-    ``"xla"``); dual mode there still raises."""
+    raises and names ``kernels="torch"``: the kernel setting never runs the
+    plain per-step loop on its own (the name dates from when it did).  The
+    explicit ``"torch"`` choice runs it at the same shape; dual mode there
+    raises under both."""
     import linprog_tpu_torch.engine_batched as teb
 
     c1, A1, b, s0 = phase1_batch(seed=3)
@@ -339,13 +341,13 @@ def test_run_batched_takes_the_per_step_loop_past_every_streaming_variant(
     args = tuple(torch.tensor(a) for a in (c1, A1, b))
     allowed = torch.ones(n, dtype=torch.bool)
     cfg = SolverConfig(pricing="dantzig", refactor_every=8)
-    want = run_batched(*args, simplex_state_from_numpy(s0), allowed, 200,
-                       cfg.replace(kernels="torch"))
     monkeypatch.setattr(teb, "_mega_kernel_fits", lambda m, n, with_at: False)
     monkeypatch.setattr(teb, "_stream_variant", lambda m, n: None)
-    got = run_batched(*args, simplex_state_from_numpy(s0), allowed, 200, cfg)
-    for a, w in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(), w.numpy())
+    with pytest.raises(NotImplementedError, match="kernels='torch'"):
+        run_batched(*args, simplex_state_from_numpy(s0), allowed, 200, cfg)
+    got = run_batched(*args, simplex_state_from_numpy(s0), allowed, 200,
+                      cfg.replace(kernels="torch"))
+    assert (got.status.numpy() == st.OPTIMAL).all()
     with pytest.raises(NotImplementedError, match="per-lane dual engine"):
         run_batched(*args, simplex_state_from_numpy(s0), allowed, 200, cfg,
                     mode="dual")
