@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
      source, all started together, and reports ptxas's registers and
      spills per kernel;
   2. panel_cholinv: CUDA kernel against its plain PyTorch version at the
-     IPM's [1024, 32, 32] panels (SPD, cond ~1e3; a planted non-SPD lane);
+     IPM's panels, [1024, 32, 32] (m = 256) and [64, 32, 32] (m = 2048), on
+     the warp-per-matrix kernel, and at [1024, 48, 48] on the
+     block-per-matrix kernel (SPD, cond ~1e3; a planted non-SPD lane;
+     within 1e-4 relative, and whether bit for bit);
   3. solve_segment: CUDA kernel against its plain version at crossover
      shapes (B = 1024, m = 256, n = 512), primal and dual mode, one
      iteration and a full segment; then devex pricing: one iteration and a
@@ -23,11 +26,14 @@ Phases, each printing one JSON line:
      then the dd-KKT certificate and a HiGHS check on 16 lanes;
   5. solve_segment_stream: the cluster kernel against its plain version at
      B = 64, (m, n) = (2048, 4096), primal and dual (one iteration in
-     lockstep, then a 64-pivot segment), and at the two-phase shape
-     (1024, 3072) and a ragged (1000, 2999), primal;
+     lockstep, then a 64-pivot segment), at the two-phase shape
+     (1024, 3072) and a ragged (1000, 2999), primal, and at the fallback's
+     bucket, B = 8 at (2048, 6144), primal; each with its launch plan
+     (cluster size, ring, shared memory) and its own bound;
   6. the m = 2048 path: solve_batch_exact at B = 64, m = n = 2048 (a
-     warm-up and one timed run, whose launch counts are kept) and the
-     dd-KKT certificate on every lane.  HiGHS is skipped at this size
+     warm-up and one timed run, whose launch counts are kept, with the
+     streaming kernel's time inside it from CUDA events) and the dd-KKT
+     certificate on every lane.  HiGHS is skipped at this size
      (minutes per lane on the host); the oracle-free certificate is the
      check;
   7. solve_bounded_segment: CUDA kernel against its plain version at
@@ -52,6 +58,7 @@ line is
 any failure exits nonzero.  Without a CUDA device it exits nonzero at once.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -210,29 +217,43 @@ def spd_batch(gen, b, mb, cond):
     return (0.5 * (Mat + Mat.transpose(1, 2))).float().contiguous()
 
 
-def phase_cholinv():
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    Mat = spd_batch(gen, B, 32, 1e3)
-    Mat[7] = -Mat[7]  # planted non-SPD lane
+def _hold_cholinv(gen, b, mb):
+    """panel_cholinv's kernel against its plain version on ``b`` SPD
+    matrices of size ``mb`` (cond ~1e3) with one planted non-SPD lane."""
+    Mat = spd_batch(gen, b, mb, 1e3)
+    bad = min(7, b - 1)
+    Mat[bad] = -Mat[bad]  # planted non-SPD lane
     W = ck.panel_cholinv(Mat)
     Wp = ck.panel_cholinv_plain(Mat)
     torch.cuda.synchronize()
-    good = torch.ones(B, dtype=torch.bool, device=DEVICE)
-    good[7] = False
+    good = torch.ones(b, dtype=torch.bool, device=DEVICE)
+    good[bad] = False
+    shape = [b, mb, mb]
     for name, w in (("kernel", W), ("plain", Wp)):
-        if torch.isfinite(w[7]).all():
-            fail(f"panel_cholinv {name}: planted non-SPD lane came out finite")
+        if torch.isfinite(w[bad]).all():
+            fail(f"panel_cholinv {shape} {name}: planted non-SPD lane came "
+                 "out finite")
         if not torch.isfinite(w[good]).all():
-            fail(f"panel_cholinv {name}: non-finite output on an SPD lane")
+            fail(f"panel_cholinv {shape} {name}: non-finite output on an SPD "
+                 "lane")
     err = (W[good] - Wp[good]).abs().max().item()
     rel = err / Wp[good].abs().max().item()
     if not rel <= 1e-4:
-        fail(f"panel_cholinv: kernel vs plain max relative diff {rel:.3e} > 1e-4")
+        fail(f"panel_cholinv {shape}: kernel vs plain max relative diff "
+             f"{rel:.3e} > 1e-4")
     ms = cuda_ms(lambda: ck.panel_cholinv(Mat), 20)
     plain_ms = cuda_ms(lambda: ck.panel_cholinv_plain(Mat), 20)
+
+    # a single launch this short is timed with its own launch latency; 50
+    # launches back to back between two events show the kernel's share
+    def burst():
+        for _ in range(50):
+            ck.panel_cholinv(Mat)
+
+    burst_ms = cuda_ms(burst, 5) / 50
     # no single PyTorch call computes the inverse factor; the nearest is a
     # pair of calls, timed as a yardstick (the port never uses it)
-    eye = torch.eye(32, device=DEVICE).expand(B, 32, 32)
+    eye = torch.eye(mb, device=DEVICE).expand(b, mb, mb)
     spd = Mat[good]
 
     def two_calls():
@@ -241,12 +262,25 @@ def phase_cholinv():
                                              upper=False)
 
     two_call_ms = cuda_ms(two_calls, 20)
-    b_ms, b_by = bound_ms(2 * B * 32 * 32 * 4, B * 2 * 32 ** 3 // 3)
-    out = {"phase": "panel_cholinv", "shape": [B, 32, 32], "cond": 1e3,
-           "max_abs_err": err, "max_rel_err": rel, "tol_rel": 1e-4,
-           "ms": ms, "plain_ms": plain_ms, "reps": 20,
-           "cholesky_ex_plus_solve_triangular_ms": two_call_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    b_ms, b_by = bound_ms(2 * b * mb * mb * 4, b * 2 * mb ** 3 // 3)
+    return {"shape": shape, "cond": 1e3,
+            "design": "warp per matrix" if mb <= 32 else "block per matrix",
+            "max_abs_err": err, "max_rel_err": rel, "tol_rel": 1e-4,
+            "bit_for_bit": bool(torch.equal(W[good], Wp[good])),
+            "ms": ms, "plain_ms": plain_ms, "reps": 20,
+            "ms_back_to_back": burst_ms,
+            "cholesky_ex_plus_solve_triangular_ms": two_call_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_cholinv():
+    """Phase 2: the IPM's panels at m = 256 ([1024, 32, 32]) and at
+    m = 2048 ([64, 32, 32]) on the warp-per-matrix kernel, and one size
+    past 32 on the block-per-matrix kernel."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    runs = [_hold_cholinv(gen, b, mb)
+            for b, mb in ((B, 32), (XB, 32), (B, 48))]
+    out = dict(runs[0], phase="panel_cholinv", other_shapes=runs[1:])
     emit(out)
     return out
 
@@ -640,6 +674,8 @@ def _hold_stream(label, A, c, apen, h, state0, cfg, dual, seg_len, reps):
              f"differ on {int((keep & ~same).sum())} non-tied lanes")
     err1 = (k1.bfs[keep] - p1.bfs[keep]).abs().max().item()
     pivoted = int((k1.basis != state0.basis).any(dim=1).sum())
+    plan = ssk.last_plan
+    b_ms, b_by = segment_bound_ms(A.shape[0], pivoted, A.shape[1], A.shape[2])
     del k1, p1
 
     # one-iteration times (state copies outside the timed region)
@@ -676,8 +712,11 @@ def _hold_stream(label, A, c, apen, h, state0, cfg, dual, seg_len, reps):
              "lanes")
     return {
         "shape": list(A.shape), "mode": "dual" if dual else "primal",
+        "plan": plan._asdict(),
         "resident_clusters": _build.library()
-        .lp_solve_segment_stream_max_clusters(A.shape[1], A.shape[2]),
+        .lp_solve_segment_stream_max_clusters(plan.cluster, int(plan.aligned),
+                                              plan.smem_bytes),
+        "bound_ms": b_ms, "bound_by": b_by,
         "one_iter": {"excluded_tie_lanes": int((~keep).sum()),
                      "pivoted_lanes": pivoted,
                      "max_abs_err_bfs": err1, "ms": times["kernel"],
@@ -701,7 +740,8 @@ def phase_stream():
     cases = [("crossover primal", False, XB, XM, XM),
              ("crossover dual", True, XB, XM, XM),
              ("two-phase 1024", False, XB, 1024, 2048),
-             ("ragged", False, XB, 1000, 1999)]
+             ("ragged", False, XB, 1000, 1999),
+             ("fallback bucket", False, 8, XM, 2 * XM)]
     for label, dual, b, m, n_g in cases:
         A, c, apen, h, state0 = _segment_instance(dual, b, m, n_g, SEED + 3)
         out["runs"].append(_hold_stream(label, A, c, apen, h, state0, cfg,
@@ -710,13 +750,42 @@ def phase_stream():
         torch.cuda.empty_cache()
     emit(out)
     first = out["runs"][0]
-    b_ms, b_by = segment_bound_ms(XB, first["one_iter"]["pivoted_lanes"],
-                                  XM, 2 * XM)
     return {"max_abs_err": max(r["one_iter"]["max_abs_err_bfs"]
                                for r in out["runs"]),
             "ms": first["one_iter"]["ms"],
             "plain_ms": first["one_iter"]["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"]}
+
+
+@contextlib.contextmanager
+def _stage_spans(targets):
+    """While the block runs, every call of ``getattr(module, attr)`` for
+    ``(name, module, attr, label_fn)`` in ``targets`` is bracketed by two
+    CUDA events (no synchronisation, so the run is not perturbed).  Yields
+    the list of ``(name, label, start, end)``; ``label_fn(*args, **kw)`` is
+    called after the wrapped call.  Read the events after a synchronize."""
+    spans, saved = [], []
+
+    def wrap(name, fn, label_fn):
+        def timed(*args, **kw):
+            t_a = torch.cuda.Event(enable_timing=True)
+            t_b = torch.cuda.Event(enable_timing=True)
+            t_a.record()
+            out = fn(*args, **kw)
+            t_b.record()
+            label = label_fn(*args, **kw) if label_fn else None
+            spans.append((name, label, t_a, t_b))
+            return out
+        return timed
+
+    for name, module, attr, label_fn in targets:
+        saved.append((module, attr, getattr(module, attr)))
+        setattr(module, attr, wrap(name, getattr(module, attr), label_fn))
+    try:
+        yield spans
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
 
 
 def phase_exact_m2048():
@@ -729,14 +798,46 @@ def phase_exact_m2048():
     torch.cuda.synchronize()
     warm = time.time() - t0
 
+    # CUDA events around the stages of the timed run (nested stages overlap:
+    # the fallback holds streaming launches and refactorizations, the
+    # crossover holds the polish) and around every launch of the streaming
+    # kernel, by batch size: the fallback's bucket is 8
+    import linprog_tpu_torch.batch as lb
+    import linprog_tpu_torch.crossover as lx
+    import linprog_tpu_torch.engine_batched as le
+    import linprog_tpu_torch.ipm as li
+    import linprog_tpu_torch.refine as lr
+
+    def stream_label(A, *args, **kw):
+        return (f"B={A.shape[0]} {tuple(A.shape[1:])} "
+                f"cluster={ssk.last_plan.cluster}")
+
     sk.launches = ck.launches = ssk.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    res, info = lt.solve_batch_exact(c, G, h)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    with _stage_spans([
+            ("ipm", li, "ipm_canonical_state", None),
+            ("crossover", lx, "crossover_batch_canonical", None),
+            ("polish", lr, "polish_batch", None),
+            ("fallback_two_phase", lb, "solve_batch_two_phase", None),
+            ("refactorize", le, "refresh_running_lanes", None),
+            ("stream_kernel", le, "solve_segment_stream", stream_label),
+    ]) as spans:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res, info = lt.solve_batch_exact(c, G, h)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
     launches = {"solve_segment_stream": ssk.launches,
                 "panel_cholinv": ck.launches, "solve_segment": sk.launches}
+    stage_s, stream_s = {}, {}
+    for name, label, t_a, t_b in spans:
+        sec = t_a.elapsed_time(t_b) / 1e3
+        entry = stage_s.setdefault(name, {"calls": 0, "seconds": 0.0})
+        entry["calls"] += 1
+        entry["seconds"] += sec
+        if label is not None:
+            entry = stream_s.setdefault(label, {"launches": 0, "seconds": 0.0})
+            entry["launches"] += 1
+            entry["seconds"] += sec
 
     t1 = time.time()
     cert = lt.certify_vertex_batch(c, G, h, res.basis)
@@ -762,6 +863,9 @@ def phase_exact_m2048():
         "wall_s": wall, "warmup_wall_s": warm,
         "lps_per_sec": XB / wall, "cert_wall_s": cert_wall,
         "launches": launches, "iters_total": int(res.iters.sum()),
+        "stages_s": stage_s,
+        "stream_kernel_s": stage_s.get("stream_kernel", {}).get("seconds"),
+        "stream_kernel_by_batch": stream_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(out)
@@ -1263,6 +1367,19 @@ def phase_step_kernels():
 
 
 def main():
+    if len(sys.argv) > 1:
+        # development aid: `chip_smoke.py 2 5` runs phases 0 and 1 and the
+        # named ones, and prints neither the kernels line nor the last line
+        phases = {"2": phase_cholinv, "3": phase_segment,
+                  "3d": phase_segment_devex, "4": phase_main_path,
+                  "5": phase_stream, "6": phase_exact_m2048,
+                  "7": phase_bounded_segment, "8": phase_bounded_path,
+                  "9": phase_step_kernels}
+        phase_environment()
+        phase_build()
+        for name in sys.argv[1:]:
+            phases[name]()
+        return
     phase_environment()
     phase_build()
     chol = phase_cholinv()

@@ -1,62 +1,101 @@
 // Whole-segment revised simplex for large m: up to seg_len iterations per
-// lane in one launch, one thread-block CLUSTER of 8 CTAs per lane, the
-// lane's state updated in place.
+// lane in one launch, one thread-block CLUSTER of 2 to 16 CTAs per lane,
+// the lane's state updated in place.
 //
 // Replaces linprog_tpu/ops/stream_kernel.py :: solve_segment_stream
 // (Pallas; body _stream_kernel). Its iteration math is the one of
 // solve_segment.cu; what differs is the size of a lane. At m = 2048,
-// n = 4096 a primal pivot reads A once (32 MiB) and the transposed basis
-// inverse invBT four times (duals, direction, the eta read and write:
-// 16 MiB each), about 96 MiB per lane-pivot, so the kernel is bound by
-// device-memory bandwidth. One 256-thread block per lane (solve_segment.cu)
-// would keep far too few loads in flight for the few large lanes of this
-// regime, and its (7m + 4n) floats of shared vectors pass the 227 KB a
-// block may hold at m = 4096. Here the 8 CTAs of a cluster split the lane:
-// CTA k owns
-//   * a contiguous slice of A's columns: pricing r = c - yA + pen (and the
-//     dual row B^-1[l, :] A), and the c, pen and r entries of the slice;
-//   * a contiguous slice of the rows of invBT: duals y = c_B B^-1 on those
-//     rows, the eta update invBT[j, :] += invBT[j, l] u, and the bfs and
-//     basis entries of the same index range;
-//   * the same index range of the direction d = B^-1 a, read as a column
-//     slice of every row of invBT (coalesced within the row).
-// So each lane has 8x the SMs and loads in flight of the one-block design,
-// and its vectors are split 8 ways. Vectors that every CTA needs whole
-// (y, d, the entering column, the dual row w, c_B) are gathered through
-// distributed shared memory or kept as identical full copies. Each
-// selection is a per-CTA packed-key or value+index min, then a min over
-// the 8 partials in rank order: an integer min, or a float min plus the
-// lowest index, so it picks the same entry in any order. Only the GEMV sums
-// run in another order than the plain version's. Scalars that one CTA owns
-// (d_l, bfs_l, basis[l], c_enter, r_enter) travel in the selection
-// partials or are read from the owner's shared memory while it cannot
-// change. Stall state and status are computed redundantly in every CTA
-// from these identical reduced values, so all CTAs agree bit for bit and
-// take the same number of iterations.
+// n = 4096 a primal pivot reads A once (32 MiB), reads the transposed basis
+// inverse invBT twice (direction, eta update) and writes it once (16 MiB
+// each): 80 MiB per lane-pivot, so the kernel is bound by device-memory
+// bandwidth. The card needs megabytes of loads in flight to reach its
+// 3.35 TB/s, and a lane's vectors leave one block little room at m = 4096.
 //
-// Three cluster barriers per iteration separate the phases that read
-// another CTA's rows or shared memory:
-//   primal: [y own rows] (a) [gather y; price own columns; entering
-//           partial] (b) [direction slice; ratio partial] (c) [gather d;
-//           eta update of own rows; bookkeeping]
-//   dual:   [leaving partial; y own rows] (a) [gather y; w = column l of
-//           invBT; price own columns; dual ratio partial] (b) [direction
-//           slice] (c) [gather d; eta update; bookkeeping]
-// The eta update writes only the CTA's own rows, after (c), when every
-// CTA has finished reading column slices for the direction; the next
-// iteration's direction reads them after its (a). invBT is read through L2
-// only (ld.global.cg), so no CTA sees a stale L1 line of a row that
-// another CTA wrote.
+// What the design does about it:
+//   * The CTAs of a cluster split the lane BY ROWS. CTA k owns a contiguous
+//     block of rows of A and the same rows of invBT, and with them the
+//     entries of y, bfs and the basis of that index range. It never reads
+//     or writes another CTA's rows, so every global access of a CTA is a
+//     whole row or a long piece of one. Each pass over a matrix gives a
+//     partial result over the CTA's rows for ALL columns:
+//       pricing    pp[k] = sum_{j own} y[j] A[j, k]          (k < n)
+//       dual row   pp2[k] = sum_{j own} invBT[j, l] A[j, k]  (dual mode)
+//       direction  pp[i] = sum_{j own} a[j] invBT[j, i]      (i < m)
+//     and after a cluster barrier each CTA adds up, in rank order, the
+//     partials of all CTAs for its own slice of the columns (c, pen, r) or
+//     of d, through distributed shared memory.
+//   * On shapes whose rows are 16-byte aligned (m, n multiples of 4) every
+//     pass streams through a ring in shared memory filled by asynchronous
+//     bulk copies (cp.async.bulk, completion on an mbarrier) and consumed
+//     from shared memory. The card turns a stage of the ring over in about
+//     the same time whatever it holds (a few hundred cycles for the
+//     barrier round trip), so the ring is a few LARGE stages: 4 of 32 KB
+//     where one CTA has an SM to itself. Column passes use the ring
+//     block-wide, in sweeps of 2048 columns (8 per thread): warp 0 issues
+//     one 8 KB copy per row of a stage, all threads consume a stage (thread
+//     per column, the rows in order), each warp arrives on the stage's
+//     `empty` barrier when it has read it, and warp 0 refills the stage
+//     one tile later: no block barrier per stage. Row passes (duals, the
+//     eta update) split the same memory into one ring per warp: the warp
+//     streams its own rows in 4 KB chunks and lane 0 refills a stage as
+//     soon as the warp has read it. Other shapes (n = 2999) take scalar
+//     ld.global.cg loads in the same kernel, built for 5 CTAs an SM; both
+//     branches sum in the same order and give the same bits.
+//   * The cluster size is a launch parameter. The launch plan
+//     (ops/stream_kernel.py) takes the size that runs the whole batch in
+//     one wave with one CTA on an SM: 8 CTAs a lane for the fallback's
+//     bucket of 8 lanes, 2 for a batch of 64 (a cluster must lie within a
+//     GPC: the card holds 7 clusters of 16, 15 of 8, 66 of 2).
+//   * The duals of the next iteration come out of the eta pass: the warp
+//     that rewrites row j of invBT also accumulates y[j] = sum_i cB[i]
+//     row_new[i], after cB[leave] = c_enter, in the order the standalone
+//     pass uses. Only a launch's first iteration runs the standalone pass.
+//     y is recomputed from the factor each iteration, as the reference
+//     does; and since pricing needs y only on the CTA's own rows, y is
+//     never gathered.
+// Vectors that every CTA needs whole (d, the eta vector u, c_B) are
+// gathered through distributed shared memory or kept as identical full
+// copies. Each selection is a per-CTA packed-key or value+index min, then a
+// min over the partials in rank order: an integer min, or a float min plus
+// the lowest index, so it picks the same entry in any order and for any
+// cluster size. The three dot-product passes differ from the plain
+// version's order of summation (per column: the CTA's rows in order in
+// blocks of 32, then the CTAs in rank order; per row: lane-strided, then a
+// shuffle tree). The direction, which the factor update is built from,
+// sums with fused multiply-adds, as the library GEMV of the plain version
+// does; every other operation rounds as the plain version's elementwise
+// code (the build disables FMA contraction). Scalars that one CTA owns (d_l, bfs_l, basis[l], c_enter,
+// r_enter) travel in the selection partials or are read from the owner's
+// shared memory while it cannot change. Stall state and status are computed
+// redundantly in every CTA from these identical reduced values, so all CTAs
+// agree bit for bit and take the same number of iterations.
 //
-// Shared memory per CTA: (4m + 3*ceil(m/8) + 4*ceil(n/8) + 256) floats,
-// about 97 KB at the two-phase shape m = 4096, n = 12288 and 44 KB at
-// m = 2048, n = 4096. The largest lane it takes is where that reaches
-// 227 KB, e.g. m = 8192 with n up to about 42,000; the wrapper raises past
-// it. No TMA and no wgmma: a simple kernel that is right comes first.
+// Four cluster barriers per iteration (five in dual mode) separate the
+// phases that read another CTA's shared memory:
+//   primal: [y own rows: first iteration only; partial of y A] (a) [reduce
+//           r of own columns; entering partial] (b) [partial of the
+//           direction] (c) [reduce d of own rows; ratio partial] (d)
+//           [gather d; eta update of own rows with the next y; bookkeeping]
+//   dual:   [leaving partial; y own rows: first iteration only] (l)
+//           [w = column l of invBT on own rows; partials of w A and y A]
+//           (a) [reduce; dual ratio partial] (b) [partial of the direction]
+//           (c) [reduce d of own rows] (d) [gather d; eta update with the
+//           next y; bookkeeping]
+// A CTA's partial vector is rewritten only after a later barrier than the
+// one that follows its readers. invBT is read through L2 only (bulk copies,
+// or ld.global.cg); a CTA's own writes are next read by its own bulk copies
+// (the async proxy), so each writing thread issues fence.proxy.async before
+// the block barrier that precedes them.
+//
+// Shared memory per CTA: (3m + max(m, n) + 5*ceil(m/CL) + 4*ceil(n/CL))
+// floats of vectors (n more in dual mode) plus the ring (16-128 KB on the
+// aligned branch); the plan raises for a lane past the 227 KB a block may
+// hold.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -81,8 +120,11 @@ using lp::pack_key;
 using lp::Scratch;
 using lp::unpack_value;
 
-constexpr int kCluster = 8;  // CTAs per lane (the portable maximum)
 constexpr size_t kMaxSmem = 232448;  // bytes a Hopper block may use
+constexpr int kMaxStages = 8;        // block-ring stages
+constexpr int kMaxWarpStages = 4;    // stages of one warp's ring
+constexpr int kSumBlock = 32;        // rows per partial sum of a column pass
+constexpr int kLag = 1;              // tiles between a stage's last read and its refill
 
 // One CTA's partial of a selection (or of the entry objective).
 struct Part {
@@ -107,23 +149,100 @@ struct Range {
   int lo, hi;
 };
 
+// The shared-memory ring and its barriers, in both views.
+struct Pipe {
+  float* ring;
+  unsigned long long* bbar;  // block view: S stages of stage_floats (full)
+  unsigned long long* ebar;  // block view: the stages' `empty` barriers
+  unsigned long long* wbar;  // warp view: per warp D stages of C floats
+  uint32_t bphase, wphase;   // parity bit per stage of the next wait
+  int S, stage_floats, D, C;
+};
+
+template <int CL>
 __device__ __forceinline__ int slice_len(int size) {
-  return (size + kCluster - 1) / kCluster;
+  return (size + CL - 1) / CL;
 }
 
+template <int CL>
 __device__ __forceinline__ Range slice_of(int rank, int size) {
-  const int len = slice_len(size);
+  const int len = slice_len<CL>(size);
   return {min(rank * len, size), min((rank + 1) * len, size)};
 }
 
+template <int CL>
 __device__ __forceinline__ int owner_of(int idx, int size) {
-  return idx / slice_len(size);
+  return idx / slice_len<CL>(size);
 }
 
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 
-// Thread 0 combines the 8 CTAs' partials in `slot`, in rank order.
-// `size` is the default of `hot` when no CTA attains the min value.
+// ---- mbarrier and bulk-copy primitives -----------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of copies to come.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_g2s(float* dst, const float* src,
+                                         uint32_t bytes,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes before later async-proxy
+// (bulk-copy) reads of the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// ---- cluster reductions ---------------------------------------------------
+
+// Thread 0 combines the CTAs' partials in `slot`, in rank order. `size` is
+// the default of `hot` when no CTA attains the min value.
+template <int CL>
 __device__ Sel combine(cg::cluster_group& cl, Part* slot, int size) {
   Sel s;
   s.key = kIntMax;
@@ -135,14 +254,14 @@ __device__ Sel combine(cg::cluster_group& cl, Part* slot, int size) {
   s.sum = 0.0f;
   s.c_enter = 0.0f;
   s.r_enter = 0.0f;
-  for (int r = 0; r < kCluster; ++r) {
+  for (int r = 0; r < CL; ++r) {
     const Part* p = cl.map_shared_rank(slot, r);
     s.key = min(s.key, p->key);
     s.first = min(s.first, p->first);
     s.val = nan_min(s.val, p->val);
     s.sum = s.sum + p->sum;
   }
-  for (int r = 0; r < kCluster; ++r) {
+  for (int r = 0; r < CL; ++r) {
     const Part* p = cl.map_shared_rank(slot, r);
     if (p->val == s.val) s.hot = min(s.hot, p->hot);
   }
@@ -150,115 +269,363 @@ __device__ Sel combine(cg::cluster_group& cl, Part* slot, int size) {
 }
 
 // The winner's bfs / basis entries, carried by the owner's partial.
+template <int CL>
 __device__ void take_winner(cg::cluster_group& cl, Part* slot, int leave,
                             int m, Sel& s) {
-  const Part w = *cl.map_shared_rank(slot, owner_of(leave, m));
+  const Part w = *cl.map_shared_rank(slot, owner_of<CL>(leave, m));
   s.bfs = w.bfs;
   s.basis = w.basis;
 }
 
 // dst[i] = (owner of i)'s src[i] for every i outside the CTA's own slice.
+template <int CL>
 __device__ void gather(cg::cluster_group& cl, float* buf, int size,
                        unsigned rank) {
   for (int i = threadIdx.x; i < size; i += kThreads) {
-    const unsigned r = (unsigned)owner_of(i, size);
+    const unsigned r = (unsigned)owner_of<CL>(i, size);
     if (r != rank) buf[i] = cl.map_shared_rank(buf, r)[i];
   }
 }
 
-// y[j] = sum_i cB[i] invBT[j, i] for the CTA's rows: one warp per row.
-__device__ void duals(const float* invBT, const float* s_cB, float* s_y,
-                      int m, Range rows) {
+// ---- row passes: duals, and the eta update that yields the next duals -----
+//
+// One warp per row j of the CTA's slice. Lane l sums the entries
+// i = l, l + 32, ... in order, then a shuffle tree: the same order in the
+// standalone pass and the eta pass, on both branches. s_y and s_colL are
+// indexed from the slice start.
+//   ETA = false: y[j] = sum_i cB[i] invBT[j, i]
+//   ETA = true:  invBT[j, i] += colL[j] u[i], then y[j] over the new row
+
+template <bool ETA>
+__device__ void row_pass_scalar(float* invBT, const float* s_cB,
+                                const float* s_u, const float* s_colL,
+                                float* s_y, int m, Range rows) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   for (int j = rows.lo + w; j < rows.hi; j += kWarps) {
-    const float* row = invBT + (size_t)j * m;
+    float* row = invBT + (size_t)j * m;
+    const float cj = ETA ? s_colL[j - rows.lo] : 0.0f;
     float acc = 0.0f;
 #pragma unroll 8
-    for (int i = l; i < m; i += 32) acc += ldcg(row + i) * s_cB[i];
+    for (int i = l; i < m; i += 32) {
+      float v = ldcg(row + i);
+      if (ETA) {
+        v = v + cj * s_u[i];
+        row[i] = v;
+      }
+      acc += v * s_cB[i];
+    }
     acc = lp::warp_sum(acc);
-    if (l == 0) s_y[j] = acc;
+    if (l == 0) s_y[j - rows.lo] = acc;
   }
 }
 
-// s_d[i] = sum_j s_col[j] invBT[j, i] for i in the CTA's slice. A slice
-// narrower than the block splits the rows into G groups whose partials
-// are added in group order. Ends synced.
-__device__ void direction(const float* invBT, const float* s_col, float* s_d,
-                          float* s_tmp, int m, Range cols) {
-  const int w = cols.hi - cols.lo;
-  int G = w > 0 ? kThreads / w : 1;
-  G = G < 1 ? 1 : (G > 8 ? 8 : G);
-  if (G == 1) {
-    for (int i = cols.lo + threadIdx.x; i < cols.hi; i += kThreads) {
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < m; ++j)
-        acc += s_col[j] * ldcg(invBT + (size_t)j * m + i);
-      s_d[i] = acc;
-    }
-  } else {
-    const int chunk = (m + G - 1) / G;
-    const int t = threadIdx.x;
-    if (t < w * G) {
-      const int i = cols.lo + t % w, g = t / w;
-      const int j0 = min(g * chunk, m), j1 = min(j0 + chunk, m);
-      float acc = 0.0f;
+// The same through the warp's own ring: the rows arrive in chunks of C
+// floats by bulk copy; lane 0 refills a stage once the warp has read it.
+template <bool ETA>
+__device__ void row_pass_ring(float* invBT, const float* s_cB,
+                              const float* s_u, const float* s_colL,
+                              float* s_y, int m, Range rows, Pipe& pp) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int D = pp.D, C = pp.C;
+  float* wring = pp.ring + (size_t)w * D * C;
+  unsigned long long* bar = pp.wbar + w * kMaxWarpStages;
+  const int span = rows.hi - rows.lo - w;
+  const int nq = span > 0 ? (span + kWarps - 1) / kWarps : 0;  // rows of the warp
+  const int nc = (m + C - 1) / C;                              // chunks a row
+  const int T = nq * nc;
+
+  auto issue = [&](int t) {  // lane 0 only
+    const int q = t / nc, c = t - q * nc, s = t % D;
+    const int j = rows.lo + w + q * kWarps;
+    const uint32_t bytes = (uint32_t)min(C, m - c * C) * sizeof(float);
+    mbar_expect(bar + s, bytes);
+    bulk_g2s(wring + s * C, invBT + (size_t)j * m + (size_t)c * C, bytes,
+             bar + s);
+  };
+
+  if (l == 0)
+    for (int t = 0; t < min(D, T); ++t) issue(t);
+  float acc = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    const int q = t / nc, c = t - q * nc, s = t % D;
+    const int j = rows.lo + w + q * kWarps;
+    const int base = c * C, len = min(C, m - base);
+    mbar_wait(bar + s, (pp.wphase >> s) & 1u);
+    pp.wphase ^= 1u << s;
+    const float* buf = wring + s * C;
+    if (c == 0) acc = 0.0f;
+    if (ETA) {
+      const float cj = s_colL[j - rows.lo];
+      float* row = invBT + (size_t)j * m + base;
 #pragma unroll 4
-      for (int j = j0; j < j1; ++j)
-        acc += s_col[j] * ldcg(invBT + (size_t)j * m + i);
-      s_tmp[t] = acc;
+      for (int i = l; i < len; i += 32) {
+        const float v = buf[i] + cj * s_u[base + i];
+        row[i] = v;
+        acc += v * s_cB[base + i];
+      }
+    } else {
+#pragma unroll 4
+      for (int i = l; i < len; i += 32) acc += buf[i] * s_cB[base + i];
     }
-    __syncthreads();
-    for (int k = t; k < w; k += kThreads) {
-      float acc = s_tmp[k];
-      for (int g = 1; g < G; ++g) acc += s_tmp[g * w + k];
-      s_d[cols.lo + k] = acc;
+    if (c == nc - 1) {
+      const float tot = lp::warp_sum(acc);
+      if (l == 0) s_y[j - rows.lo] = tot;
     }
+    __syncwarp();
+    if (l == 0 && t + D < T) issue(t + D);
+  }
+}
+
+// acc + a * b: fused (one rounding, as a library GEMV sums) or with the
+// product rounded first (as the build's --fmad=false leaves a * b + c).
+template <bool FMA>
+__device__ __forceinline__ float madd(float a, float b, float acc) {
+  return FMA ? fmaf(a, b, acc) : acc + a * b;
+}
+
+// ---- column passes: the CTA's partial of pricing and of the direction -----
+//
+// out0[k] = sum_j v0[j] G[j, k] over the `nrows` rows of G that the CTA
+// owns (and out1 with v1 when NV == 2), for every k < ncols: one thread
+// per column, the rows in order, in partial sums of kSumBlock rows that are
+// added up in order. G points at the CTA's first row; `ld` is the row
+// length; v0 and v1 are indexed from that row. Ends synced.
+
+template <int NV, bool FMA>
+__device__ void col_pass_scalar(const float* G, int ld, int ncols, int nrows,
+                                const float* v0, const float* v1, float* out0,
+                                float* out1) {
+  for (int k = threadIdx.x; k < ncols; k += kThreads) {
+    const float* g = G + k;
+    float a0 = 0.0f, a1 = 0.0f, p0 = 0.0f, p1 = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < nrows; ++j) {
+      const float x = ldcg(g + (size_t)j * ld);
+      p0 = madd<FMA>(v0[j], x, p0);
+      if (NV == 2) p1 = madd<FMA>(v1[j], x, p1);
+      if ((j & (kSumBlock - 1)) == kSumBlock - 1) {
+        a0 += p0;
+        p0 = 0.0f;
+        if (NV == 2) {
+          a1 += p1;
+          p1 = 0.0f;
+        }
+      }
+    }
+    out0[k] = a0 + p0;
+    if (NV == 2) out1[k] = a1 + p1;
   }
   __syncthreads();
 }
 
-// At most 48 registers a thread, so 5 CTAs may share an SM: with 4, the
-// card holds only 62 clusters at (2048, 4096) (its GPCs do not pack 8-CTA
-// clusters evenly), and B = 64 lanes ran in two waves.
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
+// The same through the block's ring, in sweeps of up to 256 * KPT columns:
+// a stage holds as many row segments of the sweep as fit, and warp 0 issues
+// one bulk copy per segment. The copies are as long as the registers allow
+// (8 KB at 8 columns a thread): the card moves about one bulk copy per 200
+// cycles and SM whatever its length. No block barrier per stage: each warp
+// arrives on the stage's `empty` barrier when it has read it, and warp 0
+// refills the stage it read kLag tiles ago, which by then every warp has
+// left, so the refill neither waits nor holds the other warps up.
+template <int NV, int KPT, bool FMA>
+__device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
+                              const float* v0, const float* v1, float* out0,
+                              float* out1, Pipe& pp) {
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int S = pp.S, SF = pp.stage_floats;
+  const int lag = min(kLag, S - 1);
+  const int wc_max = min(SF, kThreads * KPT) & ~3;
+  for (int cc = 0; cc < ncols; cc += wc_max) {
+    const int wc = min(wc_max, ncols - cc);      // columns of this sweep
+    const int rps = max(min(SF / wc, nrows), 1);  // rows per stage
+    const int T = (nrows + rps - 1) / rps;
+    const int kpt = (wc + kThreads - 1) / kThreads;
+    const float* g = G + cc;
+
+    auto issue = [&](int t) {  // warp 0
+      const int s = t % S, j0 = t * rps, nr = min(rps, nrows - j0);
+      if (l == 0)
+        mbar_expect(pp.bbar + s, (uint32_t)(nr * wc) * sizeof(float));
+      __syncwarp();
+      for (int r = l; r < nr; r += 32)
+        bulk_g2s(pp.ring + (size_t)s * SF + r * wc, g + (size_t)(j0 + r) * ld,
+                 (uint32_t)wc * sizeof(float), pp.bbar + s);
+    };
+
+    if (warp == 0)
+      for (int t = 0; t < min(S, T); ++t) issue(t);
+    float a0[KPT], a1[KPT], p0[KPT], p1[KPT];
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) a0[q] = a1[q] = p0[q] = p1[q] = 0.0f;
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S, j0 = t * rps, nr = min(rps, nrows - j0);
+      mbar_wait(pp.bbar + s, (pp.bphase >> s) & 1u);
+      const float* buf = pp.ring + (size_t)s * SF;
+      for (int r = 0; r < nr; ++r) {
+        const float y0 = v0[j0 + r];
+        const float y1 = NV == 2 ? v1[j0 + r] : 0.0f;
+        const float* brow = buf + r * wc;
+#pragma unroll
+        for (int q = 0; q < KPT; ++q) {
+          const int k = tid + q * kThreads;
+          if (q < kpt && k < wc) {
+            const float x = brow[k];
+            p0[q] = madd<FMA>(y0, x, p0[q]);
+            if (NV == 2) p1[q] = madd<FMA>(y1, x, p1[q]);
+          }
+        }
+        if (((j0 + r) & (kSumBlock - 1)) == kSumBlock - 1) {
+#pragma unroll
+          for (int q = 0; q < KPT; ++q) {
+            a0[q] += p0[q];
+            p0[q] = 0.0f;
+            if (NV == 2) {
+              a1[q] += p1[q];
+              p1[q] = 0.0f;
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (l == 0) mbar_arrive(pp.ebar + s);  // this warp has read the stage
+      pp.bphase ^= 1u << s;  // both barriers of the stage: its next use
+      const int tr = t - lag;  // the tile whose stage warp 0 refills now
+      if (warp == 0 && tr >= 0 && tr + S < T) {
+        const int sr = tr % S;  // used once since, so its bit has flipped
+        mbar_wait(pp.ebar + sr, ((pp.bphase >> sr) & 1u) ^ 1u);
+        issue(tr + S);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) {
+      const int k = tid + q * kThreads;
+      if (q < kpt && k < wc) {
+        out0[cc + k] = a0[q] + p0[q];
+        if (NV == 2) out1[cc + k] = a1[q] + p1[q];
+      }
+    }
+    __syncthreads();  // every warp has left the ring; the partials are written
+  }
+}
+
+template <bool RING, int NV, bool FMA>
+__device__ __forceinline__ void col_pass(const float* G, int ld, int ncols,
+                                         int nrows, const float* v0,
+                                         const float* v1, float* out0,
+                                         float* out1, Pipe& pp) {
+  if (RING)
+    col_pass_ring<NV, NV == 1 ? 8 : 4, FMA>(G, ld, ncols, nrows, v0, v1, out0,
+                                            out1, pp);
+  else
+    col_pass_scalar<NV, FMA>(G, ld, ncols, nrows, v0, v1, out0, out1);
+}
+
+template <bool RING, bool ETA>
+__device__ __forceinline__ void row_pass(float* invBT, const float* s_cB,
+                                         const float* s_u, const float* s_colL,
+                                         float* s_y, int m, Range rows,
+                                         Pipe& pp) {
+  if (RING)
+    row_pass_ring<ETA>(invBT, s_cB, s_u, s_colL, s_y, m, rows, pp);
+  else
+    row_pass_scalar<ETA>(invBT, s_cB, s_u, s_colL, s_y, m, rows);
+}
+
+// dst[k - lo] = sum over the CTAs, in rank order, of their partial src[k],
+// for k in [lo, hi).
+template <int CL>
+__device__ void reduce_slice(cg::cluster_group& cl, float* src, float* dst,
+                             Range r) {
+  for (int k = r.lo + threadIdx.x; k < r.hi; k += kThreads) {
+    float acc = cl.map_shared_rank(src, 0)[k];
+#pragma unroll 4
+    for (int q = 1; q < CL; ++q) acc += cl.map_shared_rank(src, q)[k];
+    dst[k - r.lo] = acc;
+  }
+}
+
+// Floats of the lane's vectors in one CTA: d, u and c_B whole; the CTA's
+// partial of y A (and of w A in dual mode) over all n columns, which the
+// partial of the direction reuses; five slices of m and four of n.
+size_t vector_floats(int m, int n, int cluster, int dual) {
+  const size_t ml = (m + cluster - 1) / cluster;
+  const size_t nl = (n + cluster - 1) / cluster;
+  const size_t part = (size_t)(n > m ? n : m);
+  const size_t v = 3 * (size_t)m + part + (dual ? (size_t)n : 0) + 5 * ml + 4 * nl;
+  return (v + 3) / 4 * 4;
+}
+
+// RING: the bulk-copy branch, at most 128 registers a thread, so that two
+// CTAs (with their rings) may share an SM. Otherwise the scalar-load branch,
+// at most 48 registers, so that five may: its loads in flight are a
+// thread's own, and it needs the threads.
+template <int CL, bool RING>
+__global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
     solve_segment_stream_kernel(
         const float* __restrict__ A_all, const float* __restrict__ c_all,
         const float* __restrict__ apen_all, float* invBT_all, float* bfs_all,
         float* cB_all, int* basis_all, float* pen_all, int* iters_all,
         int* status_all, int m, int n, int seg_len, int maxiters,
         float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-        int packed, int stall_limit) {
+        int packed, int stall_limit, int stages, int stage_floats,
+        int warp_stages, int chunk_floats) {
   cg::cluster_group cl = cg::this_cluster();
   const unsigned rank = cl.block_rank();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ Scratch red;
   __shared__ Part s_part[4];  // [0] leaving (dual), [1] entering, [2] ratio
                               // (primal) / unused, [3] entry objective
   __shared__ Sel s_sel;
+  __shared__ __align__(8) unsigned long long s_bbar[kMaxStages];
+  __shared__ __align__(8) unsigned long long s_ebar[kMaxStages];
+  __shared__ __align__(8) unsigned long long s_wbar[kWarps * kMaxWarpStages];
   const int tid = threadIdx.x;
-  const size_t lane = blockIdx.x / kCluster;
+  const size_t lane = blockIdx.x / CL;
   const float* A = A_all + lane * m * n;
   const float* apen = apen_all + lane * n;
   float* invBT = invBT_all + lane * m * m;
-  const Range rows = slice_of(rank, m);  // rows of invBT, entries of bfs/d
-  const Range cols = slice_of(rank, n);  // columns of A
-  const int ml = slice_len(m), nl = slice_len(n);
+  const Range rows = slice_of<CL>(rank, m);  // rows of A and invBT, entries
+                                             // of bfs / d / y
+  const Range cols = slice_of<CL>(rank, n);  // entries of c / pen / r
+  const int nrows = rows.hi - rows.lo;
+  const int ml = slice_len<CL>(m), nl = slice_len<CL>(n);
+  const float* A_own = A + (size_t)rows.lo * n;
+  float* invBT_own = invBT + (size_t)rows.lo * m;
 
   // whole vectors (indexed globally)
-  float* s_y = smem;        // y; own rows written here, the rest gathered
-  float* s_d = s_y + m;     // d; own slice written here, the rest gathered
-  float* s_cB = s_d + m;    // c_B, an identical copy in every CTA
-  float* s_col = s_cB + m;  // entering column / dual row w / eta vector u
+  float* s_d = smem;       // d; own slice reduced here, the rest gathered
+  float* s_u = s_d + m;    // the eta vector
+  float* s_cB = s_u + m;   // c_B, an identical copy in every CTA
+  float* s_pp = s_cB + m;  // the CTA's partial of y A, then of the direction
+  float* s_pp2 = s_pp + (n > m ? n : m);  // partial of w A (dual mode)
   // own slices (indexed from the slice start)
-  float* s_bfs = s_col + m;
+  float* s_y = s_pp2 + (dual ? n : 0);
+  float* s_col = s_y + ml;  // entering column, own rows
+  float* s_colL = s_col + ml;  // invBT[j, leave], own rows
+  float* s_bfs = s_colL + ml;
   int* s_basis = reinterpret_cast<int*>(s_bfs + ml);
-  float* s_colL = reinterpret_cast<float*>(s_basis + ml);  // invBT[j, l]
-  float* s_c = s_colL + ml;
+  float* s_c = reinterpret_cast<float*>(s_basis + ml);
   float* s_pen = s_c + nl;
   float* s_r = s_pen + nl;
   float* s_urow = s_r + nl;
-  float* s_tmp = s_urow + nl;  // kThreads floats
+
+  Pipe pp;
+  pp.ring = smem + ((s_urow + nl - smem) + 3) / 4 * 4;
+  pp.bbar = s_bbar;
+  pp.ebar = s_ebar;
+  pp.wbar = s_wbar;
+  pp.bphase = pp.wphase = 0u;
+  pp.S = stages;
+  pp.stage_floats = stage_floats;
+  pp.D = warp_stages;
+  pp.C = chunk_floats;
+  if (RING && tid == 0) {
+    for (int s = 0; s < kMaxStages; ++s) {
+      mbar_init(s_bbar + s, 1);
+      mbar_init(s_ebar + s, kWarps);
+    }
+    for (int s = 0; s < kWarps * kMaxWarpStages; ++s) mbar_init(s_wbar + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
   for (int i = tid; i < m; i += kThreads) s_cB[i] = cB_all[lane * m + i];
   for (int i = rows.lo + tid; i < rows.hi; i += kThreads) {
@@ -291,7 +658,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
     }
   }
   cl.sync();  // every CTA has started and published its partial
-  if (tid == 0) s_sel = combine(cl, &s_part[3], m);
+  if (tid == 0) s_sel = combine<CL>(cl, &s_part[3], m);
   __syncthreads();
   if (track) z = s_sel.sum;
   float dz_prev = INFINITY;
@@ -310,8 +677,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
     bool do_pivot;
     float ratio, bfs_l, c_enter, r_enter = 0.0f;
 
+    // ---- duals of own rows (later iterations: from the eta pass) --------
+    if (seg == 0) {
+      row_pass<RING, false>(invBT, s_cB, nullptr, nullptr, s_y, m, rows, pp);
+      __syncthreads();
+    }
+
     if (dual) {
-      // ---- leaving partial over the own bfs slice; duals of own rows ---
+      // ---- leaving partial over the own bfs slice ----------------------
       {
         int key = kIntMax, first = m, hot = m;
         float val = INFINITY;
@@ -332,12 +705,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
         }
         if (tid == 0) s_part[0] = Part{kf.x, kf.y, hot, 0, val, 0.0f, 0.0f, 0.0f};
       }
-      duals(invBT, s_cB, s_y, m, rows);
-      __syncthreads();
-      cl.sync();  // (a)
+      cl.sync();  // (l)
       bool viable;
       if (tid == 0) {
-        Sel s = combine(cl, &s_part[0], m);
+        Sel s = combine<CL>(cl, &s_part[0], m);
         int l;
         bool v;
         if (dantzig && packed) {
@@ -353,35 +724,29 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
         if (!v) l = 0;
         s.key = l;  // the leaving row
         s.hot = v;
-        // the owner changes its bfs / basis only after (c)
-        const int o = owner_of(l, m);
-        const Range orow = slice_of(o, m);
+        // the owner changes its bfs / basis only after (d)
+        const int o = owner_of<CL>(l, m);
+        const Range orow = slice_of<CL>(o, m);
         s.bfs = cl.map_shared_rank(s_bfs, o)[l - orow.lo];
         s.basis = cl.map_shared_rank(s_basis, o)[l - orow.lo];
         s_sel = s;
       }
-      gather(cl, s_y, m, rank);
       __syncthreads();
       leave = s_sel.key;
       viable = s_sel.hot != 0;
       bfs_l = s_sel.bfs + 0.0f;
       leaving_col = s_sel.basis;
 
-      // ---- dual row urow = B^-1[leave, :] A and r = c - y A (own cols) -
-      for (int j = tid; j < m; j += kThreads)
-        s_col[j] = ldcg(invBT + (size_t)j * m + leave);
+      // ---- partials of urow = B^-1[leave, :] A and of y A, own rows ----
+      for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
+        s_colL[j - rows.lo] = ldcg(invBT + (size_t)j * m + leave);
       __syncthreads();
-      for (int k = cols.lo + tid; k < cols.hi; k += kThreads) {
-        float au = 0.0f, ay = 0.0f;
-#pragma unroll 8
-        for (int j = 0; j < m; ++j) {
-          const float a = __ldg(A + (size_t)j * n + k);
-          au += s_col[j] * a;
-          ay += s_y[j] * a;
-        }
-        s_urow[k - cols.lo] = au;
-        s_r[k - cols.lo] = s_c[k - cols.lo] - ay;
-      }
+      col_pass<RING, 2, false>(A_own, n, n, nrows, s_colL, s_y, s_pp2, s_pp, pp);
+      cl.sync();  // (a)
+      reduce_slice<CL>(cl, s_pp2, s_urow, cols);
+      reduce_slice<CL>(cl, s_pp, s_r, cols);
+      for (int k = cols.lo + tid; k < cols.hi; k += kThreads)
+        s_r[k - cols.lo] = s_c[k - cols.lo] - s_r[k - cols.lo];
       __syncthreads();
 
       // ---- dual ratio partial over urow < -pivot_tol, pen == 0 ---------
@@ -414,7 +779,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
       }
       cl.sync();  // (b)
       if (tid == 0) {
-        Sel s = combine(cl, &s_part[1], n);
+        Sel s = combine<CL>(cl, &s_part[1], n);
         bool any;
         int e;
         float rt;
@@ -430,8 +795,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
         s.key = e;
         s.hot = any;
         s.val = rt;
-        const int o = owner_of(e, n);
-        s.c_enter = cl.map_shared_rank(s_c, o)[e - slice_of(o, n).lo];
+        const int o = owner_of<CL>(e, n);
+        s.c_enter = cl.map_shared_rank(s_c, o)[e - slice_of<CL>(o, n).lo];
         s_sel = s;
       }
       __syncthreads();
@@ -443,27 +808,23 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
       stop_status = !viable ? kOptimal
                             : (!any_cand ? kDualUnbounded : kRunning);
 
-      // ---- direction slice ---------------------------------------------
-      for (int j = tid; j < m; j += kThreads)
-        s_col[j] = __ldg(A + (size_t)j * n + enter);
+      // ---- partial of the direction over own rows, then own slice ------
+      for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
+        s_col[j - rows.lo] = __ldg(A + (size_t)j * n + enter);
       __syncthreads();
-      direction(invBT, s_col, s_d, s_tmp, m, rows);
+      col_pass<RING, 1, true>(invBT_own, m, m, nrows, s_col, nullptr, s_pp, nullptr,
+                        pp);
       cl.sync();  // (c)
+      reduce_slice<CL>(cl, s_pp, s_d + rows.lo, rows);
+      cl.sync();  // (d)
     } else {
-      // ---- duals of own rows, gathered whole ---------------------------
-      duals(invBT, s_cB, s_y, m, rows);
-      __syncthreads();
+      // ---- partial of y A over own rows, then r of own columns ---------
+      col_pass<RING, 1, false>(A_own, n, n, nrows, s_y, nullptr, s_pp, nullptr, pp);
       cl.sync();  // (a)
-      gather(cl, s_y, m, rank);
-      __syncthreads();
-
-      // ---- pricing of own columns: r = (c - y A) + pen -----------------
-      for (int k = cols.lo + tid; k < cols.hi; k += kThreads) {
-        float ay = 0.0f;
-#pragma unroll 8
-        for (int j = 0; j < m; ++j) ay += s_y[j] * __ldg(A + (size_t)j * n + k);
-        s_r[k - cols.lo] = (s_c[k - cols.lo] - ay) + s_pen[k - cols.lo];
-      }
+      reduce_slice<CL>(cl, s_pp, s_r, cols);
+      for (int k = cols.lo + tid; k < cols.hi; k += kThreads)
+        s_r[k - cols.lo] =
+            (s_c[k - cols.lo] - s_r[k - cols.lo]) + s_pen[k - cols.lo];
       __syncthreads();
 
       // ---- entering partial --------------------------------------------
@@ -489,7 +850,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
       }
       cl.sync();  // (b)
       if (tid == 0) {
-        Sel s = combine(cl, &s_part[1], n);
+        Sel s = combine<CL>(cl, &s_part[1], n);
         bool elig;
         int e;
         if (packed && pricing == 1) {
@@ -506,8 +867,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
         s.key = e;
         s.hot = elig;
         // the owner rewrites r only after the next (a)
-        const int o = owner_of(e, n);
-        const int off = e - slice_of(o, n).lo;
+        const int o = owner_of<CL>(e, n);
+        const int off = e - slice_of<CL>(o, n).lo;
         s.c_enter = cl.map_shared_rank(s_c, o)[off];
         s.r_enter = cl.map_shared_rank(s_r, o)[off];
         s_sel = s;
@@ -518,11 +879,16 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
       c_enter = s_sel.c_enter + 0.0f;
       r_enter = s_sel.r_enter + 0.0f;
 
-      // ---- direction slice and ratio partial ---------------------------
-      for (int j = tid; j < m; j += kThreads)
-        s_col[j] = __ldg(A + (size_t)j * n + enter);
+      // ---- partial of the direction over own rows, then own slice and
+      // the ratio partial --------------------------------------------------
+      for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
+        s_col[j - rows.lo] = __ldg(A + (size_t)j * n + enter);
       __syncthreads();
-      direction(invBT, s_col, s_d, s_tmp, m, rows);
+      col_pass<RING, 1, true>(invBT_own, m, m, nrows, s_col, nullptr, s_pp, nullptr,
+                        pp);
+      cl.sync();  // (c)
+      reduce_slice<CL>(cl, s_pp, s_d + rows.lo, rows);
+      __syncthreads();
       {
         int key = kIntMax, hot = m;
         float val = INFINITY;
@@ -556,9 +922,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
                            mine ? s_bfs[win - rows.lo] : 0.0f, 0.0f, 0.0f};
         }
       }
-      cl.sync();  // (c)
+      cl.sync();  // (d)
       if (tid == 0) {
-        Sel s = combine(cl, &s_part[2], m);
+        Sel s = combine<CL>(cl, &s_part[2], m);
         bool any;
         int l;
         float rt;
@@ -571,7 +937,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
           any = rt < INFINITY;
           l = any ? s.hot : 0;
         }
-        take_winner(cl, &s_part[2], l, m, s);
+        take_winner<CL>(cl, &s_part[2], l, m, s);
         s.key = l;
         s.hot = any;
         s.val = rt;
@@ -590,8 +956,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
                               : (!any_pos ? kPrimalUnbounded : kRunning);
     }
 
-    // ---- pivot: eta update of own rows, bfs slice and bookkeeping -------
-    gather(cl, s_d, m, rank);
+    // ---- pivot: eta update of own rows (with the next iteration's duals),
+    // bfs slice and bookkeeping ------------------------------------------
+    gather<CL>(cl, s_d, m, rank);
     __syncthreads();
     float dz = 0.0f;
     if (do_pivot) {
@@ -599,24 +966,22 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
       const float d_l = s_d[leave] + 0.0f;
       const float safe = d_l == 0.0f ? 1.0f : d_l;
       for (int i = tid; i < m; i += kThreads)
-        s_col[i] = i == leave ? (1.0f / safe - 1.0f) : (-s_d[i] / safe);
-      for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
-        s_colL[j - rows.lo] = ldcg(invBT + (size_t)j * m + leave);
+        s_u[i] = i == leave ? (1.0f / safe - 1.0f) : (-s_d[i] / safe);
+      if (!dual)  // dual mode staged it for the dual row
+        for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
+          s_colL[j - rows.lo] = ldcg(invBT + (size_t)j * m + leave);
+      // c_B of the new basis: the eta pass's dot products are the next duals
+      if (tid == 0) s_cB[leave] = c_enter;
       __syncthreads();
-      const int w = tid >> 5, l = tid & 31;
-      for (int j = rows.lo + w; j < rows.hi; j += kWarps) {
-        const float cj = s_colL[j - rows.lo];
-        float* row = invBT + (size_t)j * m;
-#pragma unroll 4
-        for (int i = l; i < m; i += 32) row[i] = ldcg(row + i) + cj * s_col[i];
-      }
-      __threadfence();  // own rows visible to the cluster before the next (a)
+      row_pass<RING, true>(invBT, s_cB, s_u, s_colL, s_y, m, rows, pp);
+      // the rows this CTA wrote are next read by its own bulk copies: order
+      // the generic-proxy writes before them (a block barrier follows)
+      if (RING) fence_proxy_async();
       for (int i = rows.lo + tid; i < rows.hi; i += kThreads)
-        s_bfs[i - rows.lo] = s_bfs[i - rows.lo] + s_col[i] * bfs_l;
+        s_bfs[i - rows.lo] = s_bfs[i - rows.lo] + s_u[i] * bfs_l;
       __syncthreads();
       if (tid == 0) {
         if (leave >= rows.lo && leave < rows.hi) s_basis[leave - rows.lo] = enter;
-        s_cB[leave] = c_enter;
         if (leaving_col >= cols.lo && leaving_col < cols.hi)
           s_pen[leaving_col - cols.lo] = apen[leaving_col];
         if (enter >= cols.lo && enter < cols.hi) s_pen[enter - cols.lo] = INFINITY;
@@ -644,57 +1009,138 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 5)
   cl.sync();  // no CTA exits while another may read its shared memory
 }
 
-size_t smem_bytes(int m, int n) {
-  const size_t ml = (m + kCluster - 1) / kCluster;
-  const size_t nl = (n + kCluster - 1) / kCluster;
-  return (4 * (size_t)m + 3 * ml + 4 * nl + kThreads) * sizeof(float);
-}
-
-}  // namespace
-
-extern "C" size_t lp_solve_segment_stream_smem(int m, int n) {
-  return smem_bytes(m, n);
-}
-
-// How many 8-CTA clusters of this kernel the device holds at once for
-// lanes of (m, n) (a batch of more lanes runs in several waves); < 0 is a
-// negated CUDA error.
-extern "C" int lp_solve_segment_stream_max_clusters(int m, int n) {
-  const size_t smem = smem_bytes(m, n);
+// The launch configuration of `cluster` CTAs a lane; the non-portable size
+// 16 needs the kernel's opt-in.
+template <int CL, bool RING>
+cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                      int lanes, size_t smem, cudaStream_t stream) {
+  auto kernel = solve_segment_stream_kernel<CL, RING>;
+  // always: static shared memory counts against the 48 KB default too
   cudaError_t e = cudaFuncSetAttribute(
-      solve_segment_stream_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return -(int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * 1024, 1, 1);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (CL > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)lanes * CL, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int CL, bool RING>
+int max_clusters(size_t smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure<CL, RING>(cfg, &attr, 1024, smem, nullptr);
+  if (e != cudaSuccess) return -(int)e;
   int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, solve_segment_stream_kernel,
+  e = cudaOccupancyMaxActiveClusters(&clusters,
+                                     solve_segment_stream_kernel<CL, RING>,
                                      &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
+template <int CL, bool RING, typename... Args>
+int launch(int lanes, size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure<CL, RING>(cfg, &attr, lanes, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, solve_segment_stream_kernel<CL, RING>, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Cluster sizes the two branches are built for.
+bool size_built(int cluster, bool ring) {
+  return cluster == 16 || cluster == 8 ||
+         (ring && (cluster == 4 || cluster == 2));
+}
+
+}  // namespace
+
+// How many clusters of `cluster` CTAs with `smem_bytes` of dynamic shared
+// memory each the device holds at once on the bulk-copy branch
+// (`aligned`) or the scalar branch (a batch of more lanes runs in several
+// waves); < 0 is a negated CUDA error (e.g. a cluster size the device does
+// not grant, or one the branch is not built for).
+extern "C" int lp_solve_segment_stream_max_clusters(int cluster, int aligned,
+                                                    int smem_bytes) {
+  if (smem_bytes < 0 || !size_built(cluster, aligned != 0))
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_bytes;
+  if (!aligned)
+    return cluster == 16 ? max_clusters<16, false>(smem)
+                         : max_clusters<8, false>(smem);
+  switch (cluster) {
+    case 2: return max_clusters<2, true>(smem);
+    case 4: return max_clusters<4, true>(smem);
+    case 8: return max_clusters<8, true>(smem);
+    default: return max_clusters<16, true>(smem);
+  }
+}
+
+// The launch plan (cluster .. smem_bytes) comes from
+// ops/stream_kernel.py :: stream_plans; it is checked here against the
+// shape before anything is launched.
 extern "C" int lp_solve_segment_stream(
     const float* A, const float* c, const float* apen, float* invBT,
     float* bfs, float* cB, int* basis, float* pen, int* iters, int* status,
     int B, int m, int n, int seg_len, int maxiters, float opt_tol,
     float pivot_tol, float feas_tol, int dual, int pricing, int packed,
-    int stall_limit, void* stream) {
-  if (pricing < 0 || pricing > 1 || m < 1 || n < 1)
+    int stall_limit, int cluster, int aligned, int stages, int stage_floats,
+    int warp_stages, int chunk_floats, int smem_bytes, void* stream) {
+  if (pricing < 0 || pricing > 1 || m < 1 || n < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(m, n);
-  if (smem + sizeof(Part) * 4 + sizeof(Sel) + sizeof(Scratch) > kMaxSmem)
+  if (!size_built(cluster, aligned != 0)) return (int)cudaErrorInvalidValue;
+  const size_t vec = vector_floats(m, n, cluster, dual);
+  size_t ring = 0;
+  if (aligned) {
+    const bool ok =
+        m % 4 == 0 && n % 4 == 0 &&
+        ((uintptr_t)A % 16 == 0) && ((uintptr_t)invBT % 16 == 0) &&
+        stages >= 2 && stages <= kMaxStages && stage_floats >= 4 &&
+        stage_floats % 4 == 0 && warp_stages >= 1 &&
+        warp_stages <= kMaxWarpStages && chunk_floats >= 4 &&
+        chunk_floats % 4 == 0 && (chunk_floats >= m || chunk_floats % 32 == 0);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    const size_t block_view = (size_t)stages * stage_floats;
+    const size_t warp_view = (size_t)kWarps * warp_stages * chunk_floats;
+    ring = block_view > warp_view ? block_view : warp_view;
+  }
+  const size_t smem = (vec + ring) * sizeof(float);
+  if ((size_t)smem_bytes < smem) return (int)cudaErrorInvalidValue;
+  if ((size_t)smem_bytes + sizeof(Part) * 4 + sizeof(Sel) + sizeof(Scratch) +
+          8 * (2 * kMaxStages + kWarps * kMaxWarpStages) >
+      kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  // always: static shared memory counts against the 48 KB default too
-  const cudaError_t e = cudaFuncSetAttribute(
-      solve_segment_stream_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  solve_segment_stream_kernel<<<B * kCluster, kThreads, smem,
-                                (cudaStream_t)stream>>>(
-      A, c, apen, invBT, bfs, cB, basis, pen, iters, status, m, n, seg_len,
-      maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, packed,
-      stall_limit);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define LP_STREAM_LAUNCH(CL, RING)                                            \
+  return launch<CL, RING>(B, (size_t)smem_bytes, s, A, c, apen, invBT, bfs,   \
+                          cB, basis, pen, iters, status, m, n, seg_len,       \
+                          maxiters, opt_tol, pivot_tol, feas_tol, dual,       \
+                          pricing, packed, stall_limit, stages, stage_floats, \
+                          warp_stages, chunk_floats)
+  if (!aligned) {
+    if (cluster == 16) LP_STREAM_LAUNCH(16, false);
+    LP_STREAM_LAUNCH(8, false);
+  }
+  switch (cluster) {
+    case 2: LP_STREAM_LAUNCH(2, true);
+    case 4: LP_STREAM_LAUNCH(4, true);
+    case 8: LP_STREAM_LAUNCH(8, true);
+    default: LP_STREAM_LAUNCH(16, true);
+  }
+#undef LP_STREAM_LAUNCH
 }

@@ -125,8 +125,11 @@ def _declare(lib):
     # A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status
     lib.lp_solve_segment.argtypes = [p] * 11 + tail
     lib.lp_solve_segment.restype = i
-    # the same without gamma (the streaming kernel has no devex)
-    lib.lp_solve_segment_stream.argtypes = [p] * 10 + tail
+    # the same without gamma (the streaming kernel has no devex), and the
+    # launch plan before the stream: cluster, aligned, stages, stage_floats,
+    # warp_stages, chunk_floats, smem_bytes
+    lib.lp_solve_segment_stream.argtypes = ([p] * 10 + tail[:-1] + [i] * 7
+                                            + [p])
     lib.lp_solve_segment_stream.restype = i
     lib.lp_solve_bounded_segment.argtypes = [
         p, p, p, p,  # A, c, lb, ub
@@ -152,9 +155,8 @@ def _declare(lib):
         p,  # stream
     ]
     lib.lp_ratio_eta_pivot.restype = i
-    lib.lp_solve_segment_stream_smem.argtypes = [i, i]
-    lib.lp_solve_segment_stream_smem.restype = ctypes.c_size_t
-    lib.lp_solve_segment_stream_max_clusters.argtypes = [i, i]
+    # cluster, aligned, smem_bytes
+    lib.lp_solve_segment_stream_max_clusters.argtypes = [i, i, i]
     lib.lp_solve_segment_stream_max_clusters.restype = i
     lib.lp_error_string.argtypes = [i]
     lib.lp_error_string.restype = ctypes.c_char_p

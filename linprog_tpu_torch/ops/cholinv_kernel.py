@@ -10,14 +10,19 @@ One elimination pass per matrix builds ``L^{-1}`` directly: for each
 ``R`` (which starts at ``I``).  A non-SPD input gives NaN or inf, never an
 exception.
 
-On the H100 (``csrc/panel_cholinv.cu``): one thread block per matrix, ``A``
-and ``R`` in shared memory (2 x 16 KB at mb = 64), one thread per element.
-At the IPM's ``[B, 32, 32]`` panels a matrix is 4 KB, so the kernel is
-bound by its ``mb`` dependent steps of two block barriers each, not by
-bytes or FLOPs; the design keeps every step on chip and launches once for
-the whole batch.  Both versions take the pivot as ``1.0f / sqrtf(x)`` (two
-IEEE-rounded operations, not the approximate ``rsqrtf``) and the CUDA build
-disables FMA contraction, so the kernel reproduces its plain version.
+On the H100 (``csrc/panel_cholinv.cu``) a matrix is 4 KB at the IPM's
+``[B, 32, 32]`` panels, so the kernel is bound neither by bytes nor by
+FLOPs but by its ``mb`` dependent steps: by how fast one step's pivot and
+column reach the threads that apply them.  For ``mb <= 32`` (every call of
+the block recursion at its default ``blk=32``) one warp owns a matrix: lane
+``j`` keeps column ``j`` of ``A`` and of ``R`` in registers, the pivot comes
+by a warp shuffle, the column passes through 32 floats of shared memory,
+and no block barrier is needed; four warps share a block, so
+``[1024, 32, 32]`` is resident in one wave.  For ``32 < mb <= 64`` one block
+owns a matrix in shared memory (two block barriers a step).  Both versions
+take the pivot as ``1.0f / sqrtf(x)`` (two IEEE-rounded operations, not the
+approximate ``rsqrtf``) and the CUDA build disables FMA contraction, so each
+element sees the same operations in the same order as in the plain version.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ def panel_cholinv_plain(M):
 def panel_cholinv(M):
     """``W = L^{-1}`` with ``M = L L'`` for ``M[B, mb, mb]`` f32, ``mb <= 64``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (one warp per matrix up to ``mb = 32``, one block per matrix past it).
     """
     global launches
     if M.dim() != 3 or M.shape[1] != M.shape[2] or M.shape[1] > 64:

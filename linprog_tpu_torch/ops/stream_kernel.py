@@ -15,17 +15,33 @@ accept them and ignore them.  The port takes ``A[B, m, n]``, not the
 reference's Aᵀ (which suits the TPU's sublane slices; on the card a copy
 of Aᵀ would cost ``m n`` floats per lane).
 
-On the H100 (``csrc/solve_segment_stream.cu``): one cluster of 8 thread
-blocks per lane.  The blocks split the lane's columns of A and rows of
-``B^-T``, and combine selections and vectors through distributed shared
-memory, so a few large lanes still keep enough loads in flight and the
-lane's vectors fit in shared memory up to m = 4096 and past it.  Each
-primal pivot reads A once and ``B^-T`` four times (about 96 MiB per
-lane-pivot at m = 2048, n = 4096): the kernel is bound by device-memory
-bandwidth.
+On the H100 (``csrc/solve_segment_stream.cu``) the kernel is bound by
+device-memory bandwidth: a primal pivot reads A once and ``B^-T`` twice and
+writes ``B^-T`` once (80 MiB per lane-pivot at m = 2048, n = 4096), and the
+card needs megabytes of loads in flight to reach its rate.  One cluster of
+2 to 16 thread blocks runs a lane.  The blocks split the lane by rows: a
+block owns a band of rows of A and the same rows of ``B^-T``, computes its
+partial of each product over all columns, and the cluster adds the partials
+up through distributed shared memory, as it combines the selections.  Where
+the rows are 16-byte aligned (m and n multiples of 4) every pass streams
+whole rows through a ring of a few large stages in shared memory, filled by
+asynchronous bulk copies; other shapes take scalar loads in the same
+kernel.  The eta pass that rewrites ``B^-T`` also produces the next
+iteration's duals, so only a launch's first iteration reads the factor a
+third time.
+
+The launch plan -- cluster size, ring geometry, shared-memory bytes, aligned
+or scalar branch -- is :func:`stream_plans`, a pure function of the batch
+and lane shape and of the card's SM count and shared-memory limit; the
+wrapper takes the first candidate that runs the batch in the fewest waves
+of resident clusters, as the occupancy query of the built kernel counts
+them.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -33,8 +49,153 @@ from . import _build
 from .solve_kernel import SegmentState, check_segment_args, solve_segment_plain
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
+last_plan = None  # the StreamPlan of the last launch
 
-_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
+_STATIC_BYTES = 2048  # the kernel's static shared memory and a block's reserve
+_WARPS = 8  # warps of a block (csrc/common.cuh: kThreads / 32)
+_CLUSTERS = (16, 8, 4, 2)  # cluster sizes the bulk-copy branch is built for
+_SCALAR_CLUSTERS = (16, 8)  # cluster sizes the scalar branch is built for
+# (stages of a warp's ring, floats per stage), largest ring first
+_RINGS = ((4, 1024), (4, 768), (2, 1024), (2, 768), (2, 512), (2, 256))
+_BLOCK_STAGES = 4  # stages of the same memory seen as the block's ring
+
+
+class StreamPlan(NamedTuple):
+    """How one launch of the streaming kernel is laid out."""
+
+    cluster: int  # thread blocks per lane
+    aligned: bool  # bulk-copy rings (True) or scalar loads (False)
+    stages: int  # block ring: stages (0 on the scalar branch)
+    stage_floats: int  # block ring: floats per stage
+    warp_stages: int  # warp rings: stages per warp
+    chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
+    smem_bytes: int  # dynamic shared memory per block
+    residency: int  # blocks per SM the plan counts on (1 on the bulk-copy
+    # branch, up to 5 on the scalar branch)
+
+
+def _slice_len(size: int, cluster: int) -> int:
+    return -(-size // cluster)
+
+
+def _vector_bytes(m: int, n: int, cluster: int, dual: bool) -> int:
+    """The lane's vectors in one block: d, u and c_B whole, the block's
+    partial of ``y A`` over all n columns (reused for the direction's) and
+    in dual mode that of the dual row, five slices of m and four of n,
+    rounded to 16 bytes."""
+    floats = (3 * m + max(m, n) + (n if dual else 0)
+              + 5 * _slice_len(m, cluster) + 4 * _slice_len(n, cluster))
+    return 4 * (-(-floats // 4) * 4)
+
+
+def slices_aligned(m: int, n: int) -> bool:
+    """Every row of A and of ``B^-T`` starts on a multiple of 4 floats and
+    is a multiple of 4 floats long, so each row segment a block streams (a
+    slice is whole rows) can be a 16-byte-aligned bulk copy."""
+    return m % 4 == 0 and n % 4 == 0
+
+
+def scalar_plan(cluster: int, m: int, n: int, dual: bool = False,
+                smem_limit: int = SMEM_LIMIT) -> Optional[StreamPlan]:
+    """The scalar-load branch at ``cluster`` blocks a lane (no ring; the
+    kernel is built for five such blocks on an SM), or None."""
+    if cluster not in _SCALAR_CLUSTERS:
+        return None
+    vec = _vector_bytes(m, n, cluster, dual)
+    res = min(5, smem_limit // (vec + _STATIC_BYTES))
+    return StreamPlan(cluster, False, 0, 0, 0, 0, vec, res) if res else None
+
+
+def _plan_for(cluster: int, m: int, n: int, dual: bool,
+              smem_limit: int) -> Optional[StreamPlan]:
+    """The plan at ``cluster`` blocks a lane: on an aligned shape the
+    largest ring that fits one block on an SM (the bulk-copy branch may use
+    all of a thread's registers, so it counts on no second block)."""
+    if not slices_aligned(m, n):
+        return scalar_plan(cluster, m, n, dual, smem_limit)
+    vec = _vector_bytes(m, n, cluster, dual)
+    for warp_stages, chunk in _RINGS:
+        chunk = min(chunk, m)
+        ring = _WARPS * warp_stages * chunk
+        smem = vec + 4 * ring
+        if smem + _STATIC_BYTES <= smem_limit:
+            # the block's view: four stages, each as many row segments of a
+            # sweep as fit (a stage costs the same to turn over whatever
+            # its size, so few large ones)
+            stage = ring // _BLOCK_STAGES // 4 * 4
+            return StreamPlan(cluster, True, _BLOCK_STAGES, stage,
+                              warp_stages, chunk, smem, 1)
+    return None
+
+
+def stream_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
+                 smem_limit: int = SMEM_LIMIT,
+                 dual: bool = False) -> List[StreamPlan]:
+    """Candidate launch plans for ``B`` lanes of ``(m, n)``, best first.
+
+    First the largest cluster that keeps the batch within one block per SM
+    (``B * cluster <= sm_count``; 16 blocks a lane for a few lanes, 8 for a
+    bucket of 8, 2 for a batch of 64), then the other sizes, largest first.
+    The wrapper takes the first that runs the batch in the fewest waves: a
+    cluster must lie within one GPC, so the card holds fewer clusters of a
+    size than its SM count suggests (7 of 16 blocks, 15 of 8, 30 of 4, 66
+    of 2 at one block per SM on an H100 SXM).  A shape whose rows are not
+    aligned takes the scalar branch, which is built for 16 and 8 blocks a
+    lane only.  Dual mode keeps one more row of n floats.  Raises
+    ``ValueError`` for a lane whose vectors pass the shared memory of a
+    block at every cluster size.
+    """
+    if B < 1 or m < 1 or n < 1:
+        raise ValueError(f"stream_plans needs B, m, n >= 1, got {(B, m, n)}")
+    first = next((cl for cl in _CLUSTERS if B * cl <= sm_count),
+                 _CLUSTERS[-1])
+    order = [first] + [cl for cl in _CLUSTERS if cl != first]
+    plans = []
+    for cl in order:
+        plan = _plan_for(cl, m, n, dual, smem_limit)
+        if plan is not None:
+            plans.append(plan)
+    if not plans:
+        raise ValueError(
+            f"solve_segment_stream: a lane of m={m}, n={n} needs "
+            f"{_vector_bytes(m, n, _CLUSTERS[0], dual) + _STATIC_BYTES} bytes of "
+            f"shared memory per block at {_CLUSTERS[0]} blocks a lane, past "
+            f"the {smem_limit} a block of the card may hold"
+        )
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def _choose_plan(B: int, m: int, n: int, dual: bool, device_index: int,
+                 pointers_aligned: bool) -> StreamPlan:
+    """The candidate that runs the batch in the fewest waves of resident
+    clusters on this device (ties: the earlier candidate)."""
+    props = torch.cuda.get_device_properties(device_index)
+    lib = _build.library()
+    best, best_waves, seen = None, None, []
+    for plan in stream_plans(B, m, n, props.multi_processor_count,
+                             dual=dual):
+        if plan.aligned and not pointers_aligned:
+            plan = scalar_plan(plan.cluster, m, n, dual)
+            if plan is None:
+                continue
+        resident = lib.lp_solve_segment_stream_max_clusters(
+            plan.cluster, int(plan.aligned), plan.smem_bytes)
+        seen.append((plan.cluster, resident))
+        if resident <= 0:
+            continue
+        waves = -(-B // resident)
+        if best is None or waves < best_waves:
+            best, best_waves = plan, waves
+    if best is None:
+        raise RuntimeError(
+            "solve_segment_stream: the device holds no cluster of any "
+            f"planned size for m={m}, n={n}: (cluster, resident or negated "
+            f"CUDA error) = {seen}"
+        )
+    return best
 
 
 def _factor_rb(m: int) -> int:
@@ -100,7 +261,6 @@ def solve_segment_stream(A, c, apen, maxiters: int, state: SegmentState, *,
     tensor takes the plain version; a CUDA tensor launches the cluster
     kernel, or raises for a lane too large for its shared memory.
     """
-    global launches
     check_segment_args(A, c, apen, state, "solve_segment_stream")
     kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
               pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
@@ -112,27 +272,54 @@ def solve_segment_stream(A, c, apen, maxiters: int, state: SegmentState, *,
         raise ValueError(f"solve_segment_stream: unsupported device {A.device}")
     _check_mode(pricing, dual, factor_blocked)
     B, m, n = A.shape
-    lib = _build.library()
-    need = lib.lp_solve_segment_stream_smem(m, n)
-    if need > _SMEM_LIMIT - 1024:
-        raise ValueError(
-            f"solve_segment_stream: a lane of m={m}, n={n} needs {need} bytes "
-            f"of shared memory per block, past the {_SMEM_LIMIT} a block of "
-            "the card may hold"
-        )
     if B == 0 or seg_len <= 0:
+        # a lane too large raises all the same
+        stream_plans(max(B, 1), m, n, dual=bool(dual))
         return state
+    pointers_aligned = (A.data_ptr() % 16 == 0
+                        and state.invBT.data_ptr() % 16 == 0)
+    index = A.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _choose_plan(B, m, n, bool(dual), index, pointers_aligned)
+    return launch_with_plan(plan, A, c, apen, maxiters, state,
+                            seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
+                            pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
+                            stall_limit=stall_limit, packed=packed)
+
+
+def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
+                     state: SegmentState, *, seg_len: int, pricing: int,
+                     opt_tol: float, pivot_tol: float, dual: bool = False,
+                     feas_tol: float = 1e-6, stall_limit: int = 0,
+                     packed: bool = False) -> SegmentState:
+    """Launch the CUDA kernel under ``plan`` (one of :func:`stream_plans`,
+    or a variation of one: the card tests hold cluster sizes and branches
+    against each other).  CUDA tensors only; the C entry point refuses a
+    plan that does not fit the shape."""
+    global launches, last_plan
+    check_segment_args(A, c, apen, state, "solve_segment_stream")
+    if A.device.type != "cuda":
+        raise ValueError("launch_with_plan needs CUDA tensors")
+    _check_mode(pricing, dual, False)
+    B, m, n = A.shape
+    lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    code = lib.lp_solve_segment_stream(
-        A.data_ptr(), c.data_ptr(), apen.data_ptr(),
-        state.invBT.data_ptr(), state.bfs.data_ptr(), state.cB.data_ptr(),
-        state.basis.data_ptr(), state.pen.data_ptr(),
-        state.iters.data_ptr(), state.status.data_ptr(),
-        B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
-        float(opt_tol), float(pivot_tol), float(feas_tol),
-        int(bool(dual)), int(pricing), int(bool(packed)), int(stall_limit),
-        stream,
-    )
+    with torch.cuda.device(A.device):
+        code = lib.lp_solve_segment_stream(
+            A.data_ptr(), c.data_ptr(), apen.data_ptr(),
+            state.invBT.data_ptr(), state.bfs.data_ptr(), state.cB.data_ptr(),
+            state.basis.data_ptr(), state.pen.data_ptr(),
+            state.iters.data_ptr(), state.status.data_ptr(),
+            B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
+            float(opt_tol), float(pivot_tol), float(feas_tol),
+            int(bool(dual)), int(pricing), int(bool(packed)),
+            int(stall_limit),
+            plan.cluster, int(plan.aligned), plan.stages, plan.stage_floats,
+            plan.warp_stages, plan.chunk_floats, plan.smem_bytes,
+            stream,
+        )
     _build.check(code, "solve_segment_stream launch")
     launches += 1
+    last_plan = plan
     return state

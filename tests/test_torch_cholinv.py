@@ -37,8 +37,12 @@ def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
-@pytest.mark.parametrize("mb", [8, 16, 32])
+@pytest.mark.parametrize("mb", [1, 5, 8, 16, 31, 32, 33, 64])
 def test_panel_matches_pallas_and_numpy(mb):
+    """The plain version against the Pallas kernel (interpret mode) and
+    numpy, at the sizes the IPM hands it (32), at odd sizes the
+    warp-per-matrix CUDA kernel must mask (1, 5, 31) and on both sides of
+    its boundary with the block-per-matrix kernel (32, 33, 64)."""
     M = _spd(16, mb, seed=mb)
     W = panel_cholinv(torch.tensor(M)).numpy()
     W_ref = np.asarray(jax_panel_cholinv(jnp.asarray(M), interpret=True))

@@ -215,23 +215,29 @@ def test_segment_kernel_refuses_an_unknown_pricing_code(cuda):
     assert solve_kernel.launches == before
 
 
-@pytest.mark.parametrize("mb", [8, 16, 32, 64])
-def test_panel_kernel_matches_plain(cuda, mb):
-    """The kernel takes the same IEEE-rounded steps as the plain version
-    (no FMA contraction, 1/sqrt), so the two agree to the last bit."""
+@pytest.mark.parametrize("B", [1, 64, 1024])
+@pytest.mark.parametrize("mb", [1, 5, 16, 31, 32, 33, 48, 64])
+def test_panel_kernel_matches_plain(cuda, mb, B):
+    """The warp-per-matrix kernel (mb <= 32, odd sizes masked) and the
+    block-per-matrix kernel (mb > 32) take the same IEEE-rounded steps as
+    the plain version (no FMA contraction, 1/sqrt), so they agree to the
+    last bit; a planted non-SPD lane comes out non-finite in both."""
     rng = np.random.default_rng(mb)
-    X = rng.normal(size=(96, mb, mb)).astype(np.float32)
+    X = rng.normal(size=(B, mb, mb)).astype(np.float32)
     M = X @ np.swapaxes(X, 1, 2) + mb * np.eye(mb, dtype=np.float32)
-    M[5] = -M[5]  # non-SPD lane
+    bad = min(5, B - 1)
+    M[bad] = -M[bad]  # non-SPD lane
     Mt = torch.tensor(M, device=cuda)
     before = cholinv_kernel.launches
     W = cholinv_kernel.panel_cholinv(Mt)
     Wp = cholinv_kernel.panel_cholinv_plain(Mt)
     torch.cuda.synchronize()
     assert cholinv_kernel.launches == before + 1
-    good = torch.ones(96, dtype=torch.bool, device=cuda)
-    good[5] = False
-    assert not bool(torch.isfinite(W[5]).all())
+    good = torch.ones(B, dtype=torch.bool, device=cuda)
+    good[bad] = False
+    assert not bool(torch.isfinite(W[bad]).all())
+    assert not bool(torch.isfinite(Wp[bad]).all())
+    assert bool(torch.isfinite(W[good]).all())
     torch.testing.assert_close(W[good], Wp[good], rtol=0, atol=0)
 
 
@@ -254,13 +260,14 @@ def test_exact_pipeline_on_card_matches_cpu(cuda):
     assert int(cert["certified"].sum()) >= 15
 
 
-def _stream_both(A, c, apen, state0, **kw):
+def _stream_both(A, c, apen, state0, maxiters=512, **kw):
     """The cluster kernel and its plain version from copies of one state."""
     before = stream_kernel.launches
     k = stream_kernel.solve_segment_stream(
-        A, c, apen, 512, SegmentState(*(t.clone() for t in state0)), **kw)
+        A, c, apen, maxiters, SegmentState(*(t.clone() for t in state0)), **kw)
     p = stream_kernel.solve_segment_stream_plain(
-        A, c, apen, 512, SegmentState(*(t.clone() for t in state0)), **kw)
+        A, c, apen, maxiters, SegmentState(*(t.clone() for t in state0)),
+        **kw)
     torch.cuda.synchronize()
     assert stream_kernel.launches == before + 1
     return k, p
@@ -395,24 +402,148 @@ def test_exact_large_m_route_on_card_matches_cpu(cuda, monkeypatch):
                                         ("segment", 256, 2368)],
                          ids=["stream", "segment"])
 def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
-    """Shapes whose vectors take exactly 48 KB of dynamic shared memory
-    (the stream kernel at the two-phase fallback shape of m = 2048): with
-    the static shared memory on top they need the opt-in limit, which
-    both wrappers set at every launch."""
+    """Shapes whose vectors take 48 KB of dynamic shared memory (the stream
+    kernel at the two-phase fallback shape of m = 2048, its ring on top):
+    with the static shared memory they need the opt-in limit, which both
+    wrappers set at every launch."""
     A, c, apen, h, state0 = _slack_instance(2, m, n, seed=1, dual=False,
                                             dev=cuda, degenerate=False)
     kw = dict(seg_len=2, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
               packed=True)
     if kernel == "stream":
-        from linprog_tpu_torch.ops import _build
-
-        assert _build.library().lp_solve_segment_stream_smem(m, n + m) == 48 * 1024
         k, p = _stream_both(A, c, apen, state0, **kw)
+        assert stream_kernel.last_plan.smem_bytes > 48 * 1024
     else:
         assert (7 * m + 4 * (n + m)) * 4 == 48 * 1024
         k, p = _both(A, c, apen, state0, **kw)
     torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
     assert bool((k.iters == 2).all())
+
+
+def _mid_solve(A, c, apen, state0, pivots, **kw):
+    """``state0`` advanced by ``pivots`` iterations of the plain version."""
+    s = SegmentState(*(t.clone() for t in state0))
+    return stream_kernel.solve_segment_stream_plain(A, c, apen, 1 << 20, s,
+                                                    **dict(kw, seg_len=pivots))
+
+
+_STREAM_SHAPES = {"aligned": (128, 256), "ragged": (37, 50)}
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("shape", sorted(_STREAM_SHAPES))
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_stream_kernel_lockstep_from_mid_solve(cuda, packed, dual, shape, B):
+    """16 pivots from a state 12 pivots into the solve, so the first
+    iteration runs the standalone duals on a dense factor and the other 15
+    take their duals from the eta pass: the same basis, status, iteration
+    count, c_B and penalties as the plain version on every lane; factors
+    by float64 residual.  The aligned shape takes the bulk-copy rings at
+    every cluster size, the ragged one the scalar branch."""
+    m, n = _STREAM_SHAPES[shape]
+    A, c, apen, h, slack = _slack_instance(B, m, n, seed=3 + dual, dual=dual,
+                                           dev=cuda, degenerate=False)
+    kw = dict(pricing=1, opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+              feas_tol=1e-6, stall_limit=24, packed=packed)
+    state0 = _mid_solve(A, c, apen, slack, 12, **kw)
+    k, p = _stream_both(A, c, apen, state0, seg_len=16, **kw)
+    assert stream_kernel.last_plan.aligned == (shape == "aligned")
+    _assert_lockstep(A, h, k, p)
+    assert bool((k.iters == 28).any())
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("shape", sorted(_STREAM_SHAPES))
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_stream_kernel_long_run_matches_plain(cuda, dual, shape, B):
+    """One launch of up to 4096 pivots, in which every lane ends (the
+    slowest takes more than 512): the same statuses and the same float64
+    objective at the final basis to 1e-5 relative."""
+    m, n = _STREAM_SHAPES[shape]
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=11 + dual,
+                                            dual=dual, dev=cuda,
+                                            degenerate=False)
+    k, p = _stream_both(A, c, apen, state0, maxiters=4096, seg_len=4096,
+                        pricing=1,
+                        opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+                        feas_tol=1e-6, stall_limit=24, packed=True)
+    torch.testing.assert_close(k.status, p.status, rtol=0, atol=0)
+    assert bool((k.status != st.RUNNING).all())
+
+    def objective(s):
+        xB = solve_or_nan(basis_matrix(A, s.basis), h)
+        return (torch.gather(c, 1, s.basis.long()).double() * xB.double()).sum(1)
+
+    ok, op = objective(k), objective(p)
+    assert ((ok - op).abs() / op.abs().clamp_min(1.0)).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("m,n", [(128, 256), (640, 640), (2048, 1024)],
+                         ids=["m128", "m640", "m2048"])
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_stream_kernel_same_answer_for_every_plan(cuda, dual, m, n):
+    """Every candidate plan (cluster sizes 16 to 2, where the device grants
+    them) over 48 pivots.  At one cluster size the bulk-copy branch and the
+    scalar branch (built for 16 and 8) sum in the same order: the same
+    state bit for bit.  Across cluster sizes a block's partial sums cover
+    other rows, so only the selections must agree: the same basis, status
+    and iteration count, and factors as accurate as the plain version's.
+    m = 640 streams rows in one chunk and m = 2048 in two, through several
+    stages of both rings."""
+    from linprog_tpu_torch.ops import _build
+
+    B = 8
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=17 + dual,
+                                            dual=dual, dev=cuda,
+                                            degenerate=False)
+    kw = dict(seg_len=48, pricing=1, opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+              feas_tol=1e-6, stall_limit=24, packed=True)
+    lib = _build.library()
+    results = {}
+    for plan in stream_kernel.stream_plans(B, m, n + m, dual=dual):
+        assert plan.aligned
+        scalar = stream_kernel.scalar_plan(plan.cluster, m, n + m, dual)
+        for name, pl in (("ring", plan), ("scalar", scalar)):
+            if pl is None or lib.lp_solve_segment_stream_max_clusters(
+                    pl.cluster, int(pl.aligned), pl.smem_bytes) <= 0:
+                continue
+            s = SegmentState(*(t.clone() for t in state0))
+            stream_kernel.launch_with_plan(pl, A, c, apen, 1 << 20, s, **kw)
+            torch.cuda.synchronize()
+            results[plan.cluster, name] = s
+    assert {(8, "ring"), (8, "scalar"), (2, "ring")} <= set(results)
+    p = stream_kernel.solve_segment_stream_plain(
+        A, c, apen, 1 << 20, SegmentState(*(t.clone() for t in state0)), **kw)
+    assert bool((p.iters > 16).all())
+    for (cluster, name), s in results.items():
+        if name == "scalar":
+            for a, b in zip(s, results[cluster, "ring"]):
+                torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                           msg=f"cluster {cluster}")
+        else:
+            _assert_lockstep(A, h, s, p)
+
+
+def test_stream_kernel_refuses_a_plan_that_does_not_fit(cuda):
+    """The C entry point checks the plan against the shape: an aligned
+    plan on a ragged shape and a ring larger than the stated shared memory
+    are refused before any launch."""
+    A, c, apen, h, state = _slack_instance(2, 37, 50, seed=0, dual=False,
+                                           dev=cuda)
+    kw = dict(seg_len=1, pricing=1, opt_tol=1e-6, pivot_tol=1e-7)
+    good = stream_kernel.stream_plans(2, 37, 87)[0]
+    assert not good.aligned
+    before = stream_kernel.launches
+    with pytest.raises(RuntimeError, match="invalid"):
+        stream_kernel.launch_with_plan(
+            good._replace(aligned=True, stages=4, stage_floats=64,
+                          warp_stages=2, chunk_floats=32),
+            A, c, apen, 10, state, **kw)
+    with pytest.raises(RuntimeError, match="invalid"):
+        stream_kernel.launch_with_plan(good._replace(smem_bytes=16), A, c,
+                                       apen, 10, state, **kw)
+    assert stream_kernel.launches == before
 
 
 # ---- the bounded-variable segment kernel ----------------------------------
