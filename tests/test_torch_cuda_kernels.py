@@ -546,6 +546,27 @@ def test_stream_kernel_refuses_a_plan_that_does_not_fit(cuda):
     assert stream_kernel.launches == before
 
 
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_stream_kernel_at_the_largest_two_phase_shape(cuda, dual):
+    """m = 4096, n = 12288: the lane's vectors take most of a block's shared
+    memory, so the plan shrinks the ring (and drops 2 blocks a lane); three
+    pivots in lockstep with the plain version."""
+    m, n = 4096, 8192
+    plans = stream_kernel.stream_plans(2, m, n + m, dual=dual)
+    assert all(p.aligned and p.smem_bytes > 128 * 1024 for p in plans)
+    assert 2 not in [p.cluster for p in plans]
+    A, c, apen, h, state0 = _slack_instance(2, m, n, seed=5, dual=dual,
+                                            dev=cuda, degenerate=False)
+    k, p = _stream_both(A, c, apen, state0, seg_len=3, pricing=1,
+                        opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+                        feas_tol=1e-6, stall_limit=24, packed=True)
+    assert stream_kernel.last_plan in plans
+    for name in ("basis", "status", "iters", "pen", "cB"):
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=0, atol=0)
+    assert bool((k.iters == 3).all())
+
+
 # ---- the bounded-variable segment kernel ----------------------------------
 
 
