@@ -29,7 +29,8 @@ Phases, each printing one JSON line:
      lockstep, then a 64-pivot segment), at the two-phase shape
      (1024, 3072) and a ragged (1000, 2999), primal, and at the fallback's
      bucket, B = 8 at (2048, 6144), primal; each with its launch plan
-     (cluster size, ring, shared memory) and its own bound;
+     (cluster size, ring, shared memory) and its own bound, and the same
+     bits required under the other built cluster size;
   6. the m = 2048 path: solve_batch_exact at B = 64, m = n = 2048 (a
      warm-up and one timed run, whose launch counts are kept, with the
      streaming kernel's time inside it from CUDA events) and the dd-KKT
@@ -655,7 +656,7 @@ def _hold_stream(label, A, c, apen, h, state0, cfg, dual, seg_len, reps):
     iteration in lockstep (the same basis and status on every lane that
     _tie_lanes does not exclude), then a ``seg_len``-pivot segment (the
     same statuses, float64 objectives at the final bases within 1e-5
-    relative).  Returns a report with CUDA-event times of both."""
+    relative; the same bits under the other built cluster size).  Returns a report with CUDA-event times of both."""
     kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
               dual=dual, feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
               packed=cfg.packed_select, a_resident=False, n_blk=512)
@@ -710,9 +711,26 @@ def _hold_stream(label, A, c, apen, h, state0, cfg, dual, seg_len, reps):
         fail(f"solve_segment_stream {label}: {seg_len}-pivot objectives "
              f"differ by {rel:.3e} relative (> 1e-5); bases split on {split} "
              "lanes")
+    # the other built cluster size gives the same bits: every sum runs over
+    # the lane's eight row bands in one order, whatever the plan
+    launch_kw = {k: v for k, v in kw.items() if k not in ("a_resident", "n_blk")}
+    others = [p for p in ssk.stream_plans(*A.shape, dual=dual)
+              if p.cluster != plan.cluster and p.aligned == plan.aligned]
+    for other in others:
+        s = fresh()
+        ssk.launch_with_plan(other, A, c, apen, 1 << 20, s, seg_len=seg_len,
+                             **launch_kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(s._fields, s, sk_full):
+            if not torch.equal(a, b):
+                fail(f"solve_segment_stream {label}: {name} after {seg_len} "
+                     f"pivots differs between {other.cluster} and "
+                     f"{plan.cluster} blocks a lane")
+        del s
     return {
         "shape": list(A.shape), "mode": "dual" if dual else "primal",
         "plan": plan._asdict(),
+        "same_bits_at_clusters": [p.cluster for p in others],
         "resident_clusters": _build.library()
         .lp_solve_segment_stream_max_clusters(plan.cluster, int(plan.aligned),
                                               plan.smem_bytes),
@@ -1367,19 +1385,6 @@ def phase_step_kernels():
 
 
 def main():
-    if len(sys.argv) > 1:
-        # development aid: `chip_smoke.py 2 5` runs phases 0 and 1 and the
-        # named ones, and prints neither the kernels line nor the last line
-        phases = {"2": phase_cholinv, "3": phase_segment,
-                  "3d": phase_segment_devex, "4": phase_main_path,
-                  "5": phase_stream, "6": phase_exact_m2048,
-                  "7": phase_bounded_segment, "8": phase_bounded_path,
-                  "9": phase_step_kernels}
-        phase_environment()
-        phase_build()
-        for name in sys.argv[1:]:
-            phases[name]()
-        return
     phase_environment()
     phase_build()
     chol = phase_cholinv()

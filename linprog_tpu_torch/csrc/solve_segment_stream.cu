@@ -1,6 +1,6 @@
 // Whole-segment revised simplex for large m: up to seg_len iterations per
-// lane in one launch, one thread-block CLUSTER of 2 to 16 CTAs per lane,
-// the lane's state updated in place.
+// lane in one launch, one thread-block CLUSTER of 8 or 2 CTAs per lane, the
+// lane's state updated in place.
 //
 // Replaces linprog_tpu/ops/stream_kernel.py :: solve_segment_stream
 // (Pallas; body _stream_kernel). Its iteration math is the one of
@@ -21,9 +21,14 @@
 //       pricing    pp[k] = sum_{j own} y[j] A[j, k]          (k < n)
 //       dual row   pp2[k] = sum_{j own} invBT[j, l] A[j, k]  (dual mode)
 //       direction  pp[i] = sum_{j own} a[j] invBT[j, i]      (i < m)
-//     and after a cluster barrier each CTA adds up, in rank order, the
-//     partials of all CTAs for its own slice of the columns (c, pen, r) or
-//     of d, through distributed shared memory.
+//     and after a cluster barrier each CTA adds up the partials of all CTAs
+//     for its own slice of the columns (c, pen, r) or of d, through
+//     distributed shared memory. The order of these sums is fixed by 8 row
+//     bands of ceil(m / 8) rows, whatever the cluster size: a CTA owns whole
+//     bands, sums the rows of a band in order, and the 8 band totals are
+//     added as one balanced tree, within a CTA and then across the CTAs. So
+//     a lane gets the same bits in a batch of 8 (8 CTAs a lane) as in a
+//     batch of 64 (2 CTAs a lane).
 //   * On shapes whose rows are 16-byte aligned (m, n multiples of 4) every
 //     pass streams through a ring in shared memory filled by asynchronous
 //     bulk copies (cp.async.bulk, completion on an mbarrier) and consumed
@@ -39,13 +44,15 @@
 //     eta update) split the same memory into one ring per warp: the warp
 //     streams its own rows in 4 KB chunks and lane 0 refills a stage as
 //     soon as the warp has read it. Other shapes (n = 2999) take scalar
-//     ld.global.cg loads in the same kernel, built for 5 CTAs an SM; both
-//     branches sum in the same order and give the same bits.
+//     ld.global.cg loads in the same kernel, built for kScalarCtas CTAs an
+//     SM; both branches sum in the same order and give the same bits.
 //   * The cluster size is a launch parameter. The launch plan
 //     (ops/stream_kernel.py) takes the size that runs the whole batch in
 //     one wave with one CTA on an SM: 8 CTAs a lane for the fallback's
 //     bucket of 8 lanes, 2 for a batch of 64 (a cluster must lie within a
-//     GPC: the card holds 7 clusters of 16, 15 of 8, 66 of 2).
+//     GPC: the card holds 15 clusters of 8 and 66 of 2). Only the sizes
+//     that a route launches are built: bulk-copy branch 8 and 2, scalar
+//     branch 8.
 //   * The duals of the next iteration come out of the eta pass: the warp
 //     that rewrites row j of invBT also accumulates y[j] = sum_i cB[i]
 //     row_new[i], after cB[leave] = c_enter, in the order the standalone
@@ -59,12 +66,18 @@
 // min over the partials in rank order: an integer min, or a float min plus
 // the lowest index, so it picks the same entry in any order and for any
 // cluster size. The three dot-product passes differ from the plain
-// version's order of summation (per column: the CTA's rows in order in
-// blocks of 32, then the CTAs in rank order; per row: lane-strided, then a
-// shuffle tree). The direction, which the factor update is built from,
-// sums with fused multiply-adds, as the library GEMV of the plain version
-// does; every other operation rounds as the plain version's elementwise
-// code (the build disables FMA contraction). Scalars that one CTA owns (d_l, bfs_l, basis[l], c_enter,
+// version's order of summation (per column: a band's rows in order in
+// blocks of 32, then the tree over the bands; per row: lane-strided, then a
+// shuffle tree). One departure from the plain version's arithmetic: the
+// direction d = B^-1 a, which the ratio test reads and the factor update
+// is built from, sums with explicit fused multiply-adds (fmaf: one
+// rounding per term), although the build disables FMA contraction. The
+// plain version's direction is a library GEMV, which fuses too; with
+// twice-rounded terms the factor's float64 residual after 16 pivots at
+// m = 32 passed twice the plain version's, and 64 dual pivots at m = 2048
+// split from it. Every other operation rounds as the plain version's
+// elementwise code does.
+// Scalars that one CTA owns (d_l, bfs_l, basis[l], c_enter,
 // r_enter) travel in the selection partials or are read from the owner's
 // shared memory while it cannot change. Stall state and status are computed
 // redundantly in every CTA from these identical reduced values, so all CTAs
@@ -87,10 +100,10 @@
 // (the async proxy), so each writing thread issues fence.proxy.async before
 // the block barrier that precedes them.
 //
-// Shared memory per CTA: (3m + max(m, n) + 5*ceil(m/CL) + 4*ceil(n/CL))
-// floats of vectors (n more in dual mode) plus the ring (16-128 KB on the
-// aligned branch); the plan raises for a lane past the 227 KB a block may
-// hold.
+// Shared memory per CTA: (3m + max(m, n) + 5*ml + 4*nl) floats of vectors
+// (n more in dual mode; ml and nl the CTA's slices, 8 / CL bands of
+// ceil(m / 8) or ceil(n / 8)) plus the ring (16-128 KB on the aligned
+// branch); the plan raises for a lane past the 227 KB a block may hold.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -124,9 +137,11 @@ constexpr size_t kMaxSmem = 232448;  // bytes a Hopper block may use
 constexpr int kMaxStages = 8;        // block-ring stages
 constexpr int kMaxWarpStages = 4;    // stages of one warp's ring
 constexpr int kSumBlock = 32;        // rows per partial sum of a column pass
+constexpr int kBands = 8;            // row bands of a lane: the units of every sum
+constexpr int kScalarCtas = 5;       // CTAs an SM the scalar branch is built for
 constexpr int kLag = 1;              // tiles between a stage's last read and its refill
 
-// One CTA's partial of a selection (or of the entry objective).
+// One CTA's partial of a selection.
 struct Part {
   int key;    // min packed key, or kIntMax
   int first;  // lowest eligible index, or the size
@@ -134,14 +149,12 @@ struct Part {
   int basis;  // basis entry at the CTA's local winner (primal ratio test)
   float val;  // NaN-propagating min value, or +inf
   float bfs;  // bfs entry at the local winner (primal ratio test)
-  float sum;  // partial sum (entry objective)
-  float pad;
 };
 
 // The cluster's reduction of a selection, plus the scalars it broadcasts.
 struct Sel {
   int key, first, hot, basis;
-  float val, bfs, sum;
+  float val, bfs;
   float c_enter, r_enter;
 };
 
@@ -159,9 +172,11 @@ struct Pipe {
   int S, stage_floats, D, C;
 };
 
+// A CTA's slice of `size` entries is kBands / CL whole bands of
+// ceil(size / kBands), so the bands are the same at every cluster size.
 template <int CL>
 __device__ __forceinline__ int slice_len(int size) {
-  return (size + CL - 1) / CL;
+  return (kBands / CL) * ((size + kBands - 1) / kBands);
 }
 
 template <int CL>
@@ -251,7 +266,6 @@ __device__ Sel combine(cg::cluster_group& cl, Part* slot, int size) {
   s.basis = 0;
   s.val = INFINITY;
   s.bfs = 0.0f;
-  s.sum = 0.0f;
   s.c_enter = 0.0f;
   s.r_enter = 0.0f;
   for (int r = 0; r < CL; ++r) {
@@ -259,7 +273,6 @@ __device__ Sel combine(cg::cluster_group& cl, Part* slot, int size) {
     s.key = min(s.key, p->key);
     s.first = min(s.first, p->first);
     s.val = nan_min(s.val, p->val);
-    s.sum = s.sum + p->sum;
   }
   for (int r = 0; r < CL; ++r) {
     const Part* p = cl.map_shared_rank(slot, r);
@@ -387,33 +400,56 @@ __device__ __forceinline__ float madd(float a, float b, float acc) {
 //
 // out0[k] = sum_j v0[j] G[j, k] over the `nrows` rows of G that the CTA
 // owns (and out1 with v1 when NV == 2), for every k < ncols: one thread
-// per column, the rows in order, in partial sums of kSumBlock rows that are
-// added up in order. G points at the CTA's first row; `ld` is the row
-// length; v0 and v1 are indexed from that row. Ends synced.
+// per column. The order of the sum is fixed by the lane's kBands row bands
+// of `band` rows, not by the cluster size: the rows of a band in order, in
+// partial sums of kSumBlock rows that are added up in order; then the CTA's
+// NB = kBands / CL bands as a balanced tree, which reduce_slice continues
+// over the CTAs. G points at the CTA's first row (the start of a band);
+// `ld` is the row length; v0 and v1 are indexed from that row. Ends synced.
 
-template <int NV, bool FMA>
+// The band total `a` joins the tree of the CTA's bands as band number `bi`.
+template <int NB>
+__device__ __forceinline__ void close_band(float& a, float& prev, float& tot,
+                                           int bi) {
+  if (NB == 1) {
+    tot = a;
+  } else if (!(bi & 1)) {
+    prev = a;
+  } else {
+    const float pair = prev + a;
+    tot = (NB == 2 || bi == 1) ? pair : tot + pair;
+  }
+  a = 0.0f;
+}
+
+template <int NV, bool FMA, int NB>
 __device__ void col_pass_scalar(const float* G, int ld, int ncols, int nrows,
-                                const float* v0, const float* v1, float* out0,
-                                float* out1) {
+                                int band, const float* v0, const float* v1,
+                                float* out0, float* out1) {
   for (int k = threadIdx.x; k < ncols; k += kThreads) {
     const float* g = G + k;
-    float a0 = 0.0f, a1 = 0.0f, p0 = 0.0f, p1 = 0.0f;
+    float a0 = 0.0f, a1 = 0.0f, prev0 = 0.0f, prev1 = 0.0f, tot0 = 0.0f,
+          tot1 = 0.0f;
+    int j = 0;
+    for (int bi = 0; bi < NB; ++bi) {
+      const int jend = min(j + band, nrows);  // an empty band sums to 0
+      while (j < jend) {
+        const int bend = min(j + kSumBlock, jend);
+        float p0 = 0.0f, p1 = 0.0f;
 #pragma unroll 8
-    for (int j = 0; j < nrows; ++j) {
-      const float x = ldcg(g + (size_t)j * ld);
-      p0 = madd<FMA>(v0[j], x, p0);
-      if (NV == 2) p1 = madd<FMA>(v1[j], x, p1);
-      if ((j & (kSumBlock - 1)) == kSumBlock - 1) {
-        a0 += p0;
-        p0 = 0.0f;
-        if (NV == 2) {
-          a1 += p1;
-          p1 = 0.0f;
+        for (; j < bend; ++j) {
+          const float x = ldcg(g + (size_t)j * ld);
+          p0 = madd<FMA>(v0[j], x, p0);
+          if (NV == 2) p1 = madd<FMA>(v1[j], x, p1);
         }
+        a0 += p0;
+        if (NV == 2) a1 += p1;
       }
+      close_band<NB>(a0, prev0, tot0, bi);
+      if (NV == 2) close_band<NB>(a1, prev1, tot1, bi);
     }
-    out0[k] = a0 + p0;
-    if (NV == 2) out1[k] = a1 + p1;
+    out0[k] = tot0;
+    if (NV == 2) out1[k] = tot1;
   }
   __syncthreads();
 }
@@ -426,10 +462,10 @@ __device__ void col_pass_scalar(const float* G, int ld, int ncols, int nrows,
 // arrives on the stage's `empty` barrier when it has read it, and warp 0
 // refills the stage it read kLag tiles ago, which by then every warp has
 // left, so the refill neither waits nor holds the other warps up.
-template <int NV, int KPT, bool FMA>
+template <int NV, int KPT, bool FMA, int NB>
 __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
-                              const float* v0, const float* v1, float* out0,
-                              float* out1, Pipe& pp) {
+                              int band, const float* v0, const float* v1,
+                              float* out0, float* out1, Pipe& pp) {
   const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
   const int S = pp.S, SF = pp.stage_floats;
   const int lag = min(kLag, S - 1);
@@ -453,27 +489,41 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
 
     if (warp == 0)
       for (int t = 0; t < min(S, T); ++t) issue(t);
-    float a0[KPT], a1[KPT], p0[KPT], p1[KPT];
+    float p0[KPT], p1[KPT], a0[KPT], a1[KPT], prev0[KPT], prev1[KPT],
+        tot0[KPT], tot1[KPT];
 #pragma unroll
-    for (int q = 0; q < KPT; ++q) a0[q] = a1[q] = p0[q] = p1[q] = 0.0f;
+    for (int q = 0; q < KPT; ++q)
+      p0[q] = p1[q] = a0[q] = a1[q] = prev0[q] = prev1[q] = tot0[q] = tot1[q] =
+          0.0f;
+    int jb = 0, bi = 0;  // rows into the band, bands into the CTA's rows
     for (int t = 0; t < T; ++t) {
       const int s = t % S, j0 = t * rps, nr = min(rps, nrows - j0);
       mbar_wait(pp.bbar + s, (pp.bphase >> s) & 1u);
       const float* buf = pp.ring + (size_t)s * SF;
-      for (int r = 0; r < nr; ++r) {
-        const float y0 = v0[j0 + r];
-        const float y1 = NV == 2 ? v1[j0 + r] : 0.0f;
-        const float* brow = buf + r * wc;
+      for (int r = 0; r < nr;) {
+        // the rows up to the next end of a kSumBlock block, of the band or
+        // of the stage, in one tight loop
+        const int run =
+            min(nr - r, min(kSumBlock - (jb & (kSumBlock - 1)), band - jb));
+        const int rend = r + run;
+#pragma unroll 4
+        for (; r < rend; ++r) {
+          const float y0 = v0[j0 + r];
+          const float y1 = NV == 2 ? v1[j0 + r] : 0.0f;
+          const float* brow = buf + r * wc;
 #pragma unroll
-        for (int q = 0; q < KPT; ++q) {
-          const int k = tid + q * kThreads;
-          if (q < kpt && k < wc) {
-            const float x = brow[k];
-            p0[q] = madd<FMA>(y0, x, p0[q]);
-            if (NV == 2) p1[q] = madd<FMA>(y1, x, p1[q]);
+          for (int q = 0; q < KPT; ++q) {
+            const int k = tid + q * kThreads;
+            if (q < kpt && k < wc) {
+              const float x = brow[k];
+              p0[q] = madd<FMA>(y0, x, p0[q]);
+              if (NV == 2) p1[q] = madd<FMA>(y1, x, p1[q]);
+            }
           }
         }
-        if (((j0 + r) & (kSumBlock - 1)) == kSumBlock - 1) {
+        jb += run;
+        const bool band_end = jb == band || j0 + r == nrows;
+        if ((jb & (kSumBlock - 1)) == 0 || band_end) {
 #pragma unroll
           for (int q = 0; q < KPT; ++q) {
             a0[q] += p0[q];
@@ -483,6 +533,15 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
               p1[q] = 0.0f;
             }
           }
+        }
+        if (band_end) {
+#pragma unroll
+          for (int q = 0; q < KPT; ++q) {
+            close_band<NB>(a0[q], prev0[q], tot0[q], bi);
+            if (NV == 2) close_band<NB>(a1[q], prev1[q], tot1[q], bi);
+          }
+          jb = 0;
+          ++bi;
         }
       }
       __syncwarp();
@@ -495,28 +554,35 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
         issue(tr + S);
       }
     }
+    for (; bi < NB; ++bi) {  // bands past the CTA's last row sum to 0
+#pragma unroll
+      for (int q = 0; q < KPT; ++q) {
+        close_band<NB>(a0[q], prev0[q], tot0[q], bi);
+        if (NV == 2) close_band<NB>(a1[q], prev1[q], tot1[q], bi);
+      }
+    }
 #pragma unroll
     for (int q = 0; q < KPT; ++q) {
       const int k = tid + q * kThreads;
       if (q < kpt && k < wc) {
-        out0[cc + k] = a0[q] + p0[q];
-        if (NV == 2) out1[cc + k] = a1[q] + p1[q];
+        out0[cc + k] = tot0[q];
+        if (NV == 2) out1[cc + k] = tot1[q];
       }
     }
     __syncthreads();  // every warp has left the ring; the partials are written
   }
 }
 
-template <bool RING, int NV, bool FMA>
+template <bool RING, int NV, bool FMA, int NB>
 __device__ __forceinline__ void col_pass(const float* G, int ld, int ncols,
-                                         int nrows, const float* v0,
+                                         int nrows, int band, const float* v0,
                                          const float* v1, float* out0,
                                          float* out1, Pipe& pp) {
   if (RING)
-    col_pass_ring<NV, NV == 1 ? 8 : 4, FMA>(G, ld, ncols, nrows, v0, v1, out0,
-                                            out1, pp);
+    col_pass_ring<NV, NV == 1 ? 8 : 4, FMA, NB>(G, ld, ncols, nrows, band, v0,
+                                                v1, out0, out1, pp);
   else
-    col_pass_scalar<NV, FMA>(G, ld, ncols, nrows, v0, v1, out0, out1);
+    col_pass_scalar<NV, FMA, NB>(G, ld, ncols, nrows, band, v0, v1, out0, out1);
 }
 
 template <bool RING, bool ETA>
@@ -530,36 +596,44 @@ __device__ __forceinline__ void row_pass(float* invBT, const float* s_cB,
     row_pass_scalar<ETA>(invBT, s_cB, s_u, s_colL, s_y, m, rows);
 }
 
-// dst[k - lo] = sum over the CTAs, in rank order, of their partial src[k],
-// for k in [lo, hi).
+// Entry k of the CTAs' partials LO .. LO + N - 1, added as a balanced tree.
+template <int LO, int N>
+__device__ __forceinline__ float tree_sum(cg::cluster_group& cl, float* src,
+                                          int k) {
+  if constexpr (N == 1)
+    return cl.map_shared_rank(src, LO)[k];
+  else
+    return tree_sum<LO, N / 2>(cl, src, k) +
+           tree_sum<LO + N / 2, N / 2>(cl, src, k);
+}
+
+// dst[k - lo] = the sum over the CTAs of their partial src[k], for k in
+// [lo, hi): the tree over the lane's kBands bands that the column passes
+// began within each CTA, so the bits do not depend on the cluster size.
 template <int CL>
 __device__ void reduce_slice(cg::cluster_group& cl, float* src, float* dst,
                              Range r) {
-  for (int k = r.lo + threadIdx.x; k < r.hi; k += kThreads) {
-    float acc = cl.map_shared_rank(src, 0)[k];
-#pragma unroll 4
-    for (int q = 1; q < CL; ++q) acc += cl.map_shared_rank(src, q)[k];
-    dst[k - r.lo] = acc;
-  }
+  for (int k = r.lo + threadIdx.x; k < r.hi; k += kThreads)
+    dst[k - r.lo] = tree_sum<0, CL>(cl, src, k);
 }
 
 // Floats of the lane's vectors in one CTA: d, u and c_B whole; the CTA's
 // partial of y A (and of w A in dual mode) over all n columns, which the
 // partial of the direction reuses; five slices of m and four of n.
 size_t vector_floats(int m, int n, int cluster, int dual) {
-  const size_t ml = (m + cluster - 1) / cluster;
-  const size_t nl = (n + cluster - 1) / cluster;
+  const size_t ml = (size_t)(kBands / cluster) * ((m + kBands - 1) / kBands);
+  const size_t nl = (size_t)(kBands / cluster) * ((n + kBands - 1) / kBands);
   const size_t part = (size_t)(n > m ? n : m);
   const size_t v = 3 * (size_t)m + part + (dual ? (size_t)n : 0) + 5 * ml + 4 * nl;
   return (v + 3) / 4 * 4;
 }
 
-// RING: the bulk-copy branch, at most 128 registers a thread, so that two
-// CTAs (with their rings) may share an SM. Otherwise the scalar-load branch,
-// at most 48 registers, so that five may: its loads in flight are a
-// thread's own, and it needs the threads.
+// RING: the bulk-copy branch, one CTA on an SM (the plan gives it the ring
+// that fills the SM's shared memory), so a thread may use every register.
+// Otherwise the scalar-load branch, built for kScalarCtas CTAs an SM: its
+// loads in flight are a thread's own, and it needs the threads.
 template <int CL, bool RING>
-__global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
+__global__ void __launch_bounds__(kThreads, RING ? 1 : kScalarCtas)
     solve_segment_stream_kernel(
         const float* __restrict__ A_all, const float* __restrict__ c_all,
         const float* __restrict__ apen_all, float* invBT_all, float* bfs_all,
@@ -572,9 +646,11 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
   const unsigned rank = cl.block_rank();
   extern __shared__ __align__(16) float smem[];
   __shared__ Scratch red;
-  __shared__ Part s_part[4];  // [0] leaving (dual), [1] entering, [2] ratio
-                              // (primal) / unused, [3] entry objective
+  __shared__ Part s_part[3];  // [0] leaving (dual), [1] entering, [2] ratio
+                              // (primal)
   __shared__ Sel s_sel;
+  __shared__ float s_zband[kBands];  // entry objective: the CTA's bands, then
+                                     // [0] the lane's
   __shared__ __align__(8) unsigned long long s_bbar[kMaxStages];
   __shared__ __align__(8) unsigned long long s_ebar[kMaxStages];
   __shared__ __align__(8) unsigned long long s_wbar[kWarps * kMaxWarpStages];
@@ -588,6 +664,8 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
   const Range cols = slice_of<CL>(rank, n);  // entries of c / pen / r
   const int nrows = rows.hi - rows.lo;
   const int ml = slice_len<CL>(m), nl = slice_len<CL>(n);
+  constexpr int NB = kBands / CL;  // row bands of one CTA
+  const int band = ml / NB;        // rows of a band
   const float* A_own = A + (size_t)rows.lo * n;
   float* invBT_own = invBT + (size_t)rows.lo * m;
 
@@ -645,22 +723,26 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
   const int bits_n = bits_for(n), bits_m = bits_for(m);
   const int lo_n = (1 << bits_n) - 1, lo_m = (1 << bits_m) - 1;
 
-  // segment-local stall state; the entry objective is a cluster sum
+  // segment-local stall state; the entry objective is summed band by band
+  // and then as the tree of the column passes, whatever the cluster size
   float z = 0.0f;
-  {
+  for (int b = 0; b < NB; ++b) {
+    const int lo = min(rows.lo + b * band, rows.hi);
+    const int hi = min(lo + band, rows.hi);
     float part = 0.0f;
     if (track)
-      for (int i = rows.lo + tid; i < rows.hi; i += kThreads)
+      for (int i = lo + tid; i < hi; i += kThreads)
         part += s_cB[i] * s_bfs[i - rows.lo];
     part = block_sum(part, red);
-    if (tid == 0) {
-      s_part[3] = Part{kIntMax, m, m, 0, INFINITY, 0.0f, part, 0.0f};
-    }
+    if (tid == 0) s_zband[b] = part;
   }
-  cl.sync();  // every CTA has started and published its partial
-  if (tid == 0) s_sel = combine<CL>(cl, &s_part[3], m);
-  __syncthreads();
-  if (track) z = s_sel.sum;
+  cl.sync();  // every CTA has started and published its partials
+  float zb[kBands];
+#pragma unroll
+  for (int g = 0; g < kBands; ++g)
+    zb[g] = cl.map_shared_rank(s_zband, g / NB)[g % NB];
+  if (track)
+    z = ((zb[0] + zb[1]) + (zb[2] + zb[3])) + ((zb[4] + zb[5]) + (zb[6] + zb[7]));
   float dz_prev = INFINITY;
   int stall = 0;
   bool bland = false;
@@ -703,7 +785,7 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
             if (s_bfs[i - rows.lo] == val) hot = min(hot, i);
           hot = block_min2(hot, kIntMax, red).x;
         }
-        if (tid == 0) s_part[0] = Part{kf.x, kf.y, hot, 0, val, 0.0f, 0.0f, 0.0f};
+        if (tid == 0) s_part[0] = Part{kf.x, kf.y, hot, 0, val, 0.0f};
       }
       cl.sync();  // (l)
       bool viable;
@@ -741,7 +823,8 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
       for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
         s_colL[j - rows.lo] = ldcg(invBT + (size_t)j * m + leave);
       __syncthreads();
-      col_pass<RING, 2, false>(A_own, n, n, nrows, s_colL, s_y, s_pp2, s_pp, pp);
+      col_pass<RING, 2, false, NB>(A_own, n, n, nrows, band, s_colL, s_y, s_pp2,
+                                   s_pp, pp);
       cl.sync();  // (a)
       reduce_slice<CL>(cl, s_pp2, s_urow, cols);
       reduce_slice<CL>(cl, s_pp, s_r, cols);
@@ -775,7 +858,7 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
           }
           hot = block_min2(hot, kIntMax, red).x;
         }
-        if (tid == 0) s_part[1] = Part{key, n, hot, 0, val, 0.0f, 0.0f, 0.0f};
+        if (tid == 0) s_part[1] = Part{key, n, hot, 0, val, 0.0f};
       }
       cl.sync();  // (b)
       if (tid == 0) {
@@ -812,14 +895,15 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
       for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
         s_col[j - rows.lo] = __ldg(A + (size_t)j * n + enter);
       __syncthreads();
-      col_pass<RING, 1, true>(invBT_own, m, m, nrows, s_col, nullptr, s_pp, nullptr,
-                        pp);
+      col_pass<RING, 1, true, NB>(invBT_own, m, m, nrows, band, s_col, nullptr,
+                                  s_pp, nullptr, pp);
       cl.sync();  // (c)
       reduce_slice<CL>(cl, s_pp, s_d + rows.lo, rows);
       cl.sync();  // (d)
     } else {
       // ---- partial of y A over own rows, then r of own columns ---------
-      col_pass<RING, 1, false>(A_own, n, n, nrows, s_y, nullptr, s_pp, nullptr, pp);
+      col_pass<RING, 1, false, NB>(A_own, n, n, nrows, band, s_y, nullptr, s_pp,
+                                   nullptr, pp);
       cl.sync();  // (a)
       reduce_slice<CL>(cl, s_pp, s_r, cols);
       for (int k = cols.lo + tid; k < cols.hi; k += kThreads)
@@ -846,7 +930,7 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
             if (s_r[k - cols.lo] == val) hot = min(hot, k);
           hot = block_min2(hot, kIntMax, red).x;
         }
-        if (tid == 0) s_part[1] = Part{kf.x, kf.y, hot, 0, val, 0.0f, 0.0f, 0.0f};
+        if (tid == 0) s_part[1] = Part{kf.x, kf.y, hot, 0, val, 0.0f};
       }
       cl.sync();  // (b)
       if (tid == 0) {
@@ -884,8 +968,8 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
       for (int j = rows.lo + tid; j < rows.hi; j += kThreads)
         s_col[j - rows.lo] = __ldg(A + (size_t)j * n + enter);
       __syncthreads();
-      col_pass<RING, 1, true>(invBT_own, m, m, nrows, s_col, nullptr, s_pp, nullptr,
-                        pp);
+      col_pass<RING, 1, true, NB>(invBT_own, m, m, nrows, band, s_col, nullptr,
+                                  s_pp, nullptr, pp);
       cl.sync();  // (c)
       reduce_slice<CL>(cl, s_pp, s_d + rows.lo, rows);
       __syncthreads();
@@ -919,7 +1003,7 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
         if (tid == 0) {
           const bool mine = win >= rows.lo && win < rows.hi;
           s_part[2] = Part{key, m, hot, mine ? s_basis[win - rows.lo] : 0, val,
-                           mine ? s_bfs[win - rows.lo] : 0.0f, 0.0f, 0.0f};
+                           mine ? s_bfs[win - rows.lo] : 0.0f};
         }
       }
       cl.sync();  // (d)
@@ -1009,8 +1093,7 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : 5)
   cl.sync();  // no CTA exits while another may read its shared memory
 }
 
-// The launch configuration of `cluster` CTAs a lane; the non-portable size
-// 16 needs the kernel's opt-in.
+// The launch configuration of `cluster` CTAs a lane.
 template <int CL, bool RING>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
                       int lanes, size_t smem, cudaStream_t stream) {
@@ -1019,11 +1102,6 @@ cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  if (CL > 8) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = CL;
   attr->val.clusterDim.y = 1;
@@ -1062,10 +1140,10 @@ int launch(int lanes, size_t smem, cudaStream_t stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-// Cluster sizes the two branches are built for.
+// Cluster sizes the two branches are built for: what the routes launch (a
+// bucket of 8 lanes or fewer at 8 CTAs a lane, a larger batch at 2).
 bool size_built(int cluster, bool ring) {
-  return cluster == 16 || cluster == 8 ||
-         (ring && (cluster == 4 || cluster == 2));
+  return cluster == 8 || (ring && cluster == 2);
 }
 
 }  // namespace
@@ -1080,15 +1158,9 @@ extern "C" int lp_solve_segment_stream_max_clusters(int cluster, int aligned,
   if (smem_bytes < 0 || !size_built(cluster, aligned != 0))
     return -(int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_bytes;
-  if (!aligned)
-    return cluster == 16 ? max_clusters<16, false>(smem)
-                         : max_clusters<8, false>(smem);
-  switch (cluster) {
-    case 2: return max_clusters<2, true>(smem);
-    case 4: return max_clusters<4, true>(smem);
-    case 8: return max_clusters<8, true>(smem);
-    default: return max_clusters<16, true>(smem);
-  }
+  if (!aligned) return max_clusters<8, false>(smem);
+  return cluster == 2 ? max_clusters<2, true>(smem)
+                      : max_clusters<8, true>(smem);
 }
 
 // The launch plan (cluster .. smem_bytes) comes from
@@ -1121,7 +1193,7 @@ extern "C" int lp_solve_segment_stream(
   }
   const size_t smem = (vec + ring) * sizeof(float);
   if ((size_t)smem_bytes < smem) return (int)cudaErrorInvalidValue;
-  if ((size_t)smem_bytes + sizeof(Part) * 4 + sizeof(Sel) + sizeof(Scratch) +
+  if ((size_t)smem_bytes + sizeof(Part) * 3 + sizeof(Sel) + sizeof(Scratch) + sizeof(float) * kBands +
           8 * (2 * kMaxStages + kWarps * kMaxWarpStages) >
       kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -1132,15 +1204,8 @@ extern "C" int lp_solve_segment_stream(
                           maxiters, opt_tol, pivot_tol, feas_tol, dual,       \
                           pricing, packed, stall_limit, stages, stage_floats, \
                           warp_stages, chunk_floats)
-  if (!aligned) {
-    if (cluster == 16) LP_STREAM_LAUNCH(16, false);
-    LP_STREAM_LAUNCH(8, false);
-  }
-  switch (cluster) {
-    case 2: LP_STREAM_LAUNCH(2, true);
-    case 4: LP_STREAM_LAUNCH(4, true);
-    case 8: LP_STREAM_LAUNCH(8, true);
-    default: LP_STREAM_LAUNCH(16, true);
-  }
+  if (!aligned) LP_STREAM_LAUNCH(8, false);
+  if (cluster == 2) LP_STREAM_LAUNCH(2, true);
+  LP_STREAM_LAUNCH(8, true);
 #undef LP_STREAM_LAUNCH
 }

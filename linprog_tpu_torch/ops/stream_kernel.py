@@ -19,10 +19,16 @@ On the H100 (``csrc/solve_segment_stream.cu``) the kernel is bound by
 device-memory bandwidth: a primal pivot reads A once and ``B^-T`` twice and
 writes ``B^-T`` once (80 MiB per lane-pivot at m = 2048, n = 4096), and the
 card needs megabytes of loads in flight to reach its rate.  One cluster of
-2 to 16 thread blocks runs a lane.  The blocks split the lane by rows: a
-block owns a band of rows of A and the same rows of ``B^-T``, computes its
-partial of each product over all columns, and the cluster adds the partials
-up through distributed shared memory, as it combines the selections.  Where
+8 or 2 thread blocks runs a lane.  The blocks split the lane by rows: a
+block owns whole bands (an eighth of the rows each) of A and the same rows
+of ``B^-T``, computes its partial of each product over all columns, and the
+cluster adds the partials up through distributed shared memory, as it
+combines the selections.  Every sum runs band by band and then over the
+eight band totals as one fixed tree, so a lane's result does not depend on
+the cluster size, nor on the branch.  One step departs from the plain
+version's arithmetic: the direction ``d = B^-1 a`` sums with fused
+multiply-adds (as the plain version's library GEMV does), the rest rounds
+each product first.  Where
 the rows are 16-byte aligned (m and n multiples of 4) every pass streams
 whole rows through a ring of a few large stages in shared memory, filled by
 asynchronous bulk copies; other shapes take scalar loads in the same
@@ -35,7 +41,9 @@ or scalar branch -- is :func:`stream_plans`, a pure function of the batch
 and lane shape and of the card's SM count and shared-memory limit; the
 wrapper takes the first candidate that runs the batch in the fewest waves
 of resident clusters, as the occupancy query of the built kernel counts
-them.
+them.  Only the sizes a route launches are built: 8 blocks a lane (the
+fallback's bucket of 8 lanes, either branch) and 2 (a batch of 64,
+bulk-copy branch).
 """
 
 from __future__ import annotations
@@ -55,8 +63,9 @@ SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
 _STATIC_BYTES = 2048  # the kernel's static shared memory and a block's reserve
 _WARPS = 8  # warps of a block (csrc/common.cuh: kThreads / 32)
-_CLUSTERS = (16, 8, 4, 2)  # cluster sizes the bulk-copy branch is built for
-_SCALAR_CLUSTERS = (16, 8)  # cluster sizes the scalar branch is built for
+_BANDS = 8  # row bands of a lane (csrc/solve_segment_stream.cu: kBands)
+_CLUSTERS = (8, 2)  # cluster sizes the bulk-copy branch is built for
+_SCALAR_CLUSTERS = (8,)  # cluster sizes the scalar branch is built for
 # (stages of a warp's ring, floats per stage), largest ring first
 _RINGS = ((4, 1024), (4, 768), (2, 1024), (2, 768), (2, 512), (2, 256))
 _BLOCK_STAGES = 4  # stages of the same memory seen as the block's ring
@@ -72,12 +81,11 @@ class StreamPlan(NamedTuple):
     warp_stages: int  # warp rings: stages per warp
     chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
     smem_bytes: int  # dynamic shared memory per block
-    residency: int  # blocks per SM the plan counts on (1 on the bulk-copy
-    # branch, up to 5 on the scalar branch)
 
 
 def _slice_len(size: int, cluster: int) -> int:
-    return -(-size // cluster)
+    """Entries of a block's slice: whole bands of ``ceil(size / 8)``."""
+    return (_BANDS // cluster) * -(-size // _BANDS)
 
 
 def _vector_bytes(m: int, n: int, cluster: int, dual: bool) -> int:
@@ -99,13 +107,14 @@ def slices_aligned(m: int, n: int) -> bool:
 
 def scalar_plan(cluster: int, m: int, n: int, dual: bool = False,
                 smem_limit: int = SMEM_LIMIT) -> Optional[StreamPlan]:
-    """The scalar-load branch at ``cluster`` blocks a lane (no ring; the
-    kernel is built for five such blocks on an SM), or None."""
+    """The scalar-load branch at ``cluster`` blocks a lane (no ring), or
+    None."""
     if cluster not in _SCALAR_CLUSTERS:
         return None
     vec = _vector_bytes(m, n, cluster, dual)
-    res = min(5, smem_limit // (vec + _STATIC_BYTES))
-    return StreamPlan(cluster, False, 0, 0, 0, 0, vec, res) if res else None
+    if vec + _STATIC_BYTES > smem_limit:
+        return None
+    return StreamPlan(cluster, False, 0, 0, 0, 0, vec)
 
 
 def _plan_for(cluster: int, m: int, n: int, dual: bool,
@@ -126,7 +135,7 @@ def _plan_for(cluster: int, m: int, n: int, dual: bool,
             # its size, so few large ones)
             stage = ring // _BLOCK_STAGES // 4 * 4
             return StreamPlan(cluster, True, _BLOCK_STAGES, stage,
-                              warp_stages, chunk, smem, 1)
+                              warp_stages, chunk, smem)
     return None
 
 
@@ -136,14 +145,14 @@ def stream_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
     """Candidate launch plans for ``B`` lanes of ``(m, n)``, best first.
 
     First the largest cluster that keeps the batch within one block per SM
-    (``B * cluster <= sm_count``; 16 blocks a lane for a few lanes, 8 for a
-    bucket of 8, 2 for a batch of 64), then the other sizes, largest first.
-    The wrapper takes the first that runs the batch in the fewest waves: a
-    cluster must lie within one GPC, so the card holds fewer clusters of a
-    size than its SM count suggests (7 of 16 blocks, 15 of 8, 30 of 4, 66
-    of 2 at one block per SM on an H100 SXM).  A shape whose rows are not
-    aligned takes the scalar branch, which is built for 16 and 8 blocks a
-    lane only.  Dual mode keeps one more row of n floats.  Raises
+    (``B * cluster <= sm_count``: 8 blocks a lane up to a bucket of 16, 2
+    for a batch of 64), then the other size.  The wrapper takes the first
+    that runs the batch in the fewest waves: a cluster must lie within one
+    GPC, so the card holds fewer clusters of a size than its SM count
+    suggests (15 of 8 blocks, 66 of 2 at one block per SM on an H100 SXM).
+    A shape whose rows are not aligned takes the scalar branch, which is
+    built for 8 blocks a lane only.  Dual mode keeps one more row of n
+    floats; a plan counts on one block per SM.  Raises
     ``ValueError`` for a lane whose vectors pass the shared memory of a
     block at every cluster size.
     """
@@ -181,8 +190,9 @@ def _choose_plan(B: int, m: int, n: int, dual: bool, device_index: int,
             plan = scalar_plan(plan.cluster, m, n, dual)
             if plan is None:
                 continue
-        resident = lib.lp_solve_segment_stream_max_clusters(
-            plan.cluster, int(plan.aligned), plan.smem_bytes)
+        with torch.cuda.device(device_index):  # the query asks this device
+            resident = lib.lp_solve_segment_stream_max_clusters(
+                plan.cluster, int(plan.aligned), plan.smem_bytes)
         seen.append((plan.cluster, resident))
         if resident <= 0:
             continue

@@ -398,21 +398,22 @@ def test_exact_large_m_route_on_card_matches_cpu(cuda, monkeypatch):
     assert rel <= 1e-5
 
 
-@pytest.mark.parametrize("kernel,m,n", [("stream", 2048, 4096),
+@pytest.mark.parametrize("kernel,m,n", [("stream", 2000, 1355),
                                         ("segment", 256, 2368)],
                          ids=["stream", "segment"])
 def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
-    """Shapes whose vectors take 48 KB of dynamic shared memory (the stream
-    kernel at the two-phase fallback shape of m = 2048, its ring on top):
-    with the static shared memory they need the opt-in limit, which both
-    wrappers set at every launch."""
+    """Shapes whose vectors take exactly 48 KB of dynamic shared memory
+    (the stream kernel on its scalar branch, which has no ring, at a ragged
+    (2000, 3355)): with the static shared memory on top they need the
+    opt-in limit, which both wrappers set at every launch."""
     A, c, apen, h, state0 = _slack_instance(2, m, n, seed=1, dual=False,
                                             dev=cuda, degenerate=False)
     kw = dict(seg_len=2, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
               packed=True)
     if kernel == "stream":
         k, p = _stream_both(A, c, apen, state0, **kw)
-        assert stream_kernel.last_plan.smem_bytes > 48 * 1024
+        assert not stream_kernel.last_plan.aligned
+        assert stream_kernel.last_plan.smem_bytes == 48 * 1024
     else:
         assert (7 * m + 4 * (n + m)) * 4 == 48 * 1024
         k, p = _both(A, c, apen, state0, **kw)
@@ -479,18 +480,19 @@ def test_stream_kernel_long_run_matches_plain(cuda, dual, shape, B):
     assert ((ok - op).abs() / op.abs().clamp_min(1.0)).max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("m,n", [(128, 256), (640, 640), (2048, 1024)],
-                         ids=["m128", "m640", "m2048"])
+@pytest.mark.parametrize("m,n", [(128, 256), (640, 640), (2048, 1024),
+                                 (100, 156)],
+                         ids=["m128", "m640", "m2048", "m100"])
 @pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
 def test_stream_kernel_same_answer_for_every_plan(cuda, dual, m, n):
-    """Every candidate plan (cluster sizes 16 to 2, where the device grants
-    them) over 48 pivots.  At one cluster size the bulk-copy branch and the
-    scalar branch (built for 16 and 8) sum in the same order: the same
-    state bit for bit.  Across cluster sizes a block's partial sums cover
-    other rows, so only the selections must agree: the same basis, status
-    and iteration count, and factors as accurate as the plain version's.
+    """Every built plan (8 and 2 blocks a lane on the bulk-copy branch, 8 on
+    the scalar branch) over 48 pivots gives the same state bit for bit:
+    every sum runs over the lane's eight row bands in one fixed order,
+    whatever the cluster size and the branch.  Against the plain version:
+    the same basis, status and iteration count, and factors as accurate.
     m = 640 streams rows in one chunk and m = 2048 in two, through several
-    stages of both rings."""
+    stages of both rings; at m = 100 the bands are 13 rows and the last is
+    cut to 9."""
     from linprog_tpu_torch.ops import _build
 
     B = 8
@@ -505,24 +507,24 @@ def test_stream_kernel_same_answer_for_every_plan(cuda, dual, m, n):
         assert plan.aligned
         scalar = stream_kernel.scalar_plan(plan.cluster, m, n + m, dual)
         for name, pl in (("ring", plan), ("scalar", scalar)):
-            if pl is None or lib.lp_solve_segment_stream_max_clusters(
-                    pl.cluster, int(pl.aligned), pl.smem_bytes) <= 0:
+            if pl is None:
                 continue
+            assert lib.lp_solve_segment_stream_max_clusters(
+                pl.cluster, int(pl.aligned), pl.smem_bytes) > 0
             s = SegmentState(*(t.clone() for t in state0))
             stream_kernel.launch_with_plan(pl, A, c, apen, 1 << 20, s, **kw)
             torch.cuda.synchronize()
             results[plan.cluster, name] = s
-    assert {(8, "ring"), (8, "scalar"), (2, "ring")} <= set(results)
+    assert set(results) == {(8, "ring"), (8, "scalar"), (2, "ring")}
     p = stream_kernel.solve_segment_stream_plain(
         A, c, apen, 1 << 20, SegmentState(*(t.clone() for t in state0)), **kw)
     assert bool((p.iters > 16).all())
-    for (cluster, name), s in results.items():
-        if name == "scalar":
-            for a, b in zip(s, results[cluster, "ring"]):
-                torch.testing.assert_close(a, b, rtol=0, atol=0,
-                                           msg=f"cluster {cluster}")
-        else:
-            _assert_lockstep(A, h, s, p)
+    first = results[8, "ring"]
+    _assert_lockstep(A, h, first, p)
+    for key, s in results.items():
+        for a, b in zip(s, first):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"(cluster, branch) = {key}")
 
 
 def test_stream_kernel_refuses_a_plan_that_does_not_fit(cuda):

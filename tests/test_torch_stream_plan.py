@@ -18,7 +18,9 @@ BATCHES = [1, 8, 64, 1024]
 
 
 def _vector_floats(m, n, cluster, dual):
-    ml, nl = -(-m // cluster), -(-n // cluster)
+    # a block's slice: 8 / cluster whole bands of an eighth of the lane
+    ml = (8 // cluster) * -(-m // 8)
+    nl = (8 // cluster) * -(-n // 8)
     floats = 3 * m + max(m, n) + (n if dual else 0) + 5 * ml + 4 * nl
     return -(-floats // 4) * 4
 
@@ -27,25 +29,25 @@ def _vector_floats(m, n, cluster, dual):
 @pytest.mark.parametrize("B", BATCHES)
 @pytest.mark.parametrize("m,n", SHAPES, ids=lambda v: str(v))
 def test_stream_plans_fit_the_card(m, n, B, dual):
-    """Every candidate stays within a block's shared memory times the
-    blocks per SM it counts on, holds the lane's vectors and both views of
-    its ring, takes the bulk-copy branch only where every row starts and
+    """Every candidate stays within a block's shared memory (a plan counts
+    on one block per SM: its planned residency is 1, and what more the card
+    holds is the occupancy query's to say), holds the lane's vectors and
+    both views of its ring, takes the bulk-copy branch only where every row starts and
     ends on a multiple of 4 floats, and keeps every copy 16-byte sized."""
     plans = ssk.stream_plans(B, m, n, dual=dual)
     assert plans and len({p.cluster for p in plans}) == len(plans)
     aligned = m % 4 == 0 and n % 4 == 0
     for p in plans:
-        assert p.residency >= 1
-        assert (p.smem_bytes + 2048) * p.residency <= ssk.SMEM_LIMIT
+        assert p.smem_bytes + 2048 <= ssk.SMEM_LIMIT
         assert p.aligned == aligned
         vec = 4 * _vector_floats(m, n, p.cluster, dual)
         if not p.aligned:
-            assert p.cluster in (16, 8)  # the scalar branch's sizes
+            assert p.cluster == 8  # the scalar branch's size
             assert p.smem_bytes == vec
             assert (p.stages, p.stage_floats, p.warp_stages,
                     p.chunk_floats) == (0, 0, 0, 0)
             continue
-        assert p.cluster in (16, 8, 4, 2)
+        assert p.cluster in (8, 2)
         ring = (p.smem_bytes - vec) // 4
         assert 2 <= p.stages <= 8 and 1 <= p.warp_stages <= 4
         assert p.stages * p.stage_floats <= ring
@@ -58,28 +60,38 @@ def test_stream_plans_fit_the_card(m, n, B, dual):
         assert sweep >= 4 and (n % sweep) % 4 == 0 and (m % sweep) % 4 == 0
 
 
-@pytest.mark.parametrize("B,first", [(1, 16), (7, 16), (8, 16), (16, 8),
-                                     (32, 4), (64, 2), (1024, 2)])
+@pytest.mark.parametrize("B,first", [(1, 8), (7, 8), (8, 8), (16, 8),
+                                     (32, 2), (64, 2), (1024, 2)])
 def test_stream_plans_prefer_one_block_per_sm(B, first):
-    """The first candidate is the largest cluster that keeps the batch
-    within the card's SMs; the others follow, largest first (the wrapper
-    then takes the first with the fewest waves, which for a bucket of 8 is
-    8 blocks a lane: the card holds only 7 clusters of 16)."""
+    """The first candidate is the largest built cluster size that keeps
+    the batch within the card's SMs (8 blocks a lane for the fallback's
+    bucket of 8, 2 for a batch of 64); the other follows.  The wrapper then
+    takes the first with the fewest waves of resident clusters."""
     sizes = [p.cluster for p in ssk.stream_plans(B, 2048, 6144)]
     assert sizes[0] == first
-    assert sizes[1:] == [cl for cl in (16, 8, 4, 2) if cl != first]
+    assert sizes[1:] == [cl for cl in (8, 2) if cl != first]
     assert [p.cluster for p in ssk.stream_plans(B, 2048, 6144,
                                                 sm_count=264)][0] >= first
+
+
+@pytest.mark.parametrize("size", [1, 5, 8, 100, 1000, 2048, 2999, 6144])
+def test_stream_slices_are_whole_bands_at_every_cluster_size(size):
+    """A block's slice is whole bands of an eighth of the lane, so the
+    bands, and with them the order of every sum, are the same at 8 and at 2
+    blocks a lane; the slices cover the lane."""
+    band = ssk._slice_len(size, 8)
+    assert band == -(-size // 8) and 8 * band >= size > 8 * (band - 1)
+    assert ssk._slice_len(size, 2) == 4 * band
 
 
 def test_stream_plans_ragged_shape_takes_the_scalar_branch():
     for B in BATCHES:
         plans = ssk.stream_plans(B, 1000, 2999)
-        assert [p.cluster for p in plans] == [16, 8]
+        assert [p.cluster for p in plans] == [8]
         assert not any(p.aligned for p in plans)
     assert ssk.slices_aligned(1000, 3000) and not ssk.slices_aligned(1000, 2999)
     assert not ssk.slices_aligned(1002, 3000)
-    assert ssk.scalar_plan(4, 1000, 2999) is None  # not built for 4 blocks
+    assert ssk.scalar_plan(2, 1000, 2999) is None  # not built for 2 blocks
     assert ssk.scalar_plan(8, 1000, 2999, dual=True).smem_bytes == \
         4 * _vector_floats(1000, 2999, 8, True)
 
@@ -87,7 +99,7 @@ def test_stream_plans_ragged_shape_takes_the_scalar_branch():
 def test_stream_plans_shrink_the_ring_before_they_give_up():
     """A lane whose vectors leave little room gets a smaller ring; one
     whose vectors alone pass a block's shared memory raises."""
-    big = ssk.stream_plans(8, 2048, 6144)[1]
+    big = ssk.stream_plans(8, 2048, 6144)[0]
     tight = ssk.stream_plans(8, 4096, 12288, dual=True)
     assert big.cluster == 8 and big.stages * big.stage_floats * 4 == 128 * 1024
     assert all(p.smem_bytes - 4 * _vector_floats(4096, 12288, p.cluster, True)

@@ -1,0 +1,43 @@
+#!/usr/bin/env python3
+"""Run the build and chosen phases of chip_smoke.py (a development aid).
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 tools/run_phases.py 2 5
+
+runs phases 0 and 1 (environment, build) and then the named ones: 2 panel
+kernel, 3 segment kernel, 3d its devex mode, 4 the m = 256 exact path, 5
+streaming kernel, 6 the m = 2048 exact path, 7 bounded kernel, 8 bounded
+path, 9 per-step kernels.  Each phase prints its report and exits nonzero
+where chip_smoke.py would; the ``kernels`` line and the last line of
+chip_smoke.py are not printed.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+
+PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
+          "3d": cs.phase_segment_devex, "4": cs.phase_main_path,
+          "5": cs.phase_stream, "6": cs.phase_exact_m2048,
+          "7": cs.phase_bounded_segment, "8": cs.phase_bounded_path,
+          "9": cs.phase_step_kernels}
+
+
+def main():
+    names = sys.argv[1:]
+    unknown = [n for n in names if n not in PHASES]
+    if not names or unknown:
+        sys.exit(f"usage: run_phases.py PHASE ... with PHASE in "
+                 f"{sorted(PHASES)}; got {unknown or 'none'}")
+    cs.phase_environment()
+    cs.phase_build()
+    for name in names:
+        PHASES[name]()
+
+
+if __name__ == "__main__":
+    main()
