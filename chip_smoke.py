@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of linprog_tpu_torch on one NVIDIA GPU: the exact pipeline,
-bounded-variable batches and the per-step batched engine.
+bounded-variable batches, the per-step batched engine, and the batched
+front door (pooled IPM straggler recovery, warm re-solves, the router,
+calibrate()).
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -49,7 +51,29 @@ Phases, each printing one JSON line:
   9. step kernels: price_entering and ratio_eta_pivot against their plain
      versions at the Phase-I shape [1024, 256, 768], then 64 calls of
      batched_primal_step on the kernels, each held against the same step
-     on the plain versions from the same state.
+     on the plain versions from the same state;
+ 10. recovery: (a) B = 256, m = n = 256, the IPM starved with maxiters = 4,
+     then recover_stragglers_pooled: every lane OPTIMAL, its basis
+     certified on >= 99 %, HiGHS gap on 4 lanes, kernel 1 launched in both
+     modes; (b) 4 chunks of 128 lanes at m = n = 512,
+     IPMConfig(eps_rel=1e-3, maxiters=40): raw wall and optimal count,
+     recovered wall and optimal count, the bucket, the pivots;
+ 11. warm re-solves: (a) B = 1024, m = n = 256 in standard form, a
+     two-phase base solve, the right-hand side scaled by 1 + 0.05 N(0, 1),
+     then reoptimize_batch_new_rhs from the base bases (every lane OPTIMAL
+     or DUAL_UNBOUNDED, HiGHS on 4 lanes, fewer pivots than the fresh
+     solve); (b) 4 chunks of 128 at m = n = 512, h perturbed by 2 %,
+     reoptimize_ipm_batch_canonical against a cold solve (costs within
+     5e-3 relative of each other and of HiGHS on 4 lanes);
+ 12. router: solve_batch_auto at B = 1024, m = n = 128, accuracy 1e-6;
+     B = 128, m = n = 512, accuracy 1e-3; B = 256, m = n = 256, accuracy
+     1e-6 (wall: the median of 5 runs after a warm-up; launch counts from
+     the first), with the family each took (simplex, ipm, ipm+crossover are all
+     driven); prefer="pdhg" must raise; an unbounded and an infeasible
+     hand-built lane through solve_batch_two_phase give a ray and a Farkas
+     vector;
+ 13. calibrate(sizes=(128, 256), lanes=64) on the card: the table and the
+     keys it measured.
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -75,6 +99,7 @@ from linprog_tpu_torch.engine import basis_matrix, solve_or_nan
 from linprog_tpu_torch.generators import (
     device_bounded_lps,
     device_inequality_lps,
+    device_standard_form_batch,
 )
 from linprog_tpu_torch.ops import _build
 from linprog_tpu_torch.ops import bounded_kernel as bk
@@ -92,11 +117,25 @@ XB, XM = 64, 2048  # the m = 2048 path: lanes, m = n
 BOUNDED_REPEATS = 5  # timed bounded runs after the warm-up (median)
 BOUNDED_MAXITERS = 6000
 SPLIT_LANES = 16  # lanes of 1024 that may leave lockstep over 16 pivots
+RECOVERY_GUARD = (256, 256)  # phase 10a: lanes, m = n
+IPM_CHUNKS = (4, 128, 512)  # phases 10b and 11b: chunks, lanes a chunk, m = n
+ROUTER_REGIMES = [  # phase 12: expected family, lanes, m = n, accuracy
+    ("simplex", 1024, 128, 1e-6),
+    ("ipm", 128, 512, 1e-3),
+    ("ipm+crossover", 256, 256, 1e-6),
+]
+ROUTER_REPEATS = 5  # timed runs of each regime after the warm-up (median)
+CALIBRATE_SIZES = (128, 256)  # phase 13, at 64 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
+REPORTS = {}  # each phase's last printed report, by its name
+
+
 def emit(obj):
+    if "phase" in obj:
+        REPORTS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -532,7 +571,6 @@ def phase_segment_devex():
     # the full two-phase run on devex
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cc, G, hh = device_inequality_lps(gen, B, M, N, DEVICE)
-    from linprog_tpu_torch.generators import device_standard_form_batch
     cs, As, bs = device_standard_form_batch(cc, G, hh)
     lt.solve_batch_two_phase(cs, As, bs, 4000, 4000, cfg)  # warm-up
     sk.launches = 0
@@ -1384,6 +1422,438 @@ def phase_step_kernels():
     return out
 
 
+def _reset_counts():
+    sk.launches = ck.launches = ssk.launches = 0
+
+
+def _read_counts():
+    return {"solve_segment": sk.launches, "panel_cholinv": ck.launches,
+            "solve_segment_stream": ssk.launches}
+
+
+def _walled(fn):
+    """``fn()`` between two synchronisations: (result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+@contextlib.contextmanager
+def _segment_modes():
+    """Counts kernel 1's launches by mode while the block runs."""
+    import linprog_tpu_torch.engine_batched as le
+
+    modes = {"dual": 0, "primal": 0}
+    real = le.solve_segment
+
+    def counted(*args, **kw):
+        modes["dual" if kw.get("dual") else "primal"] += 1
+        return real(*args, **kw)
+
+    le.solve_segment = counted
+    try:
+        yield modes
+    finally:
+        le.solve_segment = real
+
+
+def _n_optimal(results):
+    return sum(int((r.status == st.OPTIMAL).sum()) for r in results)
+
+
+def _chunks(seed, chunks, lanes, m):
+    out = []
+    for k in range(chunks):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + k)
+        out.append(device_inequality_lps(gen, lanes, m, m, DEVICE))
+    return out
+
+
+def phase_recovery():
+    """Phase 10: pooled IPM straggler recovery."""
+    from linprog_tpu_torch.ipm import _recovery_pick
+
+    # (a) the guard run: a starved IPM, every lane a straggler
+    lanes, m = RECOVERY_GUARD
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    c, G, h = device_inequality_lps(gen, lanes, m, m, DEVICE)
+    raw = lt.ipm_solve_batch_canonical(c, G, h, lt.IPMConfig(maxiters=4))
+    n_raw = _n_optimal([raw])
+    _reset_counts()
+    with _segment_modes() as modes:
+        (rec,), wall = _walled(
+            lambda: lt.recover_stragglers_pooled([(c, G, h)], [raw]))
+    launches = _read_counts()
+    cert = lt.certify_vertex_batch(c, G, h, rec.basis)
+    summ = lt.certificate_summary(cert)
+    gap = highs_gap(rec.cost, c, 4, A_ub=G, b_ub=h)
+    guard = {"lanes": lanes, "m": m, "n": m, "ipm_maxiters": 4,
+             "raw_optimal": n_raw, "lane_status": status_counts(rec.status),
+             "certified": summ["certified"], "wall_s": wall,
+             "pivots": int((rec.iters - raw.iters).sum()),
+             "launches": launches, "segment_launches_by_mode": dict(modes),
+             "highs_lanes": 4, "max_rel_gap_vs_highs": gap}
+
+    # (b) the number: 4 chunks of 128 at m = n = 512
+    chunks, lanes_b, mb = IPM_CHUNKS
+    batches = _chunks(SEED + 20, chunks, lanes_b, mb)
+    icfg = lt.IPMConfig(eps_rel=1e-3, maxiters=40)
+
+    def raw_all():
+        return [lt.ipm_solve_batch_canonical(*b, icfg) for b in batches]
+
+    def recovered_all():
+        raws = raw_all()
+        return raws, lt.recover_stragglers_pooled(batches, raws)
+
+    raw_all()  # warm-up
+    raws, raw_wall = _walled(raw_all)
+    recovered_all()  # warm-up
+    _reset_counts()
+    with _segment_modes() as modes_b:
+        (raws2, recs), rec_wall = _walled(recovered_all)
+    launches_b = _read_counts()
+    total = chunks * lanes_b
+    stragglers, pick = _recovery_pick(
+        [r.status.cpu().numpy() for r in raws2], total)
+    worse = sum(int(((rc.status != st.OPTIMAL) & (rc.status != rw.status)).sum()
+                    + ((rw.status == st.OPTIMAL)
+                       & (rc.status != st.OPTIMAL)).sum())
+                for rc, rw in zip(recs, raws2))
+    steps = torch.cat([r.iters for r in raws2])
+    number = {"chunks": chunks, "lanes": total, "m": mb, "n": mb,
+              "eps_rel": icfg.eps_rel, "ipm_maxiters": icfg.maxiters,
+              "raw_wall_s": raw_wall, "raw_optimal": _n_optimal(raws),
+              "raw_lps_per_sec": total / raw_wall,
+              "recovered_wall_s": rec_wall,
+              "recovered_optimal": _n_optimal(recs),
+              "recovered_lps_per_sec": total / rec_wall,
+              "stragglers": len(stragglers), "bucket": len(pick),
+              "pivots": int(sum((rc.iters - rw.iters).sum()
+                                for rc, rw in zip(recs, raws2))),
+              "lanes_worse": worse,
+              "newton_steps_median": int(steps.median()),
+              "newton_steps_max": int(steps.max()),
+              "launches": launches_b,
+              "segment_launches_by_mode": dict(modes_b)}
+    emit({"phase": "recovery", "guard_run": guard, "ipm_m512": number})
+
+    if int((rec.status == st.OPTIMAL).sum()) != lanes:
+        fail(f"recovery: {guard['lane_status']} after the starved IPM")
+    if summ["certified"] < int(0.99 * lanes):
+        fail(f"recovery: {summ['certified']}/{lanes} certified (< 99 %)")
+    if not gap <= 1e-5:
+        fail(f"recovery: HiGHS gap {gap:.3e} > 1e-5")
+    if modes["dual"] <= 0 or modes["primal"] <= 0 or launches["solve_segment"] <= 0:
+        fail(f"recovery: kernel solve_segment launched {dict(modes)}")
+    if number["recovered_optimal"] < _n_optimal(raws2):
+        fail(f"recovery m=512: {number['recovered_optimal']} OPTIMAL after, "
+             f"{_n_optimal(raws2)} before")
+    if worse:
+        fail(f"recovery m=512: {worse} lanes ended with a worse status")
+    if launches_b["panel_cholinv"] <= 0:
+        fail("recovery m=512: kernel panel_cholinv was never launched")
+    if stragglers and launches_b["solve_segment"] <= 0:
+        fail("recovery m=512: kernel solve_segment was never launched")
+    return {"recovery_m256": launches, "recovery_m512": launches_b}
+
+
+def phase_warm():
+    """Phase 11: warm re-solves, simplex and IPM."""
+    from scipy.optimize import linprog
+
+    from linprog_tpu_torch.batch import (
+        batch_summary,
+        reoptimize_batch_new_rhs,
+    )
+
+    # (a) warm_rhs_m256
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    c, G, h = device_inequality_lps(gen, B, M, N, DEVICE)
+    cs, As, bs = device_standard_form_batch(c, G, h)
+    noise = 1.0 + 0.05 * torch.randn(bs.shape, generator=gen, device=DEVICE)
+    bs_new = bs * noise
+    cfg = tuned_config(M)
+    maxiters = 2000
+    base, base_wall = _walled(
+        lambda: lt.solve_batch_two_phase(cs, As, bs, maxiters, maxiters, cfg))
+    s_base = batch_summary(base)
+    if s_base["optimal"] != B or not (base.basis < cs.shape[1]).all():
+        fail(f"warm rhs: base solve {s_base} or an artificial in a basis")
+
+    def warm_rhs():
+        return reoptimize_batch_new_rhs(cs, As, bs_new, base.basis, maxiters,
+                                        cfg)
+
+    warm_rhs()  # warm-up
+    _reset_counts()
+    with _segment_modes() as modes:
+        warm, wall = _walled(warm_rhs)
+    launches = _read_counts()
+    s_warm = batch_summary(warm)
+    n_inf = int((warm.status == st.DUAL_UNBOUNDED).sum())
+    fresh, fresh_wall = _walled(
+        lambda: lt.solve_batch_two_phase(cs, As, bs_new, maxiters, maxiters,
+                                         cfg))
+    both = (warm.status == st.OPTIMAL) & (fresh.status == st.OPTIMAL)
+    vs_fresh = ((warm.cost - fresh.cost).abs()
+                / fresh.cost.abs().clamp_min(1.0))[both].max().item()
+    # HiGHS on 4 lanes: the first lanes, and a DUAL_UNBOUNDED one if any
+    check = list(range(4))
+    inf_lanes = torch.nonzero(warm.status == st.DUAL_UNBOUNDED).flatten()
+    if inf_lanes.numel():
+        check[-1] = int(inf_lanes[0])
+    gaps = []
+    for i in check:
+        ref = linprog(cs[i].double().cpu().numpy(),
+                      A_eq=As[i].double().cpu().numpy(),
+                      b_eq=bs_new[i].double().cpu().numpy(), method="highs")
+        code = int(warm.status[i])
+        if code == st.DUAL_UNBOUNDED:
+            if ref.status != 2:
+                fail(f"warm rhs: lane {i} DUAL_UNBOUNDED, HiGHS says "
+                     f"{ref.message}")
+        elif ref.status != 0:
+            fail(f"warm rhs: HiGHS did not solve lane {i} ({ref.message})")
+        else:
+            gaps.append(abs(float(warm.cost[i]) - ref.fun)
+                        / max(1.0, abs(ref.fun)))
+    gap = float(max(gaps)) if gaps else None
+    rhs = {"lanes": B, "m": M, "n": N + M, "perturbation": 0.05,
+           "lane_status": status_counts(warm.status),
+           "wall_s": wall, "lps_per_sec": B / wall,
+           "base_wall_s": base_wall, "fresh_wall_s": fresh_wall,
+           "mean_warm_pivots": s_warm["total_pivots"] / B,
+           "max_warm_pivots": s_warm["max_pivots"],
+           "mean_fresh_pivots": s_base["total_pivots"] / B,
+           "max_rel_diff_vs_fresh": vs_fresh,
+           "launches": launches, "segment_launches_by_mode": dict(modes),
+           "highs_lanes": check, "max_rel_gap_vs_highs": gap}
+
+    # (b) warm_ipm_m512
+    (chunks, lanes_b, mb), perturb = IPM_CHUNKS, 0.02
+    batches = _chunks(SEED + 50, chunks, lanes_b, mb)
+    icfg = lt.IPMConfig(eps_rel=1e-3, maxiters=40)
+    states = [lt.ipm_solve_batch_canonical(*b, icfg, return_state=True)[1]
+              for b in batches]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
+    new_hs = [b[2] * (1.0 + perturb * torch.randn(b[2].shape, generator=gen,
+                                                  device=DEVICE))
+              for b in batches]
+
+    def warm_all():
+        return [lt.reoptimize_ipm_batch_canonical(b[0], b[1], hn, s, icfg)
+                for b, hn, s in zip(batches, new_hs, states)]
+
+    def cold_all():
+        return [lt.ipm_solve_batch_canonical(b[0], b[1], hn, icfg)
+                for b, hn in zip(batches, new_hs)]
+
+    warm_all()
+    cold_all()
+    _reset_counts()
+    warm_i, warm_wall = _walled(warm_all)
+    launches_w = _read_counts()
+    _reset_counts()
+    cold_i, cold_wall = _walled(cold_all)
+    launches_c = _read_counts()
+    w_cost = torch.cat([r.cost for r in warm_i])
+    c_cost = torch.cat([r.cost for r in cold_i])
+    w_stat = torch.cat([r.status for r in warm_i])
+    c_stat = torch.cat([r.status for r in cold_i])
+    both = (w_stat == st.OPTIMAL) & (c_stat == st.OPTIMAL)
+    diff = ((w_cost - c_cost).abs() / c_cost.abs().clamp_min(1.0))[both]
+    w_it = torch.cat([r.iters for r in warm_i])
+    c_it = torch.cat([r.iters for r in cold_i])
+    total = chunks * lanes_b
+    # HiGHS on the lane where warm and cold differ most, and on three more
+    worst = int(torch.where(both, (w_cost - c_cost).abs()
+                            / c_cost.abs().clamp_min(1.0), -1.0).argmax())
+    ipm_check = sorted({worst, *torch.nonzero(both).flatten()[:3].tolist()})
+    warm_gaps, cold_gaps = [], []
+    for i in ipm_check:
+        k, j = divmod(i, lanes_b)
+        ref = linprog(batches[k][0][j].double().cpu().numpy(),
+                      A_ub=batches[k][1][j].double().cpu().numpy(),
+                      b_ub=new_hs[k][j].double().cpu().numpy(),
+                      method="highs")
+        if ref.status != 0:
+            fail(f"warm ipm: HiGHS did not solve lane {i} ({ref.message})")
+        scale = max(1.0, abs(ref.fun))
+        warm_gaps.append(abs(float(w_cost[i]) - ref.fun) / scale)
+        cold_gaps.append(abs(float(c_cost[i]) - ref.fun) / scale)
+    ipm = {"chunks": chunks, "lanes": total, "m": mb, "n": mb,
+           "perturbation": perturb, "eps_rel": icfg.eps_rel,
+           "warm_wall_s": warm_wall, "warm_optimal": _n_optimal(warm_i),
+           "warm_lps_per_sec": total / warm_wall,
+           "cold_wall_s": cold_wall, "cold_optimal": _n_optimal(cold_i),
+           "cold_lps_per_sec": total / cold_wall,
+           "warm_newton_steps_max": int(w_it.max()),
+           "cold_newton_steps_max": int(c_it.max()),
+           "warm_newton_steps_median": int(w_it.median()),
+           "cold_newton_steps_median": int(c_it.median()),
+           "lanes_optimal_in_both": int(both.sum()),
+           "max_rel_cost_diff": diff.max().item() if diff.numel() else None,
+           "median_rel_cost_diff": (diff.median().item() if diff.numel()
+                                    else None),
+           "lanes_differing_by_more_than_1e-3": int((diff > 1e-3).sum()),
+           "highs_lanes": ipm_check,
+           "warm_max_rel_gap_vs_highs": max(warm_gaps),
+           "cold_max_rel_gap_vs_highs": max(cold_gaps),
+           "warm_launches": launches_w, "cold_launches": launches_c}
+    emit({"phase": "warm", "warm_rhs_m256": rhs, "warm_ipm_m512": ipm})
+
+    done = ((warm.status == st.OPTIMAL)
+            | (warm.status == st.DUAL_UNBOUNDED))
+    if not done.all():
+        fail(f"warm rhs: {rhs['lane_status']}")
+    if gap is not None and not gap <= 1e-5:
+        fail(f"warm rhs: HiGHS gap {gap:.3e} > 1e-5")
+    if not rhs["mean_warm_pivots"] < rhs["mean_fresh_pivots"]:
+        fail(f"warm rhs: {rhs['mean_warm_pivots']:.1f} warm pivots a lane, "
+             f"{rhs['mean_fresh_pivots']:.1f} fresh")
+    if modes["dual"] <= 0 or modes["primal"] <= 0:
+        fail(f"warm rhs: kernel solve_segment launched {dict(modes)}")
+    # two answers of the eps_rel = 1e-3 class: each within 5e-3 of the
+    # optimum (the bar the raw interior family is held to), so of each other
+    if not both.any() or not diff.max().item() <= 5e-3:
+        fail(f"warm ipm: costs differ by {ipm['max_rel_cost_diff']} on lanes "
+             "OPTIMAL in both (> 5e-3)")
+    if not max(warm_gaps + cold_gaps) <= 5e-3:
+        fail(f"warm ipm: HiGHS gaps warm {max(warm_gaps):.3e}, cold "
+             f"{max(cold_gaps):.3e} (> 5e-3)")
+    if launches_w["panel_cholinv"] <= 0:
+        fail("warm ipm: kernel panel_cholinv was never launched")
+    return {"warm_rhs_m256": launches, "warm_ipm_m512": launches_w}
+
+
+def phase_router():
+    """Phase 12: the front door at three regimes, and the certificates of
+    an unbounded and an infeasible lane."""
+    from linprog_tpu_torch.batch import unbounded_rays_from_result
+    from linprog_tpu_torch.router import auto_summary
+
+    runs, driven, all_launches = [], {}, {}
+    for expect, lanes, m, accuracy in ROUTER_REGIMES:
+        # vertex families: HiGHS gap 1e-5; the interior family: 5e-3
+        gap_tol = 1e-5 if accuracy <= 1e-5 else None
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60 + m)
+        c, G, h = device_inequality_lps(gen, lanes, m, m, DEVICE)
+        prefers = [None]
+        if lt.choose_family(m, accuracy) != expect:
+            prefers.append(expect)  # the table routes elsewhere: drive both
+        for prefer in prefers:
+            def run():
+                return lt.solve_batch_auto(c, G, h, accuracy=accuracy,
+                                           prefer=prefer)
+
+            run()  # warm-up
+            _reset_counts()
+            (res, info), wall = _walled(run)
+            launches = _read_counts()
+            walls = [wall] + [_walled(run)[1]
+                              for _ in range(ROUTER_REPEATS - 1)]
+            wall = float(np.median(walls))
+            summ = auto_summary(res, info)
+            gap = highs_gap(res.cost, c, 4, A_ub=G, b_ub=h)
+            runs.append({"expected": expect, "prefer": prefer, **summ,
+                         "wall_s": wall, "walls_s": walls,
+                         "lps_per_sec": lanes / wall,
+                         "lane_status": status_counts(res.status),
+                         "launches": launches, "highs_lanes": 4,
+                         "max_rel_gap_vs_highs": gap})
+            driven[info["family"]] = runs[-1]
+            all_launches[f"router_{info['family']}_m{m}"] = launches
+            if res.x.shape != (lanes, m):
+                fail(f"router {info['family']}: x has shape {res.x.shape}")
+            if info["family"] != (prefer or lt.choose_family(m, accuracy)):
+                fail(f"router: took {info['family']} at m={m}")
+            if gap_tol is not None:
+                if summ["optimal"] != lanes:
+                    fail(f"router {info['family']} m={m}: "
+                         f"{runs[-1]['lane_status']}")
+                if not gap <= gap_tol:
+                    fail(f"router {info['family']} m={m}: HiGHS gap "
+                         f"{gap:.3e} > {gap_tol}")
+            elif not gap <= 5e-3:
+                fail(f"router ipm m={m}: HiGHS gap {gap:.3e} > 5e-3")
+    pdhg_raises = False
+    try:
+        lt.solve_batch_auto(c, G, h, prefer="pdhg")
+    except NotImplementedError:
+        pdhg_raises = True
+
+    # lane 0: min -x1 - x2, x1 - x2 = 1, x3 = 1 (unbounded along (1, 1, 0));
+    # lane 1: -x1 - x2 = 1 (infeasible); lane 2: min x1 + 2 x2, x1 + x2 = 1
+    A = torch.tensor([[[1.0, -1.0, 0.0], [0.0, 0.0, 1.0]],
+                      [[-1.0, -1.0, 0.0], [0.0, 0.0, 1.0]],
+                      [[1.0, 1.0, 0.0], [0.0, 0.0, 1.0]]], device=DEVICE)
+    b = torch.ones((3, 2), device=DEVICE)
+    cc = torch.tensor([[-1.0, -1.0, 0.0], [0.0, 0.0, 0.0], [1.0, 2.0, 0.0]],
+                      device=DEVICE)
+    cfg = lt.SolverConfig(pricing="dantzig")
+    res = lt.solve_batch_two_phase(cc, A, b, 100, 100, cfg)
+    rays = unbounded_rays_from_result(cc, A, res, cfg)
+    d, y = rays[0], res.y[1]
+    certs = {"lane_status": [st.status_name(int(k)) for k in res.status],
+             "ray": d.tolist(), "max_abs_Ad": (A[0] @ d).abs().max().item(),
+             "c_dot_d": float(cc[0] @ d), "farkas_y": y.tolist(),
+             "max_yA": (y @ A[1]).max().item(), "y_dot_b": float(y @ b[1])}
+    emit({"phase": "router", "runs": runs, "pdhg_raises": pdhg_raises,
+          "certificates": certs})
+
+    for family in ("simplex", "ipm", "ipm+crossover"):
+        if family not in driven:
+            fail(f"router: family {family} was not driven")
+    if driven["ipm"]["launches"]["panel_cholinv"] <= 0:
+        fail("router ipm: kernel panel_cholinv was never launched")
+    if driven["simplex"]["launches"]["solve_segment"] <= 0:
+        fail("router simplex: kernel solve_segment was never launched")
+    if driven["ipm"]["optimal"] < driven["ipm"]["lanes"] - 1:
+        fail(f"router ipm: {driven['ipm']['lane_status']}")
+    if not pdhg_raises:
+        fail('router: prefer="pdhg" did not raise NotImplementedError')
+    if res.status.tolist() != [st.PRIMAL_UNBOUNDED, st.PRIMAL_INFEASIBLE,
+                               st.OPTIMAL]:
+        fail(f"router certificates: statuses {certs['lane_status']}")
+    if not (certs["max_abs_Ad"] <= 1e-5 and (d >= 0).all()
+            and certs["c_dot_d"] < 0 and not rays[1:].any()):
+        fail(f"router certificates: not an improving ray: {certs}")
+    if not (certs["max_yA"] <= 1e-5 and certs["y_dot_b"] > 1e-5):
+        fail(f"router certificates: not a Farkas vector: {certs}")
+    return all_launches
+
+
+def phase_calibrate():
+    """Phase 13: calibrate() on the card at two sizes."""
+    from linprog_tpu_torch import calibration
+
+    _reset_counts()
+    out, wall = _walled(lambda: calibration.calibrate(
+        sizes=CALIBRATE_SIZES, lanes=64, device=DEVICE))
+    launches = _read_counts()
+    (kind, table), = out.items()
+    emit({"phase": "calibrate", "kind": kind, "table": table,
+          "wall_s": wall, "launches": launches,
+          "in_use": calibration.get_table()})
+    schema = {"exact_simplex_max_m", "moderate_simplex_max_m", "pdhg_min_m",
+              "exact_eps", "xover_pallas_max_m", "seg_by_m"}
+    if kind != torch.cuda.get_device_name(0):
+        fail(f"calibrate: table keyed by {kind!r}")
+    if not schema <= set(table):
+        fail(f"calibrate: keys missing: {sorted(schema - set(table))}")
+    if set(table["_measured"]) != schema - {"pdhg_min_m"}:
+        fail(f"calibrate: measured {table['_measured']}")
+    if [r[0] for r in table["seg_by_m"][:2]] != list(CALIBRATE_SIZES):
+        fail(f"calibrate: seg_by_m {table['seg_by_m']}")
+    for name in ("solve_segment", "panel_cholinv"):
+        if launches[name] <= 0:
+            fail(f"calibrate: kernel {name} was never launched")
+    return {"calibrate": launches}
+
+
 def main():
     phase_environment()
     phase_build()
@@ -1396,9 +1866,15 @@ def main():
     bnd = phase_bounded_segment()
     bnd_launches = phase_bounded_path()
     steps = phase_step_kernels()
+    paths = {}
+    for phase in (phase_recovery, phase_warm, phase_router, phase_calibrate):
+        paths.update(phase())
 
     def entry(name, source, replaces, n_launches, rep):
+        by_path = {path: counts[name] for path, counts in paths.items()
+                   if counts.get(name)}
         return {"name": name, "route": "cuda",
+                "launches_by_path": by_path,
                 "source": f"linprog_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],

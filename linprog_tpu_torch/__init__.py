@@ -1,10 +1,14 @@
 """linprog_tpu_torch: the PyTorch / CUDA port of linprog_tpu.
 
-Batched dense LP solving on an NVIDIA GPU.  This package runs the exact
-pipeline (batched IPM -> simplex crossover -> two-phase fallback -> dd-KKT
-certificate) for m < 3072, bounded-variable batches
-(:func:`solve_batch_bounded`) and the per-step batched engine, with six
-hand-written CUDA kernels: the whole-segment simplex kernel
+Batched dense LP solving on an NVIDIA GPU.  :func:`solve_batch_auto` is
+the front door: it routes a batch to the two-phase simplex, the batched IPM
+with its straggler recovery, or the exact pipeline (batched IPM -> simplex
+crossover -> two-phase fallback -> dd-KKT certificate, m < 3072).  Beside
+it: warm re-solves (``batch.reoptimize_batch_new_rhs``,
+:func:`reoptimize_ipm_batch_canonical`), the standard-form IPM, rays and
+Farkas vectors, bounded-variable batches (:func:`solve_batch_bounded`),
+the per-step batched engine and ``calibration.calibrate``.  The package
+has six hand-written CUDA kernels: the whole-segment simplex kernel
 (``ops/solve_kernel.py``), its streaming counterpart for large m
 (``ops/stream_kernel.py``), the panel inverse-Cholesky kernel
 (``ops/cholinv_kernel.py``), the bounded-variable segment kernel
@@ -20,9 +24,22 @@ from .batch import solve_batch_bounded, solve_batch_two_phase
 from .certify import certificate_summary, certify_vertex_batch
 from .config import DEFAULT_CONFIG, FAST_CONFIG, SolverConfig, tuned_config
 from .crossover import crossover_batch_canonical, ipm_crossover_batch_canonical
-from .ipm import DEFAULT_IPM_CONFIG, IPMConfig, ipm_solve_batch_canonical
-from .results import BatchResult
-from .router import exact_cleanup_config, solve_batch_exact
+from .ipm import (
+    DEFAULT_IPM_CONFIG,
+    IPMConfig,
+    ipm_solve_batch_canonical,
+    ipm_solve_batch_standard,
+    recover_stragglers_pooled,
+    reoptimize_ipm_batch_canonical,
+    warm_start_point,
+)
+from .results import BatchResult, LinProgResult
+from .router import (
+    choose_family,
+    exact_cleanup_config,
+    solve_batch_auto,
+    solve_batch_exact,
+)
 
 __all__ = [
     "BatchResult",
@@ -30,15 +47,22 @@ __all__ = [
     "DEFAULT_IPM_CONFIG",
     "FAST_CONFIG",
     "IPMConfig",
+    "LinProgResult",
     "SolverConfig",
     "certificate_summary",
     "certify_vertex_batch",
+    "choose_family",
     "crossover_batch_canonical",
     "exact_cleanup_config",
     "ipm_crossover_batch_canonical",
     "ipm_solve_batch_canonical",
+    "ipm_solve_batch_standard",
+    "recover_stragglers_pooled",
+    "reoptimize_ipm_batch_canonical",
+    "solve_batch_auto",
     "solve_batch_bounded",
     "solve_batch_exact",
     "solve_batch_two_phase",
     "tuned_config",
+    "warm_start_point",
 ]

@@ -1,12 +1,16 @@
-"""Batched two-phase and bounded-variable simplex (counterpart of those
-halves of :mod:`linprog_tpu.batch`).
+"""Batched simplex entry points (counterpart of :mod:`linprog_tpu.batch`,
+without its heterogeneous ``solve_batch_general``).
 
 Two-phase: Phase I keeps the artificial columns in the matrix for Phase II
 and masks them out of pricing; redundant rows keep their artificial basic
 at zero level.  Both phases run on the segment kernel through
-:func:`linprog_tpu_torch.engine_batched.run_batched`.  Bounded variables:
-:func:`solve_batch_bounded` runs the bounded-variable kernel from a given
-basis and bound assignment.
+:func:`linprog_tpu_torch.engine_batched.run_batched`.  Warm starts:
+:func:`solve_batch_from_basis` runs one phase from given bases and
+:func:`reoptimize_batch_new_rhs` re-solves after the right-hand side
+changed (dual phase, then primal).  Certificates: infeasible lanes carry a
+Farkas vector in ``y``, unbounded lanes get their improving ray from
+:func:`unbounded_rays`.  Bounded variables: :func:`solve_batch_bounded`
+runs the bounded-variable kernel from a given basis and bound assignment.
 """
 
 from __future__ import annotations
@@ -28,6 +32,18 @@ def _run_chunked(c, A, b, states, allowed, maxiters: int, cfg: SolverConfig,
     return run_batched(c, A, b, states, allowed, maxiters, cfg, mode)
 
 
+def solve_batch_from_basis(c, A, b, basis, maxiters: int,
+                           cfg: SolverConfig = DEFAULT_CONFIG,
+                           mode: str = "primal") -> BatchResult:
+    """Solve standard-form LPs ``c[B, n], A[B, m, n], b[B, m]`` from the
+    starting bases ``basis[B, m]`` in one phase (``mode`` primal or dual)."""
+    n = c.shape[-1]
+    states = engine.make_state(A, b, basis)
+    allowed = torch.ones((n,), dtype=torch.bool, device=A.device)
+    states = _run_chunked(c, A, b, states, allowed, maxiters, cfg, mode)
+    return _to_result(c, states, n)
+
+
 def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
                           maxiters2: int = 1000,
                           cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
@@ -36,6 +52,12 @@ def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
     .device_standard_form_batch`)."""
     B, m, n = A.shape
     dt, dev = A.dtype, A.device
+
+    c_orig = c
+    if cfg.scaling:
+        from .presolve import ruiz_equilibrate
+
+        c, A, b, scaling = ruiz_equilibrate(c, A, b)
 
     eye = torch.eye(m, dtype=dt, device=dev).expand(B, m, m)
     A1 = torch.cat([A, eye], dim=2)  # [B, m, n+m]
@@ -110,13 +132,21 @@ def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
     else:
         obj_corr = None
 
+    # x and cost in the structural space and the original scaling
     res = _to_result(c2, states, n + m)
     x = res.x[:, :n]
     y = torch.where(infeasible[:, None], y_farkas, res.y)
+    if cfg.scaling:
+        from .presolve import unscale_duals, unscale_solution
+
+        x = unscale_solution(x, scaling)
+        y = unscale_duals(y, scaling)
     if obj_corr is not None:
-        cost = dd_dot(c, x) + obj_corr
+        # the objective is invariant under the scaling, so the duality
+        # correction from the scaled system applies as it is
+        cost = dd_dot(c_orig, x) + obj_corr
     else:
-        cost = (c * x).sum(dim=1)
+        cost = (c_orig * x).sum(dim=1)
     return BatchResult(
         x=x,
         basis=res.basis,
@@ -125,6 +155,63 @@ def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
         status=res.status,
         y=y,
     )
+
+
+def reoptimize_batch_new_rhs(c, A, b_new, basis, maxiters: int,
+                             cfg: SolverConfig = DEFAULT_CONFIG
+                             ) -> BatchResult:
+    """Warm-started re-solve after the right-hand side changed.
+
+    An optimal basis stays dual feasible when ``b`` changes, so the dual
+    simplex restores primal feasibility from it in a few pivots.
+    ``c[B, n], A[B, m, n], b_new[B, m], basis[B, m]``; ``basis`` typically
+    comes from :func:`solve_batch_two_phase` on the same ``(c, A)`` and must
+    index structural columns (``< n``).  A lane whose old basis is still
+    primal feasible ends in one iteration; ``DUAL_UNBOUNDED`` means the
+    perturbed instance is primal infeasible.  A singular starting basis
+    gives ``NUMERICAL_ERROR``.
+    """
+    n = c.shape[-1]
+    states = engine.make_state(A, b_new, basis)
+    allowed = torch.ones((n,), dtype=torch.bool, device=A.device)
+    states = _run_chunked(c, A, b_new, states, allowed, maxiters, cfg, "dual")
+
+    # primal cleanup: the dual phase's f32 pricing can stop a pivot or two
+    # short of optimal.  Refactor exactly, reopen the OPTIMAL lanes and let
+    # the primal phase verify or finish them (one iteration where optimal).
+    inv = engine.inv_or_nan(basis_matrix(A, states.basis))
+    bfs = torch.einsum("bmk,bk->bm", inv, b_new)
+    reopen = states.status == st.OPTIMAL
+    states = states._replace(
+        inv_B=torch.where(reopen[:, None, None], inv, states.inv_B),
+        bfs=torch.where(reopen[:, None], bfs, states.bfs),
+        status=torch.where(reopen, st.RUNNING, states.status).to(torch.int32),
+    )
+    states = _run_chunked(c, A, b_new, states, allowed, maxiters, cfg,
+                          "primal")
+
+    # exact solve at the terminal basis, unguarded as in the reference: a
+    # singular terminal basis reports NaN values under its own status
+    states = states._replace(
+        bfs=solve_or_nan(basis_matrix(A, states.basis), b_new))
+
+    if cfg.polish_pivots > 0:
+        from .refine import dd_dot, polish_batch
+
+        act = states.status == st.OPTIMAL
+        pbasis, pxB, _, pinv, _ = polish_batch(
+            c, A, b_new, states.basis, allowed, act,
+            max_pivots=cfg.polish_pivots, pivot_tol=cfg.pivot_tol,
+            inv_B=states.inv_B,
+        )
+        states = states._replace(
+            basis=torch.where(act[:, None], pbasis, states.basis),
+            bfs=torch.where(act[:, None], pxB, states.bfs),
+            inv_B=torch.where(act[:, None, None], pinv, states.inv_B),
+        )
+        res = _to_result(c, states, n)
+        return res._replace(cost=dd_dot(c, res.x))
+    return _to_result(c, states, n)
 
 
 def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
@@ -216,3 +303,68 @@ def _to_result(c, states: engine.SimplexState, n: int) -> BatchResult:
         status=status,
         y=engine.duals(c, states),
     )
+
+
+def unbounded_rays(c, A, states: engine.SimplexState,
+                   cfg: SolverConfig = DEFAULT_CONFIG, allowed=None):
+    """Improving rays for the ``PRIMAL_UNBOUNDED`` lanes: ``d[B, n]`` with
+    ``A d = 0``, ``d >= 0``, ``c'd < 0`` (entering coordinate 1, basic
+    coordinates ``-inv_B a_j`` for the first column ``j`` with a negative
+    reduced cost and no positive direction entry); zero on every other
+    lane.
+
+    ``c``, ``A`` and ``states`` are the arrays the engine ran on (for the
+    two-phase pipeline the Phase-II ``[A | I]`` and padded cost: see
+    :func:`unbounded_rays_from_result`).
+    """
+    B, m, n = A.shape
+    if allowed is None:
+        allowed = torch.ones((n,), dtype=torch.bool, device=A.device)
+    lanes = torch.arange(B, device=A.device)
+    r = c - torch.einsum("bm,bmn->bn", engine.duals(c, states), A)
+    r = torch.where(engine.in_basis_mask(states.basis, n), 0.0, r)
+    D = torch.matmul(states.inv_B, A)  # [B, m, n]: every candidate direction
+    no_ascent = ~(D > cfg.pivot_tol).any(dim=1)
+    cand = (r < -cfg.opt_tol) & no_ascent & allowed[None, :]
+    j = cand.to(torch.int8).argmax(dim=1)  # first certificate column
+    ok = cand[lanes, j] & (states.status == st.PRIMAL_UNBOUNDED)
+    Dj = D[lanes, :, j]
+    basics = torch.where(Dj < 0.0, -Dj, 0.0)  # clip tolerance noise
+    ray = torch.zeros((B, n), dtype=A.dtype, device=A.device)
+    ray.scatter_(1, states.basis.long(), basics)
+    ray[lanes, j] = 1.0
+    return torch.where(ok[:, None], ray, 0.0)
+
+
+def unbounded_rays_from_result(c, A, result: BatchResult,
+                               cfg: SolverConfig = DEFAULT_CONFIG):
+    """Improving rays for a :func:`solve_batch_two_phase` result, in the
+    original structural space (``[B, n]``; zero where the lane is not
+    ``PRIMAL_UNBOUNDED``).  Rebuilds the Phase-II arrays from ``c[B, n]``,
+    ``A[B, m, n]`` and the result's terminal basis."""
+    B, m, n = A.shape
+    dt, dev = A.dtype, A.device
+    eye = torch.eye(m, dtype=dt, device=dev).expand(B, m, m)
+    A1 = torch.cat([A, eye], dim=2)
+    c2 = torch.cat([c.to(dt), torch.zeros((B, m), dtype=dt, device=dev)],
+                   dim=1)
+    states = engine.make_state(A1, torch.zeros((B, m), dtype=dt, device=dev),
+                               result.basis)
+    states = states._replace(status=result.status)
+    allowed = torch.arange(n + m, device=dev) < n  # no ray on artificials
+    return unbounded_rays(c2, A1, states, cfg, allowed=allowed)[:, :n]
+
+
+def batch_summary(result: BatchResult) -> dict:
+    """Host-side lane counts by status, and the pivots."""
+    status = result.status.cpu().numpy()
+    iters = result.iters.cpu().numpy()
+    return {
+        "lanes": int(status.shape[0]),
+        "optimal": int((status == st.OPTIMAL).sum()),
+        "infeasible": int((status == st.PRIMAL_INFEASIBLE).sum()),
+        "unbounded": int((status == st.PRIMAL_UNBOUNDED).sum()),
+        "iter_limit": int((status == st.ITER_LIMIT).sum()),
+        "total_pivots": int(iters.sum()),
+        "max_pivots": int(iters.max()),
+    }

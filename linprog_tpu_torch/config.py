@@ -2,7 +2,7 @@
 
 The fields keep the reference's names and defaults.  Knobs of the reference
 that the port leaves out (``split_pricing``, ``partial_pricing``,
-``refactor_method="ns"``, ``scaling``) and knobs its kernel path never reads
+``refactor_method="ns"``) and knobs its kernel path never reads
 (``update``, ``dtype``, ``compact_refactor``) are not fields here;
 :func:`linprog_tpu_torch.convert.config_from_reference` checks them.
 """
@@ -31,7 +31,8 @@ class SolverConfig:
     lane to Bland's rule.  ``unroll`` is accepted for parity and does not
     change results.  ``packed_select`` fuses min, argmin and eligibility
     into one integer min.  ``polish_pivots`` bounds the double-word terminal
-    polish.  ``kernels`` is ``"cuda"`` (the hand-written kernels; the
+    polish.  ``scaling`` turns on Ruiz equilibration in the two-phase
+    pipeline (:mod:`linprog_tpu_torch.presolve`).  ``kernels`` is ``"cuda"`` (the hand-written kernels; the
     counterpart of the reference's ``"pallas"``) or ``"torch"`` (the
     per-step loop in plain PyTorch, primal only, with the optimality
     tolerance scaled by ``max(1, max|c|)`` per lane; the counterpart of the
@@ -47,6 +48,7 @@ class SolverConfig:
     unroll: int = 1
     packed_select: bool = False
     polish_pivots: int = 0
+    scaling: bool = False
     kernels: str = "cuda"
 
     def __post_init__(self):

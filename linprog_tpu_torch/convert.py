@@ -18,11 +18,11 @@ from .engine import SimplexState
 from .ipm import IPMConfig, IPMState
 from .ops.bounded_kernel import BoundedSegmentState
 from .ops.solve_kernel import SegmentState
+from .results import BatchResult
 
 # reference knobs the port leaves out: allowed only at their defaults
 _DROPPED_SOLVER = {"split_pricing": False, "partial_pricing": False,
-                   "refactor_method": "inv", "scaling": False,
-                   "dtype": "float32"}
+                   "refactor_method": "inv", "dtype": "float32"}
 # reference knobs the port never reads ("update" only where the kernels
 # run: the per-step loop refactorizes in chunks only under "eta")
 _IGNORED_SOLVER = ("update", "compact_refactor")
@@ -104,6 +104,27 @@ def ipm_state_from_numpy(state, device="cpu", dtype=torch.float32) -> IPMState:
 
 def ipm_state_to_numpy(state: IPMState) -> dict:
     return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def batch_result_from_numpy(result, device="cpu", dtype=torch.float32
+                            ) -> BatchResult:
+    """Reference ``BatchResult`` -> the port's (``y`` stays None where the
+    reference stored none)."""
+    f = _fields(result)
+    y = f.get("y")
+    return BatchResult(
+        x=_t(f["x"], device, dtype),
+        basis=_t(f["basis"], device, torch.int32),
+        cost=_t(f["cost"], device, dtype),
+        iters=_t(f["iters"], device, torch.int32),
+        status=_t(f["status"], device, torch.int32),
+        y=None if y is None else _t(y, device, dtype),
+    )
+
+
+def batch_result_to_numpy(result: BatchResult) -> dict:
+    return {k: None if v is None else _np(v)
+            for k, v in result._asdict().items()}
 
 
 def packed_from_numpy(packed, device="cpu"):

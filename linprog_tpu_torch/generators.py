@@ -35,6 +35,22 @@ def random_inequality_lps(
     return c.astype(dtype, copy=False), G, h.astype(dtype, copy=False)
 
 
+def to_standard_form_batch(c, G, h):
+    """Host arrays: ``min c'x, Gx <= h`` -> ``[G | I] x = h`` with the rows
+    of ``h < 0`` sign-flipped so that ``b >= 0`` (the numpy counterpart of
+    :func:`device_standard_form_batch`)."""
+    B, m, n = G.shape
+    dtype = G.dtype
+    eye = np.broadcast_to(np.eye(m, dtype=dtype), (B, m, m))
+    A = np.concatenate([G, eye], axis=2).copy()
+    b = h.copy()
+    c_std = np.concatenate([c, np.zeros((B, m), dtype=dtype)], axis=1)
+    neg = b < 0
+    A[neg] *= -1
+    b[neg] *= -1
+    return c_std, A, b
+
+
 def device_inequality_lps(gen: torch.Generator, batch: int, m: int, n: int,
                           device):
     """The same construction made on ``device`` from the generator ``gen``

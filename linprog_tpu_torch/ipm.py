@@ -1,8 +1,10 @@
-"""Batched Mehrotra predictor-corrector IPM, canonical form (counterpart of
-the canonical path of :mod:`linprog_tpu.ipm`).
+"""Batched Mehrotra predictor-corrector IPM (counterpart of the batched
+surface of :mod:`linprog_tpu.ipm`).
 
-Standard form ``min c'x, Ax = b, x >= 0`` with ``A = [G | I]`` kept
-implicit (:class:`_SlackOp`).  Newton systems reduce to the normal
+Standard form ``min c'x, Ax = b, x >= 0``, with ``A`` explicit
+(:class:`_DenseOp`, :func:`ipm_solve_batch_standard`) or ``A = [G | I]``
+kept implicit (:class:`_SlackOp`, :func:`ipm_solve_batch_canonical`).
+Newton systems reduce to the normal
 equations ``A D A' dy = r``; each iteration factors ``A D A' + reg I`` once
 into the INVERSE Cholesky factor ``W = L^{-1}``
 (:func:`block_cholesky_inverse`, whose f32 base panels are the
@@ -10,6 +12,15 @@ into the INVERSE Cholesky factor ``W = L^{-1}``
 The reference's ``lax.while_loop`` becomes a Python loop with a host check
 of "any lane running".  ``gondzio`` correctors and
 ``newton_solver="minv"`` are not ported (off by default in the reference).
+
+Warm re-solves (:func:`warm_start_point`,
+:func:`reoptimize_ipm_batch_canonical`) restart from a previous terminal
+iterate pushed back into the interior.  Straggler recovery
+(:func:`recover_stragglers_pooled`, ``recover=True``) gathers the lanes
+the f32 IPM leaves non-OPTIMAL at its KKT floor, from many chunks, into one
+power-of-two bucket and repairs them to exact vertices through the simplex
+crossover; the gather, the Tapia indicator and the scatter stay on the
+device, only the statuses and the pick list touch the host.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import torch
 
 from . import status as st
 from .ops.cholinv_kernel import panel_cholinv
+from .ops.solve_kernel import _nonneg
 from .results import BatchResult
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -68,6 +80,28 @@ def _mv(A, v):
 
 def _mtv(A, v):
     return torch.einsum("bij,bi->bj", A, v)
+
+
+class _DenseOp:
+    """Explicit batched constraint matrix ``A[B, m, n]`` (standard form)."""
+
+    def __init__(self, A):
+        self.A = A
+        self.B, self.m, self.n = A.shape
+
+    def mv(self, v):
+        return _mv(self.A, v)
+
+    def mtv(self, w):
+        return _mtv(self.A, w)
+
+    def normal(self, d):
+        """``A diag(d) A'`` (before regularization)."""
+        AD = self.A * d[:, None, :]
+        return torch.matmul(AD, self.A.transpose(1, 2))
+
+    def max_abs(self):
+        return torch.abs(self.A).amax(dim=(1, 2))
 
 
 class _SlackOp:
@@ -176,16 +210,22 @@ def _where(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
-def _ipm_core(c, op, b, cfg: IPMConfig) -> IPMState:
+def _ipm_core(c, op, b, cfg: IPMConfig, init=None) -> IPMState:
     """The Mehrotra loop over the constraint operator ``op``; ``c``/``b``
-    already in the working dtype."""
+    already in the working dtype.  ``init`` (optional) is a warm-start
+    triple ``(x0, y0, s0)`` with ``x0, s0`` strictly interior
+    (:func:`warm_start_point`); with it the least-squares starting point
+    and its factorization are skipped."""
     B, m, n = op.B, op.m, op.n
     f64 = c.dtype == torch.float64
     eps = cfg.eps_rel
     reg = cfg.reg if cfg.reg is not None else (1e-12 if f64 else 1e-7)
     dev = c.device
 
-    x, y, s = _starting_point(c, op, b, reg)
+    if init is None:
+        x, y, s = _starting_point(c, op, b, reg)
+    else:
+        x, y, s = (v.to(c.dtype) for v in init)
     norm_b = 1.0 + torch.linalg.vector_norm(b, dim=1)
     norm_c = 1.0 + torch.linalg.vector_norm(c, dim=1)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -317,21 +357,227 @@ def ipm_state_to_result(c, state: IPMState) -> BatchResult:
     )
 
 
-def ipm_canonical_state(cs, G, h, cfg: IPMConfig = DEFAULT_IPM_CONFIG
-                        ) -> IPMState:
-    """IPM on ``[G | I]`` with slack-extended costs ``cs[B, n + m]``."""
+def ipm_solve_batch_standard(c, A, b, cfg: IPMConfig = DEFAULT_IPM_CONFIG
+                             ) -> IPMState:
+    """Batched IPM on standard-form LPs ``c[B, n], A[B, m, n], b[B, m]``
+    (no ``b >= 0`` requirement: the IPM never flips row signs, so the duals
+    live in the caller's row space).  Returns the terminal
+    :class:`IPMState`; wrap it with :func:`ipm_state_to_result`."""
     dt = _DTYPES[cfg.dtype]
-    return _ipm_core(cs.to(dt), _SlackOp(G.to(dt)), h.to(dt), cfg)
+    return _ipm_core(c.to(dt), _DenseOp(A.to(dt)), b.to(dt), cfg)
+
+
+def ipm_canonical_state(cs, G, h, cfg: IPMConfig = DEFAULT_IPM_CONFIG,
+                        init=None) -> IPMState:
+    """IPM on ``[G | I]`` with slack-extended costs ``cs[B, n + m]``;
+    ``init`` as in :func:`_ipm_core`."""
+    dt = _DTYPES[cfg.dtype]
+    return _ipm_core(cs.to(dt), _SlackOp(G.to(dt)), h.to(dt), cfg, init=init)
+
+
+def _slack_costs(c, G):
+    B, m, _ = G.shape
+    return torch.cat([c, torch.zeros((B, m), dtype=G.dtype, device=G.device)],
+                     dim=1)
 
 
 def ipm_solve_batch_canonical(c, G, h, cfg: IPMConfig = DEFAULT_IPM_CONFIG,
+                              recover: bool = False, recover_cfg=None,
+                              recover_maxiters: Optional[int] = None,
                               return_state: bool = False):
     """Batched IPM on ``min c'x, Gx <= h, x >= 0`` (``c[B, n], G[B, m, n],
     h[B, m]``).  The result lives in the slack-extended space (the first
-    ``n`` entries of ``x`` are the user variables)."""
-    B, m, n = G.shape
-    cs = torch.cat([c, torch.zeros((B, m), dtype=G.dtype, device=G.device)],
-                   dim=1)
+    ``n`` entries of ``x`` are the user variables), the convention of
+    :func:`linprog_tpu_torch.crossover.crossover_batch_canonical`.
+
+    ``recover=True`` adds the straggler backstop: lanes the f32 IPM leaves
+    non-OPTIMAL are gathered into a small power-of-two bucket and repaired
+    to exact vertices, with a basis, by the simplex crossover
+    (:func:`recover_stragglers_pooled`).  ``recover_cfg`` is the crossover's
+    :class:`~linprog_tpu_torch.config.SolverConfig` and
+    ``recover_maxiters`` its pivot budget (default:
+    :func:`linprog_tpu_torch.router.recovery_cleanup_config`).  With
+    ``return_state`` the terminal :class:`IPMState` comes back too.
+    """
+    cs = _slack_costs(c, G)
     state = ipm_canonical_state(cs, G, h, cfg)
     res = ipm_state_to_result(cs, state)
+    if recover:
+        res = _recover_stragglers(c, G, h, res, recover_cfg, recover_maxiters)
     return (res, state) if return_state else res
+
+
+def warm_start_point(state: IPMState, warm_frac: float = 1e-2):
+    """A terminal iterate pushed back into the interior for a re-solve.
+
+    The iterate keeps its support information, but complementarity is
+    lifted to ``mu0 ~ warm_frac`` of the lane's own scale: with
+    ``xbar = mean|x|`` and ``sbar = mean|s|`` every variable is clamped from
+    below at ``tx = sqrt(mu0 xbar / sbar)`` and ``ts = sqrt(mu0 sbar /
+    xbar)`` (``tx ts = mu0``, scale ratios kept), so small entries move to
+    the ``mu0`` shell and large ones stay.  Returns ``(x0, y0, s0)``.
+    """
+    x, s = state.x, state.s
+    xbar = torch.clamp_min(torch.abs(x).mean(dim=1), 1e-8)
+    sbar = torch.clamp_min(torch.abs(s).mean(dim=1), 1e-8)
+    mu0 = warm_frac * xbar * sbar
+    tx = torch.sqrt(mu0 * xbar / sbar)[:, None]
+    ts = torch.sqrt(mu0 * sbar / xbar)[:, None]
+    return torch.maximum(x, tx), state.y, torch.maximum(s, ts)
+
+
+def reoptimize_ipm_batch_canonical(c, G, h, prev_state: IPMState,
+                                   cfg: IPMConfig = DEFAULT_IPM_CONFIG,
+                                   warm_frac: float = 1e-2,
+                                   return_state: bool = False):
+    """Warm-started batched IPM re-solve of perturbed canonical LPs (new
+    ``h`` and/or ``c``, the same shape of ``G``): the loop restarts from
+    ``prev_state`` (from ``ipm_solve_batch_canonical(..., return_state=
+    True)`` or from this function) pushed back into the interior, takes the
+    perturbation as an initial residual and skips the starting point's
+    factorization.  Returns a :class:`BatchResult` (slack-extended ``x``),
+    and the terminal state with ``return_state``."""
+    cs = _slack_costs(c, G)
+    state = ipm_canonical_state(cs, G, h, cfg,
+                                init=warm_start_point(prev_state, warm_frac))
+    res = ipm_state_to_result(cs, state)
+    return (res, state) if return_state else res
+
+
+def _recover_stragglers(c, G, h, res: BatchResult, recover_cfg,
+                        maxiters: Optional[int]) -> BatchResult:
+    """:func:`recover_stragglers_pooled` on one batch."""
+    return recover_stragglers_pooled(
+        [(c, G, h)], [res], recover_cfg=recover_cfg, maxiters=maxiters
+    )[0]
+
+
+def _recovery_pick(statuses, total: int):
+    """The straggler lanes ``(chunk, lane)`` and the bucket's pick list:
+    the bucket is the next power of two of their count, at least 8 and at
+    most ``total``, filled cyclically and sorted."""
+    lanes = [(bi, int(lane)) for bi, s in enumerate(statuses)
+             for lane in (s != st.OPTIMAL).nonzero()[0]]
+    if not lanes:
+        return lanes, []
+    bucket = min(max(8, 1 << (len(lanes) - 1).bit_length()), total)
+    return lanes, sorted(lanes[k % len(lanes)] for k in range(bucket))
+
+
+def recover_stragglers_pooled(batches, results, recover_cfg=None,
+                              maxiters: Optional[int] = None):
+    """Pool the non-OPTIMAL IPM lanes of many batches into one crossover.
+
+    ``batches`` is a sequence of canonical chunks ``(c, G, h)`` of one
+    ``(m, n)``, ``results`` the matching :class:`BatchResult` list of
+    :func:`ipm_solve_batch_canonical`.  The stragglers of all chunks are
+    gathered into one power-of-two bucket, ranked by the Tapia indicator
+    rebuilt from the stored iterate (by magnitude where a result has no
+    ``y``), crossed over in one batched call and scattered back as exact
+    vertices with their bases.  There is no alternate-guess retry: a
+    recovery lane's iterate is off the central path, not on a bad guess.
+    Lanes the crossover cannot verify keep their IPM answer and status.
+
+    Returns the list of (possibly replaced) :class:`BatchResult`.
+    """
+    from .crossover import crossover_batch_canonical
+    from .router import recovery_cleanup_config
+
+    statuses = [r.status.cpu().numpy() for r in results]  # small read-backs
+    B, m, n = batches[0][1].shape
+    lanes, pick = _recovery_pick(statuses, sum(b[1].shape[0] for b in batches))
+    if not lanes:
+        return list(results)
+    if recover_cfg is None or maxiters is None:
+        auto_cfg, auto_iters = recovery_cleanup_config(m)
+        recover_cfg = recover_cfg or auto_cfg
+        maxiters = maxiters or auto_iters
+
+    # sorted, so each chunk's rows of the bucket are contiguous
+    bidx = torch.tensor([p[0] for p in pick], dtype=torch.long)
+    lidx = torch.tensor([p[1] for p in pick], dtype=torch.long)
+    has_y = all(r.y is not None for r in results)
+    cg, Gg, hg, xg, ind = _recovery_gather(
+        [b[0] for b in batches], [b[1] for b in batches],
+        [b[2] for b in batches], [r.x for r in results],
+        [r.y for r in results] if has_y else None, bidx, lidx)
+    sub, crossed = crossover_batch_canonical(
+        cg, Gg, hg, xg, maxiters=maxiters, cfg=recover_cfg, indicator=ind,
+    )
+    crossed_host = crossed.cpu().numpy()
+    if not crossed_host.any():
+        return list(results)
+    x_ext = _recovery_extend_x(sub.x, Gg, hg)
+
+    seen, sel = set(), {}
+    for k, (bi, lane) in enumerate(pick):
+        if not crossed_host[k] or (bi, lane) in seen:
+            continue
+        seen.add((bi, lane))
+        sel.setdefault(bi, []).append((lane, k))
+    outs = list(results)
+    dev = Gg.device
+    for bi, pairs in sel.items():
+        idxl = torch.tensor([p[0] for p in pairs], dtype=torch.long,
+                            device=dev)
+        idxp = torch.tensor([p[1] for p in pairs], dtype=torch.long,
+                            device=dev)
+        outs[bi] = _recovery_scatter(results[bi], x_ext, sub, idxl, idxp,
+                                     with_y=has_y)
+    return outs
+
+
+def _recovery_gather(cs, Gs, hs, xs, ys, bidx, lidx):
+    """The bucket's ``(c, G, h, x_struct, indicator)`` from the chunks'
+    lists of tensors (``xs`` slack-extended ``[B, n + m]``): row ``k`` is
+    lane ``lidx[k]`` of chunk ``bidx[k]``.  ``bidx`` and ``lidx`` are host
+    index tensors sorted by chunk; the data is gathered on its device, chunk
+    by chunk, so no chunk is copied whole.
+
+    The indicator is Tapia's ``max(x, 0) / max(s, 1e-30)`` with the dual
+    slack of the slack-extended system rebuilt from the stored iterate,
+    ``s = [c - G'y; -y]``; a lane whose ratios are not all finite takes
+    ``max(x, 0)``.  ``ys`` None (no duals stored) gives no indicator: the
+    crossover then ranks by magnitude.
+    """
+    rows = [(bi, lidx[bidx == bi]) for bi in bidx.unique().tolist()]
+
+    def take(ts):
+        return torch.cat([ts[bi][idx.to(ts[bi].device)] for bi, idx in rows])
+
+    cg, Gg, hg, xg_full = take(cs), take(Gs), take(hs), take(xs)
+    n = cg.shape[-1]
+    if ys is None:
+        return cg, Gg, hg, xg_full[:, :n], None
+    yg = take(ys)
+    sg = torch.cat([cg - torch.einsum("bmn,bm->bn", Gg, yg), -yg], dim=1)
+    x_pos = _nonneg(xg_full)
+    ind = x_pos / torch.clamp_min(sg, 1e-30)
+    ind = torch.where(torch.isfinite(ind).all(dim=1)[:, None], ind, x_pos)
+    return cg, Gg, hg, xg_full[:, :n], ind
+
+
+def _recovery_extend_x(sub_x, Gg, hg):
+    """Slack-extended exact-vertex ``x`` for the scatter."""
+    slack = hg - torch.einsum("bmn,bn->bm", Gg, sub_x)
+    return torch.cat([sub_x, _nonneg(slack)], dim=1)
+
+
+def _recovery_scatter(r: BatchResult, x_ext, sub: BatchResult, idxl, idxp,
+                      with_y: bool = True) -> BatchResult:
+    """``r`` with lanes ``idxl`` replaced by the crossed vertices at rows
+    ``idxp`` of the bucket (iterations add up, status OPTIMAL; ``y`` too
+    under ``with_y``)."""
+    x, basis, cost = r.x.clone(), r.basis.clone(), r.cost.clone()
+    iters, status = r.iters.clone(), r.status.clone()
+    x[idxl] = x_ext[idxp].to(x.dtype)
+    basis[idxl] = sub.basis[idxp]
+    cost[idxl] = sub.cost[idxp].to(cost.dtype)
+    iters[idxl] = iters[idxl] + sub.iters[idxp]
+    status[idxl] = st.OPTIMAL
+    y = r.y
+    if with_y:
+        y = y.clone()
+        y[idxl] = sub.y[idxp].to(y.dtype)
+    return BatchResult(x=x, basis=basis, cost=cost, iters=iters,
+                       status=status, y=y)

@@ -1,6 +1,14 @@
-"""Exact pipeline: IPM -> crossover -> retry -> two-phase fallback
-(counterpart of the exact half of :mod:`linprog_tpu.router`, for
-m < 3072).
+"""Solver-family router (counterpart of the dense half of
+:mod:`linprog_tpu.router`).
+
+:func:`solve_batch_auto` is the front door: it picks simplex, the batched
+IPM with the straggler backstop, or IPM -> crossover by the size ``m`` and
+the accuracy class, from the thresholds of
+:func:`linprog_tpu_torch.calibration.get_table` (:func:`choose_family` is
+the rule alone).  The ``"pdhg"`` family (``m >= pdhg_min_m`` at a loose
+accuracy) is not ported yet and raises ``NotImplementedError``.
+:func:`solve_batch_exact` is the exact pipeline, IPM -> crossover -> retry
+-> two-phase fallback, for m < 3072.
 
 At m >= 3072 the reference's crossover runs its dual phase on the vmapped
 per-lane engine and retries at double budget with no fallback; neither is
@@ -13,10 +21,12 @@ from typing import Optional
 
 import torch
 
+from . import status as st
 from .calibration import get_table
 from .config import SolverConfig, tuned_config
 from .results import BatchResult
 
+_FAMILIES = ("simplex", "ipm", "ipm+crossover", "pdhg")
 _LARGE_M = 3072  # from here the reference's exact path leaves the port
 
 
@@ -43,6 +53,99 @@ def exact_cleanup_config(m: int, maxiters: Optional[int] = None):
     if m <= _xover_max_m():
         return tuned_config(m), (maxiters or 512)
     return tuned_config(m, refactor_every=128, unroll=2), (maxiters or 2048)
+
+
+def recovery_cleanup_config(m: int, maxiters: Optional[int] = None):
+    """The straggler recovery's variant of :func:`exact_cleanup_config`.  A
+    recovery bucket starts from a near-optimal Tapia-ranked IPM iterate, so
+    from m = 1536 up it takes a 256-pivot refactorization cadence and a
+    1024-pivot budget; a lane that exhausts the budget keeps its IPM answer
+    and status."""
+    if m >= 1536:
+        return (tuned_config(m, refactor_every=256, unroll=2),
+                (maxiters or 1024))
+    return exact_cleanup_config(m, maxiters)
+
+
+def choose_family(m: int, accuracy: float) -> str:
+    """The routing rule alone: ``"pdhg"`` for huge and loose
+    (``accuracy >= 1e-4`` and ``m >= pdhg_min_m``); at exact accuracy
+    (``<= exact_eps``) simplex up to ``exact_simplex_max_m`` and
+    IPM -> crossover past it; else simplex up to ``moderate_simplex_max_m``
+    and the IPM past it."""
+    t = get_table()
+    if accuracy >= 1e-4 and m >= t["pdhg_min_m"]:
+        return "pdhg"
+    if accuracy <= t["exact_eps"]:
+        return ("simplex" if m <= t["exact_simplex_max_m"]
+                else "ipm+crossover")
+    return "simplex" if m <= t["moderate_simplex_max_m"] else "ipm"
+
+
+def solve_batch_auto(c, G, h, accuracy: float = 1e-6,
+                     maxiters: Optional[int] = None,
+                     cfg: Optional[SolverConfig] = None,
+                     prefer: Optional[str] = None):
+    """Solve ``min c'x, Gx <= h, x >= 0`` for a batch (``c[B, n],
+    G[B, m, n], h[B, m]``) with the family measured best for its regime.
+
+    ``accuracy`` is the relative accuracy class: ``<= 1e-5`` asks for exact
+    vertices with a basis (simplex or IPM -> crossover), larger values
+    accept interior points at that KKT tolerance, with the non-converged
+    lanes repaired to vertices.  ``prefer`` names a family from
+    ``{"simplex", "ipm", "ipm+crossover", "pdhg"}`` instead.
+
+    Returns ``(BatchResult, info)``: ``x`` over the structural ``n``
+    columns; ``info`` holds the family taken and its extras (``crossed``,
+    ``eps_rel``).
+    """
+    B, m, n = G.shape
+    family = prefer or choose_family(m, float(accuracy))
+    if family not in _FAMILIES:
+        raise ValueError(
+            f"unknown family {family!r}; expected one of {_FAMILIES}"
+        )
+    info = {"family": family, "m": int(m), "n": int(n), "lanes": int(B),
+            "accuracy": float(accuracy)}
+
+    if family == "simplex":
+        from .batch import solve_batch_two_phase
+        from .generators import device_standard_form_batch
+
+        scfg = cfg or tuned_config(m)
+        it = maxiters or max(2000, 4 * m)
+        cs, As, bs = device_standard_form_batch(c, G, h)
+        res = solve_batch_two_phase(cs, As, bs, it, it, scfg)
+        return res._replace(x=res.x[:, :n]), info
+
+    if family == "ipm":
+        from .ipm import IPMConfig, ipm_solve_batch_canonical
+
+        icfg = IPMConfig(eps_rel=max(float(accuracy), 1e-5),
+                         maxiters=maxiters or 60)
+        res = ipm_solve_batch_canonical(c, G, h, icfg, recover=True)
+        info["eps_rel"] = icfg.eps_rel
+        return res._replace(x=res.x[:, :n]), info
+
+    if family == "ipm+crossover":
+        res, xinfo = solve_batch_exact(c, G, h, cfg=cfg, maxiters=maxiters)
+        info.update(xinfo)
+        return res, info
+
+    raise NotImplementedError(
+        f"family 'pdhg' (m={m}, accuracy={accuracy}): the first-order "
+        "family is not ported yet (ROADMAP Queue 1 item 13); ask for "
+        "prefer='ipm' or 'ipm+crossover'"
+    )
+
+
+def auto_summary(res: BatchResult, info: dict) -> dict:
+    """``info`` with the host-side counts of OPTIMAL and ITER_LIMIT lanes."""
+    status = res.status.cpu().numpy()
+    out = dict(info)
+    out["optimal"] = int((status == st.OPTIMAL).sum())
+    out["iter_limit"] = int((status == st.ITER_LIMIT).sum())
+    return out
 
 
 def _merge(res: BatchResult, lanes, sub: BatchResult, rows):

@@ -871,3 +871,157 @@ def test_batched_primal_step_on_card_matches_cpu(cuda):
                 getattr(s_cpu, name).numpy(), err_msg=name)
     assert step_kernels.launches["price_entering"] == before["price_entering"] + 16
     assert step_kernels.launches["ratio_eta_pivot"] == before["ratio_eta_pivot"] + 16
+
+
+# ---- the batched front door on the card --------------------------------------
+
+
+def _cpu_and_card(arrays, cuda):
+    cpu = [torch.tensor(a) for a in arrays]
+    return cpu, [t.to(cuda) for t in cpu]
+
+
+def _same_answers(res, res_cpu, tol=1e-5):
+    """Statuses equal lane for lane; costs of OPTIMAL lanes within ``tol``
+    relative."""
+    np.testing.assert_array_equal(res.status.cpu().numpy(),
+                                  res_cpu.status.numpy())
+    ok = res_cpu.status == st.OPTIMAL
+    rel = ((res.cost.cpu() - res_cpu.cost).abs()
+           / res_cpu.cost.abs().clamp_min(1.0))[ok]
+    assert rel.numel() and rel.max().item() <= tol
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_pooled_recovery_on_card_matches_cpu(cuda, chunks):
+    """The starved IPM's stragglers recovered on CUDA tensors (kernels 1 and
+    2) against the same call on CPU tensors (plain versions), at m = 64:
+    the same statuses, every lane OPTIMAL with a basis, costs to 1e-5.  Both
+    recoveries start from the CPU run's raw iterates, so the pick lists are
+    the same."""
+    import linprog_tpu_torch as lt
+
+    icfg = lt.IPMConfig(maxiters=4)
+    batches_cpu, batches, raws_cpu, raws = [], [], [], []
+    before2 = cholinv_kernel.launches
+    for s in range(chunks):
+        cpu, card = _cpu_and_card(random_inequality_lps(16, 64, 64, seed=s),
+                                  cuda)
+        batches_cpu.append(tuple(cpu))
+        batches.append(tuple(card))
+        raw = lt.ipm_solve_batch_canonical(*cpu, icfg)
+        raws_cpu.append(raw)
+        raws.append(lt.BatchResult(*(t.to(cuda) for t in raw)))
+        on_card = lt.ipm_solve_batch_canonical(*card, icfg)
+        assert bool((on_card.status != st.OPTIMAL).all())
+    assert cholinv_kernel.launches > before2
+    recs_cpu = lt.recover_stragglers_pooled(batches_cpu, raws_cpu)
+    before1 = solve_kernel.launches
+    recs = lt.recover_stragglers_pooled(batches, raws)
+    assert solve_kernel.launches > before1
+    for rec, rec_cpu in zip(recs, recs_cpu):
+        assert rec.x.is_cuda and bool((rec.status == st.OPTIMAL).all())
+        assert bool((rec.basis >= 0).all())
+        _same_answers(rec, rec_cpu)
+
+
+def test_recover_flag_on_card_launches_both_kernels(cuda):
+    """``ipm_solve_batch_canonical(recover=True)`` end to end on the card."""
+    import linprog_tpu_torch as lt
+
+    _, (c, G, h) = _cpu_and_card(random_inequality_lps(16, 64, 64, seed=5),
+                                 cuda)
+    before = (solve_kernel.launches, cholinv_kernel.launches)
+    res = lt.ipm_solve_batch_canonical(c, G, h, lt.IPMConfig(maxiters=4),
+                                       recover=True)
+    assert solve_kernel.launches > before[0]
+    assert cholinv_kernel.launches > before[1]
+    assert bool((res.status == st.OPTIMAL).all())
+    cert = lt.certify_vertex_batch(c, G, h, res.basis)
+    assert int(cert["certified"].sum()) >= 15
+
+
+@pytest.mark.parametrize("polish", [0, 8])
+def test_warm_rhs_resolve_on_card_matches_cpu(cuda, polish):
+    """``reoptimize_batch_new_rhs`` at m = 64 from the bases of a CPU
+    two-phase solve: CUDA tensors (kernel 1, dual then primal) against CPU
+    tensors: the same statuses, costs to 1e-5, fewer pivots than fresh."""
+    import linprog_tpu_torch as lt
+    from linprog_tpu_torch.batch import reoptimize_batch_new_rhs
+    from linprog_tpu_torch.generators import to_standard_form_batch
+
+    cs, As, bs = to_standard_form_batch(
+        *random_inequality_lps(16, 64, 64, seed=11))
+    cfg = lt.SolverConfig(pricing="dantzig", refactor_every=64,
+                          packed_select=True, polish_pivots=polish)
+    rng = np.random.default_rng(0)
+    bs_new = bs * (1.0 + 0.05 * rng.standard_normal(bs.shape)
+                   .astype(np.float32))
+    cpu, card = _cpu_and_card((cs, As, bs_new), cuda)
+    base = lt.solve_batch_two_phase(torch.tensor(cs), torch.tensor(As),
+                                    torch.tensor(bs), 2000, 2000, cfg)
+    assert bool((base.status == st.OPTIMAL).all())
+    assert bool((base.basis < cs.shape[1]).all())
+    warm_cpu = reoptimize_batch_new_rhs(*cpu, base.basis, 2000, cfg)
+    before = solve_kernel.launches
+    warm = reoptimize_batch_new_rhs(*card, base.basis.to(cuda), 2000, cfg)
+    assert solve_kernel.launches >= before + 2  # a dual and a primal phase
+    done = (warm.status == st.OPTIMAL) | (warm.status == st.DUAL_UNBOUNDED)
+    assert bool(done.all())
+    _same_answers(warm, warm_cpu)
+    assert warm.iters.double().mean() < 0.5 * base.iters.double().mean()
+
+
+def test_warm_ipm_and_standard_form_on_card_launch_the_panel_kernel(cuda):
+    import linprog_tpu_torch as lt
+
+    _, (c, G, h) = _cpu_and_card(random_inequality_lps(16, 64, 64, seed=7),
+                                 cuda)
+    res, state = lt.ipm_solve_batch_canonical(c, G, h, return_state=True)
+    before = cholinv_kernel.launches
+    warm = lt.reoptimize_ipm_batch_canonical(c, G, h * 1.02, state)
+    n_warm = cholinv_kernel.launches - before
+    cold = lt.ipm_solve_batch_canonical(c, G, h * 1.02)
+    n_cold = cholinv_kernel.launches - before - n_warm
+    assert 0 < n_warm < n_cold
+    ok = (warm.status == st.OPTIMAL) & (cold.status == st.OPTIMAL)
+    assert int(ok.sum()) >= 14
+    rel = ((warm.cost - cold.cost).abs() / cold.cost.abs().clamp_min(1.0))[ok]
+    assert rel.max().item() <= 2e-3  # two answers of the eps_rel = 1e-3 class
+    A = torch.cat([G, torch.eye(64, device=cuda).expand(16, 64, 64)], dim=2)
+    cs = torch.cat([c, torch.zeros((16, 64), device=cuda)], dim=1)
+    before = cholinv_kernel.launches
+    std = lt.ipm_solve_batch_standard(cs, A, h)
+    assert cholinv_kernel.launches > before
+    np.testing.assert_array_equal(std.status.cpu().numpy(),
+                                  res.status.cpu().numpy())
+
+
+@pytest.mark.parametrize("prefer", ["simplex", "ipm", "ipm+crossover"])
+def test_front_door_on_card_matches_cpu(cuda, prefer):
+    import linprog_tpu_torch as lt
+
+    cpu, card = _cpu_and_card(random_inequality_lps(16, 64, 64, seed=9), cuda)
+    res_cpu, _ = lt.solve_batch_auto(*cpu, accuracy=1e-4, prefer=prefer)
+    res, info = lt.solve_batch_auto(*card, accuracy=1e-4, prefer=prefer)
+    assert info["family"] == prefer and res.x.shape == (16, 64)
+    assert bool((res.status == st.OPTIMAL).all())
+    _same_answers(res, res_cpu, tol=2e-3 if prefer == "ipm" else 1e-5)
+    with pytest.raises(NotImplementedError):
+        lt.solve_batch_auto(*card, prefer="pdhg")
+
+
+def test_rays_on_card(cuda):
+    import linprog_tpu_torch as lt
+    from linprog_tpu_torch.batch import unbounded_rays_from_result
+
+    A = torch.tensor([[[1.0, -1.0, 0.0], [0.0, 0.0, 1.0]],
+                      [[-1.0, -1.0, 0.0], [0.0, 0.0, 1.0]]], device=cuda)
+    b = torch.ones((2, 2), device=cuda)
+    c = torch.tensor([[-1.0, -1.0, 0.0], [0.0, 0.0, 0.0]], device=cuda)
+    res = lt.solve_batch_two_phase(c, A, b, 50, 50)
+    assert res.status.tolist() == [st.PRIMAL_UNBOUNDED, st.PRIMAL_INFEASIBLE]
+    rays = unbounded_rays_from_result(c, A, res)
+    assert rays[0].tolist() == [1.0, 1.0, 0.0] and not bool(rays[1].any())
+    y = res.y[1]
+    assert bool((y @ A[1] <= 1e-6).all()) and float(y @ b[1]) > 0

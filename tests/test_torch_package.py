@@ -49,12 +49,15 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                 REPO / "tools" / "run_phases.py",
+                                 REPO / "tools" / "run_calibrate.py",
+                                 REPO / "tools" / "time_stream_plans.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import(path):
-    """The port (and its chip smoke) imports neither ``jax`` nor the
-    reference package, at any depth of any function."""
+    """The port (with its chip smoke and its tools) imports neither ``jax``
+    nor the reference package, at any depth of any function."""
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "linprog_tpu", "linprog"), (
@@ -96,7 +99,9 @@ def test_package_exports_and_kernel_sources():
     each of the six kernels."""
     for name in ("solve_batch_exact", "solve_batch_two_phase",
                  "solve_batch_bounded", "certify_vertex_batch",
-                 "ipm_solve_batch_canonical", "SolverConfig", "tuned_config"):
+                 "ipm_solve_batch_canonical", "SolverConfig", "tuned_config",
+                 "solve_batch_auto", "recover_stragglers_pooled",
+                 "reoptimize_ipm_batch_canonical"):
         assert name in linprog_tpu_torch.__all__
         assert callable(getattr(linprog_tpu_torch, name))
     entry_points = {
@@ -169,6 +174,36 @@ def test_simplex_and_ipm_state_round_trip():
     back = ipm_state_to_numpy(ipm_state_from_numpy(ipm, dtype=torch.float64))
     for k, v in ipm.items():
         np.testing.assert_array_equal(back[k], v)
+
+
+def test_batch_result_round_trip():
+    """A reference ``BatchResult`` (a NamedTuple or a dict of arrays) comes
+    across with the port's dtypes; a missing ``y`` stays None."""
+    from linprog_tpu.results import BatchResult as JaxBatchResult
+
+    from linprog_tpu_torch.convert import (
+        batch_result_from_numpy,
+        batch_result_to_numpy,
+    )
+
+    rng = np.random.default_rng(4)
+    fields = {"x": rng.random((3, 5)).astype(np.float32),
+              "basis": rng.integers(0, 5, (3, 2)).astype(np.int32),
+              "cost": rng.normal(size=3).astype(np.float32),
+              "iters": np.arange(3, dtype=np.int32),
+              "status": np.array([1, 2, 9], np.int32),
+              "y": rng.normal(size=(3, 2)).astype(np.float32)}
+    jres = JaxBatchResult(**{k: jnp.asarray(v) for k, v in fields.items()})
+    res = batch_result_from_numpy(jres)
+    assert res.basis.dtype == torch.int32 and res.x.dtype == torch.float32
+    back = batch_result_to_numpy(res)
+    for k, v in fields.items():
+        np.testing.assert_array_equal(back[k], v)
+        assert back[k].dtype == v.dtype
+    assert bool(res.optimum[0]) and not bool(res.optimum[1])
+    no_y = batch_result_from_numpy(dict(fields, y=None), dtype=torch.float64)
+    assert no_y.y is None and no_y.cost.dtype == torch.float64
+    assert batch_result_to_numpy(no_y)["y"] is None
 
 
 def test_packed_layout_round_trip():
