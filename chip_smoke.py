@@ -14,13 +14,16 @@ Phases, each printing one JSON line:
      spills per kernel;
   2. panel_cholinv: CUDA kernel against its plain PyTorch version at the
      IPM's panels, [1024, 32, 32] (m = 256) and [64, 32, 32] (m = 2048), on
-     the warp-per-matrix kernel, and at [1024, 48, 48] on the
+     the warp-per-matrix kernel, at [128, 32, 32] and [256, 32, 32] (the
+     batches of phases 10-12) and at [1024, 48, 48] on the
      block-per-matrix kernel (SPD, cond ~1e3; a planted non-SPD lane;
      within 1e-4 relative, and whether bit for bit);
   3. solve_segment: CUDA kernel against its plain version at crossover
      shapes (B = 1024, m = 256, n = 512), primal and dual mode, one
-     iteration and a full segment; then devex pricing: one iteration and a
-     16-pivot segment against the plain version, and a full
+     iteration and a full segment; at the shapes phases 10-12 give it
+     ([64, 512, 1024], [256, 256, 512], [1024, 128, 384]), both modes, one
+     iteration and a 16-pivot segment in lockstep; then devex pricing: one
+     iteration and a 16-pivot segment against the plain version, and a full
      solve_batch_two_phase run with pricing="devex" at B = 1024,
      m = n = 256 (all OPTIMAL, HiGHS gap on 4 lanes);
   4. the m = 256 path: solve_batch_exact at B = 1024, m = n = 256 (wall:
@@ -117,6 +120,12 @@ XB, XM = 64, 2048  # the m = 2048 path: lanes, m = n
 BOUNDED_REPEATS = 5  # timed bounded runs after the warm-up (median)
 BOUNDED_MAXITERS = 6000
 SPLIT_LANES = 16  # lanes of 1024 that may leave lockstep over 16 pivots
+# kernel 1 on the front door's paths (lanes, m, structural n): the recovery
+# bucket at m = 512, the crossover at m = 256, the two-phase simplex at
+# m = 128 with its artificials
+SEGMENT_SHAPES = [(64, 512, 512), (256, 256, 256), (1024, 128, 256)]
+# kernel 2 on those paths (lanes, mb): the IPM at B = 128 and at B = 256
+CHOLINV_SHAPES = [(B, 32), (XB, 32), (128, 32), (256, 32), (B, 48)]
 RECOVERY_GUARD = (256, 256)  # phase 10a: lanes, m = n
 IPM_CHUNKS = (4, 128, 512)  # phases 10b and 11b: chunks, lanes a chunk, m = n
 ROUTER_REGIMES = [  # phase 12: expected family, lanes, m = n, accuracy
@@ -314,12 +323,12 @@ def _hold_cholinv(gen, b, mb):
 
 
 def phase_cholinv():
-    """Phase 2: the IPM's panels at m = 256 ([1024, 32, 32]) and at
-    m = 2048 ([64, 32, 32]) on the warp-per-matrix kernel, and one size
-    past 32 on the block-per-matrix kernel."""
+    """Phase 2: the IPM's panels at every batch size the paths give
+    ([1024, 32, 32] at m = 256, [64, 32, 32] at m = 2048, [128, 32, 32] and
+    [256, 32, 32] on the front door's) on the warp-per-matrix kernel, and
+    one size past 32 on the block-per-matrix kernel."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    runs = [_hold_cholinv(gen, b, mb)
-            for b, mb in ((B, 32), (XB, 32), (B, 48))]
+    runs = [_hold_cholinv(gen, b, mb) for b, mb in CHOLINV_SHAPES]
     out = dict(runs[0], phase="panel_cholinv", other_shapes=runs[1:])
     emit(out)
     return out
@@ -405,6 +414,72 @@ def _exact_objective(A, c, h, seg):
     xB = solve_or_nan(basis_matrix(A, seg.basis), h)
     cB = torch.gather(c, 1, seg.basis.long())
     return (cB.double() * xB.double()).sum(dim=1)
+
+
+def _hold_segment(dual, b, m, n_g):
+    """Kernel 1 against its plain version at [b, m, n_g + m] with the
+    settings of the tuned configuration: one iteration (basis and status
+    equal on every lane without a near tie) and a 16-pivot segment (basis,
+    status, iteration count, penalties and basic costs equal on all but
+    ``SPLIT_LANES`` of 1024 lanes, at least 2; ``bfs`` within 1e-4 of its
+    scale on the lanes in lockstep)."""
+    cfg = tuned_config(m)
+    A, c, apen, h, state0 = _segment_instance(dual, b, m, n_g,
+                                              seed=SEED + 2 + m)
+    kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              dual=dual, feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
+              packed=cfg.packed_select)
+    mode = "dual" if dual else "primal"
+    shape = [b, m, n_g + m]
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    k1 = sk.solve_segment(A, c, apen, 1 << 20, fresh(), seg_len=1, **kw)
+    p1 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=1, **kw)
+    torch.cuda.synchronize()
+    tie = _tie_lanes(A, c, state0, dual, cfg)
+    bad = ~tie & ~_lockstep_lanes(k1, p1, ("basis", "status"))
+    if bad.any():
+        fail(f"solve_segment {mode} {shape}: one-iteration basis/status "
+             f"differ on {int(bad.sum())} non-tied lanes")
+    err1 = (k1.bfs[~tie] - p1.bfs[~tie]).abs().max().item()
+    pivoted = int((k1.basis != state0.basis).any(dim=1).sum())
+    if pivoted == 0:
+        fail(f"solve_segment {mode} {shape}: no lane pivoted")
+
+    k16 = sk.solve_segment(A, c, apen, 1 << 20, fresh(), seg_len=16, **kw)
+    p16 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=16,
+                                 **kw)
+    torch.cuda.synchronize()
+    same = _lockstep_lanes(k16, p16, ("basis", "status", "iters", "pen",
+                                      "cB"))
+    split, allowed = int((~same).sum()), max(2, b * SPLIT_LANES // B)
+    if split > allowed:
+        fail(f"solve_segment {mode} {shape}: the 16-pivot segment left "
+             f"lockstep on {split} lanes (> {allowed})")
+    scale = p16.bfs[same].abs().max().item()
+    err16 = (k16.bfs[same] - p16.bfs[same]).abs().max().item()
+    if not err16 <= 1e-4 * scale:
+        fail(f"solve_segment {mode} {shape}: bfs differs by {err16:.3e} "
+             f"after 16 pivots (> 1e-4 of {scale:.3e})")
+    states = iter([fresh() for _ in range(10)])
+    ms_k = cuda_ms(lambda: sk.solve_segment(A, c, apen, 1 << 20, next(states),
+                                            seg_len=1, **kw), 10)
+    states = iter([fresh() for _ in range(10)])
+    ms_p = cuda_ms(lambda: sk.solve_segment_plain(
+        A, c, apen, 1 << 20, next(states), seg_len=1, **kw), 10)
+    b_ms, b_by = segment_bound_ms(b, pivoted, m, n_g + m)
+    return {"shape": shape, "mode": mode,
+            "one_iter": {"excluded_tie_lanes": int(tie.sum()),
+                         "pivoted_lanes": pivoted, "max_abs_err_bfs": err1,
+                         "ms": ms_k, "plain_ms": ms_p, "reps": 10,
+                         "bound_ms": b_ms, "bound_by": b_by},
+            "segment16": {"lanes_in_lockstep": int(same.sum()),
+                          "allowed_split": allowed,
+                          "max_iters": int(k16.iters.max()),
+                          "max_abs_err_bfs": err16, "tol": "1e-4 of scale",
+                          "bfs_scale": scale}}
 
 
 def phase_segment():
@@ -496,6 +571,9 @@ def phase_segment():
     b_ms, b_by = segment_bound_ms(
         B, out["primal"]["one_iter"]["pivoted_lanes"], M, N + M)
     out["bound_ms"], out["bound_by"] = b_ms, b_by
+    out["other_shapes"] = [_hold_segment(dual, *shape)
+                           for shape in SEGMENT_SHAPES
+                           for dual in (False, True)]
     emit(out)
     return {"max_abs_err": worst_err, "ms": one_ms["primal"][0],
             "plain_ms": one_ms["primal"][1], "bound_ms": b_ms,
@@ -1423,11 +1501,15 @@ def phase_step_kernels():
 
 
 def _reset_counts():
-    sk.launches = ck.launches = ssk.launches = 0
+    sk.launches = sk.launches_dual = ck.launches = ssk.launches = 0
 
 
 def _read_counts():
-    return {"solve_segment": sk.launches, "panel_cholinv": ck.launches,
+    """The wrappers' launch counts; kernel 1's also by mode."""
+    return {"solve_segment": sk.launches,
+            "solve_segment_dual": sk.launches_dual,
+            "solve_segment_primal": sk.launches - sk.launches_dual,
+            "panel_cholinv": ck.launches,
             "solve_segment_stream": ssk.launches}
 
 
@@ -1438,25 +1520,6 @@ def _walled(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.time() - t0
-
-
-@contextlib.contextmanager
-def _segment_modes():
-    """Counts kernel 1's launches by mode while the block runs."""
-    import linprog_tpu_torch.engine_batched as le
-
-    modes = {"dual": 0, "primal": 0}
-    real = le.solve_segment
-
-    def counted(*args, **kw):
-        modes["dual" if kw.get("dual") else "primal"] += 1
-        return real(*args, **kw)
-
-    le.solve_segment = counted
-    try:
-        yield modes
-    finally:
-        le.solve_segment = real
 
 
 def _n_optimal(results):
@@ -1482,9 +1545,8 @@ def phase_recovery():
     raw = lt.ipm_solve_batch_canonical(c, G, h, lt.IPMConfig(maxiters=4))
     n_raw = _n_optimal([raw])
     _reset_counts()
-    with _segment_modes() as modes:
-        (rec,), wall = _walled(
-            lambda: lt.recover_stragglers_pooled([(c, G, h)], [raw]))
+    (rec,), wall = _walled(
+        lambda: lt.recover_stragglers_pooled([(c, G, h)], [raw]))
     launches = _read_counts()
     cert = lt.certify_vertex_batch(c, G, h, rec.basis)
     summ = lt.certificate_summary(cert)
@@ -1493,8 +1555,7 @@ def phase_recovery():
              "raw_optimal": n_raw, "lane_status": status_counts(rec.status),
              "certified": summ["certified"], "wall_s": wall,
              "pivots": int((rec.iters - raw.iters).sum()),
-             "launches": launches, "segment_launches_by_mode": dict(modes),
-             "highs_lanes": 4, "max_rel_gap_vs_highs": gap}
+             "launches": launches, "highs_lanes": 4, "max_rel_gap_vs_highs": gap}
 
     # (b) the number: 4 chunks of 128 at m = n = 512
     chunks, lanes_b, mb = IPM_CHUNKS
@@ -1512,8 +1573,7 @@ def phase_recovery():
     raws, raw_wall = _walled(raw_all)
     recovered_all()  # warm-up
     _reset_counts()
-    with _segment_modes() as modes_b:
-        (raws2, recs), rec_wall = _walled(recovered_all)
+    (raws2, recs), rec_wall = _walled(recovered_all)
     launches_b = _read_counts()
     total = chunks * lanes_b
     stragglers, pick = _recovery_pick(
@@ -1536,8 +1596,7 @@ def phase_recovery():
               "lanes_worse": worse,
               "newton_steps_median": int(steps.median()),
               "newton_steps_max": int(steps.max()),
-              "launches": launches_b,
-              "segment_launches_by_mode": dict(modes_b)}
+              "launches": launches_b}
     emit({"phase": "recovery", "guard_run": guard, "ipm_m512": number})
 
     if int((rec.status == st.OPTIMAL).sum()) != lanes:
@@ -1546,8 +1605,9 @@ def phase_recovery():
         fail(f"recovery: {summ['certified']}/{lanes} certified (< 99 %)")
     if not gap <= 1e-5:
         fail(f"recovery: HiGHS gap {gap:.3e} > 1e-5")
-    if modes["dual"] <= 0 or modes["primal"] <= 0 or launches["solve_segment"] <= 0:
-        fail(f"recovery: kernel solve_segment launched {dict(modes)}")
+    if (launches["solve_segment_dual"] <= 0
+            or launches["solve_segment_primal"] <= 0):
+        fail(f"recovery: kernel solve_segment launched {launches}")
     if number["recovered_optimal"] < _n_optimal(raws2):
         fail(f"recovery m=512: {number['recovered_optimal']} OPTIMAL after, "
              f"{_n_optimal(raws2)} before")
@@ -1589,8 +1649,7 @@ def phase_warm():
 
     warm_rhs()  # warm-up
     _reset_counts()
-    with _segment_modes() as modes:
-        warm, wall = _walled(warm_rhs)
+    warm, wall = _walled(warm_rhs)
     launches = _read_counts()
     s_warm = batch_summary(warm)
     n_inf = int((warm.status == st.DUAL_UNBOUNDED).sum())
@@ -1629,8 +1688,7 @@ def phase_warm():
            "max_warm_pivots": s_warm["max_pivots"],
            "mean_fresh_pivots": s_base["total_pivots"] / B,
            "max_rel_diff_vs_fresh": vs_fresh,
-           "launches": launches, "segment_launches_by_mode": dict(modes),
-           "highs_lanes": check, "max_rel_gap_vs_highs": gap}
+           "launches": launches, "highs_lanes": check, "max_rel_gap_vs_highs": gap}
 
     # (b) warm_ipm_m512
     (chunks, lanes_b, mb), perturb = IPM_CHUNKS, 0.02
@@ -1714,8 +1772,9 @@ def phase_warm():
     if not rhs["mean_warm_pivots"] < rhs["mean_fresh_pivots"]:
         fail(f"warm rhs: {rhs['mean_warm_pivots']:.1f} warm pivots a lane, "
              f"{rhs['mean_fresh_pivots']:.1f} fresh")
-    if modes["dual"] <= 0 or modes["primal"] <= 0:
-        fail(f"warm rhs: kernel solve_segment launched {dict(modes)}")
+    if (launches["solve_segment_dual"] <= 0
+            or launches["solve_segment_primal"] <= 0):
+        fail(f"warm rhs: kernel solve_segment launched {launches}")
     # two answers of the eps_rel = 1e-3 class: each within 5e-3 of the
     # optimum (the bar the raw interior family is held to), so of each other
     if not both.any() or not diff.max().item() <= 5e-3:

@@ -51,6 +51,7 @@ from . import _build
 INTMAX = 0x7FFFFFFF
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
+launches_dual = 0  # those of them in dual mode
 
 
 class SegmentState(NamedTuple):
@@ -368,7 +369,7 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     reference and ignored: it never changed results.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel.
     """
-    global launches
+    global launches, launches_dual
     del unroll
     check_segment_args(A, c, apen, state)
     if pricing not in (0, 1, 2):
@@ -397,4 +398,5 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     )
     _build.check(code, "solve_segment launch")
     launches += 1
+    launches_dual += int(bool(dual))
     return state

@@ -1,36 +1,36 @@
 #!/usr/bin/env python3
-"""Measure the card's calibration table and try its keys one by one.
+"""Measure the card's calibration table and try its routing keys at scale.
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 tools/run_calibrate.py [--lanes 64] [--sizes 128 256 512]
-                                   [--adopt] [--out FILE] [--table FILE]
+    python3 tools/run_calibrate.py [--lanes 64] [--sizes 128 160 192 256 512]
+                                   [--repeats 3] [--trials 11] [--out FILE]
 
 It prints the card (nvidia-smi's name and power limit), builds the kernels,
-and runs ``linprog_tpu_torch.calibration.calibrate`` at the full grid with
-only the packaged ``"default"`` entry in force, so an entry already in the
-data file does not colour the measurement.  The table is printed as one
-JSON line and written to ``--out`` (default
+and runs ``linprog_tpu_torch.calibration.calibrate`` ``--repeats`` times
+with only the packaged ``"default"`` entry in force, so an entry already in
+the data file does not colour the measurement.  Every table is printed as
+one JSON line and the list is written to ``--out`` (default
 ``build/calibration_l<lanes>.json``, a git-ignored directory).
-``--table FILE`` takes the card's entry from such a file instead of
-measuring again (two measurements differ where two settings are within
-noise of each other).
 
-With ``--adopt`` each measured key that differs from the default is then
-put in force alone, over the defaults, and the paths whose settings it
-changes are run again through chip_smoke.py's own phases (4, the m = 256
-exact path; 6, the m = 2048 exact path; 8, the bounded path; 12, the
-router's three regimes, and two more regimes here that the routing keys
-move: accuracy 1e-5 at m = 256, accuracy 1e-3 at m = 128), twice, between
-two runs under the defaults.  A key is kept when every guard of those
-phases holds and no wall (each phase's own median; the faster of the two
-runs, as the host's noise only adds) is more than 5 % above the faster of
-the two default runs; a phase whose settings no key changes is not run.
-A key is judged on every wall of a phase it moves, also those of regimes
-it leaves alone, so the host's noise can only reject a key, never keep
-one.  The last line is one JSON object with the entry to put into
-``linprog_tpu_torch/data/calibration.json`` (the adopted keys,
-``_measured``, ``_provenance``) and what was found for each key.
+Then the three routing keys (``exact_simplex_max_m``,
+``moderate_simplex_max_m``, ``exact_eps``) are tried one by one.  A key on
+whose value the repeats disagree, or whose value is the default's, is left
+alone.  Otherwise every regime (a size of ``--sizes`` at accuracy 1e-6,
+1e-5 or 1e-3) that ``choose_family`` routes differently under the key is
+solved with ``solve_batch_auto`` at the bench's batch (1024 lanes up to
+m = 256, 128 past it) under the default table and under the key, turn and
+turn about, ``--trials`` times each after a warm-up.  The key is kept when,
+at every such regime, its answer holds the family's guard (a vertex family:
+every lane OPTIMAL, within 1e-5 of HiGHS on 4 lanes; the interior family:
+at most one lane short, within 5 times the accuracy asked) and its median
+wall is not above the default's.
+
+``seg_by_m`` and ``xover_pallas_max_m`` change the kernel settings of
+every path rather than the routing; they are reported for each repeat and
+never kept here.  The last line is one JSON object with the entry for
+``linprog_tpu_torch/data/calibration.json`` (the kept keys, ``_measured``,
+the first repeat's ``_provenance``) and what was found for each key.
 """
 
 import argparse
@@ -44,171 +44,114 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 from linprog_tpu_torch import calibration  # noqa: E402
-from linprog_tpu_torch.config import tuned_config  # noqa: E402
-from linprog_tpu_torch.router import (  # noqa: E402
-    choose_family,
-    exact_cleanup_config,
-    recovery_cleanup_config,
-)
+from linprog_tpu_torch.router import choose_family  # noqa: E402
 
-SLACK = 1.05  # a wall may be 5 % above the default's
-# regimes beside chip_smoke.py's that exact_eps and moderate_simplex_max_m
-# move: lanes, m = n, accuracy
-EXTRA_REGIMES = [(256, 256, 1e-5), (1024, 128, 1e-3)]
+ROUTING_KEYS = ("exact_simplex_max_m", "moderate_simplex_max_m", "exact_eps")
+ACCURACIES = (1e-6, 1e-5, 1e-3)
 
 
-def _settings():
-    """What each rerun phase takes from the table in force."""
-    router = []
-    for _, _, m, accuracy in cs.ROUTER_REGIMES:
-        router.append((choose_family(m, accuracy), tuned_config(m),
-                       exact_cleanup_config(m), recovery_cleanup_config(m)))
-    extra = [(choose_family(m, accuracy), tuned_config(m),
-              exact_cleanup_config(m), recovery_cleanup_config(m))
-             for _, m, accuracy in EXTRA_REGIMES]
-    return {"router_extra": extra,
-            "main_path": exact_cleanup_config(cs.M),
-            "exact_m2048": (exact_cleanup_config(cs.XM), tuned_config(cs.XM)),
-            "bounded_m256": None,  # its settings are the bench leg's own
-            "router": router}
-
-
-def _router_extra():
-    """``solve_batch_auto`` at EXTRA_REGIMES: every lane must end OPTIMAL
-    within 5e-3 of HiGHS on 4 lanes (1e-5 where the request is exact)."""
+def _trial(m, accuracy, tables, trials):
+    """``solve_batch_auto`` at size ``m`` under each of the two ``tables``
+    in turn: per table the family, the median wall and the guard."""
     import torch
 
     import linprog_tpu_torch as lt
     from linprog_tpu_torch import status as st
 
-    runs = []
-    for lanes, m, accuracy in EXTRA_REGIMES:
-        gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 90 + m)
-        c, G, h = cs.device_inequality_lps(gen, lanes, m, m, cs.DEVICE)
-        def run():
-            return lt.solve_batch_auto(c, G, h, accuracy=accuracy)
+    lanes = 1024 if m <= 256 else 128
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 90 + m)
+    c, G, h = cs.device_inequality_lps(gen, lanes, m, m, cs.DEVICE)
 
-        res, info = run()  # warm-up
-        walls = [cs._walled(run)[1] for _ in range(cs.ROUTER_REPEATS)]
+    def run(table):
+        calibration.set_table(table)
+        return lt.solve_batch_auto(c, G, h, accuracy=accuracy)
+
+    answers = [run(t) for t in tables]  # warm-up
+    walls = [[], []]
+    for _ in range(trials):
+        for k, table in enumerate(tables):
+            walls[k].append(cs._walled(lambda: run(table))[1])
+    out = []
+    for (res, info), w in zip(answers, walls):
+        interior = info["family"] == "ipm"
+        optimal = int((res.status == st.OPTIMAL).sum())
         gap = cs.highs_gap(res.cost, c, 4, A_ub=G, b_ub=h)
-        runs.append({**info, "wall_s": float(np.median(walls)),
-                     "walls_s": walls, "prefer": None,
-                     "optimal": int((res.status == st.OPTIMAL).sum()),
-                     "max_rel_gap_vs_highs": gap})
-        if runs[-1]["optimal"] != lanes or not gap <= max(5 * accuracy, 1e-5):
-            cs.emit({"phase": "router_extra", "runs": runs})
-            cs.fail(f"router_extra: {runs[-1]}")
-    cs.emit({"phase": "router_extra", "runs": runs})
-
-
-PHASES = {"router_extra": _router_extra,
-          "main_path": lambda: cs.phase_main_path(),
-          "exact_m2048": lambda: cs.phase_exact_m2048(),
-          "bounded_m256": lambda: cs.phase_bounded_path(),
-          "router": lambda: cs.phase_router()}
-
-
-def _walls(name):
-    rep = cs.REPORTS[name]
-    if name.startswith("router"):
-        # by regime, not by the family taken: a key may change the family
-        return {f"{name}_m{r['m']}": r["wall_s"]
-                for r in rep["runs"] if r["prefer"] is None}
-    return {name: rep["wall_s"]}
-
-
-def _run(names, times=1):
-    """Run the named phases ``times`` times; returns (the fastest wall by
-    regime, the phase whose guard failed or None)."""
-    walls = {}
-    for _ in range(times):
-        for name in names:
-            try:
-                PHASES[name]()
-            except SystemExit:
-                return walls, name
-            for key, wall in _walls(name).items():
-                walls[key] = min(wall, walls.get(key, wall))
-    return walls, None
+        tol = max(1e-5, 5 * accuracy) if interior else 1e-5
+        out.append({"family": info["family"], "wall_s": float(np.median(w)),
+                    "walls_s": w, "optimal": optimal,
+                    "max_rel_gap_vs_highs": gap, "gap_tol": tol,
+                    "guard": bool(optimal >= lanes - int(interior)
+                                  and gap <= tol)})
+    return {"m": m, "accuracy": accuracy, "lanes": lanes,
+            "default": out[0], "key": out[1]}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lanes", type=int, default=64)
-    ap.add_argument("--sizes", type=int, nargs="+", default=[128, 256, 512])
-    ap.add_argument("--adopt", action="store_true")
+    ap.add_argument("--sizes", type=int, nargs="+",
+                    default=[128, 160, 192, 256, 512])
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--trials", type=int, default=11)
     ap.add_argument("--out")
-    ap.add_argument("--table")
     args = ap.parse_args()
 
     cs.phase_environment()
     cs.phase_build()
+    smi = cs.REPORTS["environment"]["nvidia_smi"]
     default = calibration.get_table("default")
-    calibration.set_table({"default": default})
+    only_default = {"default": default}
+    calibration.set_table(only_default)
     kind = calibration._device_kind()
-    if args.table:
-        with open(args.table) as f:
-            table = json.load(f)[kind]
-    else:
-        table = calibration.calibrate(sizes=tuple(args.sizes),
-                                      lanes=args.lanes)[kind]
-    cs.emit({"calibration": table, "kind": kind,
-             "nvidia_smi": cs.REPORTS["environment"]["nvidia_smi"]})
+    tables = []
+    for _ in range(args.repeats):
+        tables.append(calibration.calibrate(sizes=tuple(args.sizes),
+                                            lanes=args.lanes)[kind])
+        cs.emit({"calibration": tables[-1], "kind": kind, "nvidia_smi": smi})
     path = args.out or os.path.join("build",
                                     f"calibration_l{args.lanes}.json")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
-        json.dump({"default": default, kind: table}, f, indent=1)
-    if not args.adopt:
-        return
+        json.dump({"default": default, kind: tables}, f, indent=1)
 
-    # which phases each key moves; only those are run at all
-    base_settings = _settings()
-    moves = {}
-    for key in table["_measured"]:
-        calibration.set_table({"default": default, kind: {key: table[key]}})
-        settings = _settings()
-        moves[key] = [n for n in PHASES if settings[n] != base_settings[n]]
-    calibration.set_table({"default": default})
-    names = [n for n in PHASES if any(n in m for m in moves.values())]
-    first, failed = _run(names)
-    if failed:
-        sys.exit(f"run_calibrate: phase {failed} fails under the defaults")
-    found = {}
-    for key in table["_measured"]:
-        if table[key] == default[key]:
-            found[key] = {"value": table[key], "kept": True,
-                          "why": "equal to the default"}
-            continue
-        if not moves[key]:
-            found[key] = {"value": table[key], "default": default[key],
-                          "kept": True,
-                          "why": "no measured path changes under it"}
-            continue
-        calibration.set_table({"default": default, kind: {key: table[key]}})
-        walls, failed = _run(moves[key], times=2)
-        found[key] = {"value": table[key], "default": default[key],
-                      "phases_rerun": moves[key], "walls_s": walls,
-                      "guard_failed": failed}
-    calibration.set_table({"default": default})
-    second, failed = _run(names)
-    if failed:
-        sys.exit(f"run_calibrate: phase {failed} fails under the defaults")
-    limit = {k: SLACK * min(first[k], second[k]) for k in first}
+    found = {key: {"values": [t[key] for t in tables], "kept": False,
+                   "why": "changes kernel settings, not routing: reported"}
+             for key in ("seg_by_m", "xover_pallas_max_m")}
     entry = {}
-    for key, rep in found.items():
-        if "walls_s" in rep:
-            slow = {k: [w, limit[k]] for k, w in rep["walls_s"].items()
-                    if w > limit[k]}
-            rep["slower_than_limit"] = slow
-            rep["kept"] = rep["guard_failed"] is None and not slow
+    for key in ROUTING_KEYS:
+        values = [t[key] for t in tables]
+        found[key] = rep = {"values": values, "default": default[key],
+                            "kept": False}
+        if len(set(values)) > 1:
+            rep["why"] = "the repeats disagree"
+            continue
+        if values[0] == default[key]:
+            rep["why"] = "equal to the default"
+            continue
+        under_key = {"default": default, kind: {key: values[0]}}
+        moved = []
+        for m in args.sizes:
+            for accuracy in ACCURACIES:
+                calibration.set_table(only_default)
+                was = choose_family(m, accuracy)
+                calibration.set_table(under_key)
+                if choose_family(m, accuracy) != was:
+                    moved.append((m, accuracy))
+        rep["regimes"] = [_trial(m, accuracy, (only_default, under_key),
+                                 args.trials) for m, accuracy in moved]
+        calibration.set_table(only_default)
+        if not moved:
+            rep["why"] = "no regime of the grid routes differently under it"
+            continue
+        rep["kept"] = all(r["key"]["guard"]
+                          and r["key"]["wall_s"] <= r["default"]["wall_s"]
+                          for r in rep["regimes"])
         if rep["kept"]:
-            entry[key] = rep["value"]
-    entry["_measured"] = [k for k in table["_measured"] if k in entry]
-    entry["_provenance"] = table["_provenance"]
-    cs.emit({"default_walls_s": [first, second], "keys": found})
-    cs.emit({"kind": kind, "entry": entry,
-             "nvidia_smi": cs.REPORTS["environment"]["nvidia_smi"]})
+            entry[key] = values[0]
+    entry["_measured"] = sorted(entry)
+    entry["_provenance"] = tables[0]["_provenance"]
+    cs.emit({"keys": found})
+    cs.emit({"kind": kind, "entry": entry, "nvidia_smi": smi})
 
 
 if __name__ == "__main__":
