@@ -21,11 +21,15 @@ Phases, each printing one JSON line:
   3. solve_segment: CUDA kernel against its plain version at crossover
      shapes (B = 1024, m = 256, n = 512), primal and dual mode, one
      iteration and a full segment; at the shapes phases 10-12 give it
-     ([64, 512, 1024], [256, 256, 512], [1024, 128, 384]), both modes, one
-     iteration and a 16-pivot segment in lockstep; then devex pricing: one
-     iteration and a 16-pivot segment against the plain version, and a full
-     solve_batch_two_phase run with pricing="devex" at B = 1024,
-     m = n = 256 (all OPTIMAL, HiGHS gap on 4 lanes);
+     ([64, 512, 1024], [256, 256, 512], [1024, 128, 384]), both modes and
+     devex, one iteration and a 16-pivot segment in lockstep; the
+     block-per-lane branch at [64, 1024, 2048]; each shape with its launch
+     plan, the same bits under every other planned cluster size, and a
+     64-pivot segment's time an iteration beside the launch bound; then
+     devex pricing at [1024, 256, 512]: one iteration and a 16-pivot
+     segment against the plain version, and a full solve_batch_two_phase
+     run with pricing="devex" at B = 1024, m = n = 256 (all OPTIMAL, HiGHS
+     gap on 4 lanes);
   4. the m = 256 path: solve_batch_exact at B = 1024, m = n = 256 (wall:
      the median of 10 runs after a warm-up; launch counts from the first),
      then the dd-KKT certificate and a HiGHS check on 16 lanes;
@@ -45,7 +49,8 @@ Phases, each printing one JSON line:
   7. solve_bounded_segment: CUDA kernel against its plain version at
      [1024, 256, 512] from the all-slack start of device_bounded_lps: one
      iteration (bit for bit), a 16-iteration segment, a full run by status
-     and objective;
+     and objective; then 16 iterations in lockstep at phase 3's shapes in
+     packed and unpacked mode; each with its plan report as in phase 3;
   8. the bounded path: solve_batch_bounded at B = 1024, m = n = 256 (wall:
      the median of 5 runs after a warm-up; launch counts from the first):
      all lanes OPTIMAL, HiGHS gap on 4 lanes, x within its bounds, Ax = b;
@@ -124,6 +129,9 @@ SPLIT_LANES = 16  # lanes of 1024 that may leave lockstep over 16 pivots
 # bucket at m = 512, the crossover at m = 256, the two-phase simplex at
 # m = 128 with its artificials
 SEGMENT_SHAPES = [(64, 512, 512), (256, 256, 256), (1024, 128, 256)]
+# kernel 1's block-per-lane branch: a lane past the largest cluster
+BLOCK_SHAPE = (64, 1024, 1024)
+SEGMENT_PIVOTS = 64  # pivots of the segment timed inside one launch
 # kernel 2 on those paths (lanes, mb): the IPM at B = 128 and at B = 256
 CHOLINV_SHAPES = [(B, 32), (XB, 32), (128, 32), (256, 32), (B, 48)]
 RECOVERY_GUARD = (256, 256)  # phase 10a: lanes, m = n
@@ -186,6 +194,76 @@ def segment_bound_ms(lanes, pivoting, m, n):
                    + pivoting * m * m)
     n_flops = lanes * (2 * m * n + 4 * m * m) + pivoting * 2 * m * m
     return bound_ms(n_bytes, n_flops)
+
+
+def launch_bound_ms(lanes, m, n, pivots):
+    """One launch of a whole-segment kernel that runs ``pivots`` iterations
+    on every lane: A, the factor and the O(m + n) rows read once, the factor
+    and the rows written once; the iterations' operations (pricing 2mn, the
+    duals, the direction and the eta update 2m^2 each) at the f32 rate."""
+    n_bytes = 4 * lanes * (m * n + 2 * m * m + 2 * (5 * m + 3 * n))
+    n_flops = lanes * pivots * (2 * m * n + 6 * m * m)
+    return bound_ms(n_bytes, n_flops)
+
+
+def same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
+    """The launch plan of a whole-segment kernel (``kernel`` is the module:
+    ``solve_kernel`` or ``bounded_kernel``) at ``shape`` and what it gives:
+    the plan ``ref16`` was run under (the last launch's) and the clusters
+    the card holds at once; the same state bit for bit after 16 pivots
+    under every other planned cluster size; a 64-pivot segment's time (CUDA
+    events, median of 3 from fresh states) and its time an iteration,
+    beside the launch bound and the one-iteration bound."""
+    b, m, n = shape
+    chosen = kernel.last_plan
+    others = []
+    for plan in kernel.segment_plans(b, m, n):
+        if plan == chosen:
+            continue
+        s = run_plan(plan, fresh(), 16)
+        torch.cuda.synchronize()
+        for name, x, y in zip(s._fields, s, ref16):
+            if not same_bits(x, y):
+                fail(f"{label} {list(shape)}: {name} after 16 pivots differs "
+                     f"between {plan.cluster} and {chosen.cluster} CTAs a lane")
+        others.append(plan.cluster)
+        del s
+    last = []
+
+    def timed(pivots):
+        states = iter([fresh() for _ in range(3)])
+
+        def seg():
+            last[:] = [run_plan(chosen, next(states), pivots)]
+
+        return cuda_ms(seg, 3)
+
+    ms1 = timed(1)
+    ms = timed(SEGMENT_PIVOTS)
+    held = None
+    if chosen.cluster:
+        lib = _build.library()
+        query = (lib.lp_solve_segment_cluster_max_clusters
+                 if kernel is sk else lib.lp_solve_bounded_cluster_max_clusters)
+        held = query(chosen.cluster, chosen.smem_bytes)
+    lb_ms, lb_by = launch_bound_ms(b, m, n, SEGMENT_PIVOTS)
+    return {"plan": chosen._asdict(),
+            "branch": "cluster" if chosen.cluster else "block per lane",
+            "resident_clusters": held,
+            "same_bits_at_clusters": others,
+            "segment": {"pivots": SEGMENT_PIVOTS, "ms": ms, "one_pivot_ms": ms1,
+                        # inside the segment: the launch's loading left out
+                        "ms_per_iter": (ms - ms1) / (SEGMENT_PIVOTS - 1),
+                        "max_iters": int(last[0].iters.max()),
+                        "launch_bound_ms": lb_ms, "launch_bound_by": lb_by,
+                        "launch_bound_ms_per_iter": lb_ms / SEGMENT_PIVOTS}}
 
 
 def status_counts(status):
@@ -416,7 +494,7 @@ def _exact_objective(A, c, h, seg):
     return (cB.double() * xB.double()).sum(dim=1)
 
 
-def _hold_segment(dual, b, m, n_g):
+def _hold_segment(dual, b, m, n_g, pricing=1):
     """Kernel 1 against its plain version at [b, m, n_g + m] with the
     settings of the tuned configuration: one iteration (basis and status
     equal on every lane without a near tie) and a 16-pivot segment (basis,
@@ -426,10 +504,10 @@ def _hold_segment(dual, b, m, n_g):
     cfg = tuned_config(m)
     A, c, apen, h, state0 = _segment_instance(dual, b, m, n_g,
                                               seed=SEED + 2 + m)
-    kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
-              dual=dual, feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
-              packed=cfg.packed_select)
-    mode = "dual" if dual else "primal"
+    kw = dict(pricing=pricing, opt_tol=cfg.opt_tol,
+              pivot_tol=cfg.pivot_tol, dual=dual, feas_tol=cfg.feas_tol,
+              stall_limit=cfg.stall_limit, packed=cfg.packed_select)
+    mode = ("dual" if dual else "primal") + (" devex" if pricing == 2 else "")
     shape = [b, m, n_g + m]
 
     def fresh():
@@ -452,6 +530,9 @@ def _hold_segment(dual, b, m, n_g):
     p16 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=16,
                                  **kw)
     torch.cuda.synchronize()
+    if (sk.last_plan.cluster == 0) != ((m, n_g) == BLOCK_SHAPE[1:]):
+        fail(f"solve_segment {mode} {shape}: took the "
+             f"{'block' if sk.last_plan.cluster == 0 else 'cluster'} branch")
     same = _lockstep_lanes(k16, p16, ("basis", "status", "iters", "pen",
                                       "cB"))
     split, allowed = int((~same).sum()), max(2, b * SPLIT_LANES // B)
@@ -470,7 +551,10 @@ def _hold_segment(dual, b, m, n_g):
     ms_p = cuda_ms(lambda: sk.solve_segment_plain(
         A, c, apen, 1 << 20, next(states), seg_len=1, **kw), 10)
     b_ms, b_by = segment_bound_ms(b, pivoted, m, n_g + m)
-    return {"shape": shape, "mode": mode,
+    plan = _plan_report(sk, lambda pl, s, n_piv: sk.launch_with_plan(
+        pl, A, c, apen, 1 << 20, s, seg_len=n_piv, **kw), fresh, tuple(shape),
+        k16, f"solve_segment {mode}")
+    return {"shape": shape, "mode": mode, **plan,
             "one_iter": {"excluded_tie_lanes": int(tie.sum()),
                          "pivoted_lanes": pivoted, "max_abs_err_bfs": err1,
                          "ms": ms_k, "plain_ms": ms_p, "reps": 10,
@@ -488,7 +572,7 @@ def phase_segment():
            "config": {"pricing": cfg.pricing, "packed": cfg.packed_select,
                       "stall_limit": cfg.stall_limit}}
     worst_err = 0.0
-    one_ms = {}
+    one_ms, plans = {}, {}
     for mode in ("primal", "dual"):
         dual = mode == "dual"
         A, c, apen, h, state0 = _segment_instance(dual)
@@ -514,6 +598,12 @@ def phase_segment():
         err1 = (sk_k.bfs[keep] - sk_p.bfs[keep]).abs().max().item()
         worst_err = max(worst_err, err1)
         pivoted = int((sk_k.basis != state0.basis).any(dim=1).sum())
+        k16 = sk.solve_segment(A, c, apen, 1 << 20, fresh(), seg_len=16, **kw)
+        plans[mode] = _plan_report(
+            sk, lambda pl, s, n_piv: sk.launch_with_plan(
+                pl, A, c, apen, 1 << 20, s, seg_len=n_piv, **kw),
+            fresh, (B, M, N + M), k16, f"solve_segment {mode}")
+        del k16
 
         # one-iteration times (state copies outside the timed region)
         states = [fresh() for _ in range(21)]
@@ -553,6 +643,7 @@ def phase_segment():
             fail(f"solve_segment {mode}: full-segment objectives differ by "
                  f"{rel_max:.3e} relative (> 1e-5)")
         out[mode] = {
+            **plans[mode],
             "one_iter": {"excluded_tie_lanes": int(tie.sum()),
                          "pivoted_lanes": pivoted,
                          "max_abs_err_bfs": err1,
@@ -572,12 +663,31 @@ def phase_segment():
         B, out["primal"]["one_iter"]["pivoted_lanes"], M, N + M)
     out["bound_ms"], out["bound_by"] = b_ms, b_by
     out["other_shapes"] = [_hold_segment(dual, *shape)
-                           for shape in SEGMENT_SHAPES
+                           for shape in SEGMENT_SHAPES + [BLOCK_SHAPE]
                            for dual in (False, True)]
+    out["other_shapes"] += [_hold_segment(False, *shape, pricing=2)
+                            for shape in SEGMENT_SHAPES]
     emit(out)
     return {"max_abs_err": worst_err, "ms": one_ms["primal"][0],
             "plain_ms": one_ms["primal"][1], "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, **_plan_summary(
+                [(B, M, N + M, "primal", plans["primal"]),
+                 (B, M, N + M, "dual", plans["dual"])]
+                + [(*r["shape"], r["mode"], r) for r in out["other_shapes"]])}
+
+
+def _plan_summary(reports):
+    """The kernels line's summary of plan reports: each shape and mode's
+    plan, resident clusters, in-segment time an iteration and launch
+    bound."""
+    return {"plans": [
+        {"shape": [b, m, n], "mode": mode, "cluster": r["plan"]["cluster"],
+         "smem_bytes": r["plan"]["smem_bytes"],
+         "resident_clusters": r["resident_clusters"],
+         "segment_ms_per_iter": r["segment"]["ms_per_iter"],
+         "launch_bound_ms_per_iter": r["segment"]["launch_bound_ms_per_iter"],
+         "launch_bound_by": r["segment"]["launch_bound_by"]}
+        for b, m, n, mode, r in reports]}
 
 
 def _lockstep_lanes(k, p, names):
@@ -644,6 +754,9 @@ def phase_segment_devex():
     if not err16 <= 1e-3:
         fail(f"solve_segment devex: weights differ by {err16:.3e} relative "
              "after 16 pivots (> 1e-3)")
+    plan = _plan_report(sk, lambda pl, s, n_piv: sk.launch_with_plan(
+        pl, A, c, apen, 1 << 20, s, seg_len=n_piv, **kw), fresh,
+        (B, M, N + M), k16, "solve_segment devex")
     del A, c, apen, state0, k1, p1, k16, p16
 
     # the full two-phase run on devex
@@ -659,7 +772,7 @@ def phase_segment_devex():
     wall = time.time() - t0
     launches = sk.launches
     gap = highs_gap(res.cost, cc, 4, A_ub=G, b_ub=hh)
-    out = {"phase": "solve_segment_devex", "shape": [B, M, N + M],
+    out = {"phase": "solve_segment_devex", "shape": [B, M, N + M], **plan,
            "one_iter": {"lanes_equal": int(same1.sum()),
                         "max_rel_err_gamma": err_gamma, "ms": ms_k,
                         "plain_ms": ms_p, "reps": 20},
@@ -1016,26 +1129,26 @@ def phase_exact_m2048():
     return launches
 
 
-def _bounded_start(seed=SEED):
-    """device_bounded_lps at [1024, 256, 256 + 256] with its all-slack
-    start: the problem, the (basis, var_state) a user passes, and the same
-    start in the kernel's layout."""
+def _bounded_start(seed=SEED, b=B, m=M, n_g=N):
+    """device_bounded_lps at [b, m, n_g + m] (default [1024, 256, 512])
+    with its all-slack start: the problem, the (basis, var_state) a user
+    passes, and the same start in the kernel's layout."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    c, A, b, lb, ub = device_bounded_lps(gen, B, M, N, DEVICE)
-    ntot = N + M
-    basis = torch.arange(N, ntot, dtype=torch.int32,
-                         device=DEVICE).expand(B, M).contiguous()
-    vs = torch.zeros((B, ntot), dtype=torch.int8, device=DEVICE)
-    vs[:, N:] = bk.BASIC
-    zeros = torch.zeros((B, M), device=DEVICE)
+    c, A, rhs, lb, ub = device_bounded_lps(gen, b, m, n_g, DEVICE)
+    ntot = n_g + m
+    basis = torch.arange(n_g, ntot, dtype=torch.int32,
+                         device=DEVICE).expand(b, m).contiguous()
+    vs = torch.zeros((b, ntot), dtype=torch.int8, device=DEVICE)
+    vs[:, n_g:] = bk.BASIC
+    zeros = torch.zeros((b, m), device=DEVICE)
     state = bk.BoundedSegmentState(
-        invBT=torch.eye(M, device=DEVICE).expand(B, M, M).contiguous(),
-        bfs=b.clone(), cB=zeros.clone(), basis=basis.clone(),
+        invBT=torch.eye(m, device=DEVICE).expand(b, m, m).contiguous(),
+        bfs=rhs.clone(), cB=zeros.clone(), basis=basis.clone(),
         vstate=vs.clone(), lbB=zeros.clone(),
-        ubB=torch.full((B, M), float("inf"), device=DEVICE),
-        iters=torch.zeros(B, dtype=torch.int32, device=DEVICE),
-        status=torch.zeros(B, dtype=torch.int32, device=DEVICE))
-    prob = tuple(t.contiguous() for t in (c, A, b, lb, ub))
+        ubB=torch.full((b, m), float("inf"), device=DEVICE),
+        iters=torch.zeros(b, dtype=torch.int32, device=DEVICE),
+        status=torch.zeros(b, dtype=torch.int32, device=DEVICE))
+    prob = tuple(t.contiguous() for t in (c, A, rhs, lb, ub))
     return prob, basis, vs, state
 
 
@@ -1083,8 +1196,62 @@ def _bounded_drift(prob, s):
             "lanes": int(ok.sum())}
 
 
+def _hold_bounded(b, m, n_g, packed):
+    """Kernel 4 against its plain version at [b, m, n_g + m] from the
+    all-slack start: 16 iterations in lockstep (basis, variable states,
+    status, iterations, c_B and the basic bounds equal on all but
+    max(2, 16 of 1024) lanes; bfs within 1e-4 of scale there) on the
+    cluster-resident branch, its plan report, and one mid-solve
+    iteration's time against the plain version's."""
+    cfg = tuned_config(m)
+    prob, _, _, state0 = _bounded_start(SEED + 7 + m, b, m, n_g)
+    c, A, _, lb, ub = prob
+    kw = dict(opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol, packed=packed)
+    shape = [b, m, n_g + m]
+    label = f"solve_bounded_segment {'packed' if packed else 'unpacked'}"
+
+    def fresh(s=state0):
+        return bk.BoundedSegmentState(*(t.clone() for t in s))
+
+    k16 = bk.solve_bounded_segment(A, c, lb, ub, 1 << 20, fresh(),
+                                   seg_len=16, **kw)
+    p16 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
+                                         seg_len=16, **kw)
+    torch.cuda.synchronize()
+    if bk.last_plan.cluster == 0:
+        fail(f"{label} {shape}: took the block-per-lane branch")
+    same = _lockstep_lanes(k16, p16, ("basis", "vstate", "status", "iters",
+                                      "cB", "lbB", "ubB"))
+    split, allowed = int((~same).sum()), max(2, b * SPLIT_LANES // B)
+    if split > allowed:
+        fail(f"{label} {shape}: the 16-iteration segment left lockstep on "
+             f"{split} lanes (> {allowed})")
+    scale = max(p16.bfs[same].abs().max().item(), 1.0)
+    err = (k16.bfs[same] - p16.bfs[same]).abs().max().item()
+    if not err <= 1e-4 * scale:
+        fail(f"{label} {shape}: bfs differs by {err:.3e} after 16 "
+             f"iterations (> 1e-4 of {scale:.3e})")
+    plan = _plan_report(bk, lambda pl, s, n_piv: bk.launch_with_plan(
+        pl, A, c, lb, ub, 1 << 20, s, seg_len=n_piv, **kw), fresh,
+        tuple(shape), k16, label)
+    times = {}
+    for name, fn in (("kernel", bk.solve_bounded_segment),
+                     ("plain", bk.solve_bounded_segment_plain)):
+        states = iter([fresh(k16) for _ in range(10)])
+        times[name] = cuda_ms(lambda: fn(A, c, lb, ub, 1 << 20, next(states),
+                                         seg_len=1, **kw), 10)
+    return {"shape": shape, "mode": "packed" if packed else "unpacked",
+            **plan,
+            "segment16": {"lanes_in_lockstep": int(same.sum()),
+                          "allowed_split": allowed, "max_abs_err_bfs": err,
+                          "bfs_scale": scale, "tol": "1e-4 of scale"},
+            "one_iter_mid_solve": {"ms": times["kernel"],
+                                   "plain_ms": times["plain"], "reps": 10}}
+
+
 def phase_bounded_segment():
-    """Phase 7: kernel 4 against its plain version at [1024, 256, 512]."""
+    """Phase 7: kernel 4 against its plain version at [1024, 256, 512], and
+    at the segment kernels' other shapes in both selection modes."""
     cfg = tuned_config(M)
     prob, _, _, state0 = _bounded_start()
     c, A, b, lb, ub = prob
@@ -1131,6 +1298,12 @@ def phase_bounded_segment():
     if not err16 <= 1e-4 * max(scale16, 1.0):
         fail(f"solve_bounded_segment: bfs differs by {err16:.3e} after 16 "
              "iterations (> 1e-4 of scale)")
+    plan = _plan_report(bk, lambda pl, s, n_piv: bk.launch_with_plan(
+        pl, A, c, lb, ub, 1 << 20, s, seg_len=n_piv, **kw), fresh,
+        (B, M, N + M), k16, "solve_bounded_segment")
+    if plan["plan"]["cluster"] == 0:
+        fail("solve_bounded_segment: the bounded leg's shape took the "
+             "block-per-lane branch")
 
     # one-iteration times from the mid-solve state (state copies outside
     # the timed region); the bound counts what this iteration moves
@@ -1176,7 +1349,7 @@ def phase_bounded_segment():
     drift_k, drift_p = _bounded_drift(prob, kf), _bounded_drift(prob, pf)
     b_ms, b_by = segment_bound_ms(B, pivoting, M, N + M)
     out = {"phase": "solve_bounded_segment", "shape": [B, M, N + M],
-           "config": {"packed": cfg.packed_select},
+           "config": {"packed": cfg.packed_select}, **plan,
            "one_iter_from_start": {"lanes_equal": int(same1.sum()),
                                    "bound_flips": flips1,
                                    "max_abs_err_bfs": err1},
@@ -1195,9 +1368,16 @@ def phase_bounded_segment():
                         "ms": full["kernel"][1], "plain_ms": full["plain"][1],
                         "unrefactored_drift": {"kernel": drift_k,
                                                "plain": drift_p}}}
+    out["other_shapes"] = [_hold_bounded(b, m, n_g, packed)
+                           for b, m, n_g in SEGMENT_SHAPES
+                           for packed in (True, False)]
+    out["other_shapes"].append(_hold_bounded(B, M, N, False))
     emit(out)
     return {"max_abs_err": max(err1, err16), "ms": ms_k, "plain_ms": ms_p,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            **_plan_summary([(B, M, N + M, "packed", plan)]
+                            + [(*r["shape"], r["mode"], r)
+                               for r in out["other_shapes"]])}
 
 
 def phase_bounded_path():
@@ -1938,7 +2118,8 @@ def main():
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                 "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                "bound_by": rep["bound_by"], "library_ms": None}
+                "bound_by": rep["bound_by"], "library_ms": None,
+                **{k: rep[k] for k in ("plans",) if k in rep}}
 
     price = dict(steps["price_entering"],
                  max_abs_err=steps["price_entering"]["max_abs_err_r_enter"])

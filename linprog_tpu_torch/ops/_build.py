@@ -125,6 +125,12 @@ def _declare(lib):
     # A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status
     lib.lp_solve_segment.argtypes = [p] * 11 + tail
     lib.lp_solve_segment.restype = i
+    # the cluster-resident branch: the same, and the plan before the stream
+    # (cluster, aligned, smem_bytes)
+    lib.lp_solve_segment_cluster.argtypes = [p] * 11 + tail[:-1] + [i] * 3 + [p]
+    lib.lp_solve_segment_cluster.restype = i
+    lib.lp_solve_segment_cluster_max_clusters.argtypes = [i, i]  # cluster, smem
+    lib.lp_solve_segment_cluster_max_clusters.restype = i
     # the same without gamma (the streaming kernel has no devex), and the
     # launch plan before the stream: cluster, aligned, stages, stage_floats,
     # warp_stages, chunk_floats, smem_bytes
@@ -141,6 +147,13 @@ def _declare(lib):
         p,  # stream
     ]
     lib.lp_solve_bounded_segment.restype = i
+    # the cluster-resident branch: the same, and the plan before the stream
+    # (cluster, aligned, smem_bytes)
+    bounded = lib.lp_solve_bounded_segment.argtypes
+    lib.lp_solve_bounded_cluster.argtypes = bounded[:-1] + [i] * 3 + [p]
+    lib.lp_solve_bounded_cluster.restype = i
+    lib.lp_solve_bounded_cluster_max_clusters.argtypes = [i, i]
+    lib.lp_solve_bounded_cluster_max_clusters.restype = i
     lib.lp_price_entering.argtypes = [
         p, p, p, p, p,  # cB, invB, A, c, penalty
         p, p,  # enter, eligible

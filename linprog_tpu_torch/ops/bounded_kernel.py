@@ -32,26 +32,43 @@ What must carry over exactly, and does here in both versions:
 Variable states are int8 codes (``AT_LB`` 0, ``AT_UB`` 1, ``BASIC`` 2); the
 reference's kernel carries them as f32 only because of a Mosaic rule.
 
-On the H100 (``csrc/solve_bounded_segment.cu``): one thread block per
-lane, the design of the whole-segment kernel.  A and ``B^-T`` stay in
-device memory; the O(m + n) vectors live in shared memory.  Each iteration
-streams A once and ``B^-T`` up to four times, so the kernel is bound by
-device-memory bandwidth.
+On the H100 (``csrc/solve_bounded_segment.cu``) the two branches of the
+whole-segment kernel, chosen by (m, n) alone: where A and ``B^-T`` fit a
+cluster of at most 16 CTAs, the lane's cluster loads them into shared
+memory once and runs the segment on chip (band partials added through
+distributed shared memory in one fixed tree, the duals from each pivot's
+eta pass; the bits do not depend on the cluster size); past it one thread
+block per lane streams A and ``B^-T`` from device memory, bound by its
+bandwidth.  :func:`segment_plans` lays the launch out.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import List, NamedTuple
 
 import torch
 
 from .. import status as st
 from . import _build
-from .solve_kernel import INTMAX, _nonneg, check_tensors, pack_min_keys
+from .solve_kernel import (
+    INTMAX,
+    SM_COUNT,
+    SMEM_LIMIT,
+    SegmentPlan,
+    _nonneg,
+    _round4,
+    check_tensors,
+    pack_min_keys,
+    pick_plan,
+    plans_for,
+    slice_len,
+)
 
 AT_LB, AT_UB, BASIC = 0, 1, 2
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
+last_plan = None  # the SegmentPlan of the last launch
 
 
 class BoundedSegmentState(NamedTuple):
@@ -70,6 +87,39 @@ class BoundedSegmentState(NamedTuple):
     ubB: torch.Tensor
     iters: torch.Tensor
     status: torch.Tensor
+
+
+def cluster_bytes(m: int, n: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA on the cluster-resident branch: its
+    rows of A and of ``B^-T``; d, u, c_B, bfs, lbB, ubB and the basis whole;
+    c, lb and ub whole; its partials over n (pricing) and over m (the
+    direction); three slices of m; then the variable states whole, one byte
+    each."""
+    ml = slice_len(m, cluster)
+    return (4 * (_round4(ml * n) + _round4(ml * m)
+                 + _round4(8 * m + 4 * n + 3 * ml)) + -(-n // 16) * 16)
+
+
+def block_bytes(m: int, n: int) -> int:
+    """Dynamic shared memory of the block-per-lane branch."""
+    return 4 * (9 * m + 5 * n)
+
+
+def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
+                  smem_limit: int = SMEM_LIMIT) -> List[SegmentPlan]:
+    """Candidate launch plans for ``B`` lanes of (m, n), best first, by the
+    rules of :func:`linprog_tpu_torch.ops.solve_kernel.segment_plans`.
+    Raises ``ValueError`` for a lane that fits no branch."""
+    return plans_for(B, m, n, cluster_bytes, block_bytes(m, n), sm_count,
+                     smem_limit, "solve_bounded_segment")
+
+
+@functools.lru_cache(maxsize=None)
+def _choose_plan(B: int, m: int, n: int, device_index: int) -> SegmentPlan:
+    props = torch.cuda.get_device_properties(device_index)
+    plans = segment_plans(B, m, n, props.multi_processor_count)
+    query = _build.library().lp_solve_bounded_cluster_max_clusters
+    return pick_plan(plans, B, query, device_index, "solve_bounded_segment")
 
 
 def _pick(v, at):
@@ -266,29 +316,58 @@ def solve_bounded_segment(A, c, lb, ub, maxiters: int,
     parity with the reference and ignored: neither changes results.  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel.
     """
-    global launches
     del use_at, unroll
     check_bounded_args(A, c, lb, ub, state)
+    kw = dict(seg_len=seg_len, opt_tol=opt_tol, pivot_tol=pivot_tol,
+              packed=packed)
     if A.device.type == "cpu":
-        return solve_bounded_segment_plain(
-            A, c, lb, ub, maxiters, state, seg_len=seg_len, opt_tol=opt_tol,
-            pivot_tol=pivot_tol, packed=packed)
+        return solve_bounded_segment_plain(A, c, lb, ub, maxiters, state, **kw)
     if A.device.type != "cuda":
         raise ValueError(f"solve_bounded_segment: unsupported device {A.device}")
     B, m, n = A.shape
     if B == 0 or seg_len <= 0:
+        segment_plans(max(B, 1), m, n)  # a lane too large raises all the same
         return state
+    index = A.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _choose_plan(B, m, n, index)
+    return launch_with_plan(plan, A, c, lb, ub, maxiters, state, **kw)
+
+
+def launch_with_plan(plan: SegmentPlan, A, c, lb, ub, maxiters: int,
+                     state: BoundedSegmentState, *, seg_len: int,
+                     opt_tol: float, pivot_tol: float,
+                     packed: bool = False) -> BoundedSegmentState:
+    """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`).
+    CUDA tensors only; the C entry point refuses a plan that does not fit
+    the shape."""
+    global launches, last_plan
+    check_bounded_args(A, c, lb, ub, state)
+    if A.device.type != "cuda":
+        raise ValueError("launch_with_plan needs CUDA tensors")
+    B, m, n = A.shape
     lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    code = lib.lp_solve_bounded_segment(
+    args = (
         A.data_ptr(), c.data_ptr(), lb.data_ptr(), ub.data_ptr(),
         state.invBT.data_ptr(), state.bfs.data_ptr(), state.cB.data_ptr(),
         state.basis.data_ptr(), state.vstate.data_ptr(),
         state.lbB.data_ptr(), state.ubB.data_ptr(),
         state.iters.data_ptr(), state.status.data_ptr(),
         B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
-        float(opt_tol), float(pivot_tol), int(bool(packed)), stream,
+        float(opt_tol), float(pivot_tol), int(bool(packed)),
     )
+    with torch.cuda.device(A.device):
+        if plan.cluster == 0:
+            code = lib.lp_solve_bounded_segment(*args, stream)
+        else:
+            aligned = (m % 4 == 0 and n % 4 == 0
+                       and A.data_ptr() % 16 == 0
+                       and state.invBT.data_ptr() % 16 == 0)
+            code = lib.lp_solve_bounded_cluster(
+                *args, plan.cluster, int(aligned), plan.smem_bytes, stream)
     _build.check(code, "solve_bounded_segment launch")
     launches += 1
+    last_plan = plan
     return state

@@ -26,22 +26,33 @@ What must carry over exactly, and does here in both versions:
 * a lane that is not RUNNING, or has reached ``maxiters``, is untouched;
 * ``unroll`` does not change results (it is accepted and ignored).
 
-On the H100 (``csrc/solve_segment.cu``): one thread block per lane.  A lane
-does not fit in shared memory (at m = 256, n = 512: A 512 KB and ``B^-T``
-256 KB, against 227 KB per block), so A and ``B^-T`` stay in device memory
-and only the O(m + n) vectors live in shared memory.  Each primal iteration
-streams A once (pricing) and ``B^-T`` four times (duals, direction, the
-eta read and write): about 1.5 MB per lane-iteration at that shape, so the
-kernel is bound by device-memory bandwidth.  Warp-per-row GEMVs read
-``B^-T`` rows, column-per-thread GEMVs read A and ``B^-T`` coalesced, and
-selections are block-wide integer or float min reductions.  Devex keeps
-its weights in shared memory and reads A once more per pivot for the pivot
-row.
+On the H100 (``csrc/solve_segment.cu``) two branches, chosen by the lane's
+shape (m, n) alone, never by the batch:
+
+* cluster-resident, for every lane whose A and ``B^-T`` fit the shared
+  memory of a cluster of at most 16 CTAs (m up to 512 at n = 2m): one
+  cluster of 1, 2, 4, 8 or 16 CTAs a lane loads the lane's A and ``B^-T``
+  into shared memory once at launch, CTA k owning whole bands of the lane's
+  16 fixed row bands, and runs every iteration of the segment on chip.
+  Pricing, the direction and the dual and devex rows are band partials;
+  every CTA adds up the partials of all the entries it needs through
+  distributed shared memory in one fixed tree (so a lane's bits do not
+  depend on the cluster size, its batch or its wave) and runs each
+  selection over whole vectors, so an iteration has two cluster barriers;
+  the eta update of the own rows yields the next duals.  Device memory sees
+  A and the factor once a launch; an iteration's latency bounds it.
+  :func:`segment_plans` lays the launch out;
+* block per lane, for lanes past the largest cluster: A and ``B^-T`` stay in
+  device memory and only the O(m + n) vectors live in shared memory.  Each
+  primal iteration streams A once and ``B^-T`` four times (duals,
+  direction, the eta read and write), so it is bound by device-memory
+  bandwidth.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import List, NamedTuple
 
 import torch
 
@@ -52,6 +63,13 @@ INTMAX = 0x7FFFFFFF
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
 launches_dual = 0  # those of them in dual mode
+last_plan = None  # the SegmentPlan of the last launch
+
+SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
+_STATIC_BYTES = 1024  # a block's static shared memory and a reserve
+_BANDS = 16  # row bands of a lane (csrc/cluster_segment.cuh: kBands)
+CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes the resident branch is built for
 
 
 class SegmentState(NamedTuple):
@@ -68,6 +86,124 @@ class SegmentState(NamedTuple):
     gamma: torch.Tensor
     iters: torch.Tensor
     status: torch.Tensor
+
+
+class SegmentPlan(NamedTuple):
+    """How one launch of the segment kernel is laid out."""
+
+    cluster: int  # CTAs a lane on the cluster-resident branch; 0: block per lane
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def slice_len(size: int, cluster: int) -> int:
+    """Entries of a CTA's slice: whole bands of ``ceil(size / 16)``."""
+    return (_BANDS // cluster) * -(-size // _BANDS)
+
+
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def cluster_bytes(m: int, n: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA on the cluster-resident branch: its
+    rows of A and of ``B^-T``; d, u, c_B, bfs and the basis whole; c, pen and
+    the devex weights whole; its partials over n (pricing, the dual or devex
+    row) and over m (the direction); three slices of m (every mode alike, so
+    the branch does not depend on the mode)."""
+    ml = slice_len(m, cluster)
+    return 4 * (_round4(ml * n) + _round4(ml * m)
+                + _round4(6 * m + 5 * n + 3 * ml))
+
+
+def block_bytes(m: int, n: int, devex: bool = False) -> int:
+    """Dynamic shared memory of the block-per-lane branch: seven rows of m
+    floats and four of n (five with the devex weights)."""
+    return 4 * (7 * m + (5 if devex else 4) * n)
+
+
+def resident(m: int, n: int, smem_limit: int = SMEM_LIMIT,
+             cbytes=cluster_bytes) -> bool:
+    """Whether a lane of (m, n) takes the cluster-resident branch: its A and
+    ``B^-T`` fit the largest built cluster (``cbytes`` gives a CTA's bytes)."""
+    return cbytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES <= smem_limit
+
+
+def plans_for(B: int, m: int, n: int, cbytes, bbytes: int, sm_count: int,
+              smem_limit: int, what: str) -> List[SegmentPlan]:
+    """The candidates of a whole-segment kernel whose CTA takes
+    ``cbytes(m, n, cluster)`` bytes on the cluster-resident branch and
+    ``bbytes`` on the block-per-lane branch (see :func:`segment_plans`)."""
+    if B < 1 or m < 1 or n < 1:
+        raise ValueError(f"{what}: plans need B, m, n >= 1, got {(B, m, n)}")
+    if resident(m, n, smem_limit, cbytes):
+        fits = [cl for cl in CLUSTERS
+                if cbytes(m, n, cl) + _STATIC_BYTES <= smem_limit]
+        wide = [cl for cl in fits if B * cl <= sm_count]
+        first = wide[-1] if wide else fits[0]
+        order = [first] + [cl for cl in fits if cl != first]
+        return [SegmentPlan(cl, cbytes(m, n, cl)) for cl in order]
+    if bbytes + _STATIC_BYTES <= smem_limit:
+        return [SegmentPlan(0, bbytes)]
+    raise ValueError(
+        f"{what}: a lane of m={m}, n={n} needs {bbytes + _STATIC_BYTES} bytes "
+        f"of shared memory per block on the block-per-lane branch (and "
+        f"{cbytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES} per CTA of a "
+        f"{CLUSTERS[-1]}-CTA cluster), past the {smem_limit} a block of the "
+        "card may hold"
+    )
+
+
+def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
+                  smem_limit: int = SMEM_LIMIT,
+                  devex: bool = False) -> List[SegmentPlan]:
+    """Candidate launch plans for ``B`` lanes of (m, n), best first.
+
+    The branch follows from (m, n) alone (:func:`resident`).  On the
+    cluster-resident branch the candidates are the built cluster sizes whose
+    CTA holds its share of the lane: first the largest that keeps the batch
+    within the card's SMs (``B * cluster <= sm_count``), else the smallest
+    that fits, then the others from the smallest up.  The wrapper takes the
+    first that runs the batch in the fewest waves of resident clusters, as
+    the occupancy query of the built kernel counts them.  Past the largest
+    cluster the one plan is the block-per-lane branch.  Raises
+    ``ValueError`` for a lane that fits neither.
+    """
+    return plans_for(B, m, n, cluster_bytes, block_bytes(m, n, devex),
+                     sm_count, smem_limit, "solve_segment")
+
+
+def pick_plan(plans: List[SegmentPlan], B: int, query, device_index: int,
+              what: str) -> SegmentPlan:
+    """The candidate that runs ``B`` lanes in the fewest waves of resident
+    clusters on the device (ties: the earlier candidate); ``query(cluster,
+    smem_bytes)`` is the built kernel's occupancy query."""
+    if plans[0].cluster == 0:
+        return plans[0]
+    best, best_waves, seen = None, None, []
+    for plan in plans:
+        with torch.cuda.device(device_index):  # the query asks this device
+            held = query(plan.cluster, plan.smem_bytes)
+        seen.append((plan.cluster, held))
+        if held <= 0:
+            continue
+        waves = -(-B // held)
+        if best is None or waves < best_waves:
+            best, best_waves = plan, waves
+    if best is None:
+        raise RuntimeError(
+            f"{what}: the device holds no cluster of any planned size: "
+            f"(cluster, resident or negated CUDA error) = {seen}"
+        )
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _choose_plan(B: int, m: int, n: int, devex: bool,
+                 device_index: int) -> SegmentPlan:
+    props = torch.cuda.get_device_properties(device_index)
+    plans = segment_plans(B, m, n, props.multi_processor_count, devex=devex)
+    query = _build.library().lp_solve_segment_cluster_max_clusters
+    return pick_plan(plans, B, query, device_index, "solve_segment")
 
 
 def pack_min_keys(vals, mask, idx, bits: int, negate: bool):
@@ -369,7 +505,6 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     reference and ignored: it never changed results.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel.
     """
-    global launches, launches_dual
     del unroll
     check_segment_args(A, c, apen, state)
     if pricing not in (0, 1, 2):
@@ -383,10 +518,35 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
         raise ValueError(f"solve_segment: unsupported device {A.device}")
     B, m, n = A.shape
     if B == 0 or seg_len <= 0:
+        # a lane too large raises all the same
+        segment_plans(max(B, 1), m, n, devex=pricing == 2)
         return state
+    index = A.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _choose_plan(B, m, n, pricing == 2, index)
+    return launch_with_plan(plan, A, c, apen, maxiters, state, **kw)
+
+
+def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
+                     state: SegmentState, *, seg_len: int, pricing: int,
+                     opt_tol: float, pivot_tol: float, dual: bool = False,
+                     feas_tol: float = 1e-6, stall_limit: int = 0,
+                     packed: bool = False) -> SegmentState:
+    """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`;
+    the card tests hold every cluster size against the others).  CUDA
+    tensors only; the C entry point refuses a plan that does not fit the
+    shape."""
+    global launches, launches_dual, last_plan
+    check_segment_args(A, c, apen, state)
+    if A.device.type != "cuda":
+        raise ValueError("launch_with_plan needs CUDA tensors")
+    if pricing not in (0, 1, 2):
+        raise ValueError(f"solve_segment: unknown pricing code {pricing}")
+    B, m, n = A.shape
     lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    code = lib.lp_solve_segment(
+    args = (
         A.data_ptr(), c.data_ptr(), apen.data_ptr(),
         state.invBT.data_ptr(), state.bfs.data_ptr(), state.cB.data_ptr(),
         state.basis.data_ptr(), state.pen.data_ptr(), state.gamma.data_ptr(),
@@ -394,9 +554,18 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
         B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
         float(opt_tol), float(pivot_tol), float(feas_tol),
         int(bool(dual)), int(pricing), int(bool(packed)), int(stall_limit),
-        stream,
     )
+    with torch.cuda.device(A.device):
+        if plan.cluster == 0:
+            code = lib.lp_solve_segment(*args, stream)
+        else:
+            aligned = (m % 4 == 0 and n % 4 == 0
+                       and A.data_ptr() % 16 == 0
+                       and state.invBT.data_ptr() % 16 == 0)
+            code = lib.lp_solve_segment_cluster(
+                *args, plan.cluster, int(aligned), plan.smem_bytes, stream)
     _build.check(code, "solve_segment launch")
     launches += 1
     launches_dual += int(bool(dual))
+    last_plan = plan
     return state

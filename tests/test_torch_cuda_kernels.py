@@ -399,13 +399,16 @@ def test_exact_large_m_route_on_card_matches_cpu(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("kernel,m,n", [("stream", 2000, 1355),
-                                        ("segment", 256, 2368)],
-                         ids=["stream", "segment"])
+                                        ("segment", 1024, 256),
+                                        ("segment-cluster", 16, 910)],
+                         ids=["stream", "segment", "segment-cluster"])
 def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
-    """Shapes whose vectors take exactly 48 KB of dynamic shared memory
-    (the stream kernel on its scalar branch, which has no ring, at a ragged
-    (2000, 3355)): with the static shared memory on top they need the
-    opt-in limit, which both wrappers set at every launch."""
+    """Shapes whose dynamic shared memory is exactly 48 KB (the stream
+    kernel on its scalar branch, which has no ring, at a ragged (2000,
+    3355); the segment kernel's block-per-lane branch at (1024, 1280), past
+    the largest cluster, with its vectors alone; its cluster-resident branch
+    at (16, 926) at 2 CTAs a lane): with the static shared memory on top
+    they need the opt-in limit, which the wrappers set at every launch."""
     A, c, apen, h, state0 = _slack_instance(2, m, n, seed=1, dual=False,
                                             dev=cuda, degenerate=False)
     kw = dict(seg_len=2, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
@@ -414,11 +417,165 @@ def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
         k, p = _stream_both(A, c, apen, state0, **kw)
         assert not stream_kernel.last_plan.aligned
         assert stream_kernel.last_plan.smem_bytes == 48 * 1024
-    else:
+    elif kernel == "segment":
         assert (7 * m + 4 * (n + m)) * 4 == 48 * 1024
         k, p = _both(A, c, apen, state0, **kw)
+        assert solve_kernel.last_plan.cluster == 0
+    else:
+        plan = solve_kernel.SegmentPlan(2, solve_kernel.cluster_bytes(
+            m, n + m, 2))
+        assert plan in solve_kernel.segment_plans(2, m, n + m)
+        assert plan.smem_bytes == 48 * 1024
+        k = solve_kernel.launch_with_plan(
+            plan, A, c, apen, 512, SegmentState(*(t.clone() for t in state0)),
+            **kw)
+        p = solve_kernel.solve_segment_plain(
+            A, c, apen, 512, SegmentState(*(t.clone() for t in state0)), **kw)
+        torch.cuda.synchronize()
     torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
     assert bool((k.iters == 2).all())
+
+
+# the shapes the paths give the segment kernel ([B, m, structural n]; the
+# lane is [G | I], n + m columns): the crossover, the recovery bucket, the
+# router's ipm+crossover and its two-phase simplex with artificials
+_SEGMENT_SHAPES = {"crossover": (1024, 256, 256), "recovery": (64, 512, 512),
+                   "router": (256, 256, 256), "simplex": (1024, 128, 256)}
+
+
+def _segment_mid_solve(A, c, apen, state0, pivots, **kw):
+    """``state0`` advanced by ``pivots`` iterations of the plain version."""
+    s = SegmentState(*(t.clone() for t in state0))
+    return solve_kernel.solve_segment_plain(A, c, apen, 1 << 20, s,
+                                            **dict(kw, seg_len=pivots))
+
+
+def _device_slack_instance(B, m, n, seed, dual, dev):
+    """``_slack_instance`` made on the card (a large batch from numpy would
+    dominate the test): nondegenerate [G | I] lanes from the slack basis."""
+    from linprog_tpu_torch.generators import device_inequality_lps
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, G, h = device_inequality_lps(gen, B, m, n, dev)
+    if dual:
+        c = c.abs()
+    else:
+        h = h.abs()
+    eye = torch.eye(m, device=dev).expand(B, m, m)
+    A = torch.cat([G, eye], dim=2).contiguous()
+    cs = torch.cat([c, torch.zeros((B, m), device=dev)], dim=1).contiguous()
+    pen = torch.zeros((B, n + m), device=dev)
+    pen[:, n:] = float("inf")
+    state = SegmentState(
+        invBT=eye.contiguous().clone(), bfs=h.contiguous().clone(),
+        cB=torch.zeros((B, m), device=dev),
+        basis=torch.arange(n, n + m, dtype=torch.int32,
+                           device=dev).expand(B, m).contiguous(),
+        pen=pen, gamma=torch.ones((B, n + m), device=dev),
+        iters=torch.zeros(B, dtype=torch.int32, device=dev),
+        status=torch.zeros(B, dtype=torch.int32, device=dev))
+    return A, cs, torch.zeros((B, n + m), device=dev), h.contiguous(), state
+
+
+@pytest.mark.parametrize("shape", sorted(_SEGMENT_SHAPES))
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_kernel_lockstep_from_mid_solve(cuda, dual, shape):
+    """At the paths' shapes, on the cluster-resident branch: 16 pivots from
+    a state 12 pivots into the solve (the first iteration runs the duals
+    pass on a dense factor, the other 15 take their duals from the eta
+    pass) in lockstep with the plain version on all but 16 of 1024 lanes
+    (summation order may flip a near tie), with factors as accurate by
+    float64 residual on the lanes in lockstep."""
+    B, m, n = _SEGMENT_SHAPES[shape]
+    A, c, apen, h, slack = _device_slack_instance(B, m, n, 31 + dual, dual,
+                                                  cuda)
+    kw = dict(pricing=1, opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+              feas_tol=1e-6, stall_limit=24, packed=True)
+    state0 = _segment_mid_solve(A, c, apen, slack, 12, **kw)
+    k, p = _both(A, c, apen, state0, seg_len=16, **kw)
+    assert solve_kernel.last_plan.cluster > 0
+    same = torch.ones(B, dtype=torch.bool, device=cuda)
+    for name in ("basis", "status", "iters", "pen", "cB"):
+        a, b = getattr(k, name), getattr(p, name)
+        same &= (a == b).reshape(B, -1).all(dim=1)
+    assert int((~same).sum()) <= max(2, B * 16 // 1024)
+    assert bool((k.iters == 28).any())
+    sub = lambda s: SegmentState(*(t[same] for t in s))  # noqa: E731
+    (fk, xk), (fp, xp) = (_residuals(A[same], h[same], sub(k)),
+                          _residuals(A[same], h[same], sub(p)))
+    assert fk <= 2.0 * fp + 1e-6, (fk, fp)
+    assert xk <= 2.0 * xp + 1e-6, (xk, xp)
+
+
+@pytest.mark.parametrize("m,n", [(32, 48), (37, 50), (128, 256), (256, 256),
+                                 (5, 6)],
+                         ids=["m32", "ragged", "m128", "m256", "m5"])
+@pytest.mark.parametrize("pricing", [1, 2], ids=["dantzig", "devex"])
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_kernel_same_answer_for_every_plan(cuda, dual, pricing, m, n):
+    """Every planned cluster size over 48 pivots gives the same state bit
+    for bit: every sum runs over the lane's 16 row bands in one fixed order,
+    whatever the cluster size (m = 37: bands of 3 rows, the last cut to 1;
+    m = 5: CTAs with empty slices).  Against the plain version: the same
+    basis, status and iteration count, and factors as accurate."""
+    B = 8
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=17 + dual,
+                                            dual=dual, dev=cuda,
+                                            degenerate=False)
+    kw = dict(seg_len=48, pricing=pricing, opt_tol=1e-6, pivot_tol=1e-7,
+              dual=dual, feas_tol=1e-6, stall_limit=24, packed=True)
+    lib = solve_kernel._build.library()
+    plans = solve_kernel.segment_plans(B, m, n + m)
+    assert len(plans) >= 2 and all(pl.cluster > 0 for pl in plans)
+    results = {}
+    for pl in plans:
+        assert lib.lp_solve_segment_cluster_max_clusters(
+            pl.cluster, pl.smem_bytes) > 0
+        s = SegmentState(*(t.clone() for t in state0))
+        solve_kernel.launch_with_plan(pl, A, c, apen, 1 << 20, s, **kw)
+        torch.cuda.synchronize()
+        results[pl.cluster] = s
+    p = solve_kernel.solve_segment_plain(
+        A, c, apen, 1 << 20, SegmentState(*(t.clone() for t in state0)), **kw)
+    first = results[plans[0].cluster]
+    _assert_lockstep(A, h, first, p)
+    for key, s in results.items():
+        for a, b in zip(s, first):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"cluster = {key}")
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_kernel_block_branch_past_the_largest_cluster(cuda, dual):
+    """m = 1024, n = 2048 does not fit a 16-CTA cluster: the block-per-lane
+    branch runs it, 16 pivots in lockstep with the plain version."""
+    m, n = 1024, 1024
+    assert not solve_kernel.resident(m, n + m)
+    A, c, apen, h, state0 = _slack_instance(4, m, n, seed=9, dual=dual,
+                                            dev=cuda, degenerate=False)
+    k, p = _both(A, c, apen, state0, seg_len=16, pricing=1, opt_tol=1e-6,
+                 pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
+                 packed=True)
+    assert solve_kernel.last_plan.cluster == 0
+    _assert_lockstep(A, h, k, p)
+    assert bool((k.iters == 16).all())
+
+
+def test_segment_kernel_refuses_a_plan_that_does_not_fit(cuda):
+    """The C entry point checks the plan against the shape: too little
+    shared memory, a cluster size that is not built, and a cluster too small
+    for the lane are refused before any launch."""
+    A, c, apen, h, state = _slack_instance(2, 128, 256, seed=0, dual=False,
+                                           dev=cuda)
+    kw = dict(seg_len=1, pricing=1, opt_tol=1e-6, pivot_tol=1e-7)
+    good = solve_kernel.segment_plans(2, 128, 384)[0]
+    before = solve_kernel.launches
+    for bad in (good._replace(smem_bytes=16), good._replace(cluster=3),
+                solve_kernel.SegmentPlan(1, solve_kernel.cluster_bytes(
+                    128, 384, 1))):
+        with pytest.raises(RuntimeError, match="invalid"):
+            solve_kernel.launch_with_plan(bad, A, c, apen, 10, state, **kw)
+    assert solve_kernel.launches == before
 
 
 def _mid_solve(A, c, apen, state0, pivots, **kw):
@@ -724,17 +881,116 @@ def test_bounded_kernel_tie_between_the_two_ratio_minima(cuda, packed):
 
 
 def test_bounded_kernel_launches_at_48kb_of_dynamic_shared_memory(cuda):
-    """m = 32, n = 2400: the lane's vectors take exactly 48 KB of dynamic
-    shared memory; with the static part on top the launch needs the opt-in
-    limit, which the wrapper sets at every launch."""
-    m, n = 32, 2400 - 32
+    """m = 432, n = 1680, past the largest cluster: the block-per-lane
+    branch's vectors take exactly 48 KB of dynamic shared memory; with the
+    static part on top the launch needs the opt-in limit, which the wrapper
+    sets at every launch."""
+    m, n = 432, 1680 - 432
     assert (9 * m + 5 * (n + m)) * 4 == 48 * 1024
     A, c, lb, ub, b, state0 = _bounded_instance(2, m, n, seed=1, dev=cuda)
     k, p = _bounded_both(A, c, lb, ub, state0, seg_len=2, opt_tol=1e-6,
                          pivot_tol=1e-7, packed=True)
+    assert bounded_kernel.last_plan.cluster == 0
     torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
     torch.testing.assert_close(k.vstate, p.vstate, rtol=0, atol=0)
     assert bool((k.iters == 2).all())
+
+
+def test_bounded_kernel_cluster_launches_at_48kb_of_dynamic_shared_memory(
+        cuda):
+    """The cluster-resident branch at (16, 980), 2 CTAs a lane: exactly 48
+    KB of dynamic shared memory a CTA."""
+    m, n = 16, 964
+    plan = solve_kernel.SegmentPlan(2, bounded_kernel.cluster_bytes(
+        m, n + m, 2))
+    assert plan.smem_bytes == 48 * 1024
+    assert plan in bounded_kernel.segment_plans(2, m, n + m)
+    A, c, lb, ub, b, state0 = _bounded_instance(2, m, n, seed=1, dev=cuda)
+    kw = dict(seg_len=2, opt_tol=1e-6, pivot_tol=1e-7, packed=True)
+    k = bounded_kernel.launch_with_plan(
+        plan, A, c, lb, ub, 1 << 20,
+        BoundedSegmentState(*(t.clone() for t in state0)), **kw)
+    p = bounded_kernel.solve_bounded_segment_plain(
+        A, c, lb, ub, 1 << 20,
+        BoundedSegmentState(*(t.clone() for t in state0)), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
+    torch.testing.assert_close(k.vstate, p.vstate, rtol=0, atol=0)
+    assert bool((k.iters == 2).all())
+
+
+@pytest.mark.parametrize("shape", sorted(_SEGMENT_SHAPES))
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_lockstep_from_mid_solve(cuda, packed, shape):
+    """At the segment kernels' shapes, on the cluster-resident branch: 16
+    iterations from a state 12 iterations into the solve (the first runs
+    the duals pass on a dense factor; the others take them from the eta
+    pass, or keep them over a flip) in lockstep with the plain version on
+    all but 16 of 1024 lanes, basic values within 1e-4 of scale there."""
+    B, m, n = _SEGMENT_SHAPES[shape]
+    A, c, lb, ub, b, slack = _bounded_instance(B, m, n, seed=41, dev=cuda)
+    kw = dict(opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
+    state0 = bounded_kernel.solve_bounded_segment_plain(
+        A, c, lb, ub, 1 << 20,
+        BoundedSegmentState(*(t.clone() for t in slack)), seg_len=12, **kw)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=16, **kw)
+    assert bounded_kernel.last_plan.cluster > 0
+    same = torch.ones(B, dtype=torch.bool, device=cuda)
+    for name in ("basis", "vstate", "status", "iters", "cB", "lbB", "ubB"):
+        a, q = getattr(k, name), getattr(p, name)
+        same &= (a == q).reshape(B, -1).all(dim=1)
+    assert int((~same).sum()) <= max(2, B * 16 // 1024)
+    assert bool((k.iters == 28).any())
+    scale = max(p.bfs[same].abs().max().item(), 1.0)
+    assert (k.bfs[same] - p.bfs[same]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("m,n", [(32, 48), (37, 50), (128, 256), (256, 256),
+                                 (5, 6)],
+                         ids=["m32", "ragged", "m128", "m256", "m5"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_same_answer_for_every_plan(cuda, packed, m, n):
+    """Every planned cluster size over 48 iterations gives the same state
+    bit for bit (fixed row bands, one tree); against the plain version the
+    same basis, variable states, status and iteration count."""
+    B = 8
+    A, c, lb, ub, b, state0 = _bounded_instance(B, m, n, seed=m + 3, dev=cuda)
+    kw = dict(seg_len=48, opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
+    lib = solve_kernel._build.library()
+    plans = bounded_kernel.segment_plans(B, m, n + m)
+    assert len(plans) >= 2 and all(pl.cluster > 0 for pl in plans)
+    results = {}
+    for pl in plans:
+        assert lib.lp_solve_bounded_cluster_max_clusters(
+            pl.cluster, pl.smem_bytes) > 0
+        s = BoundedSegmentState(*(t.clone() for t in state0))
+        bounded_kernel.launch_with_plan(pl, A, c, lb, ub, 1 << 20, s, **kw)
+        torch.cuda.synchronize()
+        results[pl.cluster] = s
+    p = bounded_kernel.solve_bounded_segment_plain(
+        A, c, lb, ub, 1 << 20,
+        BoundedSegmentState(*(t.clone() for t in state0)), **kw)
+    first = results[plans[0].cluster]
+    for name in ("basis", "vstate", "status", "iters"):
+        torch.testing.assert_close(getattr(first, name), getattr(p, name),
+                                   rtol=0, atol=0)
+    for key, s in results.items():
+        for a, q in zip(s, first):
+            torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"cluster = {key}")
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_block_branch_past_the_largest_cluster(cuda, packed):
+    """m = 1024, n = 2048 does not fit a 16-CTA cluster: the block-per-lane
+    branch runs it, 16 iterations in lockstep with the plain version."""
+    m, n = 1024, 1024
+    assert bounded_kernel.segment_plans(4, m, n + m)[0].cluster == 0
+    A, c, lb, ub, b, state0 = _bounded_instance(4, m, n, seed=9, dev=cuda)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=16, opt_tol=1e-6,
+                         pivot_tol=1e-7, packed=packed)
+    assert bounded_kernel.last_plan.cluster == 0
+    _assert_bounded_lockstep(k, p)
 
 
 def test_bounded_path_on_card_matches_cpu(cuda):

@@ -52,7 +52,8 @@ def _imported_modules(path):
     sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
                                  REPO / "tools" / "run_phases.py",
                                  REPO / "tools" / "run_calibrate.py",
-                                 REPO / "tools" / "time_stream_plans.py"],
+                                 REPO / "tools" / "time_stream_plans.py",
+                                 REPO / "tools" / "time_segment_plans.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import(path):
