@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
   2. panel_cholinv: CUDA kernel against its plain PyTorch version at the
      IPM's panels, [1024, 32, 32] (m = 256) and [64, 32, 32] (m = 2048), on
      the warp-per-matrix kernel, at [128, 32, 32] and [256, 32, 32] (the
-     batches of phases 10-12) and at [1024, 48, 48] on the
+     batches of phases 10-12), at [4, 32, 32] (m = 4096, phase 15) and at
+     [1024, 48, 48] on the
      block-per-matrix kernel (SPD, cond ~1e3; a planted non-SPD lane;
      within 1e-4 relative, and whether bit for bit);
   3. solve_segment: CUDA kernel against its plain version at crossover
@@ -81,7 +82,26 @@ Phases, each printing one JSON line:
      hand-built lane through solve_batch_two_phase give a ray and a Farkas
      vector;
  13. calibrate(sizes=(128, 256), lanes=64) on the card: the table and the
-     keys it measured.
+     keys it measured;
+ 14. stream_m4096: the streaming kernel against its plain version at B = 4,
+     (4096, 8192), primal with the blocked-factor direction sum and dual
+     unblocked and unpacked (as the m = 4096 crossover launches them): one
+     iteration,
+     16 pivots in lockstep (bfs within 1e-4 of scale), the same bits under
+     the other planned cluster size, each with its plan, the CTAs it
+     occupies and the in-segment time a batch-iteration over 64 pivots
+     beside the bound;
+ 15. the m = 4096 path: solve_batch_exact at B = 4, m = n = 4096 (the
+     reference's exact_m4096 leg: a warm-up and one timed run, with
+     CUDA-event spans of its stages, kernel 3's launches by mode and the
+     peak device memory), then the dd-KKT certificate: every lane reported
+     crossed is certified, no lane NUMERICAL_ERROR, kernel 3 ran in dual
+     mode, the two-phase fallback did not run;
+ 16. bounded_block: the bounded kernel's block-per-lane branch against its
+     plain version at [16, 1280, 2560] (past the v5e line: one iteration
+     bit for bit, 16 in lockstep, packed and unpacked), then
+     solve_batch_bounded on B = 16, m = 1280 with phase 8's settings and
+     guards (its iteration cap scaled by m^2; one run, no warm-up).
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -133,7 +153,8 @@ SEGMENT_SHAPES = [(64, 512, 512), (256, 256, 256), (1024, 128, 256)]
 BLOCK_SHAPE = (64, 1024, 1024)
 SEGMENT_PIVOTS = 64  # pivots of the segment timed inside one launch
 # kernel 2 on those paths (lanes, mb): the IPM at B = 128 and at B = 256
-CHOLINV_SHAPES = [(B, 32), (XB, 32), (128, 32), (256, 32), (B, 48)]
+CHOLINV_SHAPES = [(B, 32), (XB, 32), (128, 32), (256, 32), (B, 48),
+                  (4, 32)]
 RECOVERY_GUARD = (256, 256)  # phase 10a: lanes, m = n
 IPM_CHUNKS = (4, 128, 512)  # phases 10b and 11b: chunks, lanes a chunk, m = n
 ROUTER_REGIMES = [  # phase 12: expected family, lanes, m = n, accuracy
@@ -143,6 +164,14 @@ ROUTER_REGIMES = [  # phase 12: expected family, lanes, m = n, accuracy
 ]
 ROUTER_REPEATS = 5  # timed runs of each regime after the warm-up (median)
 CALIBRATE_SIZES = (128, 256)  # phase 13, at 64 lanes
+# phases 14 and 15: the reference's exact_m4096 leg (bench.py:757): lanes,
+# m = n; the crossover's lanes are (4096, 8192), past the blocked-factor line
+XLB, XLM = 4, 4096
+# phase 16: kernel 4's block-per-lane branch past the v5e line: lanes, m = n
+# (lanes of (1280, 2560)).  The iteration cap scales phase 8's with m^2, as
+# the iterations a lane of device_bounded_lps needs grow
+BBB, BBM = 16, 1280
+BLOCK_BOUNDED_MAXITERS = BOUNDED_MAXITERS * (BBM // M) ** 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
@@ -154,6 +183,16 @@ def emit(obj):
     if "phase" in obj:
         REPORTS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
+
+
+def flush_native_stdout():
+    """Flush the C library's stdio buffers: a library that prints through
+    them (MAGMA notes each large batched factorization of phase 15) would
+    otherwise land after the last line."""
+    import ctypes
+
+    sys.stdout.flush()
+    ctypes.CDLL(None).fflush(None)
 
 
 def fail(msg):
@@ -1196,13 +1235,14 @@ def _bounded_drift(prob, s):
             "lanes": int(ok.sum())}
 
 
-def _hold_bounded(b, m, n_g, packed):
+def _hold_bounded(b, m, n_g, packed, block=False):
     """Kernel 4 against its plain version at [b, m, n_g + m] from the
     all-slack start: 16 iterations in lockstep (basis, variable states,
     status, iterations, c_B and the basic bounds equal on all but
     max(2, 16 of 1024) lanes; bfs within 1e-4 of scale there) on the
-    cluster-resident branch, its plan report, and one mid-solve
-    iteration's time against the plain version's."""
+    cluster-resident branch (``block``: on the block-per-lane branch), its
+    plan report, and one mid-solve iteration's time against the plain
+    version's, beside its bound (the lanes that pivot in it)."""
     cfg = tuned_config(m)
     prob, _, _, state0 = _bounded_start(SEED + 7 + m, b, m, n_g)
     c, A, _, lb, ub = prob
@@ -1218,8 +1258,9 @@ def _hold_bounded(b, m, n_g, packed):
     p16 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
                                          seg_len=16, **kw)
     torch.cuda.synchronize()
-    if bk.last_plan.cluster == 0:
-        fail(f"{label} {shape}: took the block-per-lane branch")
+    if (bk.last_plan.cluster == 0) != block:
+        fail(f"{label} {shape}: took the "
+             f"{'block-per-lane' if not block else 'cluster-resident'} branch")
     same = _lockstep_lanes(k16, p16, ("basis", "vstate", "status", "iters",
                                       "cB", "lbB", "ubB"))
     split, allowed = int((~same).sum()), max(2, b * SPLIT_LANES // B)
@@ -1240,13 +1281,19 @@ def _hold_bounded(b, m, n_g, packed):
         states = iter([fresh(k16) for _ in range(10)])
         times[name] = cuda_ms(lambda: fn(A, c, lb, ub, 1 << 20, next(states),
                                          seg_len=1, **kw), 10)
+    k17 = bk.solve_bounded_segment(A, c, lb, ub, 1 << 20, fresh(k16),
+                                   seg_len=1, **kw)
+    pivoting = int((k17.basis != k16.basis).any(dim=1).sum())
+    b_ms, b_by = segment_bound_ms(b, pivoting, m, n_g + m)
     return {"shape": shape, "mode": "packed" if packed else "unpacked",
             **plan,
             "segment16": {"lanes_in_lockstep": int(same.sum()),
                           "allowed_split": allowed, "max_abs_err_bfs": err,
                           "bfs_scale": scale, "tol": "1e-4 of scale"},
             "one_iter_mid_solve": {"ms": times["kernel"],
-                                   "plain_ms": times["plain"], "reps": 10}}
+                                   "plain_ms": times["plain"], "reps": 10,
+                                   "pivoting_lanes": pivoting,
+                                   "bound_ms": b_ms, "bound_by": b_by}}
 
 
 def phase_bounded_segment():
@@ -1681,16 +1728,20 @@ def phase_step_kernels():
 
 
 def _reset_counts():
-    sk.launches = sk.launches_dual = ck.launches = ssk.launches = 0
+    sk.launches = sk.launches_dual = ck.launches = 0
+    ssk.launches = ssk.launches_dual = bk.launches = 0
 
 
 def _read_counts():
-    """The wrappers' launch counts; kernel 1's also by mode."""
+    """The wrappers' launch counts; kernels 1 and 3 also by mode."""
     return {"solve_segment": sk.launches,
             "solve_segment_dual": sk.launches_dual,
             "solve_segment_primal": sk.launches - sk.launches_dual,
             "panel_cholinv": ck.launches,
-            "solve_segment_stream": ssk.launches}
+            "solve_segment_stream": ssk.launches,
+            "solve_segment_stream_dual": ssk.launches_dual,
+            "solve_segment_stream_primal": ssk.launches - ssk.launches_dual,
+            "solve_bounded_segment": bk.launches}
 
 
 def _walled(fn):
@@ -2093,6 +2144,323 @@ def phase_calibrate():
     return {"calibrate": launches}
 
 
+def _hold_stream_lockstep(A, c, apen, state0, cfg, dual):
+    """Kernel 3 against its plain version in one mode at the m = 4096
+    path's shape, as the crossover launches it (primal packed with the
+    blocked-factor direction sum, dual unblocked and unpacked): one
+    iteration (basis and
+    status equal on every lane without a near tie), then 16 pivots in
+    lockstep (basis, status, iterations, c_B and penalties on every lane;
+    bfs within 1e-4 of scale), the same bits after 16 pivots under every
+    other planned cluster size, and the in-segment time a batch-iteration
+    over 64 pivots ((t64 - t1) / 63, median of 3 from fresh states) beside
+    the one-iteration bound."""
+    b, m, n = A.shape
+    mode = "dual" if dual else "primal"
+    kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              dual=dual, feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
+              packed=cfg.packed_select and not dual, a_resident=False,
+              n_blk=256, factor_blocked=not dual)
+    label = f"solve_segment_stream {[b, m, n]} {mode}"
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    def both(seg_len):
+        k = ssk.solve_segment_stream(A, c, apen, 1 << 20, fresh(),
+                                     seg_len=seg_len, **kw)
+        p = ssk.solve_segment_stream_plain(A, c, apen, 1 << 20, fresh(),
+                                           seg_len=seg_len, **kw)
+        torch.cuda.synchronize()
+        return k, p
+
+    k1, p1 = both(1)
+    plan = ssk.last_plan
+    keep = ~_tie_lanes(A, c, state0, dual, cfg)
+    same1 = _lockstep_lanes(k1, p1, ("basis", "status", "iters"))
+    if (keep & ~same1).any():
+        fail(f"{label}: one-iteration basis/status differ on "
+             f"{int((keep & ~same1).sum())} non-tied lanes")
+    err1 = (k1.bfs[same1] - p1.bfs[same1]).abs().max().item()
+    pivoted = int((k1.basis != state0.basis).any(dim=1).sum())
+    del k1, p1
+
+    k16, p16 = both(16)
+    same = _lockstep_lanes(k16, p16, ("basis", "status", "iters", "cB", "pen"))
+    if not same.all():
+        fail(f"{label}: 16 pivots left lockstep on {int((~same).sum())} of "
+             f"{b} lanes")
+    scale = max(p16.bfs.abs().max().item(), 1.0)
+    err16 = (k16.bfs - p16.bfs).abs().max().item()
+    if not err16 <= 1e-4 * scale:
+        fail(f"{label}: bfs differs by {err16:.3e} after 16 pivots "
+             f"(> 1e-4 of {scale:.3e})")
+    del p16
+    launch_kw = {k: v for k, v in kw.items()
+                 if k not in ("a_resident", "n_blk", "factor_blocked")}
+    others = [p for p in ssk.stream_plans(b, m, n, dual=dual)
+              if p.cluster != plan.cluster and p.aligned == plan.aligned]
+    for other in others:
+        s = fresh()
+        ssk.launch_with_plan(other, A, c, apen, 1 << 20, s, seg_len=16,
+                             **launch_kw)
+        torch.cuda.synchronize()
+        for name, x, y in zip(s._fields, s, k16):
+            if not same_bits(x, y):
+                fail(f"{label}: {name} after 16 pivots differs between "
+                     f"{other.cluster} and {plan.cluster} blocks a lane")
+        del s
+    del k16
+
+    def timed(fn, pivots):
+        states = iter([fresh() for _ in range(3)])
+        return cuda_ms(lambda: fn(A, c, apen, 1 << 20, next(states),
+                                  seg_len=pivots, **kw), 3)
+
+    ms1 = timed(ssk.solve_segment_stream, 1)
+    ms64 = timed(ssk.solve_segment_stream, SEGMENT_PIVOTS)
+    plain1 = timed(ssk.solve_segment_stream_plain, 1)
+    b_ms, b_by = segment_bound_ms(b, pivoted, m, n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms_iter = (ms64 - ms1) / (SEGMENT_PIVOTS - 1)
+    return {"shape": [b, m, n], "mode": mode, "factor_blocked": not dual,
+            "packed": kw["packed"],
+            "plan": plan._asdict(),
+            "resident_clusters": _build.library()
+            .lp_solve_segment_stream_max_clusters(
+                plan.cluster, int(plan.aligned), plan.smem_bytes),
+            "ctas": b * plan.cluster, "sms": sms,
+            "same_bits_at_clusters": [p.cluster for p in others],
+            "one_iter": {"excluded_tie_lanes": int((~keep).sum()),
+                         "pivoted_lanes": pivoted, "max_abs_err_bfs": err1,
+                         "ms": ms1, "plain_ms": plain1, "reps": 3},
+            "segment16": {"lanes_in_lockstep": int(same.sum()),
+                          "max_abs_err_bfs": err16, "bfs_scale": scale,
+                          "tol": "1e-4 of scale"},
+            "segment": {"pivots": SEGMENT_PIVOTS, "ms": ms64,
+                        "ms_per_iter": ms_iter},
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share_in_segment": b_ms / ms_iter}
+
+
+def phase_stream_m4096():
+    """Phase 14: kernel 3 at B = 4, (4096, 8192), primal (blocked) and
+    dual (unblocked), against its plain version."""
+    cfg, _ = lt.exact_cleanup_config(XLM)
+    out = {"phase": "stream_m4096",
+           "config": {"pricing": cfg.pricing, "stall_limit": cfg.stall_limit},
+           "runs": []}
+    for dual in (False, True):
+        A, c, apen, _, state0 = _segment_instance(dual, XLB, XLM, XLM,
+                                                  SEED + 14)
+        out["runs"].append(_hold_stream_lockstep(A, c, apen, state0, cfg,
+                                                 dual))
+        del A, c, apen, state0
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_exact_m4096():
+    """Phase 15: solve_batch_exact at B = 4, m = n = 4096 (the reference's
+    exact_m4096 leg: one warm-up run, one timed run)."""
+    import linprog_tpu_torch.batch as lb
+    import linprog_tpu_torch.crossover as lx
+    import linprog_tpu_torch.engine_batched as le
+    import linprog_tpu_torch.ipm as li
+    import linprog_tpu_torch.refine as lr
+    from linprog_tpu_torch import router
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, G, h = device_inequality_lps(gen, XLB, XLM, XLM, DEVICE)
+    _, warm = _walled(lambda: lt.solve_batch_exact(c, G, h))
+
+    # every exact-pipeline call's crossed mask (the first pass, the retry)
+    masks, pipeline = [], lx.ipm_crossover_batch_canonical
+
+    def keep_mask(*args, **kw):
+        res, crossed = pipeline(*args, **kw)
+        masks.append(crossed.clone())
+        return res, crossed
+
+    def stream_label(A, *args, **kw):
+        return (f"B={A.shape[0]} {'dual' if kw['dual'] else 'primal'}"
+                f"{' blocked' if kw['factor_blocked'] else ''} "
+                f"cluster={ssk.last_plan.cluster}")
+
+    lx.ipm_crossover_batch_canonical = keep_mask
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _stage_spans([
+                ("pipeline", lx, "ipm_crossover_batch_canonical", None),
+                ("ipm", li, "ipm_canonical_state", None),
+                ("normal_factor", li, "_normal_factor", None),
+                ("phase", lx, "_run_chunked", lambda *a, **k: a[7]),
+                ("crossover_inverse", lx, "inv_or_nan", None),
+                ("refactorize", le, "refresh_running_lanes", None),
+                ("terminal_solve_dd", lx, "solve_dd", None),
+                ("polish", lr, "polish_batch", None),
+                ("fallback_two_phase", lb, "solve_batch_two_phase", None),
+                ("stream_kernel", le, "solve_segment_stream", stream_label),
+        ]) as spans:
+            (res, info), wall = _walled(lambda: lt.solve_batch_exact(c, G, h))
+    finally:
+        lx.ipm_crossover_batch_canonical = pipeline
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    stages, by_label, pipeline_s = {}, {}, []
+    for name, label, t_a, t_b in spans:
+        sec = t_a.elapsed_time(t_b) / 1e3
+        key = f"{label}_phase" if name == "phase" else name
+        entry = stages.setdefault(key, {"calls": 0, "seconds": 0.0})
+        entry["calls"] += 1
+        entry["seconds"] += sec
+        if name == "pipeline":
+            pipeline_s.append(sec)
+        if name == "stream_kernel":
+            entry = by_label.setdefault(label, {"launches": 0, "seconds": 0.0})
+            entry["launches"] += 1
+            entry["seconds"] += sec
+
+    # the lanes reported crossed: the first pass's, then the retry's (its
+    # bucket is the uncrossed lanes with cyclic fill, as the router builds it)
+    crossed = masks[0].clone()
+    if len(masks) > 1:
+        bad = torch.nonzero(~masks[0], as_tuple=True)[0]
+        idx = router._bucket(bad, XLB)
+        crossed[idx[masks[1]]] = True
+
+    (cert, cert_wall) = _walled(lambda: lt.certify_vertex_batch(c, G, h,
+                                                                res.basis))
+    summ = lt.certificate_summary(cert)
+    out = {
+        "phase": "exact_m4096", "lanes": XLB, "m": XLM, "n": XLM,
+        "seed": SEED, "lane_status": status_counts(res.status),
+        "crossed": info["crossed"], "retry_crossed": info["retry_crossed"],
+        "uncrossed": info.get("uncrossed", 0), "fallback": info["fallback"],
+        "crossed_lanes": torch.nonzero(crossed).flatten().tolist(),
+        "certified": summ["certified"], "certificate": summ,
+        "cert_wall_s": cert_wall, "wall_s": wall, "warmup_wall_s": warm,
+        "lps_per_sec": XLB / wall, "iters": res.iters.tolist(),
+        "launches": launches, "stages_s": stages,
+        "pipeline_calls_s": pipeline_s,
+        "panels_per_normal_factor": (
+            launches["panel_cholinv"]
+            / max(1, stages.get("normal_factor", {}).get("calls", 0))),
+        "stream_kernel_by_launch": by_label, "peak_mem_gb": peak_gb,
+    }
+    emit(out)
+    if res.x.shape != (XLB, XLM):
+        fail(f"m = 4096 path: result has shape {tuple(res.x.shape)}")
+    if int(crossed.sum()) != info["crossed"]:
+        fail(f"m = 4096 path: {int(crossed.sum())} crossed masks against "
+             f"{info['crossed']} reported")
+    if not bool(cert["certified"][crossed].all()):
+        fail("m = 4096 path: a lane reported crossed is not certified")
+    if not torch.isfinite(res.cost[crossed]).all():
+        fail("m = 4096 path: a crossed lane has a non-finite cost")
+    if bool((res.status == st.NUMERICAL_ERROR).any()):
+        fail(f"m = 4096 path: NUMERICAL_ERROR lanes "
+             f"{status_counts(res.status)}")
+    if info["fallback"] or "fallback_two_phase" in stages:
+        fail("m = 4096 path: the two-phase fallback ran")
+    if launches["solve_segment_stream_dual"] <= 0:
+        fail("m = 4096 path: kernel 3 never ran in dual mode")
+    for name in ("solve_segment_stream", "panel_cholinv"):
+        if launches[name] <= 0:
+            fail(f"m = 4096 path: kernel {name} was never launched")
+    return launches
+
+
+def phase_bounded_block():
+    """Phase 16: kernel 4's block-per-lane branch at [16, 1280, 2560]
+    against its plain version, then solve_batch_bounded there with phase
+    8's settings and guards."""
+    cfg = tuned_config(BBM)
+    prob, _, _, state0 = _bounded_start(SEED + 16, BBB, BBM, BBM)
+    c, A, b, lb, ub = prob
+    kw = dict(opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              packed=cfg.packed_select)
+    # one iteration from the all-slack start: zero duals and an identity
+    # factor, so every sum has one nonzero term: the same bits on every lane
+    def fresh():
+        return bk.BoundedSegmentState(*(t.clone() for t in state0))
+
+    k1 = bk.solve_bounded_segment(A, c, lb, ub, 1 << 20, fresh(), seg_len=1,
+                                  **kw)
+    p1 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
+                                        seg_len=1, **kw)
+    torch.cuda.synchronize()
+    if bk.last_plan.cluster != 0:
+        fail("bounded block: [16, 1280, 2560] took the cluster branch")
+    for name, x, y in zip(k1._fields, k1, p1):
+        if not same_bits(x, y):
+            fail(f"bounded block: one iteration's {name} differs from plain")
+    err1 = (k1.bfs - p1.bfs).abs().max().item()
+    del k1, p1, state0
+    hold = [_hold_bounded(BBB, BBM, BBM, packed, block=True)
+            for packed in (True, False)]
+
+    pcfg = tuned_config(BBM, pricing="dantzig", polish_pivots=8,
+                        refactor_every=2048)
+    prob, basis, vs, _ = _bounded_start(SEED, BBB, BBM, BBM)
+    c, A, b, lb, ub = prob
+
+    def solve():
+        return lt.solve_batch_bounded(c, A, b, lb, ub, basis, vs,
+                                      BLOCK_BOUNDED_MAXITERS, pcfg)
+
+    # one run, no warm-up (tens of thousands of iterations a lane: kernel
+    # 4 and the batched LU ran at other shapes in phases 7 and 8)
+    _reset_counts()
+    res, wall = _walled(solve)
+    launches = _read_counts()
+    bounds = torch.stack([lb, ub], dim=2)
+    gap = highs_gap(res.cost, c, 2, A_eq=A, b_eq=b, bounds=bounds)
+    viol_abs, viol_rel = _bound_violation(prob, res.x)
+    x = res.x.double()
+    scale = b.abs().max(dim=1).values.double().clamp_min(1.0)
+    resid = (torch.einsum("bmn,bn->bm", A.double(), x) - b.double()).abs()
+    resid_rel = (resid.max(dim=1).values / scale).max().item()
+    out = {"phase": "bounded_block", "shape": [BBB, BBM, 2 * BBM],
+           "one_iter_from_start": {"bit_for_bit": True,
+                                   "max_abs_err_bfs": err1},
+           "kernel": hold,
+           "path": {"lanes": BBB, "m": BBM, "n": BBM, "seed": SEED,
+                    "config": {"pricing": pcfg.pricing,
+                               "packed": pcfg.packed_select,
+                               "refactor_every": pcfg.refactor_every,
+                               "polish_pivots": pcfg.polish_pivots,
+                               "maxiters": BLOCK_BOUNDED_MAXITERS},
+                    "lane_status": status_counts(res.status),
+                    "wall_s": wall, "lps_per_sec": BBB / wall,
+                    "launches": launches,
+                    "iters_max": int(res.iters.max()),
+                    "iters_mean": float(res.iters.float().mean()),
+                    "highs_lanes": 2, "max_rel_gap_vs_highs": gap,
+                    "max_bound_violation": viol_abs,
+                    "max_rel_bound_violation": viol_rel,
+                    "tol_rel_bound": 1e-4,
+                    "max_rel_residual": resid_rel, "tol_residual": 1e-4}}
+    emit(out)
+    n_opt = int((res.status == st.OPTIMAL).sum())
+    if n_opt != BBB or not torch.isfinite(res.cost).all():
+        fail(f"bounded block path: {n_opt}/{BBB} lanes OPTIMAL")
+    if not gap <= 1e-5:
+        fail(f"bounded block path: HiGHS gap {gap:.3e} > 1e-5")
+    if not viol_rel <= 1e-4:
+        fail(f"bounded block path: x leaves its bounds by {viol_rel:.3e} of "
+             "scale (> 1e-4)")
+    if not resid_rel <= 1e-4:
+        fail(f"bounded block path: |Ax - b| = {resid_rel:.3e} of scale "
+             "(> 1e-4)")
+    if launches["solve_bounded_segment"] <= 0:
+        fail("bounded block path: kernel solve_bounded_segment was never "
+             "launched")
+    return out
+
+
 def main():
     phase_environment()
     phase_build()
@@ -2108,36 +2476,82 @@ def main():
     paths = {}
     for phase in (phase_recovery, phase_warm, phase_router, phase_calibrate):
         paths.update(phase())
+    stream4k = phase_stream_m4096()
+    paths["exact_m4096"] = phase_exact_m4096()
+    blk = phase_bounded_block()
+    paths["bounded_block"] = blk["path"]["launches"]
 
-    def entry(name, source, replaces, n_launches, rep):
+    def entry(name, source, replaces, n_launches, rep, new_shapes=None):
         by_path = {path: counts[name] for path, counts in paths.items()
                    if counts.get(name)}
-        return {"name": name, "route": "cuda",
-                "launches_by_path": by_path,
-                "source": f"linprog_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": n_launches,
-                "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-                "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                "bound_by": rep["bound_by"], "library_ms": None,
-                **{k: rep[k] for k in ("plans",) if k in rep}}
+        if name == "solve_segment_stream":
+            by_path["exact_m4096_dual"] = paths["exact_m4096"][
+                "solve_segment_stream_dual"]
+        out = {"name": name, "route": "cuda",
+               "launches_by_path": by_path,
+               "source": f"linprog_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": n_launches,
+               "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+               "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+               "bound_by": rep["bound_by"], "library_ms": None,
+               **{k: rep[k] for k in ("plans",) if k in rep}}
+        if new_shapes:
+            out["new_shapes"] = new_shapes
+        return out
+
+    # this slice's shapes: kernel 3 at the m = 4096 path's lanes, kernel 2
+    # at its panels, kernel 4 on its block-per-lane branch
+    chol4 = next(r for r in chol["other_shapes"] if r["shape"] == [4, 32, 32])
+    x4k = paths["exact_m4096"]
+    stream_new = [{"shape": r["shape"], "mode": r["mode"],
+                   "factor_blocked": r["factor_blocked"],
+                   "packed": r["packed"],
+                   "cluster": r["plan"]["cluster"],
+                   "smem_bytes": r["plan"]["smem_bytes"],
+                   "ctas_of_sms": [r["ctas"], r["sms"]],
+                   "max_abs_err": r["one_iter"]["max_abs_err_bfs"],
+                   "ms": r["one_iter"]["ms"],
+                   "plain_ms": r["one_iter"]["plain_ms"],
+                   "segment_ms_per_iter": r["segment"]["ms_per_iter"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "launches": x4k["solve_segment_stream_dual" if
+                                   r["mode"] == "dual" else
+                                   "solve_segment_stream_primal"]}
+                  for r in stream4k["runs"]]
+    chol_new = [{"shape": chol4["shape"], "max_abs_err": chol4["max_abs_err"],
+                 "ms": chol4["ms"], "plain_ms": chol4["plain_ms"],
+                 "bound_ms": chol4["bound_ms"],
+                 "bound_by": chol4["bound_by"],
+                 "launches": x4k["panel_cholinv"]}]
+    bnd_new = [{"shape": r["shape"], "mode": r["mode"], "cluster": 0,
+                "max_abs_err": r["segment16"]["max_abs_err_bfs"],
+                "ms": r["one_iter_mid_solve"]["ms"],
+                "plain_ms": r["one_iter_mid_solve"]["plain_ms"],
+                "segment_ms_per_iter": r["segment"]["ms_per_iter"],
+                "bound_ms": r["one_iter_mid_solve"]["bound_ms"],
+                "bound_by": r["one_iter_mid_solve"]["bound_by"],
+                "launches": paths["bounded_block"]["solve_bounded_segment"]}
+               for r in blk["kernel"]]
 
     price = dict(steps["price_entering"],
                  max_abs_err=steps["price_entering"]["max_abs_err_r_enter"])
     ratio = dict(steps["ratio_eta_pivot"],
                  max_abs_err=max(steps["steps"]["max_abs_err_bfs"],
                                  steps["ratio_eta_pivot"]["max_abs_err_bfs"]))
+    flush_native_stdout()
     emit({"kernels": [
         entry("solve_segment", "solve_segment.cu",
               "linprog_tpu/ops/solve_kernel.py:552",
               launches["solve_segment"], seg),
         entry("panel_cholinv", "panel_cholinv.cu",
               "linprog_tpu/ops/cholinv_kernel.py:80",
-              launches["panel_cholinv"], chol),
+              launches["panel_cholinv"], chol, chol_new),
         entry("solve_segment_stream", "solve_segment_stream.cu",
               "linprog_tpu/ops/stream_kernel.py:609",
-              x_launches["solve_segment_stream"], stream),
+              x_launches["solve_segment_stream"], stream, stream_new),
         entry("solve_bounded_segment", "solve_bounded_segment.cu",
-              "linprog_tpu/ops/bounded_kernel.py:279", bnd_launches, bnd),
+              "linprog_tpu/ops/bounded_kernel.py:279", bnd_launches, bnd,
+              bnd_new),
         entry("price_entering", "price_entering.cu",
               "linprog_tpu/ops/pallas_kernels.py:85",
               steps["steps"]["launches"]["price_entering"], price),

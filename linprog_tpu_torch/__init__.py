@@ -3,11 +3,14 @@
 Batched dense LP solving on an NVIDIA GPU.  :func:`solve_batch_auto` is
 the front door: it routes a batch to the two-phase simplex, the batched IPM
 with its straggler recovery, or the exact pipeline (batched IPM -> simplex
-crossover -> two-phase fallback -> dd-KKT certificate, m < 3072).  Beside
-it: warm re-solves (``batch.reoptimize_batch_new_rhs``,
+crossover -> two-phase fallback below m = 3072, a double-budget retry past
+it -> dd-KKT certificate).  Beside it: warm re-solves
+(``batch.reoptimize_batch_new_rhs``,
 :func:`reoptimize_ipm_batch_canonical`), the standard-form IPM, rays and
 Farkas vectors, bounded-variable batches (:func:`solve_batch_bounded`),
-the per-step batched engine and ``calibration.calibrate``.  The package
+the per-step batched engine, the per-lane engines (``engine.run``,
+``bounded.run_bounded``, ``bounded.solve_bounded_two_phase``) and
+``calibration.calibrate``.  The package
 has six hand-written CUDA kernels: the whole-segment simplex kernel
 (``ops/solve_kernel.py``), its streaming counterpart for large m
 (``ops/stream_kernel.py``), the panel inverse-Cholesky kernel

@@ -10,7 +10,8 @@ at zero level.  Both phases run on the segment kernel through
 changed (dual phase, then primal).  Certificates: infeasible lanes carry a
 Farkas vector in ``y``, unbounded lanes get their improving ray from
 :func:`unbounded_rays`.  Bounded variables: :func:`solve_batch_bounded`
-runs the bounded-variable kernel from a given basis and bound assignment.
+runs the bounded-variable kernel (or, with ``kernels="torch"``, the
+per-lane bounded engine) from a given basis and bound assignment.
 """
 
 from __future__ import annotations
@@ -222,9 +223,15 @@ def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
     ``var_state[B, n]`` (int8 in {AT_LB = 0, AT_UB = 1, BASIC = 2}): a
     starting basis with a bound assignment whose basic solution is within
     its bounds.  A variable at an infinite upper bound counts as zero.
+
+    ``kernels="cuda"`` runs the bounded-variable kernel wherever it has a
+    launch plan (the cluster-resident branch, else one block per lane, up
+    to m ~ 3000 at n = 2m) and raises ``NotImplementedError`` past it,
+    naming ``kernels="torch"``; ``"torch"`` runs the per-lane engine
+    :func:`linprog_tpu_torch.bounded.run_bounded` in plain PyTorch.
     """
     from . import bounded as bnd
-    from .engine_batched import _mega_kernel_fits
+    from .ops.bounded_kernel import has_plan
     from .refine import (
         dd_dot,
         dd_residual,
@@ -233,15 +240,18 @@ def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
     )
 
     B, m, n = A.shape
-    if cfg.kernels != "cuda" or not _mega_kernel_fits(m, n, with_at=False):
+    if cfg.kernels == "cuda" and not has_plan(m, n):
         raise NotImplementedError(
-            f"solve_batch_bounded at m={m}, n={n} with kernels="
-            f"{cfg.kernels!r}: the reference leaves its bounded kernel there "
-            "for the vmapped per-lane bounded engine (bounded.run_bounded), "
-            "which is not ported (ROADMAP Queue 1 item 9)"
+            f"solve_batch_bounded at m={m}, n={n}: a lane is past the "
+            "bounded kernel's block-per-lane branch, so no kernel of "
+            "kernels='cuda' runs it; ask for kernels='torch' to run the "
+            "per-lane bounded engine in plain PyTorch"
         )
     states = bnd.make_bounded_state(A, b, lb, ub, basis, var_state)
-    out = bnd.run_bounded_batched(c, A, b, lb, ub, states, maxiters, cfg)
+    if cfg.kernels == "cuda":
+        out = bnd.run_bounded_batched(c, A, b, lb, ub, states, maxiters, cfg)
+    else:
+        out = bnd.run_bounded(c, A, b, lb, ub, states, maxiters, cfg)
     basis_out, var_out = out.basis, out.var_state
     status = torch.where(out.status == st.RUNNING, st.ITER_LIMIT, out.status)
 

@@ -3,7 +3,7 @@
 The fields keep the reference's names and defaults.  Knobs of the reference
 that the port leaves out (``split_pricing``, ``partial_pricing``,
 ``refactor_method="ns"``) and knobs its kernel path never reads
-(``update``, ``dtype``, ``compact_refactor``) are not fields here;
+(``dtype``, ``compact_refactor``) are not fields here;
 :func:`linprog_tpu_torch.convert.config_from_reference` checks them.
 """
 
@@ -36,7 +36,11 @@ class SolverConfig:
     counterpart of the reference's ``"pallas"``) or ``"torch"`` (the
     per-step loop in plain PyTorch, primal only, with the optimality
     tolerance scaled by ``max(1, max|c|)`` per lane; the counterpart of the
-    reference's ``"xla"``).
+    reference's ``"xla"``).  ``update`` is ``"eta"`` (rank-1 updates of the
+    basis inverse, refactorized every ``refactor_every`` pivots) or
+    ``"naive"`` (a fresh inversion at every pivot, no chunked
+    refactorization); the per-lane engines and the per-step loop read it,
+    the kernels always run eta updates, as the reference's do.
     """
 
     opt_tol: float = 1e-6
@@ -50,12 +54,15 @@ class SolverConfig:
     polish_pivots: int = 0
     scaling: bool = False
     kernels: str = "cuda"
+    update: str = "eta"
 
     def __post_init__(self):
         if self.pricing not in ("bland", "dantzig", "devex"):
             raise ValueError(f"unknown pricing rule: {self.pricing!r}")
         if self.kernels not in ("cuda", "torch"):
             raise ValueError(f"unknown kernels impl: {self.kernels!r}")
+        if self.update not in ("eta", "naive"):
+            raise ValueError(f"unknown update rule: {self.update!r}")
         if self.unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {self.unroll}")
 

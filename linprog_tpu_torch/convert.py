@@ -23,9 +23,8 @@ from .results import BatchResult
 # reference knobs the port leaves out: allowed only at their defaults
 _DROPPED_SOLVER = {"split_pricing": False, "partial_pricing": False,
                    "refactor_method": "inv", "dtype": "float32"}
-# reference knobs the port never reads ("update" only where the kernels
-# run: the per-step loop refactorizes in chunks only under "eta")
-_IGNORED_SOLVER = ("update", "compact_refactor")
+# reference knobs the port never reads
+_IGNORED_SOLVER = ("compact_refactor",)
 _DROPPED_IPM = {"gondzio": 0, "newton_solver": "w2"}
 
 
@@ -43,8 +42,8 @@ def config_from_reference(d: dict):
 
     ``kernels="pallas"`` maps to ``"cuda"`` and ``kernels="xla"`` to
     ``"torch"`` (the per-step loop, which scales ``opt_tol`` by
-    ``max(1, max|c|)`` as the reference's XLA path does; ``update`` must
-    then be ``"eta"``).  A dropped knob at a non-default value is refused.
+    ``max(1, max|c|)`` as the reference's XLA path does, and the per-lane
+    engines).  A dropped knob at a non-default value is refused.
     """
     d = dict(d)
     is_ipm = "eps_rel" in d
@@ -57,9 +56,6 @@ def config_from_reference(d: dict):
     kernels = d.pop("kernels", "xla")
     if kernels not in ("pallas", "xla"):
         raise ValueError(f"unknown reference kernels value {kernels!r}")
-    if kernels == "xla" and d.get("update", "eta") != "eta":
-        raise ValueError("update is not ported (only 'eta') on the "
-                         "per-step loop")
     for key in _IGNORED_SOLVER:
         d.pop(key, None)
     return SolverConfig(kernels={"pallas": "cuda", "xla": "torch"}[kernels],

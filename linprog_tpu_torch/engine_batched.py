@@ -8,18 +8,19 @@ takes the kernel the reference takes at that shape: the whole-segment
 kernel (:func:`linprog_tpu_torch.ops.solve_kernel.solve_segment`) where the
 reference's fits in VMEM, else the streaming kernel
 (:func:`linprog_tpu_torch.ops.stream_kernel.solve_segment_stream`) in the
-reference's variant.  A shape past every streaming variant raises
-``NotImplementedError`` under ``"cuda"``: the kernel setting never gives
-way to plain PyTorch on its own.  ``kernels="torch"`` (the counterpart of
-the reference's ``"xla"``) is the explicit choice of the per-step loop
-:func:`run_batched_steps` over :func:`batched_primal_step`'s einsum branch:
-plain PyTorch, kept as the parity target of the reference's XLA batched
-path.  The step's kernel branch (the two per-step kernels of
-:mod:`linprog_tpu_torch.ops.step_kernels`) is reached, as in the reference,
-only by calling :func:`batched_primal_step` with ``kernels="cuda"``.  The
-reference's vmapped per-lane dual engine is not part of the port: a mode
-that reaches it in the reference raises ``NotImplementedError`` here instead
-of running something else.
+reference's variant, and in dual mode at a blocked-factor shape the
+streaming kernel unblocked and unpacked, where the reference leaves its
+kernels for the vmapped per-lane dual engine.  A shape past every
+streaming variant raises ``NotImplementedError`` under ``"cuda"``: the
+kernel setting never gives way to plain PyTorch on its own.  ``kernels="torch"`` (the counterpart of
+the reference's ``"xla"``) is the explicit choice of plain PyTorch: the
+per-step loop :func:`run_batched_steps` over :func:`batched_primal_step`'s
+einsum branch in primal mode, the per-lane engine
+:func:`linprog_tpu_torch.engine.run` in dual mode; both are parity paths of
+the reference's XLA code.  The step's kernel branch (the two per-step
+kernels of :mod:`linprog_tpu_torch.ops.step_kernels`) is reached, as in the
+reference, only by calling :func:`batched_primal_step` with
+``kernels="cuda"``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 
 from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
-from .engine import SimplexState, basis_matrix, inv_or_nan
+from . import engine
+from .engine import SimplexState, _gather_cols, basis_matrix, inv_or_nan
 from .ops.solve_kernel import SegmentState, solve_segment
 from .ops.step_kernels import price_entering, ratio_eta_pivot
 from .ops.stream_kernel import solve_segment_stream
@@ -219,12 +221,6 @@ def _stream_variant(m: int, n: int, itemsize: int = 4,
     return None
 
 
-def _gather_cols(A, idx):
-    """``A[b, :, idx[b]]`` for each lane: ``[B, m]``."""
-    B, m, _ = A.shape
-    return torch.gather(A, 2, idx.long()[:, None, None].expand(B, m, 1))[:, :, 0]
-
-
 def batched_primal_step(c, A, b, allowed, state: SimplexState,
                         cfg: SolverConfig, maxiters, bland=None, gamma=None):
     """One batched primal iteration over all lanes (finished lanes frozen).
@@ -360,10 +356,12 @@ def run_batched_steps(c, A, b, state: SimplexState, allowed, maxiters: int,
     path in ``run_batched``): one :func:`batched_primal_step` (einsum
     branch) per pass until every lane is terminal or at ``maxiters``, in
     chunks of ``cfg.refactor_every`` steps with an exact refactorization of
-    the still-running lanes after each.  A lane without relative objective
-    progress over ``cfg.stall_limit`` pivots prices by Bland's rule until
-    progress resumes; devex weights ride along and are reset at each
-    refactorization."""
+    the still-running lanes after each (eta updates only: under
+    ``update="naive"`` the reference's path runs one loop without
+    refactorizations, and so does this one).  A lane without relative
+    objective progress over ``cfg.stall_limit`` pivots prices by Bland's
+    rule until progress resumes; devex weights ride along and are reset at
+    each refactorization."""
     cfg = cfg.replace(kernels="torch")
     B, _, n = A.shape
     dev = A.device
@@ -394,7 +392,7 @@ def run_batched_steps(c, A, b, state: SimplexState, allowed, maxiters: int,
             return ss
         return out
 
-    if cfg.refactor_every <= 0:
+    if cfg.refactor_every <= 0 or cfg.update != "eta":
         while any_running(state, maxiters):
             state = step(state, maxiters)
         return state
@@ -425,13 +423,17 @@ def run_batched(c, A, b, state: SimplexState, allowed, maxiters: int,
     """Drive the batch (primal or dual mode) to termination.
 
     ``kernels="cuda"``: the whole-segment kernel where the reference's
-    fits, else the streaming kernel in the reference's variant; a shape
-    past every streaming variant raises ``NotImplementedError`` (the
-    reference switches to ``"xla"`` there; here the caller asks for
+    fits, else the streaming kernel in the reference's variant; dual mode
+    at a ``"stream_blocked"`` shape runs the streaming kernel unblocked and
+    unpacked (the blocked-factor mode is primal only, a rule of the v5e's
+    VMEM: the card's kernel streams the whole factor in every variant; the
+    reference's per-lane dual engine there selects exact minima).  A shape
+    past every streaming variant raises ``NotImplementedError`` in either mode
+    (the reference switches to ``"xla"`` there; here the caller asks for
     ``kernels="torch"`` to get plain PyTorch).
-    ``kernels="torch"``: the per-step loop, primal mode only.  Dual mode
-    off the kernels raises ``NotImplementedError``: the reference runs its
-    vmapped per-lane dual engine there, which is not ported."""
+    ``kernels="torch"``: the per-step loop in primal mode and the per-lane
+    engine (:func:`linprog_tpu_torch.engine.run`, the reference's vmapped
+    ``engine.run``) in dual mode."""
     if mode not in ("primal", "dual"):
         raise ValueError(f"unknown mode {mode!r}")
     _, m, n = A.shape
@@ -440,23 +442,22 @@ def run_batched(c, A, b, state: SimplexState, allowed, maxiters: int,
             return run_batched_segments(c, A, b, state, allowed, maxiters,
                                         cfg, mode)
         variant = _stream_variant(m, n)
-        if variant is not None and not (variant[0] == "stream_blocked"
-                                        and mode == "dual"):
-            return run_batched_stream(c, A, b, state, allowed, maxiters, cfg,
-                                      mode, variant=variant[0],
-                                      n_blk=variant[1])
+        if variant is None:
+            raise NotImplementedError(
+                f"{mode} mode at m={m}, n={n} is past every streaming-kernel "
+                "variant, so no kernel of kernels='cuda' runs it; ask for "
+                "kernels='torch' to run it in plain PyTorch (the per-step "
+                "loop in primal mode, the per-lane engine in dual mode)"
+            )
+        name, n_blk = variant
+        if name == "stream_blocked" and mode == "dual":
+            # the reference leaves its kernels here for the per-lane dual
+            # engine, whose selections are exact first minima: run unblocked
+            # and unpacked (a packed key resolves a ratio only to
+            # 2^-(23 - log2 n) relative, 1e-3 at n = 8192)
+            name, cfg = "stream", cfg.replace(packed_select=False)
+        return run_batched_stream(c, A, b, state, allowed, maxiters, cfg,
+                                  mode, variant=name, n_blk=n_blk)
     if mode == "dual":
-        raise NotImplementedError(
-            f"dual mode at m={m}, n={n} with kernels={cfg.kernels!r} (off "
-            "the segment kernels): the reference runs its vmapped per-lane "
-            "dual engine there (engine.run), which is not ported (ROADMAP "
-            "Queue 1 item 9)"
-        )
-    if cfg.kernels == "cuda":
-        raise NotImplementedError(
-            f"m={m}, n={n} is past every streaming-kernel variant, so no "
-            "kernel of kernels='cuda' runs it; ask for kernels='torch' to "
-            "run the per-step loop in plain PyTorch (the reference's XLA "
-            "batched path)"
-        )
+        return engine.run(c, A, b, state, allowed, maxiters, cfg, "dual")
     return run_batched_steps(c, A, b, state, allowed, maxiters, cfg)

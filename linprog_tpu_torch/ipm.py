@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import engine as _engine
 from . import status as st
 from .ops.cholinv_kernel import panel_cholinv
 from .ops.solve_kernel import _nonneg
@@ -74,6 +75,20 @@ class IPMState(NamedTuple):
     status: torch.Tensor
 
 
+def _normal_matmul(A, d):
+    """``A diag(d) A'`` for ``A[B, m, K]``, ``d[B, K]``: in float64 and
+    rounded when f32 data sums more than ``engine.F64_PAST`` columns (the
+    card's f32 GEMM came out 3.0-3.5e-6 of the largest entry off at
+    K = 4096, the host's 3.4-3.8e-7 (tools/diag_m4096.py), and the factor of
+    every lane of the m = 4096 exact leg broke before the IPM converged;
+    f32 inputs multiply exactly in float64)."""
+    if A.dtype == torch.float32 and A.shape[2] > _engine.F64_PAST:
+        A64 = A.double()
+        M = torch.matmul(A64 * d.double()[:, None, :], A64.transpose(1, 2))
+        return M.float()
+    return torch.matmul(A * d[:, None, :], A.transpose(1, 2))
+
+
 def _mv(A, v):
     return torch.einsum("bij,bj->bi", A, v)
 
@@ -97,8 +112,7 @@ class _DenseOp:
 
     def normal(self, d):
         """``A diag(d) A'`` (before regularization)."""
-        AD = self.A * d[:, None, :]
-        return torch.matmul(AD, self.A.transpose(1, 2))
+        return _normal_matmul(self.A, d)
 
     def max_abs(self):
         return torch.abs(self.A).amax(dim=(1, 2))
@@ -120,8 +134,7 @@ class _SlackOp:
         return torch.cat([_mtv(self.G, w), w], dim=1)
 
     def normal(self, d):
-        GD = self.G * d[:, None, : self.ng]
-        M = torch.matmul(GD, self.G.transpose(1, 2))
+        M = _normal_matmul(self.G, d[:, : self.ng])
         return M + torch.diag_embed(d[:, self.ng:])
 
     def max_abs(self):

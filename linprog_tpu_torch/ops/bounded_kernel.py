@@ -52,6 +52,7 @@ import torch
 from .. import status as st
 from . import _build
 from .solve_kernel import (
+    _STATIC_BYTES,
     INTMAX,
     SM_COUNT,
     SMEM_LIMIT,
@@ -62,6 +63,7 @@ from .solve_kernel import (
     pack_min_keys,
     pick_plan,
     plans_for,
+    resident,
     slice_len,
 )
 
@@ -103,6 +105,14 @@ def cluster_bytes(m: int, n: int, cluster: int) -> int:
 def block_bytes(m: int, n: int) -> int:
     """Dynamic shared memory of the block-per-lane branch."""
     return 4 * (9 * m + 5 * n)
+
+
+def has_plan(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
+    """Whether a lane of (m, n) fits one of the kernel's branches (where it
+    does not, :func:`segment_plans` raises): the cluster-resident branch, or
+    one block per lane, which reaches m ~ 3000 at n = 2m."""
+    return (resident(m, n, smem_limit, cluster_bytes)
+            or block_bytes(m, n) + _STATIC_BYTES <= smem_limit)
 
 
 def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,

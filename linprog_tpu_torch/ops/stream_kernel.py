@@ -57,6 +57,7 @@ from . import _build
 from .solve_kernel import SegmentState, check_segment_args, solve_segment_plain
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
+launches_dual = 0  # those of them in dual mode
 last_plan = None  # the StreamPlan of the last launch
 
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -307,7 +308,7 @@ def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
     or a variation of one: the card tests hold cluster sizes and branches
     against each other).  CUDA tensors only; the C entry point refuses a
     plan that does not fit the shape."""
-    global launches, last_plan
+    global launches, launches_dual, last_plan
     check_segment_args(A, c, apen, state, "solve_segment_stream")
     if A.device.type != "cuda":
         raise ValueError("launch_with_plan needs CUDA tensors")
@@ -331,5 +332,6 @@ def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
         )
     _build.check(code, "solve_segment_stream launch")
     launches += 1
+    launches_dual += int(bool(dual))
     last_plan = plan
     return state

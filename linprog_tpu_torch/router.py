@@ -7,12 +7,14 @@ the accuracy class, from the thresholds of
 :func:`linprog_tpu_torch.calibration.get_table` (:func:`choose_family` is
 the rule alone).  The ``"pdhg"`` family (``m >= pdhg_min_m`` at a loose
 accuracy) is not ported yet and raises ``NotImplementedError``.
-:func:`solve_batch_exact` is the exact pipeline, IPM -> crossover -> retry
--> two-phase fallback, for m < 3072.
-
-At m >= 3072 the reference's crossover runs its dual phase on the vmapped
-per-lane engine and retries at double budget with no fallback; neither is
-ported, so that size raises ``NotImplementedError``.
+:func:`solve_batch_exact` is the exact pipeline: IPM -> crossover, then for
+``xover_pallas_max_m < m < 1536`` a retry from the other basis guess, and
+below ``m = 3072`` a two-phase fallback.  From ``m = 3072`` up (the
+blocked-factor regime: the crossover's dual phase runs the streaming kernel
+unblocked, its primal phase blocked) the uncrossed lanes are retried with
+the same guess at double the pivot budget, and a lane that still fails
+keeps its IPM answer and status: two-phase cannot converge affordably at
+that size.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from .config import SolverConfig, tuned_config
 from .results import BatchResult
 
 _FAMILIES = ("simplex", "ipm", "ipm+crossover", "pdhg")
-_LARGE_M = 3072  # from here the reference's exact path leaves the port
+# from here up: the blocked-factor cleanup settings, a same-guess retry at
+# double budget and no two-phase fallback (the reference's literal 3072)
+_LARGE_M = 3072
 
 
 def _xover_max_m() -> int:
@@ -35,24 +39,20 @@ def _xover_max_m() -> int:
     return int(get_table()["xover_pallas_max_m"])
 
 
-def _check_size(m: int) -> None:
-    if m >= _LARGE_M:
-        raise NotImplementedError(
-            f"m={m} >= {_LARGE_M}: the reference's crossover runs its dual "
-            "phase on the vmapped per-lane dual engine at this size and its "
-            "router retries at double budget with no fallback; neither is "
-            "ported yet (ROADMAP Queue 1 items 9 and 10)"
-        )
-
-
 def exact_cleanup_config(m: int, maxiters: Optional[int] = None):
     """Crossover-cleanup settings ``(SolverConfig, budget)`` for size ``m``:
     the tuned segment length up to the whole-segment kernel's boundary, a
-    128-pivot refactorization cadence and a 2048-pivot budget past it."""
-    _check_size(m)
+    128-pivot refactorization cadence and a 2048-pivot budget past it, and
+    from ``m = 3072`` up a 384-pivot cadence, ``unroll=1`` and a 4-pivot
+    polish at the same budget (the reference's settings for its
+    blocked-factor regime)."""
     if m <= _xover_max_m():
         return tuned_config(m), (maxiters or 512)
-    return tuned_config(m, refactor_every=128, unroll=2), (maxiters or 2048)
+    if m < _LARGE_M:
+        return (tuned_config(m, refactor_every=128, unroll=2),
+                (maxiters or 2048))
+    return (tuned_config(m, refactor_every=384, unroll=1, polish_pivots=4),
+            (maxiters or 2048))
 
 
 def recovery_cleanup_config(m: int, maxiters: Optional[int] = None):
@@ -178,14 +178,17 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
                       maxiters: Optional[int] = None, guess: str = "tapia"):
     """Exact vertices of ``min c'x, Gx <= h, x >= 0`` for a batch.
 
-    Batched IPM, the dual-then-primal crossover to a verified vertex, for
-    ``xover_pallas_max_m < m < 1536`` a retry of uncrossed lanes from the
-    alternate basis guess, and a gathered two-phase simplex fallback for
-    lanes that still fail to cross, so every OPTIMAL lane is a vertex with a
-    basis.  Returns ``(BatchResult, info)`` with ``x`` over the structural
-    columns and ``info["crossed"]`` (retries included),
-    ``info["retry_crossed"]`` and ``info["fallback"]`` counting the paths
-    taken.
+    Batched IPM, the dual-then-primal crossover to a verified vertex, then
+    a retry of the uncrossed lanes gathered into a bucket: from the
+    alternate basis guess for ``xover_pallas_max_m < m < 1536``, with the
+    same guess at double the budget for ``m >= 3072``.  Below ``m = 3072`` a
+    gathered two-phase simplex fallback repairs the lanes that still fail,
+    so every OPTIMAL lane is a vertex with a basis; from ``m = 3072`` up
+    they keep their IPM answer and status.  Returns ``(BatchResult, info)``
+    with ``x`` over the structural columns and ``info["crossed"]`` (retries
+    included), ``info["retry_crossed"]`` and ``info["fallback"]`` counting
+    the paths taken, and ``info["uncrossed"]`` the lanes left uncrossed at
+    ``m >= 3072``.
     """
     from .batch import solve_batch_two_phase
     from .crossover import (crossover_batch_canonical,
@@ -193,7 +196,6 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
     from .generators import device_standard_form_batch
 
     B, m, n = G.shape
-    _check_size(m)
     if cfg is None:
         cfg, budget = exact_cleanup_config(m, maxiters)
     else:
@@ -207,13 +209,20 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
     if bad.numel() == 0:
         return res, info
 
+    retry = None
     if _xover_max_m() < m < 1536:
         # past the whole-segment kernel the reference retries the gathered
         # lanes from the other basis guess before any two-phase fallback
-        alt = "magnitude" if guess == "tapia" else "tapia"
+        retry = ("magnitude" if guess == "tapia" else "tapia", budget)
+    elif m >= _LARGE_M:
+        # the reference's evidence at this size is budget sensitivity:
+        # the same guess again, with twice the pivots
+        retry = (guess, 2 * budget)
+    if retry is not None:
+        alt, r_budget = retry
         idx = _bucket(bad, B)
         res2, crossed2 = ipm_crossover_batch_canonical(
-            c[idx], G[idx], h[idx], crossover_maxiters=budget, cfg=cfg,
+            c[idx], G[idx], h[idx], crossover_maxiters=r_budget, cfg=cfg,
             guess=alt,
         )
         # the first crossed occurrence of each lane is written back
@@ -232,6 +241,11 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
             bad = torch.tensor(keep, dtype=bad.dtype, device=bad.device)
         if bad.numel() == 0:
             return res, info
+    if m >= _LARGE_M:
+        # no affordable exact repair remains at this size: the lanes keep
+        # their IPM answer and status
+        info["uncrossed"] = int(bad.numel())
+        return res, info
 
     # gather the uncrossed lanes into a power-of-two bucket (cyclic fill)
     nb = int(bad.numel())

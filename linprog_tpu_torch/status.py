@@ -7,6 +7,8 @@ API parity with the single-problem reference library.
 
 from __future__ import annotations
 
+import torch
+
 # int32 per-lane codes.  RUNNING must be 0 so a zero-initialized lane is live.
 RUNNING = 0
 OPTIMAL = 1
@@ -83,5 +85,17 @@ def raise_for_status(status) -> int:
     return code
 
 
+def is_terminal(status):
+    """True where a lane has stopped (any code but ``RUNNING``); works on
+    ints and on tensors of codes."""
+    return status != RUNNING
+
+
 def status_name(status) -> str:
     return STATUS_NAMES.get(int(status), f"UNKNOWN({int(status)})")
+
+
+def as_status(value):
+    """``value`` as an int32 tensor of status codes (a tensor keeps its
+    device)."""
+    return torch.as_tensor(value, dtype=torch.int32)

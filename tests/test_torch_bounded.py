@@ -245,24 +245,40 @@ def test_singular_starting_basis_is_a_status_not_an_exception():
 
 
 def test_shapes_off_the_bounded_kernel_are_not_ported():
-    """Where the reference leaves its bounded kernel (a lane past the
-    whole-segment gate, or ``kernels="xla"``) it vmaps the per-lane bounded
-    engine, which is not ported.  Zero-stride tensors: nothing is computed
-    before the check."""
+    """Every shape is in the port now (the name dates from when shapes off
+    the v5e's whole-segment gate raised).  ``kernels="cuda"`` raises only
+    past the bounded kernel's block-per-lane branch, naming
+    ``kernels="torch"`` (zero-stride tensors: nothing is computed before
+    the check); a lane past the v5e gate but inside the block branch has a
+    plan; ``"torch"`` runs the per-lane engine, as the reference's
+    ``"xla"`` vmaps its own (statuses, bases and iterations equal, x within
+    2e-4 of the lane's scale)."""
+    from linprog_tpu_torch.engine_batched import _mega_kernel_fits
+    from linprog_tpu_torch.ops.bounded_kernel import has_plan, segment_plans
+
     zero = torch.zeros(())
-    m, n = 1024, 3072
+    m, n = 3072, 6144
+    assert not has_plan(m, n)
     args = (zero.expand(1, n), zero.expand(1, m, n), zero.expand(1, m),
             zero.expand(1, n), zero.expand(1, n),
             torch.zeros((), dtype=torch.int32).expand(1, m),
             torch.zeros((), dtype=torch.int8).expand(1, n), 10)
-    with pytest.raises(NotImplementedError, match="per-lane bounded engine"):
+    with pytest.raises(NotImplementedError, match="kernels='torch'"):
         lt.solve_batch_bounded(*args)
-    small = bounded_lps(1, 3, 4, seed=0)
-    basis, vs = slack_start(1, 3, 4)
-    with pytest.raises(NotImplementedError, match="per-lane bounded engine"):
-        lt.solve_batch_bounded(*(torch.tensor(a) for a in small),
-                               torch.tensor(basis), torch.tensor(vs), 10,
-                               lt.SolverConfig(kernels="torch"))
+    assert has_plan(1280, 2560) and not _mega_kernel_fits(1280, 2560, False)
+    assert segment_plans(16, 1280, 2560)[0].cluster == 0  # block per lane
+
+    prob = bounded_lps(4, 8, 10, seed=5)
+    basis, vs = slack_start(4, 8, 10)
+    jcfg = JaxSolverConfig(kernels="xla", refactor_every=16)
+    ref, out = solve_both(prob, basis, vs, 500, jcfg)
+    assert (out.status.numpy() == st.OPTIMAL).all()
+    np.testing.assert_array_equal(out.status.numpy(), np.asarray(ref.status))
+    np.testing.assert_array_equal(out.basis.numpy(), np.asarray(ref.basis))
+    np.testing.assert_array_equal(out.iters.numpy(), np.asarray(ref.iters))
+    scale = np.maximum(1.0, np.abs(np.asarray(ref.x)).max(axis=1))
+    assert (np.abs(out.x.numpy() - np.asarray(ref.x)).max(axis=1)
+            <= 2e-4 * scale).all()
 
 
 def test_unrefactored_vertex_leaves_its_bounds_as_the_reference_does():

@@ -1283,3 +1283,175 @@ def test_rays_on_card(cuda):
     assert rays[0].tolist() == [1.0, 1.0, 0.0] and not bool(rays[1].any())
     y = res.y[1]
     assert bool((y @ A[1] <= 1e-6).all()) and float(y @ b[1]) > 0
+
+
+# ---- the per-lane engines and the routes of the blocked-factor regime -----
+
+
+def _dual_instance(B, m, n, seed):
+    """Positive costs and a right-hand side with negative entries, started
+    at the slack basis: dual feasible, primal infeasible (numpy)."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, m, n)).astype(np.float32)
+    c = (0.1 + rng.random((B, n))).astype(np.float32)
+    h = rng.standard_normal((B, m)).astype(np.float32)
+    A = np.concatenate([G, np.broadcast_to(np.eye(m, dtype=np.float32),
+                                           (B, m, m))], axis=2)
+    cs = np.concatenate([c, np.zeros((B, m), np.float32)], axis=1)
+    basis = np.broadcast_to(np.arange(n, n + m, dtype=np.int32), (B, m))
+    return cs, A, h, np.ascontiguousarray(basis)
+
+
+@pytest.fixture
+def blocked_shape(monkeypatch):
+    """Every shape is a blocked-factor shape: the whole-segment gate shut,
+    the streaming rule answering ``stream_blocked``."""
+    import linprog_tpu_torch.engine_batched as teb
+
+    monkeypatch.setattr(teb, "_mega_kernel_fits",
+                        lambda m, n, with_at, **kw: False)
+    monkeypatch.setattr(teb, "_stream_variant",
+                        lambda m, n, **kw: ("stream_blocked", n))
+
+
+def _exact_cost(cs, A, b, basis):
+    x = solve_or_nan(basis_matrix(A.double(), basis), b.double())
+    return (torch.gather(cs.double(), 1, basis.long()) * x).sum(dim=1)
+
+
+def test_stream_kernel_unblocked_dual_at_a_blocked_shape(cuda, blocked_shape):
+    """Dual mode at a blocked-factor shape launches the streaming kernel
+    unblocked on the card; against the CPU run (its plain version) the same
+    statuses and float64 costs at the final bases within 1e-5 relative."""
+    from linprog_tpu_torch import engine
+    from linprog_tpu_torch.config import SolverConfig
+    from linprog_tpu_torch.engine_batched import run_batched
+
+    cs, A, h, basis = _dual_instance(16, 48, 48, seed=4)
+    cfg = SolverConfig(pricing="dantzig", refactor_every=16)
+    out = {}
+    for dev in ("cpu", cuda):
+        tc, tA, th, tb = (torch.tensor(a, device=dev)
+                          for a in (cs, A, h, basis))
+        before = stream_kernel.launches
+        s = run_batched(tc, tA, th, engine.make_state(tA, th, tb),
+                        torch.ones(tc.shape[1], dtype=torch.bool,
+                                   device=dev), 500, cfg, mode="dual")
+        if dev != "cpu":
+            assert stream_kernel.launches > before
+        out[str(dev)] = (s, _exact_cost(tc, tA, th, s.basis).cpu())
+    (p, pc), (k, kc) = out["cpu"], out[str(cuda)]
+    np.testing.assert_array_equal(k.status.cpu().numpy(), p.status.numpy())
+    assert bool((p.status == st.OPTIMAL).any())
+    opt = p.status == st.OPTIMAL
+    rel = ((kc - pc).abs() / pc.abs().clamp_min(1.0))[opt]
+    assert rel.max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_kernel_block_branch_at_1280(cuda, packed):
+    """[4, 1280, 2560], past the v5e line and inside the block-per-lane
+    branch: the same bits under every plan the branch offers, and 16
+    iterations in lockstep with the plain version."""
+    m = 1280
+    plans = bounded_kernel.segment_plans(4, m, 2 * m)
+    assert [pl.cluster for pl in plans] == [0]
+    A, c, lb, ub, b, state0 = _bounded_instance(4, m, m, seed=12, dev=cuda)
+    kw = dict(seg_len=16, opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
+    k, p = _bounded_both(A, c, lb, ub, state0, **kw)
+    assert bounded_kernel.last_plan == plans[0]
+    _assert_bounded_lockstep(k, p)
+    for pl in plans:
+        s = BoundedSegmentState(*(t.clone() for t in state0))
+        bounded_kernel.launch_with_plan(pl, A, c, lb, ub, 1 << 20, s, **kw)
+        torch.cuda.synchronize()
+        for a, q in zip(s, k):
+            torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("mode", ["primal", "dual"])
+def test_per_lane_engine_on_card_matches_cpu(cuda, mode):
+    """``engine.run`` on CUDA tensors against CPU tensors: the same
+    statuses, bases and iteration counts; basic values within 1e-4 of the
+    lane's scale (refactorized every 8 pivots)."""
+    from linprog_tpu_torch import engine
+    from linprog_tpu_torch.config import SolverConfig
+
+    if mode == "dual":
+        cs, A, b, basis = _dual_instance(8, 12, 12, seed=2)
+    else:
+        c, G, h = random_inequality_lps(8, 12, 12, seed=1)
+        cs = np.concatenate([c, np.zeros((8, 12), np.float32)], axis=1)
+        A = np.concatenate([G, np.broadcast_to(np.eye(12, dtype=np.float32),
+                                               (8, 12, 12))], axis=2)
+        b = h
+        basis = np.ascontiguousarray(np.broadcast_to(
+            np.arange(12, 24, dtype=np.int32), (8, 12)))
+    cfg = SolverConfig(pricing="dantzig", refactor_every=8, kernels="torch")
+    out = []
+    for dev in ("cpu", cuda):
+        tc, tA, tb, tbas = (torch.tensor(a, device=dev)
+                            for a in (cs, A, b, basis))
+        s = engine.run(tc, tA, tb, engine.make_state(tA, tb, tbas),
+                       torch.ones(tc.shape[1], dtype=torch.bool, device=dev),
+                       200, cfg, mode)
+        out.append(tuple(t.cpu() for t in s))
+    p, k = out
+    for i in (0, 3, 4):  # basis, iters, status
+        torch.testing.assert_close(k[i], p[i], rtol=0, atol=0)
+    scale = p[2].abs().amax(dim=1).clamp_min(1.0)
+    assert bool(((k[2] - p[2]).abs().amax(dim=1) <= 1e-4 * scale).all())
+
+
+def test_bounded_engine_on_card_matches_cpu(cuda):
+    """``solve_batch_bounded(kernels="torch")`` (the per-lane bounded
+    engine) on CUDA tensors against CPU tensors: the same statuses, bases
+    and iteration counts, objectives within 1e-5 relative."""
+    import linprog_tpu_torch as lt
+    from linprog_tpu_torch.config import SolverConfig
+
+    gen = torch.Generator().manual_seed(3)
+    prob = device_bounded_lps(gen, 8, 10, 12, "cpu")
+    basis = torch.arange(12, 22, dtype=torch.int32).expand(8, 10).contiguous()
+    vs = torch.zeros((8, 22), dtype=torch.int8)
+    vs[:, 12:] = bounded_kernel.BASIC
+    cfg = SolverConfig(refactor_every=16, kernels="torch")
+    p = lt.solve_batch_bounded(*prob, basis, vs, 500, cfg)
+    k = lt.solve_batch_bounded(*(t.to(cuda) for t in prob), basis.to(cuda),
+                               vs.to(cuda), 500, cfg)
+    assert bool((p.status == st.OPTIMAL).all())
+    for name in ("status", "basis", "iters"):
+        torch.testing.assert_close(getattr(k, name).cpu(), getattr(p, name),
+                                   rtol=0, atol=0)
+    rel = ((k.cost.cpu() - p.cost).abs() / p.cost.abs().clamp_min(1.0))
+    assert rel.max().item() <= 1e-5
+
+
+def test_reoptimize_new_rhs_at_a_blocked_shape(cuda, blocked_shape):
+    """The warm right-hand-side re-solve at a blocked-factor shape: the
+    dual phase on the streaming kernel unblocked, the primal cleanup
+    blocked, on the card against the CPU run; the same statuses and costs
+    within 1e-5 relative."""
+    import linprog_tpu_torch as lt
+    from linprog_tpu_torch.batch import reoptimize_batch_new_rhs
+    from linprog_tpu_torch.config import SolverConfig
+    from linprog_tpu_torch.generators import to_standard_form_batch
+
+    c, G, h = random_inequality_lps(16, 32, 32, seed=6)
+    cs, As, bs = (torch.tensor(a) for a in to_standard_form_batch(c, G, h))
+    cfg = SolverConfig(pricing="dantzig", refactor_every=16)
+    base = lt.solve_batch_two_phase(cs, As, bs, 500, 500, cfg)
+    assert bool((base.status == st.OPTIMAL).all())
+    rng = np.random.default_rng(1)
+    b_new = bs * torch.tensor(
+        1.0 + 0.05 * rng.standard_normal(bs.shape), dtype=torch.float32)
+    p = reoptimize_batch_new_rhs(cs, As, b_new, base.basis, 500, cfg)
+    before = stream_kernel.launches
+    k = reoptimize_batch_new_rhs(cs.to(cuda), As.to(cuda), b_new.to(cuda),
+                                 base.basis.to(cuda), 500, cfg)
+    assert stream_kernel.launches >= before + 2  # dual, then primal
+    np.testing.assert_array_equal(k.status.cpu().numpy(), p.status.numpy())
+    opt = p.status == st.OPTIMAL
+    assert bool(opt.any())
+    rel = ((k.cost.cpu() - p.cost).abs() / p.cost.abs().clamp_min(1.0))[opt]
+    assert rel.max().item() <= 1e-5

@@ -75,3 +75,41 @@ def test_ipm_solve_batch_canonical_result():
     assert res.x.shape == (8, 32) and (res.basis == -1).all()
     np.testing.assert_array_equal(res.status.numpy(), np.asarray(ref.status))
     assert _rel(res.cost.numpy(), np.asarray(ref.cost)).max() < 1e-4
+
+
+def test_long_normal_products_accumulate_in_float64(monkeypatch):
+    """Past ``engine.F64_PAST`` summed columns (lowered to 8 here) the normal
+    matrix is the f32 rounding of its float64 product, bit for bit; at or
+    below it the f32 product.  With the lowered threshold the IPM still
+    matches the reference as ``test_ipm_core_matches_reference`` holds it
+    (statuses, iterations within one, costs within 1e-4 relative)."""
+    import linprog_tpu_torch.engine as tengine
+    import linprog_tpu_torch.ipm as tipm
+
+    rng = np.random.default_rng(3)
+    G = torch.tensor(rng.standard_normal((2, 5, 12)).astype(np.float32))
+    d = torch.tensor(rng.random((2, 17)).astype(np.float32) * 1e3)
+    G64, d64 = G.double(), d.double()
+    want = (torch.matmul(G64 * d64[:, None, :12], G64.transpose(1, 2)).float()
+            + torch.diag_embed(d[:, 12:]))
+    plain = (torch.matmul(G * d[:, None, :12], G.transpose(1, 2))
+             + torch.diag_embed(d[:, 12:]))
+    monkeypatch.setattr(tengine, "F64_PAST", 12)
+    assert torch.equal(tipm._SlackOp(G).normal(d), plain)
+    monkeypatch.setattr(tengine, "F64_PAST", 8)
+    assert torch.equal(tipm._SlackOp(G).normal(d), want)
+    A = torch.cat([G, torch.eye(5).expand(2, 5, 5)], dim=2)
+    Ad = tipm._DenseOp(A).normal(d)
+    assert torch.equal(Ad, torch.matmul(A.double() * d64[:, None, :],
+                                        A.double().transpose(1, 2)).float())
+
+    c, Gn, h = random_inequality_lps(8, 16, 16, seed=1)
+    cs = np.concatenate([c, np.zeros((8, 16), np.float32)], axis=1)
+    ref = _ipm_canonical_jit(jnp.asarray(cs), jnp.asarray(Gn), jnp.asarray(h),
+                             JaxIPMConfig())
+    port = ipm_state_to_numpy(ipm_canonical_state(
+        torch.tensor(cs), torch.tensor(Gn), torch.tensor(h), IPMConfig()))
+    np.testing.assert_array_equal(port["status"], np.asarray(ref.status))
+    assert np.abs(port["iters"] - np.asarray(ref.iters)).max() <= 1
+    cost = (cs * port["x"]).sum(axis=1)
+    assert _rel(cost, (cs * np.asarray(ref.x)).sum(axis=1)).max() < 1e-4

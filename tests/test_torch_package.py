@@ -53,7 +53,8 @@ def _imported_modules(path):
                                  REPO / "tools" / "run_phases.py",
                                  REPO / "tools" / "run_calibrate.py",
                                  REPO / "tools" / "time_stream_plans.py",
-                                 REPO / "tools" / "time_segment_plans.py"],
+                                 REPO / "tools" / "time_segment_plans.py",
+                                 REPO / "tools" / "diag_m4096.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import(path):
@@ -75,11 +76,14 @@ def test_config_from_reference():
         dataclasses.asdict(JaxSolverConfig())) == SolverConfig(kernels="torch")
     assert config_from_reference(dataclasses.asdict(
         JaxSolverConfig(kernels="pallas"))) == SolverConfig(kernels="cuda")
+    # the per-lane engines and the per-step loop read the update rule
+    assert config_from_reference(dataclasses.asdict(
+        JaxSolverConfig(update="naive"))) == SolverConfig(kernels="torch",
+                                                          update="naive")
+    assert config_from_reference(dataclasses.asdict(
+        JaxSolverConfig(kernels="pallas", update="naive"))).update == "naive"
     with pytest.raises(ValueError, match="update"):
-        config_from_reference(dataclasses.asdict(
-            JaxSolverConfig(update="naive")))
-    config_from_reference(dataclasses.asdict(
-        JaxSolverConfig(kernels="pallas", update="naive")))  # never read there
+        SolverConfig(update="lu")
     with pytest.raises(ValueError, match="kernels"):
         config_from_reference(dict(dataclasses.asdict(JaxSolverConfig()),
                                    kernels="triton"))
@@ -281,36 +285,44 @@ def test_panel_cholinv_wrapper_validates():
         panel_cholinv(torch.eye(4).expand(2, 4, 4))
 
 
-def test_large_m_is_not_ported_yet():
-    """m >= 3072 stays out of the port: the exact router raises (the
-    reference's crossover runs its dual phase on the vmapped per-lane
-    engine there), and so does a dual-mode ``run_batched`` at a
-    blocked-factor shape (primal mode past every streaming variant raises
-    too and names ``kernels="torch"``; ``tests/test_torch_step_kernels.py``
-    holds that).  Zero-stride tensors: nothing is computed before the
-    check."""
+def test_large_m_is_not_ported_yet(monkeypatch):
+    """m >= 3072 is in the port now (the name dates from when it raised):
+    the exact router takes the reference's blocked-regime cleanup settings
+    there, and a dual-mode ``run_batched`` at a blocked-factor shape runs
+    the streaming kernel unblocked, primal mode blocked.  The route is
+    recorded, not run: zero-stride tensors, nothing computed."""
+    import linprog_tpu_torch.engine_batched as teb
     from linprog_tpu_torch.engine import SimplexState
     from linprog_tpu_torch.engine_batched import _stream_variant
 
-    with pytest.raises(NotImplementedError, match="per-lane"):
-        linprog_tpu_torch.exact_cleanup_config(3072)
-    G = torch.zeros(()).expand(1, 4096, 2)
-    with pytest.raises(NotImplementedError, match="3072"):
-        linprog_tpu_torch.solve_batch_exact(torch.zeros((1, 2)), G,
-                                            torch.zeros((1, 4096)))
-    linprog_tpu_torch.exact_cleanup_config(2048)  # the stream regime is in
+    cfg, budget = linprog_tpu_torch.exact_cleanup_config(3072)
+    assert (cfg.refactor_every, cfg.unroll, cfg.polish_pivots, budget) == (
+        384, 1, 4, 2048)
+    cfg2048, _ = linprog_tpu_torch.exact_cleanup_config(2048)
+    assert cfg2048.refactor_every == 128
 
     m, n = 3072, 9216
     assert _stream_variant(m, n)[0] == "stream_blocked"
+    routes = []
+
+    def recording(c, A, b, state, allowed, maxiters, cfg, mode, variant,
+                  n_blk):
+        routes.append((mode, variant, n_blk, cfg.packed_select))
+        return state
+
+    monkeypatch.setattr(teb, "run_batched_stream", recording)
     zero = torch.zeros(())
     state = SimplexState(basis=torch.zeros((), dtype=torch.int32).expand(1, m),
                          inv_B=zero.expand(1, m, m), bfs=zero.expand(1, m),
                          iters=torch.zeros(1, dtype=torch.int32),
                          status=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="per-lane dual engine"):
+    for mode in ("dual", "primal"):
         run_batched(torch.zeros((1, n)), zero.expand(1, m, n),
                     zero.expand(1, m), state,
-                    torch.ones(n, dtype=torch.bool), 10, mode="dual")
+                    torch.ones(n, dtype=torch.bool), 10,
+                    SolverConfig(packed_select=True), mode=mode)
+    assert routes == [("dual", "stream", 256, False),
+                      ("primal", "stream_blocked", 256, True)]
 
 
 def test_singular_basis_is_a_status_not_an_exception():

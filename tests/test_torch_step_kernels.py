@@ -329,11 +329,12 @@ def test_run_batched_torch_matches_reference_xla(pricing, degenerate, refactor):
 
 def test_run_batched_takes_the_per_step_loop_past_every_streaming_variant(
         monkeypatch):
-    """With ``kernels="cuda"`` a primal shape past every streaming variant
-    raises and names ``kernels="torch"``: the kernel setting never runs the
-    plain per-step loop on its own (the name dates from when it did).  The
-    explicit ``"torch"`` choice runs it at the same shape; dual mode there
-    raises under both."""
+    """With ``kernels="cuda"`` a shape past every streaming variant raises
+    in either mode and names ``kernels="torch"``: the kernel setting never
+    runs plain PyTorch on its own (the name dates from when it did).  The
+    explicit ``"torch"`` choice runs the per-step loop there in primal mode
+    and the per-lane engine in dual mode (the Phase-I start is primal
+    feasible, so the dual engine finds it OPTIMAL in one entry)."""
     import linprog_tpu_torch.engine_batched as teb
 
     c1, A1, b, s0 = phase1_batch(seed=3)
@@ -343,17 +344,18 @@ def test_run_batched_takes_the_per_step_loop_past_every_streaming_variant(
     cfg = SolverConfig(pricing="dantzig", refactor_every=8)
     monkeypatch.setattr(teb, "_mega_kernel_fits", lambda m, n, with_at: False)
     monkeypatch.setattr(teb, "_stream_variant", lambda m, n: None)
-    with pytest.raises(NotImplementedError, match="kernels='torch'"):
-        run_batched(*args, simplex_state_from_numpy(s0), allowed, 200, cfg)
+    for mode in ("primal", "dual"):
+        with pytest.raises(NotImplementedError, match="kernels='torch'"):
+            run_batched(*args, simplex_state_from_numpy(s0), allowed, 200,
+                        cfg, mode=mode)
     got = run_batched(*args, simplex_state_from_numpy(s0), allowed, 200,
                       cfg.replace(kernels="torch"))
     assert (got.status.numpy() == st.OPTIMAL).all()
-    with pytest.raises(NotImplementedError, match="per-lane dual engine"):
-        run_batched(*args, simplex_state_from_numpy(s0), allowed, 200, cfg,
-                    mode="dual")
-    with pytest.raises(NotImplementedError, match="per-lane dual engine"):
-        run_batched(*args, simplex_state_from_numpy(s0), allowed, 200,
-                    cfg.replace(kernels="torch"), mode="dual")
+    dual = run_batched(*args, simplex_state_from_numpy(s0), allowed, 200,
+                       cfg.replace(kernels="torch"), mode="dual")
+    assert (dual.status.numpy() == st.OPTIMAL).all()
+    assert (dual.iters.numpy() == 1).all()
+    np.testing.assert_array_equal(dual.basis.numpy(), s0["basis"])
 
 
 def test_batched_refactorize_refreshes_every_lane():

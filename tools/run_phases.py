@@ -9,9 +9,10 @@ runs phases 0 and 1 (environment, build) and then the named ones: 2 panel
 kernel, 3 segment kernel, 3d its devex mode, 4 the m = 256 exact path, 5
 streaming kernel, 6 the m = 2048 exact path, 7 bounded kernel, 8 bounded
 path, 9 per-step kernels, 10 recovery, 11 warm re-solves, 12 router, 13
-calibrate.  Each phase prints its report and exits nonzero
-where chip_smoke.py would; the ``kernels`` line and the last line of
-chip_smoke.py are not printed.
+calibrate, 14 streaming kernel at m = 4096, 15 the m = 4096 exact path, 16
+bounded kernel's block branch and its path at m = 1280.  Each phase prints
+its report and exits nonzero where chip_smoke.py would; the ``kernels``
+line and the last line of chip_smoke.py are not printed.
 """
 
 import os
@@ -27,7 +28,8 @@ PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
           "7": cs.phase_bounded_segment, "8": cs.phase_bounded_path,
           "9": cs.phase_step_kernels, "10": cs.phase_recovery,
           "11": cs.phase_warm, "12": cs.phase_router,
-          "13": cs.phase_calibrate}
+          "13": cs.phase_calibrate, "14": cs.phase_stream_m4096,
+          "15": cs.phase_exact_m4096, "16": cs.phase_bounded_block}
 
 
 def main():
