@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of linprog_tpu_torch on one NVIDIA GPU: the exact pipeline,
-bounded-variable batches, the per-step batched engine, and the batched
-front door (pooled IPM straggler recovery, warm re-solves, the router,
-calibrate()).
+bounded-variable batches, the per-step batched engine, the batched front
+door (pooled IPM straggler recovery, warm re-solves, the router,
+calibrate()), and the first-order and sparse families (PDHG, PDHG ->
+crossover, the shared-pattern sparse IPM with its recovery, the sparse
+front door).
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -77,12 +79,17 @@ Phases, each printing one JSON line:
  12. router: solve_batch_auto at B = 1024, m = n = 128, accuracy 1e-6;
      B = 128, m = n = 512, accuracy 1e-3; B = 256, m = n = 256, accuracy
      1e-6 (wall: the median of 5 runs after a warm-up; launch counts from
-     the first), with the family each took (simplex, ipm, ipm+crossover are all
-     driven); prefer="pdhg" must raise; an unbounded and an infeasible
-     hand-built lane through solve_batch_two_phase give a ray and a Farkas
-     vector;
- 13. calibrate(sizes=(128, 256), lanes=64) on the card: the table and the
-     keys it measured;
+     the first); B = 4, m = n = 4096, accuracy 1e-4 (the default table's
+     pdhg_min_m: the median of 2 runs after a warm-up, all lanes OPTIMAL,
+     against the exact pipeline's dd-certified vertices, HiGHS taking over
+     ten minutes a lane there: lane 0 within 1e-3, every lane within 1e-2,
+     x feasible to 2e-4); with the family each took (simplex,
+     ipm, ipm+crossover and pdhg are all driven); an unbounded and an
+     infeasible hand-built lane through solve_batch_two_phase give a ray
+     and a Farkas vector;
+ 13. calibrate(sizes=(128, 256), lanes=64, pdhg_sizes=(1024,),
+     pdhg_lanes=16) on the card: the table, the keys it measured (all six)
+     and both sides' seconds of the PDHG leg;
  14. stream_m4096: the streaming kernel against its plain version at B = 4,
      (4096, 8192), primal with the blocked-factor direction sum and dual
      unblocked and unpacked (as the m = 4096 crossover launches them): one
@@ -101,7 +108,23 @@ Phases, each printing one JSON line:
      plain version at [16, 1280, 2560] (past the v5e line: one iteration
      bit for bit, 16 in lockstep, packed and unpacked), then
      solve_batch_bounded on B = 16, m = 1280 with phase 8's settings and
-     guards (its iteration cap scaled by m^2; one run, no warm-up).
+     guards (its iteration cap scaled by m^2; one run, no warm-up);
+ 17. pdhg_m256: pdhg_solve_batch_canonical at B = 1024, m = n = 256, eps
+     1e-4, fixed-cadence restarts, 60000 iterations at most (the median
+     wall of 5 runs after a warm-up, the iterations, the device's idle
+     share over a profiled 640-iteration run, the GEMV bound of a step):
+     1024/1024 OPTIMAL, HiGHS within 1e-3 on 16 lanes; then
+     pdhg_crossover_batch_canonical on the same batch: crossed lanes,
+     >= 99 % of them dd-KKT certified, kernel 1 launched in both modes;
+ 18. sparse_ipm_m2048: B = 128, m = n = 2048 at 1 % density from
+     device_sparse_inequality_lps: the raw sparse IPM (eps 1e-3, 40 steps,
+     frac 0.995: wall, OPTIMAL lanes, kernel 2's launches, peak device
+     memory, idle share), recover_stragglers_sparse (no lane worse, kernel
+     3 launched when there are stragglers), the sparse PDHG on the same
+     instances (adaptive, eps 1e-4), solve_batch_auto_sparse at accuracy
+     1e-3 (sparse-ipm) and 1e-2 (sparse-pdhg), HiGHS on two lanes (two
+     worker processes, meanwhile), and the same bits from a repeat of each
+     solve.
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -163,7 +186,21 @@ ROUTER_REGIMES = [  # phase 12: expected family, lanes, m = n, accuracy
     ("ipm+crossover", 256, 256, 1e-6),
 ]
 ROUTER_REPEATS = 5  # timed runs of each regime after the warm-up (median)
+# the first-order regime: the default table's pdhg_min_m at accuracy 1e-4;
+# its runs take seconds, so fewer of them
+ROUTER_PDHG = ("pdhg", 4, 4096, 1e-4)
+ROUTER_PDHG_REPEATS = 2
 CALIBRATE_SIZES = (128, 256)  # phase 13, at 64 lanes
+CALIBRATE_PDHG = ((1024,), 16)  # phase 13's PDHG leg: sizes, lanes
+# phase 17: the reference's pdhg_m256 leg (bench.py:430): lanes, m = n,
+# eps, iteration cap; median of PDHG_REPEATS after a warm-up
+PB, PM, PDHG_EPS, PDHG_MAXITERS = 1024, 256, 1e-4, 60_000
+PDHG_REPEATS = 5
+PROFILE_ITERS = 640  # the profiled window of a PDHG run: 10 chunks of 64
+PROFILE_STEPS = 4  # the profiled window of a sparse IPM run: Newton steps
+# phase 18: the reference's sparse_ipm_m2048 leg (bench.py:668): lanes,
+# m = n, density
+SB, SM, SDENS = 128, 2048, 0.01
 # phases 14 and 15: the reference's exact_m4096 leg (bench.py:757): lanes,
 # m = n; the crossover's lanes are (4096, 8192), past the blocked-factor line
 XLB, XLM = 4, 4096
@@ -177,10 +214,12 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
 REPORTS = {}  # each phase's last printed report, by its name
+T0 = time.time()  # the script's start: each phase report carries its time
 
 
 def emit(obj):
     if "phase" in obj:
+        obj["t_s"] = time.time() - T0
         REPORTS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
@@ -327,6 +366,23 @@ def highs_gap(cost, c, lanes, **problem):
             fail(f"HiGHS did not solve lane {i} ({ref.message})")
         gaps.append(abs(float(cost[i]) - ref.fun) / max(1.0, abs(ref.fun)))
     return float(max(gaps))
+
+
+def exact_check(x, cost, c, G, h):
+    """``x``, ``cost`` against the exact pipeline's vertices on the lanes
+    whose basis the dd-KKT certificate passes: each lane's relative
+    objective gap (None where uncertified) and its primal infeasibility
+    ``||max(Gx - h, 0)|| / (1 + ||h||)`` in float64."""
+    exact, _ = lt.solve_batch_exact(c, G, h)
+    ok = lt.certify_vertex_batch(c, G, h, exact.basis)["certified"].tolist()
+    opt = exact.cost.double()
+    rel = ((cost.double() - opt).abs() / opt.abs().clamp_min(1.0)).tolist()
+    viol = torch.clamp_min(torch.einsum("bmn,bn->bm", G.double(), x.double())
+                           - h.double(), 0.0)
+    infeas = (torch.linalg.vector_norm(viol, dim=1)
+              / (1.0 + torch.linalg.vector_norm(h.double(), dim=1)))
+    return {"gaps": [g if k else None for g, k in zip(rel, ok)],
+            "optimum": opt.tolist(), "primal_infeasibility": infeas.tolist()}
 
 
 def phase_environment():
@@ -2026,9 +2082,10 @@ def phase_router():
     from linprog_tpu_torch.router import auto_summary
 
     runs, driven, all_launches = [], {}, {}
-    for expect, lanes, m, accuracy in ROUTER_REGIMES:
+    for expect, lanes, m, accuracy in ROUTER_REGIMES + [ROUTER_PDHG]:
         # vertex families: HiGHS gap 1e-5; the interior family: 5e-3
-        gap_tol = 1e-5 if accuracy <= 1e-5 else None
+        gap_tol = 1e-5 if accuracy <= 1e-5 else 5e-3
+        first_order = expect == "pdhg"
         gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60 + m)
         c, G, h = device_inequality_lps(gen, lanes, m, m, DEVICE)
         prefers = [None]
@@ -2043,37 +2100,58 @@ def phase_router():
             _reset_counts()
             (res, info), wall = _walled(run)
             launches = _read_counts()
-            walls = [wall] + [_walled(run)[1]
-                              for _ in range(ROUTER_REPEATS - 1)]
+            repeats = ROUTER_PDHG_REPEATS if first_order else ROUTER_REPEATS
+            walls = [wall] + [_walled(run)[1] for _ in range(repeats - 1)]
             wall = float(np.median(walls))
             summ = auto_summary(res, info)
-            gap = highs_gap(res.cost, c, 4, A_ub=G, b_ub=h)
+            t_h = time.time()
+            if first_order:
+                # HiGHS takes over ten minutes a lane at m = 4096: the
+                # oracle is the exact pipeline's dd-certified vertices
+                check = exact_check(res.x, res.cost, c, G, h)
+                gaps = [g for g in check["gaps"] if g is not None]
+                gap = max(gaps) if gaps else float("inf")
+            else:
+                gap, check = highs_gap(res.cost, c, 4, A_ub=G, b_ub=h), None
+            oracle_s = time.time() - t_h
             runs.append({"expected": expect, "prefer": prefer, **summ,
                          "wall_s": wall, "walls_s": walls,
                          "lps_per_sec": lanes / wall,
                          "lane_status": status_counts(res.status),
-                         "launches": launches, "highs_lanes": 4,
-                         "max_rel_gap_vs_highs": gap})
+                         "iters_median": int(res.iters.median()),
+                         "iters_max": int(res.iters.max()),
+                         "launches": launches,
+                         "oracle": ("certified exact vertices" if first_order
+                                    else "HiGHS on 4 lanes"),
+                         "oracle_s": oracle_s, "max_rel_gap_vs_oracle": gap,
+                         **({"exact_check": check} if check else {})})
             driven[info["family"]] = runs[-1]
             all_launches[f"router_{info['family']}_m{m}"] = launches
             if res.x.shape != (lanes, m):
                 fail(f"router {info['family']}: x has shape {res.x.shape}")
             if info["family"] != (prefer or lt.choose_family(m, accuracy)):
                 fail(f"router: took {info['family']} at m={m}")
-            if gap_tol is not None:
+            if accuracy <= 1e-5 or first_order:
                 if summ["optimal"] != lanes:
                     fail(f"router {info['family']} m={m}: "
                          f"{runs[-1]['lane_status']}")
-                if not gap <= gap_tol:
-                    fail(f"router {info['family']} m={m}: HiGHS gap "
-                         f"{gap:.3e} > {gap_tol}")
-            elif not gap <= 5e-3:
-                fail(f"router ipm m={m}: HiGHS gap {gap:.3e} > 5e-3")
-    pdhg_raises = False
-    try:
-        lt.solve_batch_auto(c, G, h, prefer="pdhg")
-    except NotImplementedError:
-        pdhg_raises = True
+            if first_order:
+                # eps 1e-4 bounds the scaled KKT residuals, not the
+                # objective: one lane of |optimum| 18 among lanes of
+                # 700-2300 is 3.3e-3 off in f32 and 3.0e-3 in float64
+                # (tools/diag_pdhg_m4096.py); lane 0 within 1e-3, every
+                # certified lane within 1e-2, x feasible to 2 eps
+                g0 = check["gaps"][0]
+                if g0 is None or not g0 <= 1e-3:
+                    fail(f"router pdhg m={m}: lane 0 gap {g0} > 1e-3")
+                gap_tol = 1e-2
+                worst = max(check["primal_infeasibility"])
+                if not worst <= 2 * accuracy:
+                    fail(f"router pdhg m={m}: primal infeasibility "
+                         f"{worst:.3e} > {2 * accuracy}")
+            if not gap <= gap_tol:
+                fail(f"router {info['family']} m={m}: gap {gap:.3e} to "
+                     f"{runs[-1]['oracle']} > {gap_tol}")
 
     # lane 0: min -x1 - x2, x1 - x2 = 1, x3 = 1 (unbounded along (1, 1, 0));
     # lane 1: -x1 - x2 = 1 (infeasible); lane 2: min x1 + 2 x2, x1 + x2 = 1
@@ -2091,10 +2169,9 @@ def phase_router():
              "ray": d.tolist(), "max_abs_Ad": (A[0] @ d).abs().max().item(),
              "c_dot_d": float(cc[0] @ d), "farkas_y": y.tolist(),
              "max_yA": (y @ A[1]).max().item(), "y_dot_b": float(y @ b[1])}
-    emit({"phase": "router", "runs": runs, "pdhg_raises": pdhg_raises,
-          "certificates": certs})
+    emit({"phase": "router", "runs": runs, "certificates": certs})
 
-    for family in ("simplex", "ipm", "ipm+crossover"):
+    for family in ("simplex", "ipm", "ipm+crossover", "pdhg"):
         if family not in driven:
             fail(f"router: family {family} was not driven")
     if driven["ipm"]["launches"]["panel_cholinv"] <= 0:
@@ -2103,8 +2180,6 @@ def phase_router():
         fail("router simplex: kernel solve_segment was never launched")
     if driven["ipm"]["optimal"] < driven["ipm"]["lanes"] - 1:
         fail(f"router ipm: {driven['ipm']['lane_status']}")
-    if not pdhg_raises:
-        fail('router: prefer="pdhg" did not raise NotImplementedError')
     if res.status.tolist() != [st.PRIMAL_UNBOUNDED, st.PRIMAL_INFEASIBLE,
                                st.OPTIMAL]:
         fail(f"router certificates: statuses {certs['lane_status']}")
@@ -2120,12 +2195,15 @@ def phase_calibrate():
     """Phase 13: calibrate() on the card at two sizes."""
     from linprog_tpu_torch import calibration
 
+    pdhg_sizes, pdhg_lanes = CALIBRATE_PDHG
     _reset_counts()
     out, wall = _walled(lambda: calibration.calibrate(
-        sizes=CALIBRATE_SIZES, lanes=64, device=DEVICE))
+        sizes=CALIBRATE_SIZES, lanes=64, device=DEVICE,
+        pdhg_sizes=pdhg_sizes, pdhg_lanes=pdhg_lanes))
     launches = _read_counts()
     (kind, table), = out.items()
     emit({"phase": "calibrate", "kind": kind, "table": table,
+          "pdhg_seconds": table["_provenance"]["pdhg_seconds"],
           "wall_s": wall, "launches": launches,
           "in_use": calibration.get_table()})
     schema = {"exact_simplex_max_m", "moderate_simplex_max_m", "pdhg_min_m",
@@ -2134,14 +2212,354 @@ def phase_calibrate():
         fail(f"calibrate: table keyed by {kind!r}")
     if not schema <= set(table):
         fail(f"calibrate: keys missing: {sorted(schema - set(table))}")
-    if set(table["_measured"]) != schema - {"pdhg_min_m"}:
+    if set(table["_measured"]) != schema:
         fail(f"calibrate: measured {table['_measured']}")
+    if set(table["_provenance"]["pdhg_seconds"]) != {str(m) for m in
+                                                     pdhg_sizes}:
+        fail(f"calibrate: PDHG leg {table['_provenance']['pdhg_seconds']}")
     if [r[0] for r in table["seg_by_m"][:2]] != list(CALIBRATE_SIZES):
         fail(f"calibrate: seg_by_m {table['seg_by_m']}")
     for name in ("solve_segment", "panel_cholinv"):
         if launches[name] <= 0:
             fail(f"calibrate: kernel {name} was never launched")
     return {"calibrate": launches}
+
+
+def idle_share(fn):
+    """Run ``fn()`` once under ``torch.profiler`` and read the device's
+    timeline: the busy time (the union of the kernels' and copies'
+    intervals), the window from the first device event's start to the
+    last one's end, and the idle share of that window; the host wall of
+    the profiled run beside them (the profiler's own cost included).
+    ``None`` where the profiler recorded no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.time()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    window = spans[-1][1] - spans[0][0]
+    return {"device_busy_ms": busy / 1e3, "device_window_ms": window / 1e3,
+            "idle_share": 1.0 - busy / window if window > 0 else None,
+            "device_events": len(spans), "host_wall_ms": wall * 1e3,
+            "profile_s": time.time() - t_all}
+
+
+def _graphed_idle(eager, wall, iters_max):
+    """The graphed run's idle share, estimated: the kernels are the eager
+    run's (the same bits), so the device's busy time an iteration is the
+    eager profile's, over the window's iterations (its set-up and checks
+    included); the lanes run in lockstep to ``iters_max``."""
+    prof = eager["profile_window"]
+    if "device_busy_ms" not in prof:
+        return None
+    busy = prof["device_busy_ms"] / prof["maxiters"] * iters_max / 1e3
+    return 1.0 - busy / wall
+
+
+def _eager_pdhg(run, graphed):
+    """The same solve with each step launched from the host (no captured
+    graph): the median wall of two runs, the idle share of a profiled
+    window, and whether it gives the graphed run's bits."""
+    from linprog_tpu_torch import pdhg
+
+    graphed_chunks = pdhg._graphed
+    pdhg._graphed = lambda chunk, state: chunk
+    try:
+        out, w1 = _walled(run)
+        w2 = _walled(run)[1]
+        prof = idle_share(lambda: run(PROFILE_ITERS))
+    finally:
+        pdhg._graphed = graphed_chunks
+    return {"wall_s": float(np.median([w1, w2])), "walls_s": [w1, w2],
+            "profile_window": {"maxiters": PROFILE_ITERS, **(prof or {})},
+            "same_bits_as_graphed": all(same_bits(a, b)
+                                        for a, b in zip(out, graphed))}
+
+
+def _pdhg_gemv_bound_ms(lanes, m, n):
+    """One dense PDHG step's least time: ``K'y`` and ``K(2x+ - x)`` each
+    read K once (the vectors are noise beside it)."""
+    return bound_ms(2 * 4 * lanes * m * n, 2 * 2 * lanes * m * n)[0]
+
+
+def phase_pdhg_m256():
+    """Phase 17: pdhg_solve_batch_canonical at B = 1024, m = n = 256, eps
+    1e-4, fixed-cadence restarts (the reference's pdhg_m256 leg), then
+    pdhg_crossover_batch_canonical on the same batch."""
+    from linprog_tpu_torch.pdhg import PDHGConfig, pdhg_solve_batch_canonical
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, G, h = device_inequality_lps(gen, PB, PM, PM, DEVICE)
+    cfg = PDHGConfig(eps_rel=PDHG_EPS, adaptive=False)
+
+    def run(maxiters=PDHG_MAXITERS):
+        return pdhg_solve_batch_canonical(c, G, h, maxiters=maxiters,
+                                          cfg=cfg)
+
+    first, warm = _walled(run)
+    walls = [_walled(run)[1] for _ in range(PDHG_REPEATS)]
+    wall = float(np.median(walls))
+    x, cost, status, iters = first
+    eager = _eager_pdhg(run, first)
+    gap = highs_gap(cost, c, 16, A_ub=G, b_ub=h)
+    it_max = int(iters.max())
+    step_bound = _pdhg_gemv_bound_ms(PB, PM, PM)
+
+    _reset_counts()
+    (xres, crossed), xwall = _walled(
+        lambda: lt.pdhg_crossover_batch_canonical(c, G, h))
+    launches = _read_counts()
+    cert = lt.certify_vertex_batch(c, G, h, xres.basis)
+    certified = int((cert["certified"] & crossed).sum())
+    xgap = highs_gap(xres.cost, c, 4, A_ub=G, b_ub=h)
+    out = {"phase": "pdhg_m256", "lanes": PB, "m": PM, "n": PM,
+           "seed": SEED, "eps_rel": PDHG_EPS, "adaptive": False,
+           "maxiters": PDHG_MAXITERS, "lane_status": status_counts(status),
+           "wall_s": wall, "walls_s": walls, "warmup_wall_s": warm,
+           "lps_per_sec": PB / wall,
+           "iters_median": int(iters.median()), "iters_max": it_max,
+           # lockstep: every lane steps until the slowest stops
+           "wall_ms_per_step": 1e3 * wall / it_max,
+           "gemv_bound_ms_per_step": step_bound,
+           "idle_share_est": _graphed_idle(eager, wall, it_max),
+           "eager_steps": eager,
+           "highs_lanes": 16, "max_rel_gap_vs_highs": gap,
+           "crossover": {"crossed": int(crossed.sum()),
+                         "certified_of_crossed": certified,
+                         "wall_s": xwall,
+                         "lane_status": status_counts(xres.status),
+                         "highs_lanes": 4, "max_rel_gap_vs_highs": xgap,
+                         "launches": launches}}
+    emit(out)
+    if int((status == st.OPTIMAL).sum()) != PB:
+        fail(f"pdhg m=256: {out['lane_status']}")
+    if not gap <= 1e-3:
+        fail(f"pdhg m=256: HiGHS gap {gap:.3e} > 1e-3")
+    if int(crossed.sum()) < 1 or certified < int(0.99 * int(crossed.sum())):
+        fail(f"pdhg crossover: {certified} certified of "
+             f"{int(crossed.sum())} crossed")
+    ok = crossed[:4].cpu()
+    if bool(ok.all()) and not xgap <= 1e-5:
+        fail(f"pdhg crossover: HiGHS gap {xgap:.3e} > 1e-5")
+    if (launches["solve_segment_dual"] <= 0
+            or launches["solve_segment_primal"] <= 0):
+        fail(f"pdhg crossover: kernel solve_segment launched {launches}")
+    return {"pdhg_crossover_m256": launches}
+
+
+def _highs_sparse_lane(c, rows, cols, vals, h, m, n):
+    """HiGHS (interior point, then its crossover) on one sparse lane:
+    ``(status, objective)``; run in a worker process."""
+    from scipy import sparse
+    from scipy.optimize import linprog
+
+    G = sparse.csr_matrix((vals, (rows, cols)), shape=(m, n))
+    r = linprog(c, A_ub=G, b_ub=h, bounds=(0, None), method="highs-ipm")
+    return r.status, r.fun
+
+
+def _same_result(a, b):
+    """Two results equal bit for bit, field by field (None fields too)."""
+    return all((x is None and y is None) or same_bits(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_sparse_m2048():
+    """Phase 18: the shared-pattern sparse families at B = 128,
+    m = n = 2048, 1 % density (the reference's sparse_ipm_m2048 leg): the
+    raw sparse IPM, its straggler recovery, the sparse PDHG on the same
+    instances, the sparse front door at two accuracies; HiGHS on two lanes
+    (in two worker processes while the card runs), the peak device memory,
+    and the same bits from a repeat of each solve."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from linprog_tpu_torch.generators import (
+        device_sparse_inequality_lps,
+        random_sparse_pattern,
+    )
+
+    t0 = time.time()
+    rows, cols = random_sparse_pattern(SM, SM, SDENS, seed=0)
+    pat = lt.SparsePattern(rows, cols, SM, SM, device=DEVICE)
+    pattern_s = time.time() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, vals, h = device_sparse_inequality_lps(gen, SB, rows, cols, SM, SM,
+                                              DEVICE)
+    icfg = lt.IPMConfig(eps_rel=1e-3, maxiters=40, frac=0.995)
+
+    # HiGHS takes tens of seconds a lane here: two worker processes solve
+    # the first two lanes while the card runs the phase
+    lanes_h = [tuple(t[i].double().cpu().numpy() for t in (c, vals, h))
+               for i in range(2)]
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing
+                               .get_context("spawn"))
+    try:
+        jobs = [pool.submit(_highs_sparse_lane, ci, rows, cols, vi, hi, SM,
+                            SM) for ci, vi, hi in lanes_h]
+        return _sparse_m2048(c, rows, cols, vals, h, pat, icfg, pattern_s,
+                             jobs)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _sparse_m2048(c, rows, cols, vals, h, pat, icfg, pattern_s, jobs):
+    """Phase 18's solves, report and guards; ``jobs`` are HiGHS's two
+    lanes, running meanwhile."""
+    from linprog_tpu_torch.pdhg import PDHGConfig, pdhg_solve_batch_sparse
+
+    shape = (SM, SM)
+    t_h = time.time()
+
+    def ipm():
+        return lt.ipm_solve_batch_sparse_canonical(c, rows, cols, vals, h,
+                                                   shape, icfg, pattern=pat)
+
+    _, warm = _walled(ipm)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    raw, raw_wall = _walled(ipm)
+    raw_launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    raw2 = ipm()
+    # the first PROFILE_STEPS Newton steps (a whole solve is ~20k events)
+    ipm_prof = idle_share(lambda: lt.ipm_solve_batch_sparse_canonical(
+        c, rows, cols, vals, h, shape,
+        lt.IPMConfig(eps_rel=1e-3, maxiters=PROFILE_STEPS, frac=0.995),
+        pattern=pat))
+
+    _reset_counts()
+    rec, rec_wall = _walled(lambda: lt.recover_stragglers_sparse(
+        c, rows, cols, vals, h, shape, raw))
+    rec_launches = _read_counts()
+    rec2 = lt.recover_stragglers_sparse(c, rows, cols, vals, h, shape, raw2)
+    n_raw = int((raw.status == st.OPTIMAL).sum())
+    n_rec = int((rec.status == st.OPTIMAL).sum())
+    stragglers = SB - n_raw
+    worse = int((((raw.status == st.OPTIMAL) & (rec.status != st.OPTIMAL))
+                 | ((rec.status != st.OPTIMAL)
+                    & (rec.status != raw.status))).sum())
+
+    lb = torch.zeros((SB, SM), device=DEVICE)
+    ub = torch.full((SB, SM), float("inf"), device=DEVICE)
+    pcfg = PDHGConfig(eps_rel=1e-4, adaptive=True, stall_reset_beta=0.95)
+
+    def pdhg(maxiters=PDHG_MAXITERS):
+        return pdhg_solve_batch_sparse(c, rows, cols, vals, h, 0, lb, ub,
+                                       shape, maxiters=maxiters, cfg=pcfg)
+
+    pst, pdhg_warm = _walled(pdhg)
+    pst2, pdhg_wall = _walled(pdhg)
+    pdhg_eager = _eager_pdhg(pdhg, pst2)
+    pcost = (c * pst2.x).sum(dim=1)
+
+    autos = {}
+    for acc in (1e-3, 1e-2):
+        _reset_counts()
+        (ares, ainfo), awall = _walled(lambda: lt.solve_batch_auto_sparse(
+            c, rows, cols, vals, h, shape, accuracy=acc, pattern=pat))
+        autos[str(acc)] = {"family": ainfo["family"], "wall_s": awall,
+                           "lane_status": status_counts(ares.status),
+                           "launches": _read_counts()}
+
+    # HiGHS on two lanes: vertices within 1e-5, the IPM's eps 1e-3
+    # answers within 5e-3, PDHG's eps 1e-4 answers within 1e-3
+    highs = []
+    for i, job in enumerate(jobs):
+        status, fun = job.result(timeout=900)
+        if status != 0:
+            fail(f"sparse m=2048: HiGHS did not solve lane {i}")
+        highs.append(fun)
+    highs_wait_s = time.time() - t_h
+
+    def rel(a, i):
+        return abs(float(a[i]) - highs[i]) / max(1.0, abs(highs[i]))
+
+    gaps = {"raw_ipm": [rel(raw.cost, i) for i in range(2)],
+            "recovered": [rel(rec.cost, i) for i in range(2)],
+            "pdhg": [rel(pcost, i) for i in range(2)]}
+    repeat = {"raw_ipm": _same_result(raw, raw2),
+              "recovered": _same_result(rec, rec2),
+              "pdhg": all(same_bits(a, b) for a, b in zip(pst, pst2))}
+    out = {"phase": "sparse_ipm_m2048", "lanes": SB, "m": SM, "n": SM,
+           "density": SDENS, "nnz": int(rows.shape[0]),
+           "k_row": pat.k_row, "k_col": pat.k_col,
+           "pairs": int(pat.pair_ids.size),
+           "distinct_targets": int(pat.pair_targets.size),
+           "pattern_host_s": pattern_s,
+           "ipm": {"eps_rel": icfg.eps_rel, "maxiters": icfg.maxiters,
+                   "wall_s": raw_wall, "warmup_wall_s": warm,
+                   "lps_per_sec": SB / raw_wall, "optimal": n_raw,
+                   "lane_status": status_counts(raw.status),
+                   "newton_steps_median": int(raw.iters.median()),
+                   "newton_steps_max": int(raw.iters.max()),
+                   "launches": raw_launches, "peak_mem_gb": peak_gb,
+                   "profile": {"newton_steps": PROFILE_STEPS,
+                               **(ipm_prof or {})}},
+           "recovery": {"wall_s": rec_wall,
+                        "raw_plus_recovery_lps_per_sec":
+                            SB / (raw_wall + rec_wall),
+                        "stragglers": stragglers,
+                        "optimal": n_rec, "lanes_worse": worse,
+                        "lane_status": status_counts(rec.status),
+                        "launches": rec_launches},
+           "pdhg": {"eps_rel": pcfg.eps_rel, "adaptive": True,
+                    "wall_s": pdhg_wall, "warmup_wall_s": pdhg_warm,
+                    "lps_per_sec": SB / pdhg_wall,
+                    "lane_status": status_counts(pst2.status),
+                    "iters_median": int(pst2.iters.median()),
+                    "iters_max": int(pst2.iters.max()),
+                    "wall_ms_per_step": 1e3 * pdhg_wall
+                    / max(1, int(pst2.iters.max())),
+                    "idle_share_est": _graphed_idle(
+                        pdhg_eager, pdhg_wall, int(pst2.iters.max())),
+                    "eager_steps": pdhg_eager},
+           "auto": autos, "highs_lanes": 2,
+           "highs_wait_s": highs_wait_s,
+           "rel_gaps_vs_highs": gaps,
+           "same_bits_on_repeat": repeat}
+    emit(out)
+    if n_rec < n_raw or worse:
+        fail(f"sparse m=2048: recovery {n_rec} OPTIMAL from {n_raw}, "
+             f"{worse} lanes worse")
+    if raw_launches["panel_cholinv"] <= 0:
+        fail("sparse m=2048: kernel panel_cholinv was never launched")
+    if stragglers and rec_launches["solve_segment_stream"] <= 0:
+        fail("sparse m=2048: kernel solve_segment_stream was never launched")
+    if not all(repeat.values()):
+        fail(f"sparse m=2048: a repeat gave other bits: {repeat}")
+    if autos["0.001"]["family"] != "sparse-ipm":
+        fail(f"sparse m=2048: accuracy 1e-3 took {autos['0.001']['family']}")
+    if autos["0.01"]["family"] != "sparse-pdhg":
+        fail(f"sparse m=2048: accuracy 1e-2 took {autos['0.01']['family']}")
+    for i in range(2):
+        bar = (1e-5 if int(rec.basis[i, 0]) >= 0 else 5e-3)
+        if not gaps["recovered"][i] <= bar:
+            fail(f"sparse m=2048: lane {i} recovered gap "
+                 f"{gaps['recovered'][i]:.3e} > {bar}")
+        if (int(pst2.status[i]) == st.OPTIMAL
+                and not gaps["pdhg"][i] <= 1e-3):
+            fail(f"sparse m=2048: lane {i} PDHG gap {gaps['pdhg'][i]:.3e}")
+    return {"sparse_ipm_m2048": raw_launches,
+            "sparse_recovery_m2048": rec_launches}
 
 
 def _hold_stream_lockstep(A, c, apen, state0, cfg, dual):
@@ -2480,6 +2898,8 @@ def main():
     paths["exact_m4096"] = phase_exact_m4096()
     blk = phase_bounded_block()
     paths["bounded_block"] = blk["path"]["launches"]
+    paths.update(phase_pdhg_m256())
+    paths.update(phase_sparse_m2048())
 
     def entry(name, source, replaces, n_launches, rep, new_shapes=None):
         by_path = {path: counts[name] for path, counts in paths.items()

@@ -9,8 +9,14 @@ it -> dd-KKT certificate).  Beside it: warm re-solves
 :func:`reoptimize_ipm_batch_canonical`), the standard-form IPM, rays and
 Farkas vectors, bounded-variable batches (:func:`solve_batch_bounded`),
 the per-step batched engine, the per-lane engines (``engine.run``,
-``bounded.run_bounded``, ``bounded.solve_bounded_two_phase``) and
-``calibration.calibrate``.  The package
+``bounded.run_bounded``, ``bounded.solve_bounded_two_phase``),
+``calibration.calibrate``, and the first-order and sparse families: PDHG
+(dense, shared-pattern sparse, general form: :class:`PDHGSolver`; the
+router's ``"pdhg"`` family; :func:`pdhg_crossover_batch_canonical`), the
+shared-pattern sparse IPM with its straggler recovery
+(:func:`ipm_solve_batch_sparse_canonical`,
+:func:`recover_stragglers_sparse`) and the sparse front door
+(:func:`solve_batch_auto_sparse`).  The package
 has six hand-written CUDA kernels: the whole-segment simplex kernel
 (``ops/solve_kernel.py``), its streaming counterpart for large m
 (``ops/stream_kernel.py``), the panel inverse-Cholesky kernel
@@ -26,7 +32,11 @@ exact split products of the double-word arithmetic and pick wrong pivots.
 from .batch import solve_batch_bounded, solve_batch_two_phase
 from .certify import certificate_summary, certify_vertex_batch
 from .config import DEFAULT_CONFIG, FAST_CONFIG, SolverConfig, tuned_config
-from .crossover import crossover_batch_canonical, ipm_crossover_batch_canonical
+from .crossover import (
+    crossover_batch_canonical,
+    ipm_crossover_batch_canonical,
+    pdhg_crossover_batch_canonical,
+)
 from .ipm import (
     DEFAULT_IPM_CONFIG,
     IPMConfig,
@@ -36,11 +46,19 @@ from .ipm import (
     reoptimize_ipm_batch_canonical,
     warm_start_point,
 )
+from .ipm_sparse import (
+    SparsePattern,
+    ipm_solve_batch_sparse_canonical,
+    recover_stragglers_sparse,
+)
+from .pdhg import PDHGConfig, PDHGSolver
 from .results import BatchResult, LinProgResult
 from .router import (
     choose_family,
+    choose_family_sparse,
     exact_cleanup_config,
     solve_batch_auto,
+    solve_batch_auto_sparse,
     solve_batch_exact,
 )
 
@@ -51,18 +69,26 @@ __all__ = [
     "FAST_CONFIG",
     "IPMConfig",
     "LinProgResult",
+    "PDHGConfig",
+    "PDHGSolver",
     "SolverConfig",
+    "SparsePattern",
     "certificate_summary",
     "certify_vertex_batch",
     "choose_family",
+    "choose_family_sparse",
     "crossover_batch_canonical",
     "exact_cleanup_config",
     "ipm_crossover_batch_canonical",
     "ipm_solve_batch_canonical",
+    "ipm_solve_batch_sparse_canonical",
     "ipm_solve_batch_standard",
+    "pdhg_crossover_batch_canonical",
     "recover_stragglers_pooled",
+    "recover_stragglers_sparse",
     "reoptimize_ipm_batch_canonical",
     "solve_batch_auto",
+    "solve_batch_auto_sparse",
     "solve_batch_bounded",
     "solve_batch_exact",
     "solve_batch_two_phase",

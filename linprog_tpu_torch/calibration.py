@@ -96,7 +96,8 @@ def seg_for_m(m: int, device_kind: Optional[str] = None) -> int:
 
 def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
               save_path: Optional[str] = None,
-              seg_grid=(256, 512, 768, 1024), device="cuda") -> dict:
+              seg_grid=(256, 512, 768, 1024), device="cuda",
+              pdhg_sizes=(1024, 2048), pdhg_lanes: int = 16) -> dict:
     """Measure the routing thresholds on ``device``.
 
     For each size in ``sizes``, on ``lanes`` random dense instances made on
@@ -119,12 +120,18 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
       primal residual and duality gap at a tight target): requests below
       ``10^floor(log10(floor / 30))`` need the exact pipeline.
 
-    ``pdhg_min_m`` is inherited and not named in ``_measured``: its leg
-    waits for the first-order family.  Returns ``{card name: thresholds}``
-    with ``"_measured"`` (the keys taken from live timings) and
-    ``"_provenance"`` (the probe's scale: boundaries move with the batch
-    size as well as with m, and the seconds behind every decision, by
-    size); ``save_path`` writes a file of the data file's schema.
+    * ``pdhg_min_m`` -- over ``pdhg_sizes`` (``pdhg_lanes`` instances
+      from ``seed + 1``): PDHG (eps 1e-4, fixed-cadence restarts, 40000
+      iterations at most) against the raw IPM at eps 1e-4; the smallest
+      size where PDHG wins, or twice the largest size if it never does.
+      An empty ``pdhg_sizes`` inherits the key.
+
+    Returns ``{card name: thresholds}`` with ``"_measured"`` (the keys
+    taken from live timings) and ``"_provenance"`` (the probe's scale:
+    boundaries move with the batch size as well as with m, and the seconds
+    behind every decision, by size; the PDHG leg's under
+    ``"pdhg_seconds"``); ``save_path`` writes a file of the data file's
+    schema.
     """
     import math
     import time
@@ -245,11 +252,35 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
     table["seg_by_m"] = seg_rows + (keep or [[0, seg_rows[-1][1]]])
     measured.append("seg_by_m")
 
+    pdhg_seconds = {}
+    if pdhg_sizes:
+        from .pdhg import PDHGConfig, pdhg_solve_batch_canonical
+
+        pcfg = PDHGConfig(eps_rel=1e-4, adaptive=False)
+        pdhg_min = None
+        for m in pdhg_sizes:
+            gen = torch.Generator(device=dev).manual_seed(seed + 1)
+            c, G, h = device_inequality_lps(gen, pdhg_lanes, m, m, dev)
+            t_pdhg = _time(lambda: pdhg_solve_batch_canonical(
+                c, G, h, maxiters=40_000, cfg=pcfg))
+            t_ipm = _time(lambda: ipm_solve_batch_canonical(
+                c, G, h, IPMConfig(eps_rel=1e-4)))
+            pdhg_seconds[str(int(m))] = {"pdhg": t_pdhg, "ipm": t_ipm}
+            if t_pdhg < t_ipm:
+                pdhg_min = int(m)
+                break
+        table["pdhg_min_m"] = (pdhg_min if pdhg_min is not None
+                               else 2 * int(max(pdhg_sizes)))
+        measured.append("pdhg_min_m")
+
     table["_measured"] = measured
     table["_provenance"] = {"lanes": int(lanes),
                             "sizes": [int(s) for s in sizes],
                             "seg_grid": [int(s) for s in seg_grid],
-                            "seconds": seconds}
+                            "seconds": seconds,
+                            "pdhg_sizes": [int(s) for s in pdhg_sizes],
+                            "pdhg_lanes": int(pdhg_lanes),
+                            "pdhg_seconds": pdhg_seconds}
     out = {kind: table}
     if save_path:
         with open(save_path, "w") as f:

@@ -16,6 +16,7 @@ from .bounded import BoundedState
 from .config import SolverConfig
 from .engine import SimplexState
 from .ipm import IPMConfig, IPMState
+from .pdhg import PDHGState
 from .ops.bounded_kernel import BoundedSegmentState
 from .ops.solve_kernel import SegmentState
 from .results import BatchResult
@@ -99,6 +100,22 @@ def ipm_state_from_numpy(state, device="cpu", dtype=torch.float32) -> IPMState:
 
 
 def ipm_state_to_numpy(state: IPMState) -> dict:
+    return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def pdhg_state_from_numpy(state, device="cpu", dtype=torch.float32
+                          ) -> PDHGState:
+    """Reference ``PDHGState`` (batched arrays) -> port state: counters
+    and status int32, ``halpern_off`` bool, the rest in ``dtype``."""
+    f = _fields(state)
+    ints = ("inner_count", "iters", "status")
+    return PDHGState(**{
+        k: _t(f[k], device, torch.int32 if k in ints else
+              torch.bool if k == "halpern_off" else dtype)
+        for k in PDHGState._fields})
+
+
+def pdhg_state_to_numpy(state: PDHGState) -> dict:
     return {k: _np(v) for k, v in state._asdict().items()}
 
 

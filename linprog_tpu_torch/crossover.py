@@ -216,3 +216,36 @@ def ipm_crossover_batch_canonical(c, G, h, ipm_cfg=None,
         y=res.y,
     )
     return merged, crossed
+
+
+def pdhg_crossover_batch_canonical(c, G, h, pdhg_maxiters: int = 20_000,
+                                   crossover_maxiters: int = 512,
+                                   cfg: SolverConfig = DEFAULT_CONFIG,
+                                   pdhg_cfg=None):
+    """Batched PDHG, then crossover at the first-order points.
+
+    Runs :func:`linprog_tpu_torch.pdhg.pdhg_solve_batch_canonical`
+    (Ruiz-equilibrated, fixed-cadence restarts unless ``pdhg_cfg`` says
+    otherwise: the lanes run in lockstep, and the crossover needs only an
+    approximate support), then :func:`crossover_batch_canonical` at every
+    lane with a finite iterate, ITER_LIMIT lanes included.  Where the
+    crossover verifies an optimal basis its vertex replaces the PDHG
+    answer.  Returns ``(BatchResult, crossed)``.
+    """
+    from .pdhg import PDHGConfig, pdhg_solve_batch_canonical
+
+    pdhg_cfg = pdhg_cfg or PDHGConfig(adaptive=False)
+    x, cost, status, iters = pdhg_solve_batch_canonical(
+        c, G, h, maxiters=pdhg_maxiters, cfg=pdhg_cfg)
+    x = torch.where(_finite_rows(x)[:, None], x, 0.0)
+    res, crossed = crossover_batch_canonical(
+        c, G, h, x, maxiters=crossover_maxiters, cfg=cfg)
+    merged = BatchResult(
+        x=torch.where(crossed[:, None], res.x, x),
+        basis=res.basis,  # meaningful only where crossed
+        cost=torch.where(crossed, res.cost, cost),
+        iters=iters + res.iters,
+        status=torch.where(crossed, res.status, status).to(torch.int32),
+        y=res.y,
+    )
+    return merged, crossed

@@ -108,3 +108,64 @@ def device_standard_form_batch(c, G, h):
     c_std = torch.cat([c, torch.zeros((B, m), dtype=G.dtype, device=G.device)],
                       dim=1)
     return c_std, A, b
+
+
+def random_sparse_pattern(m: int, n: int, density: float, seed: int = 0):
+    """Host COO pattern ``(rows, cols)`` (int32) with ~``density`` fill and
+    at least one entry in every row and every column; the same arrays as
+    the reference's generator for the same seed."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((m, n)) < density
+    empty_rows = np.flatnonzero(~mask.any(axis=1))
+    mask[empty_rows, rng.integers(0, n, size=empty_rows.size)] = True
+    empty_cols = np.flatnonzero(~mask.any(axis=0))
+    mask[rng.integers(0, m, size=empty_cols.size), empty_cols] = True
+    rows, cols = np.nonzero(mask)
+    return rows.astype(np.int32), cols.astype(np.int32)
+
+
+def random_sparse_inequality_lps(batch: int, m: int, n: int,
+                                 density: float = 0.01, seed: int = 0,
+                                 dtype=np.float32):
+    """Host batch of feasible, bounded sparse canonical LPs on one shared
+    pattern, by the construction of :func:`random_inequality_lps`:
+    ``(c[B, n], rows[nnz], cols[nnz], vals[B, nnz], h[B, m])``, the same
+    arrays as the reference's generator for the same seed."""
+    rng = np.random.default_rng(seed + 1)
+    rows, cols = random_sparse_pattern(m, n, density, seed)
+    nnz = rows.shape[0]
+    vals = rng.standard_normal((batch, nnz)).astype(dtype)
+    x0 = rng.random((batch, n)).astype(dtype)
+    slack = rng.random((batch, m)).astype(dtype)
+    h = np.zeros((batch, m), dtype)
+    np.add.at(h.T, rows, (vals * x0[:, cols]).T)
+    h += slack
+    y0 = rng.random((batch, m)).astype(dtype)
+    s = (0.1 + 0.9 * rng.random((batch, n))).astype(dtype)
+    gty = np.zeros((batch, n), dtype)
+    np.add.at(gty.T, cols, (vals * y0[:, rows]).T)
+    c = s - gty
+    return c, rows, cols, vals, h
+
+
+def device_sparse_inequality_lps(gen: torch.Generator, batch: int, rows,
+                                 cols, m: int, n: int, device):
+    """The sparse construction made on ``device`` from the generator
+    ``gen`` (which must live there) on the host pattern ``rows/cols``:
+    ``(c[B, n], vals[B, nnz], h[B, m])``.  The sums over each row and
+    column are gathers over the pattern's padded slot tables, so the same
+    generator state gives the same bits on every run."""
+    from .ipm_sparse import SharedTables
+
+    kw = dict(generator=gen, device=device, dtype=torch.float32)
+    tab = SharedTables(rows, cols, m, n, device)
+    nnz = tab.nnz
+    vals = torch.randn((batch, nnz), **kw)
+    x0 = torch.rand((batch, n), **kw)
+    slack = torch.rand((batch, m), **kw)
+    Vr, Vc = tab.value_tables(vals)
+    h = tab.gx(Vr, x0) + slack
+    y0 = torch.rand((batch, m), **kw)
+    s = 0.1 + 0.9 * torch.rand((batch, n), **kw)
+    c = s - tab.gty(Vc, y0)
+    return c, vals, h

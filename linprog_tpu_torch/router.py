@@ -1,12 +1,12 @@
-"""Solver-family router (counterpart of the dense half of
-:mod:`linprog_tpu.router`).
+"""Solver-family router (counterpart of :mod:`linprog_tpu.router`).
 
-:func:`solve_batch_auto` is the front door: it picks simplex, the batched
-IPM with the straggler backstop, or IPM -> crossover by the size ``m`` and
-the accuracy class, from the thresholds of
-:func:`linprog_tpu_torch.calibration.get_table` (:func:`choose_family` is
-the rule alone).  The ``"pdhg"`` family (``m >= pdhg_min_m`` at a loose
-accuracy) is not ported yet and raises ``NotImplementedError``.
+:func:`solve_batch_auto` is the front door for dense batches: it picks
+simplex, the batched IPM with the straggler backstop, IPM -> crossover or
+the first-order PDHG by the size ``m`` and the accuracy class, from the
+thresholds of :func:`linprog_tpu_torch.calibration.get_table`
+(:func:`choose_family` is the rule alone).  :func:`solve_batch_auto_sparse`
+is its counterpart for shared-pattern sparse batches (the sparse IPM with
+straggler recovery, or the sparse PDHG, by :func:`choose_family_sparse`).
 :func:`solve_batch_exact` is the exact pipeline: IPM -> crossover, then for
 ``xover_pallas_max_m < m < 1536`` a retry from the other basis guess, and
 below ``m = 3072`` a two-phase fallback.  From ``m = 3072`` up (the
@@ -92,8 +92,10 @@ def solve_batch_auto(c, G, h, accuracy: float = 1e-6,
     ``accuracy`` is the relative accuracy class: ``<= 1e-5`` asks for exact
     vertices with a basis (simplex or IPM -> crossover), larger values
     accept interior points at that KKT tolerance, with the non-converged
-    lanes repaired to vertices.  ``prefer`` names a family from
-    ``{"simplex", "ipm", "ipm+crossover", "pdhg"}`` instead.
+    lanes repaired to vertices (the IPM) or first-order points at that
+    tolerance (PDHG, fixed-cadence restarts, ``basis`` -1).  ``prefer``
+    names a family from ``{"simplex", "ipm", "ipm+crossover", "pdhg"}``
+    instead.
 
     Returns ``(BatchResult, info)``: ``x`` over the structural ``n``
     columns; ``info`` holds the family taken and its extras (``crossed``,
@@ -132,11 +134,16 @@ def solve_batch_auto(c, G, h, accuracy: float = 1e-6,
         info.update(xinfo)
         return res, info
 
-    raise NotImplementedError(
-        f"family 'pdhg' (m={m}, accuracy={accuracy}): the first-order "
-        "family is not ported yet (ROADMAP Queue 1 item 13); ask for "
-        "prefer='ipm' or 'ipm+crossover'"
-    )
+    from .pdhg import PDHGConfig, pdhg_solve_batch_canonical
+
+    pcfg = PDHGConfig(eps_rel=max(float(accuracy), 1e-5), adaptive=False)
+    x, cost, status, iters = pdhg_solve_batch_canonical(
+        c, G, h, maxiters=maxiters or 60_000, cfg=pcfg)
+    res = BatchResult(
+        x=x, basis=torch.full((B, m), -1, dtype=torch.int32, device=G.device),
+        cost=cost, iters=iters, status=status, y=None)
+    info["eps_rel"] = pcfg.eps_rel
+    return res, info
 
 
 def auto_summary(res: BatchResult, info: dict) -> dict:
@@ -272,3 +279,91 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
 
     # the first nb bucket entries are exactly the bad lanes, in order
     return _merge(res, bad, sub, torch.arange(nb, device=bad.device)), info
+
+
+def choose_family_sparse(m: int, n: int, nnz: int, accuracy: float,
+                         lanes: int = 1) -> str:
+    """Routing rule for shared-pattern sparse batches (the reference's):
+
+    * ``"pdhg"`` when the IPM's dense normal factors (``lanes * m^2`` f32)
+      pass 4 GiB: the first-order family needs no ``m^2`` memory;
+    * at loose accuracy (``>= 1e-2``) by a work model: ~12 Newton steps of
+      a dense ``2 m^3`` factorization against ``min(60000, 20 / accuracy)``
+      PDHG iterations of ``8 nnz`` operations, the smaller wins;
+    * ``"ipm"`` everywhere else.
+    """
+    factor_bytes = 4.0 * lanes * m * m
+    if factor_bytes > 4 * 1024**3:
+        return "pdhg"
+    if accuracy >= 1e-2:
+        ipm_work = 12.0 * 2.0 * float(m) ** 3
+        pdhg_iters = min(60_000.0, 20.0 / max(accuracy, 1e-6))
+        if pdhg_iters * 8.0 * nnz < ipm_work:
+            return "pdhg"
+    return "ipm"
+
+
+def solve_batch_auto_sparse(c, rows, cols, vals, h, shape,
+                            accuracy: float = 1e-3,
+                            maxiters: Optional[int] = None,
+                            pattern=None, prefer: Optional[str] = None,
+                            recover: Optional[bool] = None):
+    """Solve a shared-pattern sparse canonical batch (``c[B, n],
+    vals[B, nnz], h[B, m]`` over ``rows/cols[nnz]``, ``shape = (m, n)``)
+    with the family :func:`choose_family_sparse` picks (``prefer``
+    overrides it).
+
+    The IPM path runs at ``eps_rel = max(accuracy, 1e-5)`` and, with
+    ``recover`` (default: on for ``accuracy <= 1e-3``), repairs its
+    stragglers through :func:`ipm_sparse.recover_stragglers_sparse`.  The
+    PDHG path runs adaptive restarts at the same tolerance; as in the
+    reference its lanes keep the solver's status (a lane out of budget
+    stays RUNNING).  Returns ``(BatchResult, info)`` with ``x`` over the
+    structural ``n`` columns.
+    """
+    m, n = shape
+    B = vals.shape[0]
+    nnz = int(len(rows))
+    family = prefer or choose_family_sparse(m, n, nnz, float(accuracy), B)
+    info = {"family": f"sparse-{family}", "m": int(m), "n": int(n),
+            "lanes": int(B), "nnz": nnz, "accuracy": float(accuracy)}
+
+    if family == "ipm":
+        from .ipm import IPMConfig
+        from .ipm_sparse import (
+            ipm_solve_batch_sparse_canonical,
+            recover_stragglers_sparse,
+        )
+
+        icfg = IPMConfig(eps_rel=max(float(accuracy), 1e-5),
+                         maxiters=maxiters or 60, frac=0.995)
+        res = ipm_solve_batch_sparse_canonical(
+            c, rows, cols, vals, h, shape, icfg, pattern=pattern)
+        do_recover = (recover if recover is not None
+                      else float(accuracy) <= 1e-3)
+        if do_recover:
+            res = recover_stragglers_sparse(c, rows, cols, vals, h, shape,
+                                            res)
+            info["recovered"] = True
+        info["eps_rel"] = icfg.eps_rel
+        return res._replace(x=res.x[:, :n]), info
+
+    if family != "pdhg":
+        raise ValueError(f"unknown sparse family {family!r}")
+    from .pdhg import PDHGConfig, pdhg_solve_batch_sparse
+
+    dev = vals.device
+    lb = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    ub = torch.full((B, n), float("inf"), dtype=torch.float32, device=dev)
+    pcfg = PDHGConfig(eps_rel=max(float(accuracy), 1e-5), adaptive=True,
+                      stall_reset_beta=0.95)
+    state = pdhg_solve_batch_sparse(c, rows, cols, vals, h, 0, lb, ub,
+                                    shape, maxiters=maxiters or 60_000,
+                                    cfg=pcfg)
+    res = BatchResult(
+        x=state.x,
+        basis=torch.full((B, m), -1, dtype=torch.int32, device=dev),
+        cost=(c.to(state.x.dtype) * state.x).sum(dim=1),
+        iters=state.iters, status=state.status, y=state.y)
+    info["eps_rel"] = pcfg.eps_rel
+    return res, info

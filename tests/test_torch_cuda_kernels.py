@@ -1255,7 +1255,8 @@ def test_warm_ipm_and_standard_form_on_card_launch_the_panel_kernel(cuda):
                                   res.status.cpu().numpy())
 
 
-@pytest.mark.parametrize("prefer", ["simplex", "ipm", "ipm+crossover"])
+@pytest.mark.parametrize("prefer", ["simplex", "ipm", "ipm+crossover",
+                                    "pdhg"])
 def test_front_door_on_card_matches_cpu(cuda, prefer):
     import linprog_tpu_torch as lt
 
@@ -1264,9 +1265,9 @@ def test_front_door_on_card_matches_cpu(cuda, prefer):
     res, info = lt.solve_batch_auto(*card, accuracy=1e-4, prefer=prefer)
     assert info["family"] == prefer and res.x.shape == (16, 64)
     assert bool((res.status == st.OPTIMAL).all())
-    _same_answers(res, res_cpu, tol=2e-3 if prefer == "ipm" else 1e-5)
-    with pytest.raises(NotImplementedError):
-        lt.solve_batch_auto(*card, prefer="pdhg")
+    # two interior answers of one eps class; vertices to 1e-5
+    interior = prefer in ("ipm", "pdhg")
+    _same_answers(res, res_cpu, tol=2e-3 if interior else 1e-5)
 
 
 def test_rays_on_card(cuda):
@@ -1455,3 +1456,147 @@ def test_reoptimize_new_rhs_at_a_blocked_shape(cuda, blocked_shape):
     assert bool(opt.any())
     rel = ((k.cost.cpu() - p.cost).abs() / p.cost.abs().clamp_min(1.0))[opt]
     assert rel.max().item() <= 1e-5
+
+
+# ---- the first-order and sparse families -----------------------------------
+
+
+def _sparse_batch(B, m, n, dens, seed):
+    from linprog_tpu_torch.generators import random_sparse_inequality_lps
+
+    c, rows, cols, vals, h = random_sparse_inequality_lps(B, m, n, dens,
+                                                          seed=seed)
+    return rows, cols, [torch.tensor(a) for a in (c, vals, h)]
+
+
+def test_sparse_normal_assembly_on_card_is_deterministic(cuda):
+    """The assembly on the card: the same bits from two calls, within
+    1e-6 of the largest entry of the CPU's, and the operator's products
+    against the CPU's."""
+    from linprog_tpu_torch.ipm_sparse import SparsePattern, _SparseSlackOp
+
+    rows, cols, (c, vals, h) = _sparse_batch(16, 96, 96, 0.1, seed=3)
+    pat = SparsePattern(rows, cols, 96, 96, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    d = torch.exp(18.0 * torch.rand((16, 192), generator=gen) - 9.0)
+    cpu = _SparseSlackOp(pat.tables("cpu"), vals, 96, 96)
+    card = _SparseSlackOp(pat.tables(cuda), vals.to(cuda), 96, 96)
+    n1, n2 = card.normal(d.to(cuda)), card.normal(d.to(cuda))
+    assert same_bits_t(n1, n2)
+    ref = cpu.normal(d)
+    assert (n1.cpu() - ref).abs().max() <= 1e-6 * ref.abs().max()
+    v = torch.rand((16, 192), generator=gen)
+    assert torch.allclose(card.mv(v.to(cuda)).cpu(), cpu.mv(v), atol=1e-5)
+    w = torch.rand((16, 96), generator=gen)
+    assert torch.allclose(card.mtv(w.to(cuda)).cpu(), cpu.mtv(w), atol=1e-5)
+
+
+def same_bits_t(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_sparse_ipm_and_recovery_on_card_match_cpu(cuda):
+    import linprog_tpu_torch as lt
+
+    rows, cols, cpu = _sparse_batch(8, 24, 24, 0.3, seed=9)
+    card = [t.to(cuda) for t in cpu]
+    cfg = lt.IPMConfig(eps_rel=1e-3, maxiters=40)
+    before = cholinv_kernel.launches
+    res = lt.ipm_solve_batch_sparse_canonical(card[0], rows, cols, *card[1:],
+                                              (24, 24), cfg)
+    assert cholinv_kernel.launches > before
+    res_cpu = lt.ipm_solve_batch_sparse_canonical(cpu[0], rows, cols,
+                                                  *cpu[1:], (24, 24), cfg)
+    _same_answers(res, res_cpu, tol=2e-3)
+    starved = lt.IPMConfig(eps_rel=1e-3, maxiters=4)
+    raw = lt.ipm_solve_batch_sparse_canonical(card[0], rows, cols, *card[1:],
+                                              (24, 24), starved)
+    before = solve_kernel.launches
+    rec = lt.recover_stragglers_sparse(card[0], rows, cols, *card[1:],
+                                       (24, 24), raw)
+    assert solve_kernel.launches > before
+    assert bool((rec.status == st.OPTIMAL).all())
+    assert bool((rec.basis >= 0).all())
+
+
+def test_pdhg_on_card_matches_cpu(cuda):
+    import linprog_tpu_torch as lt
+    from linprog_tpu_torch.pdhg import (
+        PDHGConfig,
+        pdhg_solve_batch_canonical,
+        pdhg_solve_batch_sparse,
+    )
+
+    cpu, card = _cpu_and_card(random_inequality_lps(16, 48, 48, seed=2), cuda)
+    cfg = PDHGConfig(eps_rel=1e-4, adaptive=False)
+    _, cost_k, status_k, _ = pdhg_solve_batch_canonical(*card, cfg=cfg)
+    _, cost_c, status_c, _ = pdhg_solve_batch_canonical(*cpu, cfg=cfg)
+    assert bool((status_k == st.OPTIMAL).all())
+    np.testing.assert_array_equal(status_k.cpu().numpy(), status_c.numpy())
+    rel = (cost_k.cpu() - cost_c).abs() / cost_c.abs().clamp_min(1.0)
+    assert rel.max().item() <= 2e-4
+
+    rows, cols, (c, vals, h) = _sparse_batch(8, 48, 48, 0.1, seed=1)
+    lb, ub = torch.zeros((8, 48)), torch.full((8, 48), float("inf"))
+    scfg = PDHGConfig(eps_rel=1e-4)
+    runs = [pdhg_solve_batch_sparse(*(t.to(cuda) for t in (c,)), rows, cols,
+                                    *(t.to(cuda) for t in (vals, h)), 0,
+                                    lb.to(cuda), ub.to(cuda), (48, 48),
+                                    cfg=scfg) for _ in range(2)]
+    for a, b in zip(*runs):  # the same bits twice
+        assert torch.equal(a, b)
+    ref = pdhg_solve_batch_sparse(c, rows, cols, vals, h, 0, lb, ub,
+                                  (48, 48), cfg=scfg)
+    np.testing.assert_array_equal(runs[0].status.cpu().numpy(),
+                                  ref.status.numpy())
+    # the general-form solver runs on the card by default
+    res = lt.PDHGSolver(np.array([-1.0, -2.0]),
+                        G=np.array([[1.0, 1.0], [0.0, 1.0]]),
+                        h=np.array([4.0, 2.0])).solve()
+    assert res.optimum and abs(res.cost + 6.0) < 1e-2
+
+
+def test_pdhg_crossover_on_card(cuda):
+    import linprog_tpu_torch as lt
+
+    cpu, card = _cpu_and_card(random_inequality_lps(16, 32, 32, seed=4), cuda)
+    before = solve_kernel.launches
+    res, crossed = lt.pdhg_crossover_batch_canonical(*card)
+    assert solve_kernel.launches > before  # the cleanup phases' segments
+    assert int(crossed.sum()) >= 15
+    res_cpu, crossed_cpu = lt.pdhg_crossover_batch_canonical(*cpu)
+    both = crossed.cpu() & crossed_cpu
+    rel = ((res.cost.cpu() - res_cpu.cost).abs()
+           / res_cpu.cost.abs().clamp_min(1.0))[both]
+    assert rel.numel() and rel.max().item() <= 1e-5
+
+
+def test_pdhg_graphed_chunks_match_eager(cuda, monkeypatch):
+    """The captured chunk of steps against the same steps launched one by
+    one: the same statuses and answers, dense and sparse."""
+    from linprog_tpu_torch import pdhg
+
+    _, card = _cpu_and_card(random_inequality_lps(16, 48, 48, seed=3), cuda)
+    cfg = pdhg.PDHGConfig(eps_rel=1e-4)
+    rows, cols, (c, vals, h) = _sparse_batch(8, 48, 48, 0.1, seed=2)
+    lb = torch.zeros((8, 48), device=cuda)
+    ub = torch.full((8, 48), float("inf"), device=cuda)
+
+    def both():
+        dense = pdhg.pdhg_solve_batch_canonical(*card, cfg=cfg)
+        sparse = pdhg.pdhg_solve_batch_sparse(
+            c.to(cuda), rows, cols, vals.to(cuda), h.to(cuda), 0, lb, ub,
+            (48, 48), cfg=cfg)
+        return dense, sparse
+
+    graphed = both()
+    monkeypatch.setattr(pdhg, "_graphed", lambda chunk, state: chunk)
+    eager = both()
+    for a, b in ((graphed[0][2], eager[0][2]),
+                 (graphed[1].status, eager[1].status)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert bool((graphed[0][2] == st.OPTIMAL).all())
+    rel = ((graphed[0][1] - eager[0][1]).abs()
+           / eager[0][1].abs().clamp_min(1.0))
+    assert rel.max().item() <= 2e-4
+    assert torch.allclose(graphed[1].x, eager[1].x, atol=1e-3)

@@ -54,7 +54,9 @@ def _imported_modules(path):
                                  REPO / "tools" / "run_calibrate.py",
                                  REPO / "tools" / "time_stream_plans.py",
                                  REPO / "tools" / "time_segment_plans.py",
-                                 REPO / "tools" / "diag_m4096.py"],
+                                 REPO / "tools" / "diag_m4096.py",
+                                 REPO / "tools" / "diag_pdhg_m4096.py",
+                                 REPO / "tools" / "diag_sparse_m2048.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import(path):

@@ -3,7 +3,8 @@ rule, ``solve_batch_auto`` through every ported family, ``auto_summary``,
 the cleanup settings, the calibration table's resolution, and
 ``calibrate()``.
 
-The cases are those of tests/test_router.py that need no PDHG.  Both
+The cases are those of tests/test_router.py (its sparse half is in
+tests/test_torch_sparse_router.py).  Both
 packages get the same numpy instances; the reference's simplex phases run
 on its Pallas kernel in interpret mode (``kernels="pallas"``), the port's on
 the kernels' plain versions.  Statuses must agree lane for lane; costs
@@ -166,17 +167,29 @@ def test_unknown_family_rejected():
 
 
 def test_pdhg_family_is_not_ported_yet():
-    """``choose_family`` still names it, as the reference does; the front
-    door raises for it, asked for or routed to."""
-    c, G, h = (torch.tensor(a) for a in random_inequality_lps(2, 4, 6, seed=1))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        solve_batch_auto(c, G, h, prefer="pdhg")
+    """(Named for the raise it once pinned.)  The first-order family runs,
+    asked for and where the table routes a loose request past
+    ``pdhg_min_m``: the reference's info, its statuses, no basis, costs
+    within the eps class of HiGHS."""
+    c, G, h = random_inequality_lps(4, 6, 8, seed=1)
+    ref, jinfo = jrouter.solve_batch_auto(jnp.asarray(c), jnp.asarray(G),
+                                          jnp.asarray(h), accuracy=1e-4,
+                                          prefer="pdhg")
+    ct, Gt, ht = (torch.tensor(a) for a in (c, G, h))
+    res, info = solve_batch_auto(ct, Gt, ht, accuracy=1e-4, prefer="pdhg")
+    assert info == jinfo and info["family"] == "pdhg"
+    np.testing.assert_array_equal(res.status.numpy(), np.asarray(ref.status))
+    assert bool((res.status == st.OPTIMAL).all())
+    assert bool((res.basis == -1).all()) and res.y is None
+    assert res.x.shape == (4, 8)
+    assert _rel(res.cost.numpy(), _highs(c, G, h)).max() < 1e-3
     try:
         calibration.set_table({"default": {"pdhg_min_m": 4}})
-        assert choose_family(4, 1e-3) == "pdhg"
-        with pytest.raises(NotImplementedError, match="pdhg"):
-            solve_batch_auto(c, G, h, accuracy=1e-3)
-        solve_batch_auto(c, G, h, accuracy=1e-6)  # exact requests still route
+        assert choose_family(6, 1e-3) == "pdhg"
+        routed, rinfo = solve_batch_auto(ct, Gt, ht, accuracy=1e-3)
+        assert rinfo["family"] == "pdhg" and rinfo["eps_rel"] == 1e-3
+        assert bool((routed.status == st.OPTIMAL).all())
+        assert choose_family(6, 1e-6) != "pdhg"  # exact requests still route
     finally:
         calibration.reset_table()
 
@@ -253,20 +266,28 @@ def test_cpu_resolves_the_default_entry_equal_to_the_reference():
 
 
 def test_calibrate_measures_every_key_but_the_pdhg_leg(tmp_path):
+    """(Named for the leg it once left out.)  Every key is measured, the
+    PDHG boundary too, with the seconds behind each decision."""
     path = tmp_path / "table.json"
     out = calibration.calibrate(sizes=(8, 16), lanes=4, seg_grid=(8, 16),
-                                device="cpu", save_path=str(path))
+                                device="cpu", save_path=str(path),
+                                pdhg_sizes=(8, 16), pdhg_lanes=2)
     (kind, table), = out.items()
     assert kind == "default"  # the CPU has no card name
     assert SCHEMA <= set(table)
-    assert set(table["_measured"]) == SCHEMA - {"pdhg_min_m"}
-    assert table["pdhg_min_m"] == 4096  # inherited
+    assert set(table["_measured"]) == SCHEMA
+    assert table["pdhg_min_m"] in (8, 16, 32)  # 32: PDHG never won
+    pdhg_seconds = table["_provenance"]["pdhg_seconds"]
+    assert set(pdhg_seconds) <= {"8", "16"} and "8" in pdhg_seconds
+    for rec in pdhg_seconds.values():
+        assert set(rec) == {"pdhg", "ipm"} and min(rec.values()) > 0
     assert [r[0] for r in table["seg_by_m"][:2]] == [8, 16]  # measured knees
     assert all(r[1] in (8, 16) for r in table["seg_by_m"][:2])
     assert table["seg_by_m"][-1][0] == 0  # the terminal row stays
     prov = table["_provenance"]
-    assert (prov["lanes"], prov["sizes"], prov["seg_grid"]) == (
-        4, [8, 16], [8, 16])
+    assert (prov["lanes"], prov["sizes"], prov["seg_grid"],
+            prov["pdhg_sizes"], prov["pdhg_lanes"]) == (
+        4, [8, 16], [8, 16], [8, 16], 2)
     assert set(prov["seconds"]) == {"8", "16"}  # the times behind each key
     for rec in prov["seconds"].values():
         assert set(rec) == {"simplex_by_seg", "ipm", "exact", "kkt_floor"}
