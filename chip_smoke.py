@@ -2,9 +2,10 @@
 """Smoke run of linprog_tpu_torch on one NVIDIA GPU: the exact pipeline,
 bounded-variable batches, the per-step batched engine, the batched front
 door (pooled IPM straggler recovery, warm re-solves, the router,
-calibrate()), and the first-order and sparse families (PDHG, PDHG ->
+calibrate()), the first-order and sparse families (PDHG, PDHG ->
 crossover, the shared-pattern sparse IPM with its recovery, the sparse
-front door).
+front door), and the general-form surface (the solver classes,
+solve_batch_general, the primal-dual batch, IPMSolver, ranging).
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -124,7 +125,26 @@ Phases, each printing one JSON line:
      instances (adaptive, eps 1e-4), solve_batch_auto_sparse at accuracy
      1e-3 (sparse-ipm) and 1e-2 (sparse-pdhg), HiGHS on two lanes (two
      worker processes, meanwhile), and the same bits from a repeat of each
-     solve.
+     solve;
+ 19. general_form: the general-form surface.  (a) Single instances on the
+     card: the diet LP through SimplexSolver (12.081337630748749 within
+     1e-6), the published Bland path through PrimalRevisedSimplexSolver
+     one solve(maxiters=1) at a time, the 15 instances of
+     structured.default_suite() within 1e-5 of HiGHS; (b)
+     solve_batch_general on 1024 instances of the 11 structured families
+     (bounds as rows, padded to m = 240) with dantzig and with devex
+     (median wall of 5 after a warm-up, pivots, kernel 1's plan and
+     launches; every lane OPTIMAL, HiGHS within 1e-5 on 16), the default
+     config once as a reading, presolve=True with a planted infeasible
+     and a planted fixed lane (costs unchanged within 1e-5), and
+     transportation_lps(1024, 32, 32) through solve_batch_two_phase; (c)
+     solve_primal_dual_batch on 256 lanes of the textbook problems; (d)
+     IPMSolver at m = 512 with 64 equality rows and 128 upper bounds
+     (kernel 2's launches, HiGHS within 1e-3 in a worker process), and a
+     warm resolve of h perturbed by 2 % in no more Newton steps than cold;
+     (e) ranging_batch at phase 4's bases in f32 and in float64 on the
+     card, each against a float64 host ranging on 4 lanes (float64 within
+     1e-9; f32's error printed).
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -214,6 +234,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
 REPORTS = {}  # each phase's last printed report, by its name
+MAIN_PATH = {}  # phase 4's exact bases, for phase 19's ranging
 T0 = time.time()  # the script's start: each phase report carries its time
 
 
@@ -907,6 +928,7 @@ def phase_main_path():
     wall = time.time() - t0
     launches = {"solve_segment": sk.launches,
                 "panel_cholinv": ck.launches}
+    MAIN_PATH["basis"] = res.basis
 
     walls = [wall]
     for _ in range(REPEATS - 1):
@@ -2879,6 +2901,558 @@ def phase_bounded_block():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the general-form surface
+# ---------------------------------------------------------------------------
+
+# the SAS diet LP (examples/diet.py) and its published optimum
+DIET = dict(
+    c=np.array([2.0, 3.5, 8.0, 1.5, 11.0, 1.0]),
+    G=np.array([[-0.90, -12, -10.6, -9.7, -13, -18],  # calories >= 30
+                [4.0, 8.0, 7.0, 1.3, 8.0, 9.2],  # protein <= 10
+                [-15.0, -11.7, -0.4, -22.6, -0.0, -17.0],  # carbs >= 10
+                [-1.0, -5.0, -9.0, -0.1, -7.0, -1.0]]),  # fat >= 8
+    h=np.array([-30.0, 10.0, -10.0, -8.0]),
+    lb=np.array([0.0, 0.0, 0.0, 0.0, 0.5, 0.0]),
+    ub=np.array([np.inf, 1.0, np.inf, np.inf, np.inf, np.inf]))
+DIET_COST = 12.081337630748749
+DIET_X = np.array([0.0, 0.05359876, 0.44949877, 1.86516786, 0.5, 0.0])
+# Papadimitriou & Steiglitz pg. 57 and its published Bland path
+BLAND = dict(c=np.array([1.0, 1, 1, 0, 0, 0, 0, 0]),
+             A=np.array([[1.0, 0, 0, 3, 2, 1, 0, 0],
+                         [0.0, 1, 0, 5, 1, 1, 1, 0],
+                         [0.0, 0, 1, 2, 5, 1, 0, 1]]),
+             b=np.array([1.0, 3, 4]))
+BLAND_PATH = [[0, 1, 2], [3, 1, 2], [4, 1, 2], [4, 6, 2], [4, 6, 7]]
+# the primal-dual textbook problems: Bazaraa ex. 6.8, Luenberger & Ye pg.
+# 96, and a negative-cost instance (the bounding row's dual start)
+PD_PROBLEMS = [
+    (np.array([3.0, 4, 6, 7, 5, 0, 0]),
+     np.array([[2.0, -1, 1, 6, -5, -1, 0], [1.0, 1, 2, 1, 2, 0, -1]]),
+     np.array([6.0, 3])),
+    (np.array([2.0, 1, 4]), np.array([[1.0, 1, 2], [2.0, 1, 3]]),
+     np.array([3.0, 5])),
+    (np.array([-2.0, 1, -1, 0, 0]),
+     np.array([[1.0, 1, 1, 1, 0], [-1.0, 2, 0, 0, 1]]), np.array([6.0, 4])),
+]
+# 19b: lanes cycle through the families of structured.py (lane k: family
+# k % 11, seed k), scaled so the padded common shape reaches m = 240
+GF_FAMILIES = [
+    ("transportation", (10, 30)), ("assignment", (16,)),
+    ("production_planning", (96,)), ("blending", (120, 64)),
+    ("min_cost_flow_grid", (8, 10)), ("chebyshev_center", (200, 24)),
+    ("set_covering", (160, 80)), ("staff_scheduling", (200, 7)),
+    ("multicommodity_flow_grid", (6, 8)),
+    ("knapsack_relaxation", (160, 40)), ("sas_diet", ()),
+]
+GB, GREPEATS, GITERS = 1024, 5, 3000  # 19b: lanes, timed runs, pivot cap
+TB, TNS, TND = 1024, 32, 32  # 19b: transportation_lps lanes, supplies, demands
+PDB = 256  # 19c: primal-dual lanes
+IPM_M, IPM_EQ = 512, 64  # 19d: inequality rows (m = n), equality rows
+
+
+def _suite_config():
+    """The reference suite's setting (tests/test_structured_suite.py):
+    dantzig, a refactorization every 64 pivots."""
+    return lt.SolverConfig(pricing="dantzig", refactor_every=64)
+
+
+def _highs_general(p):
+    """HiGHS's optimum of a general-form instance dict (``c, A, b, G, h,
+    lb, ub``; None entries allowed); ``(status, objective)``."""
+    from scipy.optimize import linprog
+
+    n = p["c"].shape[0]
+    lb = np.zeros(n) if p.get("lb") is None else p["lb"]
+    ub = np.full(n, np.inf) if p.get("ub") is None else p["ub"]
+    r = linprog(p["c"], A_eq=p.get("A"), b_eq=p.get("b"), A_ub=p.get("G"),
+                b_ub=p.get("h"), method="highs",
+                bounds=list(zip([None if np.isneginf(v) else v for v in lb],
+                                [None if np.isposinf(v) else v for v in ub])))
+    return r.status, r.fun
+
+
+def _rel(a, b):
+    return abs(a - b) / max(1.0, abs(b))
+
+
+def _general_single():
+    """19a: single instances on the card (the per-lane engines at a batch
+    of one)."""
+    from linprog_tpu_torch.structured import default_suite
+
+    t0 = time.time()
+    diet = lt.SimplexSolver(**DIET, device=DEVICE).solve()
+    diet_s = time.time() - t0
+    diet_err = abs(diet.cost - DIET_COST) / DIET_COST
+    diet_x = float(np.abs(diet.x - DIET_X).max())
+
+    t0 = time.time()
+    s = lt.PrimalRevisedSimplexSolver(**BLAND, basis=BLAND_PATH[0],
+                                      device=DEVICE)
+    path = [s.basis.tolist()]
+    for _ in BLAND_PATH[1:]:
+        path.append(s.solve(maxiters=1).basis.tolist())
+    bland_s = time.time() - t0
+
+    suite, gaps, secs, iters = default_suite(), [], [], []
+    for p in suite:
+        t1 = time.time()
+        res = lt.SimplexSolver(p["c"], A=p["A"], b=p["b"], G=p["G"],
+                               h=p["h"], lb=p["lb"], ub=p["ub"],
+                               config=_suite_config(),
+                               device=DEVICE).solve(3000, 3000)
+        secs.append(time.time() - t1)
+        iters.append(res.iters)
+        code, fun = _highs_general(p)
+        if code != 0:
+            fail(f"general form: HiGHS did not solve {p['name']}")
+        gaps.append(_rel(res.cost, fun) if res.optimum else float("inf"))
+    out = {"diet": {"cost": diet.cost, "rel_err": diet_err,
+                    "max_abs_err_x": diet_x, "iters": diet.iters,
+                    "wall_s": diet_s},
+           "bland_path": {"bases": path, "wall_s": bland_s},
+           "suite": {"instances": len(suite), "max_rel_gap_vs_highs":
+                     max(gaps), "wall_s": sum(secs), "iters": iters,
+                     "gaps": dict(zip([p["name"] for p in suite], gaps))}}
+    emit({"phase": "general_form_single", **out})
+    if not diet.optimum or not diet_err <= 1e-6 or not diet_x <= 1e-4:
+        fail(f"general form: diet cost {diet.cost!r} (rel {diet_err:.2e}), "
+             f"x off by {diet_x:.2e}")
+    if path != BLAND_PATH:
+        fail(f"general form: Bland path {path} != {BLAND_PATH}")
+    if not max(gaps) <= 1e-5:
+        fail(f"general form: suite gap {max(gaps):.3e} > 1e-5")
+
+
+def _general_problems(lanes):
+    """19b's batch: each instance brought to standard form by
+    SimplexSolver's constructor (free variables, lower-bound shifts) with
+    its bounds as rows (forms.bounds_to_rows, as
+    benchmarks/structured_pricing.py does); the solvers map x back."""
+    from linprog_tpu_torch import structured
+
+    problems, solvers, originals = [], [], []
+    for k in range(lanes):
+        name, args = GF_FAMILIES[k % len(GF_FAMILIES)]
+        build = getattr(structured, name)
+        p = build(*args, seed=k) if args else build()
+        s = lt.SimplexSolver(p["c"], A=p["A"], b=p["b"], G=p["G"], h=p["h"],
+                             lb=p["lb"], ub=p["ub"], device=DEVICE)
+        c1, A1, b1 = lt.forms.bounds_to_rows(s.c, s.A, s.b, s.lb, s.ub)
+        problems.append({"c": c1, "A": A1, "b": b1})
+        solvers.append(s)
+        originals.append(p)
+    return problems, solvers, originals
+
+
+def _general_costs(results, solvers, originals):
+    """Each lane's objective in its original variables."""
+    return [float(p["c"] @ s._reconstruct_x(r.x[: s.n_aug]))
+            for r, s, p in zip(results, solvers, originals)]
+
+
+def _residual(p, x):
+    """``max|Ax - b| / (1 + max|b|)`` of a standard-form lane, and how far
+    x falls below 0 (the larger)."""
+    r = np.abs(p["A"] @ x - p["b"]).max() / (1.0 + np.abs(p["b"]).max())
+    return float(max(r, -x.min()))
+
+
+def _general_batch():
+    """19b: solve_batch_general at B = 1024 (dantzig and devex, the
+    default config once), with presolve and two planted lanes, then
+    transportation_lps through solve_batch_two_phase."""
+    import linprog_tpu_torch.batch as lb
+    import linprog_tpu_torch.engine_batched as le
+    from linprog_tpu_torch.batch import solve_batch_general
+    from linprog_tpu_torch.generators import transportation_lps
+
+    t0 = time.time()
+    problems, solvers, originals = _general_problems(GB)
+    m_pad = max(p["A"].shape[0] for p in problems)
+    n_pad = max(p["A"].shape[1] for p in problems) + m_pad
+    build_s = time.time() - t0
+    oracle = [_highs_general(p) for p in originals[:16]]
+    if any(code != 0 for code, _ in oracle):
+        fail("general batch: HiGHS did not solve a lane")
+
+    runs, paths, costs_by, statuses, firsts = {}, {}, {}, {}, {}
+    for label, cfg in (("general_batch", _suite_config()),
+                       ("general_batch_devex",
+                        _suite_config().replace(pricing="devex"))):
+        def run():
+            return solve_batch_general(problems, GITERS, GITERS, cfg,
+                                       device=DEVICE)
+
+        _, warm = _walled(run)
+        _reset_counts()
+        # CUDA-event spans of the device stages inside the first timed run
+        with _stage_spans([
+                ("two_phase", lb, "solve_batch_two_phase", None),
+                ("segment_kernel", le, "solve_segment", None),
+                ("refactorize", le, "refresh_running_lanes", None),
+        ]) as spans:
+            first, wall0 = _walled(run)
+        paths[label] = _read_counts()
+        stage_s = {}
+        for name, _, t_a, t_b in spans:
+            stage_s[name] = stage_s.get(name, 0.0) + t_a.elapsed_time(
+                t_b) / 1e3
+        plan = sk.last_plan._asdict() if sk.last_plan else None
+        walls = [wall0] + [_walled(run)[1] for _ in range(GREPEATS - 1)]
+        wall = float(np.median(walls))
+        status = np.array([r.status for r in first])
+        iters = np.array([r.iters for r in first])
+        costs = _general_costs(first, solvers, originals)
+        gap = max(_rel(costs[i], oracle[i][1]) for i in range(16))
+        runs[label] = {"wall_s": wall, "walls_s": walls,
+                       "warmup_wall_s": warm, "lps_per_sec": GB / wall,
+                       "lane_status": {st.status_name(k): int(v) for k, v in
+                                       zip(*np.unique(status,
+                                                      return_counts=True))},
+                       "total_pivots": int(iters.sum()),
+                       "max_pivots": int(iters.max()),
+                       "highs_lanes": 16, "max_rel_gap_vs_highs": gap,
+                       "plan": plan, "launches": paths[label],
+                       "stage_s_first_run": stage_s,
+                       "first_run_wall_s": wall0}
+        costs_by[label] = costs
+        statuses[label] = status
+        firsts[label] = first
+
+    # a lane that is not OPTIMAL must be one HiGHS finds infeasible too,
+    # reported PRIMAL_INFEASIBLE (T = 96 periods of production_planning
+    # can outrun the capacity)
+    verdicts = {}
+
+    def check_lanes(status, results):
+        lanes = [int(k) for k in np.flatnonzero(status != st.OPTIMAL)]
+        for k in lanes:
+            if k not in verdicts:
+                verdicts[k] = _highs_general(originals[k])[0]
+        resid = max((_residual(problems[k], results[k].x) for k in range(GB)
+                     if status[k] == st.OPTIMAL), default=0.0)
+        return {"not_optimal": [[k, GF_FAMILIES[k % len(GF_FAMILIES)][0],
+                                 st.status_name(status[k]), verdicts[k]]
+                                for k in lanes],
+                "max_rel_residual_of_optimal": resid}
+
+    # the package's default config (bland, no refactorization) once, as
+    # a reading: no guard
+    dflt, dwall = _walled(lambda: solve_batch_general(
+        problems, GITERS, GITERS, lt.DEFAULT_CONFIG, device=DEVICE))
+    dstatus = np.array([r.status for r in dflt])
+    dcosts = _general_costs(dflt, solvers, originals)
+    default = {"wall_s": dwall, "lane_status": {
+        st.status_name(k): int(v) for k, v in
+        zip(*np.unique(dstatus, return_counts=True))},
+        "max_pivots": int(max(r.iters for r in dflt)),
+        "max_rel_gap_vs_highs_16": max(
+            _rel(dcosts[i], oracle[i][1]) for i in range(16))}
+
+    # presolve on the same batch, with a lane it finds infeasible and one
+    # it fixes completely
+    planted = [{"c": np.ones(2), "A": np.array([[1.0, 0.0], [1.0, 0.0]]),
+                "b": np.array([1.0, 2.0])},
+               {"c": np.array([1.0, 2.0]),
+                "A": np.array([[2.0, 0.0], [0.0, 1.0]]),
+                "b": np.array([4.0, 3.0])}]
+    pres, pwall = _walled(lambda: solve_batch_general(
+        problems + planted, GITERS, GITERS, _suite_config(), presolve=True,
+        device=DEVICE))
+    pcosts = _general_costs(pres[:GB], solvers, originals)
+    pstatus = np.array([r.status for r in pres[:GB]])
+    both_opt = (pstatus == st.OPTIMAL) & (statuses["general_batch"]
+                                          == st.OPTIMAL)
+    pshift = max(_rel(pcosts[k], costs_by["general_batch"][k])
+                 for k in np.flatnonzero(both_opt))
+    presolve = {"wall_s": pwall, "max_rel_cost_shift": pshift,
+                "lane_status": {st.status_name(k): int(v) for k, v in
+                                zip(*np.unique(pstatus,
+                                               return_counts=True))},
+                "planted": [st.status_name(r.status) for r in pres[GB:]],
+                "fixed_lane_iters": pres[GB + 1].iters,
+                **check_lanes(pstatus, pres)}
+    for label in runs:
+        runs[label].update(check_lanes(statuses[label], firsts[label]))
+
+    # transportation_lps: m = 64, n = 1024, one redundant row a lane
+    c, A, b = (torch.as_tensor(a, device=DEVICE)
+               for a in transportation_lps(TB, TNS, TND, seed=SEED))
+
+    def transport():
+        return lt.solve_batch_two_phase(c, A, b, GITERS, GITERS,
+                                        _suite_config())
+
+    _, twarm = _walled(transport)
+    _reset_counts()
+    tres, twall = _walled(transport)
+    tlaunch = _read_counts()
+    tgap = highs_gap(tres.cost, c, 4, A_eq=A, b_eq=b)
+    transport_out = {"lanes": TB, "m": TNS + TND, "n": TNS * TND,
+                     "wall_s": twall, "warmup_wall_s": twarm,
+                     "lane_status": status_counts(tres.status),
+                     "max_pivots": int(tres.iters.max()),
+                     "highs_lanes": 4, "max_rel_gap_vs_highs": tgap,
+                     "launches": tlaunch}
+
+    emit({"phase": "general_form_batch", "lanes": GB, "m_pad": m_pad,
+          "n_pad": n_pad, "families": [f for f, _ in GF_FAMILIES],
+          "build_s": build_s, **runs, "default_config": default,
+          "presolve": presolve, "transportation": transport_out})
+    for label, rep in [*runs.items(), ("presolve", presolve)]:
+        wrong = [lane for lane in rep["not_optimal"]
+                 if lane[2] != "PRIMAL_INFEASIBLE" or lane[3] != 2]
+        # devex on kernel 1 can pivot a degenerate 0/1 lane onto an
+        # exactly singular basis, which the refactorization reports as
+        # NUMERICAL_ERROR (ROADMAP Queue 3; the per-step loop's devex does
+        # it too): a status, never a wrong answer, on at most 1 % of lanes
+        broken = [lane for lane in wrong if label.endswith("devex")
+                  and lane[2] == "NUMERICAL_ERROR"]
+        if len(broken) > GB // 100 or len(wrong) > len(broken):
+            fail(f"{label}: lanes not OPTIMAL that HiGHS does not find "
+                 f"infeasible: {wrong}")
+        if not rep["max_rel_residual_of_optimal"] <= 1e-4:
+            fail(f"{label}: an OPTIMAL lane leaves Ax = b by "
+                 f"{rep['max_rel_residual_of_optimal']:.3e} of scale")
+    for label, rep in runs.items():
+        if not rep["max_rel_gap_vs_highs"] <= 1e-5:
+            fail(f"{label}: HiGHS gap {rep['max_rel_gap_vs_highs']:.3e}")
+        if paths[label]["solve_segment"] + paths[label][
+                "solve_segment_stream"] <= 0:
+            fail(f"{label}: no segment kernel was launched")
+    if presolve["not_optimal"] != runs["general_batch"]["not_optimal"]:
+        fail("general batch presolve: other lanes than without presolve "
+             "are not OPTIMAL")
+    if (pres[GB].status != st.PRIMAL_INFEASIBLE or not pres[GB + 1].optimum
+            or pres[GB + 1].iters != 0
+            or not np.allclose(pres[GB + 1].x, [2.0, 3.0])):
+        fail(f"general batch presolve: planted lanes {presolve['planted']}")
+    if not pshift <= 1e-5:
+        fail(f"general batch presolve: costs moved by {pshift:.3e}")
+    if int((tres.status == st.OPTIMAL).sum()) != TB:
+        fail(f"transportation: {transport_out['lane_status']}")
+    if not tgap <= 1e-5:
+        fail(f"transportation: HiGHS gap {tgap:.3e} > 1e-5")
+    return paths
+
+
+def _pd_batch():
+    """19c: solve_primal_dual_batch on PDB lanes of the textbook problems
+    (padded, tiled, costs scaled by a seeded 1 + 0.01 N(0, 1))."""
+    from linprog_tpu_torch.primal_dual import solve_primal_dual_batch
+
+    m_pad = max(A.shape[0] for _, A, _ in PD_PROBLEMS)
+    n_pad = max(A.shape[1] for _, A, _ in PD_PROBLEMS) + m_pad
+    padded = [lt.forms.pad_problem(*lt.forms.preprocess_problem(c, A, b),
+                                   m_pad, n_pad)[:3]
+              for c, A, b in PD_PROBLEMS]
+    k = len(PD_PROBLEMS)
+    c, A, b = (np.stack([padded[i % k][j] for i in range(PDB)])
+               for j in range(3))
+    rng = np.random.default_rng(SEED + 19)
+    c = (c * (1.0 + 0.01 * rng.standard_normal(c.shape))).astype(np.float32)
+    ct, At, bt = (torch.as_tensor(a, device=DEVICE) for a in (c, A, b))
+
+    def run():
+        return solve_primal_dual_batch(ct, At, bt, 100, 100)
+
+    _, warm = _walled(run)
+    walls = []
+    for _ in range(3):
+        out, w = _walled(run)
+        walls.append(w)
+    x, cost, counter, status, _ = out
+    gap = highs_gap(cost, ct, 4, A_eq=At, b_eq=bt)
+    rep = {"lanes": PDB, "m": m_pad, "n": n_pad,
+           "wall_s": float(np.median(walls)), "walls_s": walls,
+           "warmup_wall_s": warm, "lane_status": status_counts(status),
+           "outer_iters_max": int(counter.max()),
+           "highs_lanes": 4, "max_rel_gap_vs_highs": gap}
+    emit({"phase": "general_form_primal_dual", **rep})
+    if int((status == st.OPTIMAL).sum()) != PDB:
+        fail(f"primal-dual batch: {rep['lane_status']}")
+    if not gap <= 1e-5:
+        fail(f"primal-dual batch: HiGHS gap {gap:.3e} > 1e-5")
+
+
+def _ipm_instance():
+    """19d's instance: G, h of random_inequality_lps(1, 512, 512), IPM_EQ
+    equality rows through its feasible point x0 and finite upper bounds
+    above x0 on a quarter of the variables."""
+    from linprog_tpu_torch.generators import random_inequality_lps
+
+    seed = SEED + 19
+    c, G, h = random_inequality_lps(1, IPM_M, IPM_M, seed=seed)
+    rng = np.random.default_rng(seed)  # the generator's own draws, again
+    rng.standard_normal(size=(1, IPM_M, IPM_M), dtype=np.float32)
+    x0 = rng.random(size=(1, IPM_M), dtype=np.float32)[0]
+    r2 = np.random.default_rng(seed + 1)
+    A = r2.standard_normal((IPM_EQ, IPM_M)).astype(np.float32)
+    ub = np.full(IPM_M, np.inf, np.float32)
+    idx = r2.permutation(IPM_M)[: IPM_M // 4]
+    ub[idx] = x0[idx] + r2.uniform(0.5, 1.5, idx.size).astype(np.float32)
+    h2 = h[0] * (1.0 + 0.02 * r2.standard_normal(IPM_M)).astype(np.float32)
+    return dict(c=c[0], A=A, b=A @ x0, G=G[0], h=h[0], ub=ub), h2
+
+
+def _ipm_solver(job):
+    """19d: IPMSolver on the card (kernel 2 in every Newton step), then a
+    warm resolve of perturbed h against a cold solve; ``job`` is HiGHS on
+    the instance, running in a worker process meanwhile."""
+    p, h2 = _ipm_instance()
+    _, warm_up = _walled(lambda: lt.IPMSolver(**p, device=DEVICE).solve())
+    solver = lt.IPMSolver(**p, device=DEVICE)
+    _reset_counts()
+    res, wall = _walled(solver.solve)
+    launches = _read_counts()
+    warm, warm_s = _walled(lambda: solver.resolve(h=h2))
+    cold, cold_s = _walled(
+        lambda: lt.IPMSolver(**dict(p, h=h2), device=DEVICE).solve())
+    code, fun = job.result()
+    gap = _rel(res.cost, fun)
+    wc = _rel(warm.cost, cold.cost)
+    rows = IPM_EQ + IPM_M + int(np.isfinite(p["ub"]).sum())
+    rep = {"m_std": rows, "n_std": IPM_M + rows - IPM_EQ,
+           "status": st.status_name(res.status), "newton_steps": res.iters,
+           "wall_s": wall, "warmup_wall_s": warm_up, "cost": res.cost,
+           "highs": fun, "rel_gap_vs_highs": gap,
+           "duals": int(res.y.shape[0]), "launches": launches,
+           "resolve": {"warm_status": st.status_name(warm.status),
+                       "warm_steps": warm.iters, "warm_s": warm_s,
+                       "cold_status": st.status_name(cold.status),
+                       "cold_steps": cold.iters, "cold_s": cold_s,
+                       "rel_cost_diff": wc}}
+    emit({"phase": "general_form_ipm_solver", **rep})
+    if code != 0:
+        fail("IPMSolver: HiGHS did not solve the instance")
+    if not res.optimum or not gap <= 1e-3:
+        fail(f"IPMSolver: {rep['status']}, HiGHS gap {gap:.3e} (> 1e-3?)")
+    if res.y.shape[0] != rows:
+        fail(f"IPMSolver: {res.y.shape[0]} duals for {rows} rows")
+    if launches["panel_cholinv"] <= 0:
+        fail("IPMSolver: kernel panel_cholinv was never launched")
+    # the warm start saves no step on this instance (9 against 9 on an
+    # NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6): it must not cost
+    # one
+    if not (warm.optimum and cold.optimum and warm.iters <= cold.iters
+            and wc <= 5e-3):
+        fail(f"IPMSolver resolve: {rep['resolve']}")
+    return launches
+
+
+def _interval_errors(got, want, cs, h):
+    """Per field of two RangingResults over the same lanes: the relative
+    errors ``|got - want| / max(1, |want|)`` where both are finite, and the
+    endpoints finite in one only, split by whether the finite one lies
+    beyond 1e4 of the data's scale (an unbounded direction read from
+    rounding noise) or nearer."""
+    out = {}
+    for name, g, w in zip(want._fields, got, want):
+        g = g.double().cpu()
+        value = (cs if name.startswith("cost") else h).double().cpu()
+        fin = torch.isfinite(w)
+        differ = torch.isfinite(g) != fin
+        finite = torch.where(fin, w, g)
+        far = (finite - value).abs() > 1e4 * value.abs().clamp_min(1.0)
+        both = fin & torch.isfinite(g)
+        err = ((g - w).abs() / w.abs().clamp_min(1.0))[both]
+        out[name] = {"errors": err, "far": int((differ & far).sum()),
+                     "near": int((differ & ~far).sum())}
+    return out
+
+
+def _ranging_m256():
+    """19e: ranging_batch at phase 4's exact bases (B = 1024, m = n = 256;
+    the exact pipeline runs again if phase 4 did not), in f32 and in
+    float64 on the card, each against a float64 host ranging of the same
+    bases on 4 lanes."""
+    from linprog_tpu_torch.engine import make_state
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, G, h = device_inequality_lps(gen, B, M, N, DEVICE)
+    basis = MAIN_PATH.get("basis")
+    if basis is None:
+        basis = lt.solve_batch_exact(c, G, h)[0].basis
+    eye = torch.eye(M, device=DEVICE).expand(B, M, M)
+    A = torch.cat([G, eye], dim=2)
+    cs = torch.cat([c, torch.zeros((B, M), device=DEVICE)], dim=1)
+    ok = ((basis >= 0) & (basis < N + M)).all(dim=1)
+    basis = torch.where(ok[:, None], basis, torch.arange(
+        N, N + M, dtype=basis.dtype, device=DEVICE))
+    lanes = [i for i in range(B) if bool(ok[i])][:4]
+    idx = torch.tensor(lanes, device=DEVICE)
+    A64, h64, c64 = (t[idx].double().cpu() for t in (A, h, cs))
+    ref = lt.ranging_batch(c64, A64, h64,
+                           make_state(A64, h64, basis[idx].cpu()))
+    rep = {"lanes": B, "m": M, "n": N + M,
+           "lanes_with_a_basis": int(ok.sum()),
+           "from_phase4": "basis" in MAIN_PATH, "checked_lanes": lanes}
+    for label, dt in (("f32", torch.float32), ("float64", torch.float64)):
+        Ad, hd, cd = A.to(dt), h.to(dt), cs.to(dt)
+
+        def run():
+            return lt.ranging_batch(cd, Ad, hd, make_state(Ad, hd, basis))
+
+        out = run()
+        ms = cuda_ms(run, 5)
+        stats = _interval_errors([t[idx] for t in out], ref, c64, h64)
+        errs = torch.cat([v["errors"] for v in stats.values()])
+        rep[label] = {
+            "ms": ms, "max_rel_err_vs_host_float64": float(errs.max()),
+            "quantiles_50_90_99": torch.quantile(errs, torch.tensor(
+                [0.5, 0.9, 0.99], dtype=errs.dtype)).tolist(),
+            "share_within_1e-3": float((errs <= 1e-3).double().mean()),
+            "endpoints": int(errs.numel()),
+            "finite_in_one_only_far_out": sum(v["far"]
+                                              for v in stats.values()),
+            "finite_in_one_only_near": sum(v["near"]
+                                           for v in stats.values())}
+    emit({"phase": "general_form_ranging", **rep})
+    if int(ok.sum()) != B:
+        fail(f"ranging: {B - int(ok.sum())} lanes without a basis")
+    # the card's ranging in float64 must be the host's; f32 is a reading:
+    # at m = 256 its basis inverse carries cond(B) times f32's rounding,
+    # which a ratio over a small tableau entry amplifies (PERF.md section 6)
+    f64 = rep["float64"]
+    if (f64["finite_in_one_only_far_out"] or f64["finite_in_one_only_near"]
+            or not f64["max_rel_err_vs_host_float64"] <= 1e-9):
+        fail(f"ranging: the card's float64 ranging is not the host's: {f64}")
+
+
+def phase_general_form():
+    """Phase 19: the general-form surface (19a single instances, 19b
+    solve_batch_general and transportation_lps, 19c the primal-dual batch,
+    19d IPMSolver, 19e ranging_batch); each leg prints its own report."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.time()
+    p, _ = _ipm_instance()
+    # HiGHS takes seconds on 19d's instance: a worker process solves it
+    # while the card runs the legs before
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing
+                               .get_context("spawn"))
+    try:
+        job = pool.submit(_highs_general, {k: np.asarray(v, np.float64)
+                                           for k, v in p.items()})
+        legs, secs = {}, {}
+        for name, leg in (("single", _general_single),
+                          ("batch", _general_batch),
+                          ("primal_dual", _pd_batch),
+                          ("ipm_solver", lambda: _ipm_solver(job)),
+                          ("ranging", _ranging_m256)):
+            t1 = time.time()
+            legs[name] = leg()
+            secs[name] = time.time() - t1
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    emit({"phase": "general_form", "seconds": time.time() - t0,
+          "leg_seconds": secs})
+    return {**legs["batch"], "ipm_solver": legs["ipm_solver"]}
+
+
 def main():
     phase_environment()
     phase_build()
@@ -2900,6 +3474,7 @@ def main():
     paths["bounded_block"] = blk["path"]["launches"]
     paths.update(phase_pdhg_m256())
     paths.update(phase_sparse_m2048())
+    paths.update(phase_general_form())
 
     def entry(name, source, replaces, n_launches, rep, new_shapes=None):
         by_path = {path: counts[name] for path, counts in paths.items()

@@ -16,7 +16,18 @@ router's ``"pdhg"`` family; :func:`pdhg_crossover_batch_canonical`), the
 shared-pattern sparse IPM with its straggler recovery
 (:func:`ipm_solve_batch_sparse_canonical`,
 :func:`recover_stragglers_sparse`) and the sparse front door
-(:func:`solve_batch_auto_sparse`).  The package
+(:func:`solve_batch_auto_sparse`).  The general-form surface takes
+single instances as host arrays and runs on a card by default
+(``device="cuda"``; ``device="cpu"`` on the host): the reference's solver
+classes (:class:`SimplexSolver`, the primal and dual naive and revised
+classes, :class:`BoundedVariablePrimalSimplexSolver`,
+:class:`PhaseOneSimplexSolver`) on the per-lane engines at a batch of
+one, :class:`PrimalDualAlgorithm` (and ``primal_dual
+.solve_primal_dual_batch``), :class:`IPMSolver`, :func:`ranging` /
+:func:`ranging_batch`, the host presolve (:func:`presolve_problem`,
+:func:`solve_with_presolve`) and ``batch.solve_batch_general``, which
+pads heterogeneous instances into one batch for the two-phase kernels.
+The package
 has six hand-written CUDA kernels: the whole-segment simplex kernel
 (``ops/solve_kernel.py``), its streaming counterpart for large m
 (``ops/stream_kernel.py``), the panel inverse-Cholesky kernel
@@ -29,6 +40,15 @@ f32 means IEEE f32: the package never enables TF32, which would break the
 exact split products of the double-word arithmetic and pick wrong pivots.
 """
 
+from .api import (
+    BoundedVariablePrimalSimplexSolver,
+    DualNaiveSimplexSolver,
+    DualRevisedSimplexSolver,
+    PhaseOneSimplexSolver,
+    PrimalNaiveSimplexSolver,
+    PrimalRevisedSimplexSolver,
+    SimplexSolver,
+)
 from .batch import solve_batch_bounded, solve_batch_two_phase
 from .certify import certificate_summary, certify_vertex_batch
 from .config import DEFAULT_CONFIG, FAST_CONFIG, SolverConfig, tuned_config
@@ -37,9 +57,11 @@ from .crossover import (
     ipm_crossover_batch_canonical,
     pdhg_crossover_batch_canonical,
 )
+from .engine import SimplexState
 from .ipm import (
     DEFAULT_IPM_CONFIG,
     IPMConfig,
+    IPMSolver,
     ipm_solve_batch_canonical,
     ipm_solve_batch_standard,
     recover_stragglers_pooled,
@@ -52,6 +74,9 @@ from .ipm_sparse import (
     recover_stragglers_sparse,
 )
 from .pdhg import PDHGConfig, PDHGSolver
+from .presolve_host import presolve_problem, solve_with_presolve
+from .primal_dual import PrimalDualAlgorithm
+from .ranging import RangingResult, ranging, ranging_batch
 from .results import BatchResult, LinProgResult
 from .router import (
     choose_family,
@@ -61,16 +86,43 @@ from .router import (
     solve_batch_auto_sparse,
     solve_batch_exact,
 )
+from .status import (
+    BasisIsDualInfeasibleError,
+    BasisIsPrimalInfeasibleError,
+    DualIsInfeasibleError,
+    DualIsUnboundedError,
+    LinProgError,
+    PrimalIsInfeasibleError,
+    PrimalIsUnboundedError,
+)
 
 __all__ = [
+    "BasisIsDualInfeasibleError",
+    "BasisIsPrimalInfeasibleError",
     "BatchResult",
+    "BoundedVariablePrimalSimplexSolver",
     "DEFAULT_CONFIG",
     "DEFAULT_IPM_CONFIG",
+    "DualIsInfeasibleError",
+    "DualIsUnboundedError",
+    "DualNaiveSimplexSolver",
+    "DualRevisedSimplexSolver",
     "FAST_CONFIG",
     "IPMConfig",
+    "IPMSolver",
+    "LinProgError",
     "LinProgResult",
     "PDHGConfig",
     "PDHGSolver",
+    "PhaseOneSimplexSolver",
+    "PrimalDualAlgorithm",
+    "PrimalIsInfeasibleError",
+    "PrimalIsUnboundedError",
+    "PrimalNaiveSimplexSolver",
+    "PrimalRevisedSimplexSolver",
+    "RangingResult",
+    "SimplexSolver",
+    "SimplexState",
     "SolverConfig",
     "SparsePattern",
     "certificate_summary",
@@ -84,6 +136,9 @@ __all__ = [
     "ipm_solve_batch_sparse_canonical",
     "ipm_solve_batch_standard",
     "pdhg_crossover_batch_canonical",
+    "presolve_problem",
+    "ranging",
+    "ranging_batch",
     "recover_stragglers_pooled",
     "recover_stragglers_sparse",
     "reoptimize_ipm_batch_canonical",
@@ -92,6 +147,7 @@ __all__ = [
     "solve_batch_bounded",
     "solve_batch_exact",
     "solve_batch_two_phase",
+    "solve_with_presolve",
     "tuned_config",
     "warm_start_point",
 ]

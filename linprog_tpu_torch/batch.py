@@ -1,5 +1,4 @@
-"""Batched simplex entry points (counterpart of :mod:`linprog_tpu.batch`,
-without its heterogeneous ``solve_batch_general``).
+"""Batched simplex entry points (counterpart of :mod:`linprog_tpu.batch`).
 
 Two-phase: Phase I keeps the artificial columns in the matrix for Phase II
 and masks them out of pricing; redundant rows keep their artificial basic
@@ -12,6 +11,9 @@ Farkas vector in ``y``, unbounded lanes get their improving ray from
 :func:`unbounded_rays`.  Bounded variables: :func:`solve_batch_bounded`
 runs the bounded-variable kernel (or, with ``kernels="torch"``, the
 per-lane bounded engine) from a given basis and bound assignment.
+Heterogeneous general-form instances: :func:`solve_batch_general`
+canonicalizes host arrays, pads them to one shape and runs the two-phase
+solve on the device.
 """
 
 from __future__ import annotations
@@ -156,6 +158,129 @@ def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
         status=res.status,
         y=y,
     )
+
+
+def _bound_rows(red):
+    """The finite upper bounds and positive lower bounds a host presolve
+    left on its reduced problem, as inequality rows ``(G, h)`` (appended
+    to the reduced problem's own)."""
+    import numpy as np
+
+    nr = red.c.shape[0]
+    ub_idx = np.flatnonzero(np.isfinite(red.ub))
+    lb_idx = np.flatnonzero(red.lb > 0)
+    rows = np.zeros((ub_idx.size + lb_idx.size, nr))
+    rows[np.arange(ub_idx.size), ub_idx] = 1.0
+    rows[ub_idx.size + np.arange(lb_idx.size), lb_idx] = -1.0
+    rhs = np.concatenate([red.ub[ub_idx], -red.lb[lb_idx]])
+    if not rows.shape[0]:
+        return red.G, red.h
+    if red.G is None:
+        return rows, rhs
+    return (np.concatenate([red.G, rows]), np.concatenate([red.h, rhs]))
+
+
+def solve_batch_general(problems, maxiters1: int = 1000,
+                        maxiters2: int = 1000,
+                        cfg: SolverConfig = DEFAULT_CONFIG,
+                        presolve: bool = False, device="cuda"):
+    """Solve a heterogeneous batch of general-form LPs in one device batch.
+
+    ``problems`` is a sequence of dicts with key ``c`` and any of
+    ``A, b, G, h`` (host arrays, the inputs of
+    :class:`~linprog_tpu_torch.api.SimplexSolver` without bounds).  Each
+    instance is canonicalized on the host in ``cfg.dtype``, padded in f32
+    to the common shape (:func:`linprog_tpu_torch.forms.pad_problem`:
+    ``m_pad`` the most rows, ``n_pad`` the most columns plus ``m_pad``) and
+    the batch
+    runs :func:`solve_batch_two_phase` on ``device`` (a card by default:
+    kernel 1 or 3, by ``run_batched``'s rules; ``device="cpu"`` runs on the
+    host).  Returns one :class:`~linprog_tpu_torch.results.LinProgResult`
+    per instance, ``x`` in its own variable space.
+
+    ``presolve=True`` runs the host presolve
+    (:func:`linprog_tpu_torch.presolve_host.presolve_problem`) on each
+    instance first: the instances it decides (infeasible, unbounded,
+    completely fixed) never reach the device, the others solve reduced and
+    are postsolved back.  Bounds the presolve tightened become inequality
+    rows (this surface has no native bounds).
+    """
+    import numpy as np
+
+    from . import forms
+    from .ipm_sparse import resolve_device
+    from .results import LinProgResult
+
+    dev = resolve_device(device)
+    dtype = np.dtype(cfg.dtype)
+
+    direct = {}  # index -> LinProgResult decided by presolve
+    posts = {}  # index -> Postsolve
+    canon = []
+    canon_idx = []
+    for i, p in enumerate(problems):
+        c_in, A_in, b_in = p["c"], p.get("A"), p.get("b")
+        G_in, h_in = p.get("G"), p.get("h")
+        c_orig = np.asarray(c_in, np.float64)
+        if presolve:
+            from .presolve_host import presolve_problem
+
+            red = presolve_problem(c_in, A_in, b_in, G_in, h_in)
+            if red.post.status in (st.PRIMAL_INFEASIBLE,
+                                   st.PRIMAL_UNBOUNDED):
+                direct[i] = LinProgResult(
+                    x=np.full(c_orig.shape, np.nan), basis=None,
+                    cost=float("nan"), iters=0, optimum=False,
+                    status=int(red.post.status),
+                )
+                continue
+            if red.post.keep_cols.size == 0:
+                x = red.post.expand(None)
+                direct[i] = LinProgResult(
+                    x=x, basis=None, cost=float(c_orig @ x), iters=0,
+                    optimum=True, status=st.OPTIMAL,
+                )
+                continue
+            G_in, h_in = _bound_rows(red)
+            c_in, A_in, b_in = red.c, red.A, red.b
+            posts[i] = red.post
+        c_std, A_std, b_std, _ = forms.general_to_standard(
+            c_in, A=A_in, b=b_in, G=G_in, h=h_in, dtype=dtype,
+        )
+        canon.append((c_std, A_std, b_std, np.asarray(c_in).shape[0]))
+        canon_idx.append(i)
+
+    if not canon:  # every instance decided by presolve
+        return [direct[i] for i in range(len(problems))]
+
+    m_pad = max(A.shape[0] for _, A, _, _ in canon)
+    n_pad = max(A.shape[1] for _, A, _, _ in canon) + m_pad
+    # the batch itself is f32, as the reference pads it (the kernels
+    # take f32)
+    padded = [forms.pad_problem(c_std, A_std, b_std, m_pad, n_pad)[:3]
+              for c_std, A_std, b_std, _ in canon]
+    cs, As, bs = (torch.as_tensor(np.stack(a), device=dev)
+                  for a in zip(*padded))
+    res = solve_batch_two_phase(cs, As, bs, maxiters1, maxiters2, cfg)
+    x = res.x.cpu().numpy()
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    solved = {}
+    for k, (_, _, _, n_orig) in enumerate(canon):
+        i = canon_idx[k]
+        xi = x[k, :n_orig]
+        if i in posts:  # eliminated variables scattered back
+            xi = posts[i].expand(xi)
+        solved[i] = LinProgResult(
+            x=xi,
+            basis=None,
+            cost=float(np.asarray(problems[i]["c"], np.float64) @ xi),
+            iters=int(iters[k]),
+            optimum=bool(status[k] == st.OPTIMAL),
+            status=int(status[k]),
+        )
+    return [direct[i] if i in direct else solved[i]
+            for i in range(len(problems))]
 
 
 def reoptimize_batch_new_rhs(c, A, b_new, basis, maxiters: int,

@@ -2,8 +2,8 @@
 
 The fields keep the reference's names and defaults.  Knobs of the reference
 that the port leaves out (``split_pricing``, ``partial_pricing``,
-``refactor_method="ns"``) and knobs its kernel path never reads
-(``dtype``, ``compact_refactor``) are not fields here;
+``refactor_method="ns"``) and the one its kernel path never reads
+(``compact_refactor``) are not fields here;
 :func:`linprog_tpu_torch.convert.config_from_reference` checks them.
 """
 
@@ -40,7 +40,11 @@ class SolverConfig:
     basis inverse, refactorized every ``refactor_every`` pivots) or
     ``"naive"`` (a fresh inversion at every pivot, no chunked
     refactorization); the per-lane engines and the per-step loop read it,
-    the kernels always run eta updates, as the reference's do.
+    the kernels always run eta updates, as the reference's do.  ``dtype``
+    (``"float32"`` or ``"float64"``) is the working precision of the
+    entry points that take host arrays (the solver classes,
+    ``solve_batch_general``, ``presolve_host.solve_with_presolve``); the
+    batched entry points compute in their tensors' dtype.
     """
 
     opt_tol: float = 1e-6
@@ -55,6 +59,7 @@ class SolverConfig:
     scaling: bool = False
     kernels: str = "cuda"
     update: str = "eta"
+    dtype: str = "float32"
 
     def __post_init__(self):
         if self.pricing not in ("bland", "dantzig", "devex"):
@@ -63,6 +68,8 @@ class SolverConfig:
             raise ValueError(f"unknown kernels impl: {self.kernels!r}")
         if self.update not in ("eta", "naive"):
             raise ValueError(f"unknown update rule: {self.update!r}")
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError(f"unknown dtype: {self.dtype!r}")
         if self.unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {self.unroll}")
 

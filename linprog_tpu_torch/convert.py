@@ -23,7 +23,7 @@ from .results import BatchResult
 
 # reference knobs the port leaves out: allowed only at their defaults
 _DROPPED_SOLVER = {"split_pricing": False, "partial_pricing": False,
-                   "refactor_method": "inv", "dtype": "float32"}
+                   "refactor_method": "inv"}
 # reference knobs the port never reads
 _IGNORED_SOLVER = ("compact_refactor",)
 _DROPPED_IPM = {"gondzio": 0, "newton_solver": "w2"}
@@ -71,13 +71,17 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def simplex_state_from_numpy(state, device="cpu") -> SimplexState:
-    """Reference ``SimplexState`` (batched arrays) -> port state."""
+def simplex_state_from_numpy(state, device="cpu", dtype=torch.float32
+                             ) -> SimplexState:
+    """Reference ``SimplexState`` -> port state (batched arrays stay
+    batched; a single instance's state keeps its unbatched shapes, as the
+    solver classes' ``state`` gives it), ``inv_B`` and ``bfs`` in
+    ``dtype``."""
     f = _fields(state)
     return SimplexState(
         basis=_t(f["basis"], device, torch.int32),
-        inv_B=_t(f["inv_B"], device, torch.float32),
-        bfs=_t(f["bfs"], device, torch.float32),
+        inv_B=_t(f["inv_B"], device, dtype),
+        bfs=_t(f["bfs"], device, dtype),
         iters=_t(f["iters"], device, torch.int32),
         status=_t(f["status"], device, torch.int32),
     )

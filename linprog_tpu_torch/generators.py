@@ -51,6 +51,45 @@ def to_standard_form_batch(c, G, h):
     return c_std, A, b
 
 
+def transportation_lps(
+    batch: int,
+    n_supply: int,
+    n_demand: int,
+    seed: int = 0,
+    dtype=np.float32,
+):
+    """Host batch of balanced transportation problems (structured and
+    degenerate): ``min sum c_ij x_ij  s.t.  sum_j x_ij = s_i,
+    sum_i x_ij = d_j, x >= 0`` with ``sum s = sum d``; the same numbers as
+    the reference's generator for the same seed.
+
+    Returns ``(c[B, ns*nd], A[B, ns+nd, ns*nd], b[B, ns+nd])``.  One row is
+    redundant (rank ns+nd-1): Phase I has to handle it.
+    """
+    rng = np.random.default_rng(seed)
+    ns, nd = n_supply, n_demand
+    n = ns * nd
+    m = ns + nd
+    # one incidence structure; costs, supplies and demands vary per lane
+    A0 = np.zeros((m, n), dtype=dtype)
+    for i in range(ns):
+        A0[i, i * nd : (i + 1) * nd] = 1.0  # row sums = supply
+    for j in range(nd):
+        A0[ns + j, j::nd] = 1.0  # column sums = demand
+    A = np.broadcast_to(A0, (batch, m, n)).copy()
+
+    c = rng.uniform(1.0, 10.0, size=(batch, n)).astype(dtype)
+    # integer supplies and demands: the balance sum(s) == sum(d) must hold
+    # exactly, or every instance is infeasible at float64 tolerances
+    s = rng.integers(2, 10, size=(batch, ns)).astype(np.int64)
+    d = np.empty((batch, nd), dtype=np.int64)
+    for k in range(batch):
+        total = int(s[k].sum())
+        d[k] = 1 + rng.multinomial(total - nd, np.full(nd, 1.0 / nd))
+    b = np.concatenate([s, d], axis=1).astype(dtype)
+    return c, A, b
+
+
 def device_inequality_lps(gen: torch.Generator, batch: int, m: int, n: int,
                           device):
     """The same construction made on ``device`` from the generator ``gen``

@@ -13,6 +13,9 @@ The reference's ``lax.while_loop`` becomes a Python loop with a host check
 of "any lane running".  ``gondzio`` correctors and
 ``newton_solver="minv"`` are not ported (off by default in the reference).
 
+:class:`IPMSolver` is the single-instance general-form surface on the
+standard-form IPM, with warm re-solves of perturbed data.
+
 Warm re-solves (:func:`warm_start_point`,
 :func:`reoptimize_ipm_batch_canonical`) restart from a previous terminal
 iterate pushed back into the interior.  Straggler recovery
@@ -28,13 +31,14 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import engine as _engine
 from . import status as st
 from .ops.cholinv_kernel import panel_cholinv
 from .ops.solve_kernel import _nonneg
-from .results import BatchResult
+from .results import BatchResult, LinProgResult
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -594,3 +598,166 @@ def _recovery_scatter(r: BatchResult, x_ext, sub: BatchResult, idxl, idxp,
         y[idxl] = sub.y[idxp].to(y.dtype)
     return BatchResult(x=x, basis=basis, cost=cost, iters=iters,
                        status=status, y=y)
+
+
+class IPMSolver:
+    """Interior-point solver of one instance with the general-form input
+    surface: ``min c'x  s.t.  Ax = b, Gx <= h, lb <= x <= ub`` from host
+    arrays, on ``device`` (a card by default; ``device="cpu"`` runs on the
+    host).
+
+    A finite lower bound of any sign is substituted out (``x = lb + w``);
+    finite upper bounds become inequality rows.  Free variables
+    (``lb = -inf``) raise ``ValueError``: use
+    :class:`~linprog_tpu_torch.api.SimplexSolver` or
+    :class:`~linprog_tpu_torch.pdhg.PDHGSolver` there.  The IPM never flips
+    a row's sign, so the duals ``y`` are in the user's row space (equality
+    rows, then inequality rows, then the upper-bound rows).
+    """
+
+    def __init__(self, c, A=None, b=None, G=None, h=None, lb=None, ub=None,
+                 config: Optional[IPMConfig] = None, device="cuda"):
+        from .ipm_sparse import resolve_device
+
+        # kept for resolve(): a re-solve rebuilds the standard form with
+        # the perturbed data and warm-starts from the terminal iterate
+        self._init_kwargs = dict(c=c, A=A, b=b, G=G, h=h, lb=lb, ub=ub)
+        self.config = config or DEFAULT_IPM_CONFIG
+        self.device = resolve_device(device)
+        dt = np.dtype(self.config.dtype)
+        c = np.asarray(c, dtype=dt)
+        n = c.shape[0]
+        has_eq = A is not None and b is not None
+        has_ineq = G is not None and h is not None
+        if not has_eq and not has_ineq:
+            raise ValueError(
+                "Input polyhedron misspecified: need (A, b) and/or (G, h)."
+            )
+        Ae = np.atleast_2d(np.asarray(A, dtype=dt)) if has_eq else None
+        be = np.asarray(b, dtype=dt) if has_eq else None
+        Gi_user = np.atleast_2d(np.asarray(G, dtype=dt)) if has_ineq else None
+        hi_user = np.asarray(h, dtype=dt) if has_ineq else None
+
+        # finite lower bounds of any sign: x = lb + w (w >= 0), shifting the
+        # right-hand sides and the upper bounds
+        self._shift_idx = np.array([], dtype=int)
+        self._shift_lb = np.array([], dtype=dt)
+        if lb is not None:
+            lb = np.asarray(lb, dtype=dt)
+            if np.any(~np.isfinite(lb) & (lb < 0)):
+                raise ValueError(
+                    "IPMSolver does not support free variables (lb=-inf); "
+                    "use SimplexSolver/PDHGSolver there."
+                )
+            idx = np.flatnonzero(np.isfinite(lb) & (lb != 0))
+            if idx.size:
+                shift = lb[idx].copy()
+                if Ae is not None:
+                    be = be - Ae[:, idx] @ shift
+                if Gi_user is not None:
+                    hi_user = hi_user - Gi_user[:, idx] @ shift
+                if ub is not None:
+                    ub = np.asarray(ub, dtype=dt).copy()
+                    ub[idx] = ub[idx] - shift
+                self._shift_idx = idx
+                self._shift_lb = shift
+
+        G_rows = []
+        h_rows = []
+        if has_ineq:
+            G_rows.append(Gi_user)
+            h_rows.append(hi_user)
+        if ub is not None:
+            ub = np.asarray(ub, dtype=dt)
+            idx = np.flatnonzero(np.isfinite(ub))
+            if idx.size:
+                rows = np.zeros((idx.size, n), dtype=dt)
+                rows[np.arange(idx.size), idx] = 1.0
+                G_rows.append(rows)
+                h_rows.append(ub[idx])
+
+        blocks_A, blocks_b = [], []
+        num_ineq = sum(g.shape[0] for g in G_rows)
+        if has_eq:
+            blocks_A.append(
+                np.concatenate([Ae, np.zeros((Ae.shape[0], num_ineq), dt)],
+                               axis=1))
+            blocks_b.append(be)
+        if num_ineq:
+            Gi = np.concatenate(G_rows, axis=0)
+            blocks_A.append(
+                np.concatenate([Gi, np.eye(num_ineq, dtype=dt)], axis=1))
+            blocks_b.append(np.concatenate(h_rows))
+        self.n_orig = n
+        self._c_std = np.concatenate([c, np.zeros(num_ineq, dtype=dt)])
+        self._A_std = np.concatenate(blocks_A, axis=0)
+        self._b_std = np.concatenate(blocks_b)
+
+    def _standard(self):
+        """The standard form as a batch of one on the device."""
+        return (torch.tensor(a, device=self.device)[None]
+                for a in (self._c_std, self._A_std, self._b_std))
+
+    def _finish(self, state: IPMState) -> LinProgResult:
+        self._state = state
+        x_std = state.x[0].cpu().numpy()
+        code = int(state.status[0])
+        # infeasible and unbounded verdicts raise, as the reference's
+        # exceptions (the certificate stays in .duals / the state)
+        st.raise_for_status(code)
+        x = x_std[: self.n_orig].copy()
+        if self._shift_idx.size:
+            x[self._shift_idx] += self._shift_lb
+        return LinProgResult(
+            x=x,
+            basis=None,
+            cost=float(self._c_std[: self.n_orig] @ x),
+            iters=int(state.iters[0]),
+            optimum=code == st.OPTIMAL,
+            status=code,
+            y=state.y[0].cpu().numpy(),
+        )
+
+    def solve(self, maxiters: Optional[int] = None) -> LinProgResult:
+        cfg = self.config
+        if maxiters is not None:
+            cfg = dataclasses.replace(cfg, maxiters=int(maxiters))
+        return self._finish(ipm_solve_batch_standard(*self._standard(), cfg))
+
+    def resolve(self, b=None, h=None, c=None,
+                maxiters: Optional[int] = None,
+                warm_frac: float = 1e-2) -> LinProgResult:
+        """Warm-started re-solve with perturbed data: any of a new ``b``
+        (equality rhs), ``h`` (inequality rhs) or ``c``; the polyhedron's
+        shape and bounds stay the constructor's.  The standard form is
+        rebuilt and the Mehrotra loop restarts from the previous terminal
+        iterate pushed back into the interior (:func:`warm_start_point`).
+        Requires a prior :meth:`solve`."""
+        if not hasattr(self, "_state"):
+            raise AttributeError("call solve() first")
+        kw = dict(self._init_kwargs)
+        if b is not None:
+            kw["b"] = b
+        if h is not None:
+            kw["h"] = h
+        if c is not None:
+            kw["c"] = c
+        fresh = IPMSolver(config=self.config, device=self.device, **kw)
+        cfg = fresh.config
+        if maxiters is not None:
+            cfg = dataclasses.replace(cfg, maxiters=int(maxiters))
+        init = warm_start_point(self._state, warm_frac)
+        c_s, A_s, b_s = fresh._standard()
+        dt = _DTYPES[cfg.dtype]
+        state = _ipm_core(c_s.to(dt), _DenseOp(A_s.to(dt)), b_s.to(dt), cfg,
+                          init=init)
+        # the rebuilt problem and its state, so that re-solves chain
+        self.__dict__.update(fresh.__dict__)
+        return self._finish(state)
+
+    @property
+    def duals(self) -> np.ndarray:
+        """The dual iterate ``y`` in the user's row space; solve first."""
+        if not hasattr(self, "_state"):
+            raise AttributeError("call solve() first")
+        return self._state.y[0].cpu().numpy()

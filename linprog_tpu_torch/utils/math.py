@@ -39,18 +39,18 @@ def dual_simplex_div(numer, denom, pivot_tol: float = 0.0):
 
 def get_bounds_on_bfs(A, b, cap: float | None = None):
     """Bound on ``|x_i|`` over all basic feasible solutions of one instance
-    ``A[m, n], b[m]`` (Lemma 2.1 of Papadimitriou & Steiglitz):
-    ``M = m! alpha^(m-1) beta`` with ``alpha = max|A_ij|``,
-    ``beta = max|b_i|``, computed as
+    ``A[m, n], b[m]``, or of each lane of ``A[B, m, n], b[B, m]`` (Lemma
+    2.1 of Papadimitriou & Steiglitz): ``M = m! alpha^(m-1) beta`` with
+    ``alpha = max|A_ij|``, ``beta = max|b_i|``, computed as
     ``exp(lgamma(m+1) + (m-1) log alpha + log beta)`` and clamped to ``cap``
     (1e30 in float64, 1e7 otherwise).  ``beta == 0`` gives 0."""
     A, b = _tensor(A), _tensor(b)
-    m = A.shape[0]
+    m = A.shape[-2]
     if cap is None:
         cap = 1e30 if A.dtype == torch.float64 else 1e7
     tiny = torch.finfo(A.dtype).tiny
-    alpha = torch.abs(A).max()
-    beta = torch.abs(b).max().to(A.dtype)
+    alpha = torch.abs(A).amax(dim=(-2, -1))
+    beta = torch.abs(b).amax(dim=-1).to(A.dtype)
     log_alpha = torch.log(torch.clamp_min(alpha, tiny))
     log_beta = torch.log(torch.clamp_min(beta, tiny))
     log_m_fact = torch.lgamma(torch.tensor(float(m + 1), dtype=torch.float32,

@@ -56,7 +56,8 @@ def _imported_modules(path):
                                  REPO / "tools" / "time_segment_plans.py",
                                  REPO / "tools" / "diag_m4096.py",
                                  REPO / "tools" / "diag_pdhg_m4096.py",
-                                 REPO / "tools" / "diag_sparse_m2048.py"],
+                                 REPO / "tools" / "diag_sparse_m2048.py",
+                                 REPO / "tools" / "diag_general_batch.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import(path):
@@ -99,6 +100,12 @@ def test_config_from_reference():
             SolverConfig(kernels=name)
     assert SolverConfig().kernels == "cuda"
     assert SolverConfig(kernels="torch").kernels == "torch"
+    # the working precision of the host-array entry points carries over
+    assert SolverConfig().dtype == "float32"
+    assert config_from_reference(dataclasses.asdict(
+        JaxSolverConfig(dtype="float64"))).dtype == "float64"
+    with pytest.raises(ValueError, match="dtype"):
+        SolverConfig(dtype="bfloat16")
 
 
 def test_package_exports_and_kernel_sources():
@@ -333,3 +340,69 @@ def test_singular_basis_is_a_status_not_an_exception():
     A = torch.tensor([[[1.0, 2.0, 0.0], [2.0, 4.0, 1.0]]])
     state = make_state(A, torch.ones((1, 2)), torch.tensor([[0, 1]]))
     assert int(state.status[0]) == linprog_tpu_torch.status.NUMERICAL_ERROR
+
+
+def test_all_reference_names_are_exported():
+    """``linprog_tpu_torch.__all__`` holds every name of the reference's
+    ``__all__`` (read from its source, not imported) and the port's own."""
+    tree = ast.parse((REPO / "linprog_tpu" / "__init__.py").read_text())
+    ref_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and getattr(node.targets[0], "id", "") == "__all__")
+    missing = set(ref_all) - set(linprog_tpu_torch.__all__)
+    assert not missing, missing
+    own = set(linprog_tpu_torch.__all__) - set(ref_all)
+    assert own == {"DEFAULT_IPM_CONFIG", "certificate_summary",
+                   "certify_vertex_batch", "exact_cleanup_config",
+                   "solve_batch_bounded", "solve_batch_two_phase"}
+    for name in linprog_tpu_torch.__all__:
+        assert getattr(linprog_tpu_torch, name) is not None, name
+    assert issubclass(linprog_tpu_torch.PrimalIsInfeasibleError,
+                      linprog_tpu_torch.LinProgError)
+
+
+def _host_entry_points():
+    """Every entry point of the general-form surface that takes host
+    arrays, called with its default device."""
+    import numpy as np
+
+    from linprog_tpu_torch import phase1, presolve_host
+    from linprog_tpu_torch.batch import solve_batch_general
+
+    c = np.array([1.0, 1.0, 0.0])
+    A = np.array([[1.0, 2.0, 1.0]])
+    b = np.array([2.0])
+    basis = np.array([2])
+    lb, ub = np.zeros(3), np.full(3, 4.0)
+    lt = linprog_tpu_torch
+    return {
+        "SimplexSolver": lambda: lt.SimplexSolver(c, A=A, b=b),
+        "PrimalNaiveSimplexSolver": lambda: lt.PrimalNaiveSimplexSolver(
+            c, A, b, basis),
+        "PrimalRevisedSimplexSolver": lambda: lt.PrimalRevisedSimplexSolver(
+            c, A, b, basis),
+        "DualNaiveSimplexSolver": lambda: lt.DualNaiveSimplexSolver(
+            c, A, b, basis),
+        "DualRevisedSimplexSolver": lambda: lt.DualRevisedSimplexSolver(
+            c, A, b, basis),
+        "BoundedVariablePrimalSimplexSolver":
+            lambda: lt.BoundedVariablePrimalSimplexSolver(
+                c, A, b, lb, ub, basis, [0, 1], []),
+        "PhaseOneSimplexSolver": lambda: lt.PhaseOneSimplexSolver(c, A, b),
+        "PrimalDualAlgorithm": lambda: lt.PrimalDualAlgorithm(c, A, b),
+        "IPMSolver": lambda: lt.IPMSolver(c, A=A, b=b),
+        "solve_phase1": lambda: phase1.solve_phase1(c, A, b),
+        "solve_with_presolve": lambda: presolve_host.solve_with_presolve(
+            c, A=A, b=b),
+        "solve_batch_general": lambda: solve_batch_general(
+            [{"c": c, "A": A, "b": b}]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_host_entry_points()))
+def test_host_entry_points_default_to_the_card(name, monkeypatch):
+    """Without a card the default ``device="cuda"`` raises (nothing falls
+    back to the CPU); ``device="cpu"`` runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _host_entry_points()[name]()
