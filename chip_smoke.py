@@ -4,8 +4,10 @@ bounded-variable batches, the per-step batched engine, the batched front
 door (pooled IPM straggler recovery, warm re-solves, the router,
 calibrate()), the first-order and sparse families (PDHG, PDHG ->
 crossover, the shared-pattern sparse IPM with its recovery, the sparse
-front door), and the general-form surface (the solver classes,
-solve_batch_general, the primal-dual batch, IPMSolver, ranging).
+front door), the general-form surface (the solver classes,
+solve_batch_general, the primal-dual batch, IPMSolver, ranging), and the
+parallel entry points with the last modules (data and tensor parallelism,
+checkpoints, observability, MPS I/O, the dry run).
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -144,7 +146,21 @@ Phases, each printing one JSON line:
      warm resolve of h perturbed by 2 % in no more Newton steps than cold;
      (e) ranging_batch at phase 4's bases in f32 and in float64 on the
      card, each against a float64 host ranging on 4 lanes (float64 within
-     1e-9; f32's error printed).
+     1e-9; f32's error printed);
+ 20. parallel: (a) one rank over NCCL: sharded_two_phase_solve and
+     sharded_ipm_batch_canonical at B = 1024, m = n = 256 bit for bit
+     against the unsharded solves (walls in turns, kernels 1 and 2
+     launched); (b) two processes sharing the card over gloo
+     (chip_smoke.py --dp-worker), 512 lanes each: statuses equal to (a)'s
+     unsharded run, costs within 1e-5, bit-identical lanes counted; (c)
+     tp_solve on one LP at m = 1024, n = 2048 (dantzig, slack basis): the
+     same status and basis as engine.run at B = 1, its vertex within 1e-5
+     of HiGHS, ms a pivot; (d) a SimplexState (Phase I on kernel 1) and a
+     PDHGState checkpointed mid-solve, loaded and resumed to the
+     uninterrupted runs' bits; solve_report on (a)'s result with the lanes
+     below x >= 0; a profiler trace holding its label; an LP written to
+     MPS, read back and solved by SimplexSolver within 1e-6 of HiGHS;
+     dryrun(1, "cuda").
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -3453,6 +3469,431 @@ def phase_general_form():
     return {**legs["batch"], "ipm_solver": legs["ipm_solver"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the parallel entry points and the last modules
+# ---------------------------------------------------------------------------
+
+PAR_MAXITERS = 4000  # 20a, 20b: the two-phase caps of phase 3d's run
+DP_PROCS = 2  # 20b: processes sharing the one card over gloo
+TP_M, TP_N = 1024, 2048  # 20c: one standard-form LP, slack basis
+TP_MAXITERS = 20_000
+RESUME_PDHG = (64, 256)  # 20d: PDHG lanes, m = n
+SPAWN_TIMEOUT_S = 300
+
+
+def _par_batch():
+    """20a/20b's batch: the standard form of ``device_inequality_lps`` at
+    B = 1024, m = n = 256, seed 0, made on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, G, h = device_inequality_lps(gen, B, M, N, DEVICE)
+    return (c, G, h), device_standard_form_batch(c, G, h)
+
+
+def _dp_worker(argv):
+    """One rank of 20b (``chip_smoke.py --dp-worker RANK WORLD INIT OUT``):
+    the sharded two-phase solve of ``_par_batch`` on this process's share
+    of the card, over gloo; rank 0 saves the gathered result to OUT, every
+    rank its wall and launches to OUT.<rank>.json."""
+    from linprog_tpu_torch.parallel import (
+        distributed,
+        make_batch_mesh,
+        sharded_two_phase_solve,
+    )
+
+    rank, world, init, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    distributed.initialize(init, world, rank, device="cuda", backend="gloo")
+    try:
+        _, (cs, As, bs) = _par_batch()
+        mesh = make_batch_mesh()
+        cfg = tuned_config(M)
+
+        def solve():
+            return sharded_two_phase_solve(mesh, cs, As, bs, PAR_MAXITERS,
+                                           PAR_MAXITERS, cfg)
+
+        _, first = _walled(solve)
+        _reset_counts()
+        res, wall = _walled(solve)
+        launches = _read_counts()
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in res._asdict().items()}, out)
+        with open(f"{out}.{rank}.json", "w") as f:
+            json.dump({"wall_s": wall, "first_call_s": first,
+                       "launches": launches}, f)
+    finally:
+        distributed.shutdown()
+
+
+def _spawn_dp_ranks(tmp):
+    """Run 20b's ranks; (the gathered result, their reports, the
+    command's wall)."""
+    import os
+
+    from linprog_tpu_torch.parallel.dryrun import rank_tails, spawn_ranks
+
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    out = os.path.join(tmp, "dp.pt")
+    t0 = time.time()
+    ranks = spawn_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+          str(DP_PROCS), init, out] for r in range(DP_PROCS)],
+        SPAWN_TIMEOUT_S)
+    if any(code for code, _ in ranks):
+        fail(f"20b: a rank failed:\n{rank_tails(ranks)}")
+    reports = []
+    for r in range(DP_PROCS):
+        with open(f"{out}.{r}.json") as f:
+            reports.append(json.load(f))
+    return torch.load(out), reports, time.time() - t0
+
+
+def _random_standard_lp(rng, m, n):
+    """The generator of ``tests/test_tensor_parallel.py``: ``[G | I]`` with
+    the slack basis feasible."""
+    G = rng.normal(size=(m, n - m))
+    b = np.abs(G @ rng.uniform(0.5, 1.5, size=n - m)) + rng.uniform(
+        0.5, 1.5, size=m)
+    y0 = rng.uniform(0.0, 1.0, size=m)
+    s = rng.uniform(0.1, 1.0, size=n - m)
+    c = np.concatenate([s - G.T @ y0, np.zeros(m)])
+    A = np.concatenate([G, np.eye(m)], axis=1)
+    return c, A, b, np.arange(n - m, n)
+
+
+def _phase_dp(mesh, batches):
+    """20a: the sharded two-phase and IPM solves on one rank against the
+    unsharded ones, bit for bit; walls in turns (unsharded, sharded,
+    sharded, unsharded)."""
+    from linprog_tpu_torch.parallel import (
+        sharded_ipm_batch_canonical,
+        sharded_two_phase_solve,
+    )
+
+    (c, G, h), (cs, As, bs) = batches
+    cfg = tuned_config(M)
+    runs = {
+        "two_phase": (
+            lambda: lt.solve_batch_two_phase(cs, As, bs, PAR_MAXITERS,
+                                             PAR_MAXITERS, cfg),
+            lambda: sharded_two_phase_solve(mesh, cs, As, bs, PAR_MAXITERS,
+                                            PAR_MAXITERS, cfg)),
+        "ipm": (lambda: lt.ipm_solve_batch_canonical(c, G, h),
+                lambda: sharded_ipm_batch_canonical(mesh, c, G, h)),
+    }
+    out, paths, results = {}, {}, {}
+    for name, (plain, sharded) in runs.items():
+        ref, w0 = _walled(plain)
+        _, first = _walled(sharded)  # the first collective's set-up
+        _reset_counts()
+        res, w1 = _walled(sharded)
+        paths[f"parallel_dp_{name}"] = _read_counts()
+        _, w2 = _walled(sharded)
+        _, w3 = _walled(plain)
+        differ = [k for k, x, y in zip(res._fields, res, ref)
+                  if (x is None) != (y is None)
+                  or (x is not None and not same_bits(x, y))]
+        out[name] = {"status": status_counts(res.status),
+                     "unsharded_s": [w0, w3], "sharded_s": [w1, w2],
+                     "sharded_first_call_s": first,
+                     "fields_not_bit_equal": differ,
+                     "launches": paths[f"parallel_dp_{name}"]}
+        results[name] = (res, ref)
+        if differ:
+            fail(f"20a {name}: sharded differs from unsharded in {differ}")
+    if not (paths["parallel_dp_two_phase"]["solve_segment"]
+            and paths["parallel_dp_ipm"]["panel_cholinv"]):
+        fail(f"20a: a kernel was not launched: {paths}")
+    if out["two_phase"]["status"] != {"OPTIMAL": B}:
+        fail(f"20a two-phase: {out['two_phase']['status']}")
+    return out, paths, results["two_phase"][1]
+
+
+def _phase_dp_procs(ref):
+    """20b: two processes on the one card over gloo, 512 lanes each,
+    against 20a's unsharded result."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        got, reports, wall = _spawn_dp_ranks(tmp)
+    status = got["status"].to(DEVICE)
+    cost = got["cost"].to(DEVICE)
+    rel = ((cost.double() - ref.cost.double()).abs()
+           / ref.cost.double().abs().clamp_min(1.0))
+    same = ((got["x"].to(DEVICE).view(torch.int32)
+             == ref.x.view(torch.int32)).all(dim=1)
+            & (got["basis"].to(DEVICE) == ref.basis).all(dim=1)
+            & (cost.view(torch.int32) == ref.cost.view(torch.int32)))
+    out = {"procs": DP_PROCS, "backend": "gloo", "command_s": wall,
+           "rank_walls_s": [r["wall_s"] for r in reports],
+           "rank_first_call_s": [r["first_call_s"] for r in reports],
+           "rank_launches": [r["launches"]["solve_segment"]
+                             for r in reports],
+           "status": status_counts(status),
+           "statuses_equal": bool(torch.equal(status, ref.status)),
+           "max_rel_cost_diff": float(rel.max()),
+           "lanes_bit_identical": int(same.sum())}
+    if not out["statuses_equal"] or out["max_rel_cost_diff"] > 1e-5:
+        fail(f"20b: {out}")
+    if not all(out["rank_launches"]):
+        fail(f"20b: a rank did not launch kernel 1: {out['rank_launches']}")
+    return out
+
+
+def _phase_tp():
+    """20c, timed: tp_solve on one rank (NCCL) of 20c's LP; returns its
+    inputs, final state and wall."""
+    from linprog_tpu_torch.parallel import make_model_mesh, tp_solve
+
+    c, A, b, basis = (torch.as_tensor(a, device=DEVICE) for a in _tp_lp())
+    cfg = lt.SolverConfig(pricing="dantzig")
+    mesh = make_model_mesh()
+    state, wall = _walled(lambda: tp_solve(c, A, b, basis, TP_MAXITERS, mesh,
+                                           cfg))
+    return (c, A, b, basis, cfg), state, wall
+
+
+def _check_tp(tp, job):
+    """20c, checked: the same status and basis as ``engine.run`` at B = 1
+    with the same config, and the basis's vertex against HiGHS (``job``,
+    a worker process)."""
+    from linprog_tpu_torch.engine import make_state, run
+
+    (c, A, b, basis, cfg), state, wall = tp
+    allowed = torch.ones(TP_N, dtype=torch.bool, device=DEVICE)
+    ref, ref_wall = _walled(lambda: run(
+        c[None], A[None], b[None], make_state(A[None], b[None], basis[None]),
+        allowed, TP_MAXITERS, cfg))
+    pivots = int(state.iters)
+    # the cost of the returned basis, its vertex solved in float64 on the
+    # host, and the cost the state's own bfs gives
+    Bm = A.double().cpu()[:, state.basis.long().cpu()]
+    xB = torch.linalg.solve(Bm, b.double().cpu())
+    vertex_cost = float(c.double().cpu()[state.basis.long().cpu()] @ xB)
+    bfs_cost = float((c[state.basis.long()] * state.bfs).sum())
+    highs_status, highs_cost = job.result()
+    out = {"m": TP_M, "n": TP_N, "ranks": 1, "backend": "nccl",
+           "status": st.status_name(int(state.status)), "pivots": pivots,
+           "wall_s": wall, "ms_per_pivot": 1e3 * wall / max(pivots, 1),
+           "engine_run_s": ref_wall, "engine_pivots": int(ref.iters[0]),
+           "same_status": int(state.status) == int(ref.status[0]),
+           "same_basis": bool(torch.equal(state.basis, ref.basis[0])),
+           "highs_status": int(highs_status),
+           "vertex_gap": _rel(vertex_cost, highs_cost),
+           "bfs_gap": _rel(bfs_cost, highs_cost)}
+    if not (out["same_status"] and out["same_basis"]
+            and int(state.status) == st.OPTIMAL and highs_status == 0
+            and out["vertex_gap"] <= 1e-5):
+        fail(f"20c: {out}")
+    return out
+
+
+def _tp_lp():
+    """20c's LP with ``c`` scaled to ``max |c| = 1``, so that the per-lane
+    engine's tolerance (``opt_tol * max(1, max |c|)``) is tp_solve's
+    absolute ``opt_tol``."""
+    c, A, b, basis = _random_standard_lp(np.random.default_rng(SEED + 20),
+                                         TP_M, TP_N)
+    c = (c / np.abs(c).max()).astype(np.float32)
+    return c, A.astype(np.float32), b.astype(np.float32), basis
+
+
+def _highs_tp():
+    c, A, b, _ = _tp_lp()
+    return _highs_general({"c": c.astype(np.float64),
+                           "A": A.astype(np.float64),
+                           "b": b.astype(np.float64)})
+
+
+def _phase_resume(tmp):
+    """20d (i): a SimplexState (kernel 1, Phase I of the two-phase batch)
+    and a PDHGState checkpointed mid-solve on the card, loaded, resumed:
+    the same bits as the uninterrupted runs."""
+    import os
+
+    from linprog_tpu_torch import checkpoint, engine
+    from linprog_tpu_torch.engine_batched import run_batched
+    from linprog_tpu_torch.pdhg import PDHGConfig, PDHGState, _pdhg_core
+
+    _, (cs, As, bs) = _par_batch()
+    n = cs.shape[1]
+    A1 = torch.cat([As, torch.eye(M, device=DEVICE).expand(B, M, M)], dim=2)
+    c1 = torch.cat([torch.zeros(n, device=DEVICE),
+                    torch.ones(M, device=DEVICE)]).expand(B, n + M)
+    c1 = c1.contiguous()
+    allowed = torch.ones(n + M, dtype=torch.bool, device=DEVICE)
+    # cut at the end of the first segment, where many lanes still run
+    cfg = tuned_config(M, refactor_every=128)
+    cut = cfg.refactor_every
+
+    def phase1(state, maxiters):
+        return run_batched(c1, A1, bs, state, allowed, maxiters, cfg)
+
+    def fresh():
+        return engine.slack_crash_state(A1, bs, n)
+
+    _reset_counts()
+    full = phase1(fresh(), PAR_MAXITERS)
+    mid = phase1(fresh(), cut)
+    running_at_cut = int((mid.status == st.RUNNING).sum())
+    path = os.path.join(tmp, "simplex.npz")
+    checkpoint.save_state(path, mid)
+    resumed = phase1(checkpoint.load_state(path, DEVICE), PAR_MAXITERS)
+    launches = _read_counts()
+    simplex_same = all(same_bits(x, y) for x, y in zip(full, resumed))
+
+    lanes, m = RESUME_PDHG
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    c, G, h = device_inequality_lps(gen, lanes, m, m, DEVICE)
+    lb = torch.zeros((lanes, m), device=DEVICE)
+    ub = torch.full((lanes, m), float("inf"), device=DEVICE)
+    pcfg = PDHGConfig(eps_rel=PDHG_EPS)
+    init, run = _pdhg_core(c, G, h, 0, lb, ub, pcfg)
+
+    def clone(s):
+        return PDHGState(*(t.clone() for t in s))
+
+    pfull = clone(run(init(), PDHG_MAXITERS))
+    pmid = clone(run(init(), 2 * pcfg.check_every))
+    ppath = os.path.join(tmp, "pdhg.pt")
+    checkpoint.save_state_torch(ppath, pmid)
+    presumed = clone(run(checkpoint.load_state_torch(ppath, DEVICE),
+                             PDHG_MAXITERS))
+    pdhg_same = all(same_bits(x, y) for x, y in zip(pfull, presumed))
+    out = {"simplex": {"lanes": B, "m": M, "cut_at": cut,
+                       "max_iters": int(full.iters.max()),
+                       "running_at_cut": running_at_cut,
+                       "same_bits": simplex_same,
+                       "status": status_counts(full.status),
+                       "launches": launches["solve_segment"]},
+           "pdhg": {"lanes": lanes, "m": m, "cut_at": 2 * pcfg.check_every,
+                    "max_iters": int(pfull.iters.max()),
+                    "same_bits": pdhg_same,
+                    "status": status_counts(pfull.status)}}
+    if not (simplex_same and pdhg_same and launches["solve_segment"]
+            and running_at_cut):
+        fail(f"20d resume: {out}")
+    return out, launches
+
+
+def _phase_observe(tmp, two_phase, batches):
+    """20d (ii): solve_report on 20a's result; a trace of a small solve
+    (the raw IPM on 64 lanes) that holds its label."""
+    import glob
+    import os
+
+    from linprog_tpu_torch import observability as obs
+
+    (c, G, h), (cs, As, bs) = batches
+    report = obs.solve_report(two_phase, cs, As, bs)
+    # the lanes whose x leaves x >= 0 by more than 1e-6: how far, and
+    # their costs against HiGHS
+    neg = torch.clamp_min(-two_phase.x.min(dim=1).values, 0.0)
+    worst = [int(i) for i in torch.argsort(neg, descending=True)[:4]
+             if float(neg[i]) > 1e-6]
+    below = {"lanes": int((neg > 1e-6).sum()),
+             "worst": [{"lane": i, "violation": float(neg[i]),
+                        "status": st.status_name(int(two_phase.status[i])),
+                        "highs_gap": highs_gap(two_phase.cost[i:i + 1],
+                                               cs[i:i + 1], 1,
+                                               A_eq=As[i:i + 1],
+                                               b_eq=bs[i:i + 1])}
+                       for i in worst]}
+    logdir = os.path.join(tmp, "trace")
+    with obs.trace(logdir, label="chip_smoke_phase20"):
+        lt.ipm_solve_batch_canonical(c[:64], G[:64], h[:64])
+    files = glob.glob(os.path.join(logdir, "chip_smoke_phase20.*.json"))
+    events = json.load(open(files[0]))["traceEvents"] if files else []
+    out = {"solve_report": report, "x_below_zero": below,
+           "trace_files": len(files),
+           "trace_has_label": any(e.get("name") == "chip_smoke_phase20"
+                                  for e in events),
+           "trace_kernel_events": sum(e.get("cat") == "kernel"
+                                      for e in events),
+           "trace_s": obs.trace.last_elapsed_s}
+    if report["status_counts"] != {"OPTIMAL": B} or not out["trace_has_label"]:
+        fail(f"20d observability: {out}")
+    if report["quality"]["max_primal_residual"] > 1e-3:
+        fail(f"20d solve_report: {report['quality']}")
+    return out
+
+
+def _phase_mps(tmp):
+    """20d (iii): an LP with bounds written to MPS, read back, solved by
+    SimplexSolver on the card, against HiGHS on the same arrays."""
+    import os
+
+    from linprog_tpu_torch.io import mps_to_solver_inputs, read_mps, write_mps
+
+    from linprog_tpu_torch.generators import random_inequality_lps
+
+    c, G, h = (a[0].astype(np.float64)
+               for a in random_inequality_lps(1, 24, 32, seed=SEED + 22))
+    lb = np.zeros(32)
+    ub = np.full(32, np.inf)
+    ub[::4] = 1.5
+    lb[1::8] = 0.25
+    path = os.path.join(tmp, "lp.mps")
+    write_mps(path, c, G=G, h=h, lb=lb, ub=ub, name="PHASE20")
+    p = dict(zip(("c", "A", "b", "G", "h", "lb", "ub"),
+                 mps_to_solver_inputs(read_mps(path))))
+    res, wall = _walled(lambda: lt.SimplexSolver(**p, device=DEVICE).solve())
+    status, fun = _highs_general(p)
+    out = {"m": 24, "n": 32, "optimal": bool(res.optimum), "wall_s": wall,
+           "iters": int(res.iters), "cost": float(res.cost),
+           "highs_gap": _rel(float(res.cost), fun)}
+    if status != 0 or not res.optimum or out["highs_gap"] > 1e-6:
+        fail(f"20d MPS: {out}")
+    return out
+
+
+def phase_parallel():
+    """Phase 20: the parallel entry points (20a DP on one rank over NCCL,
+    20b DP across two processes on the one card over gloo, 20c TP on one
+    rank), then checkpoints, observability, MPS I/O and the dry run
+    (20d)."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from linprog_tpu_torch.parallel import distributed, dryrun, make_batch_mesh
+
+    def timed_dryrun():
+        t1 = time.time()
+        return dryrun.dryrun(1, DEVICE, timeout_s=SPAWN_TIMEOUT_S), \
+            time.time() - t1
+
+    t0 = time.time()
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing
+                               .get_context("spawn"))
+    threads = ThreadPoolExecutor(max_workers=1)
+    distributed.initialize()
+    try:
+        job = pool.submit(_highs_tp)
+        batches = _par_batch()
+        mesh = make_batch_mesh()
+        dp, paths, two_phase = _phase_dp(mesh, batches)
+        emit({"phase": "parallel_dp", "lanes": B, "m": M, "n": N, **dp,
+              "summary": distributed.process_summary()})
+        emit({"phase": "parallel_dp_procs", **_phase_dp_procs(two_phase)})
+        tp = _phase_tp()
+        emit({"phase": "parallel_tp", **_check_tp(tp, job)})
+        with tempfile.TemporaryDirectory() as tmp:
+            observe = _phase_observe(tmp, two_phase, batches)
+            mps = _phase_mps(tmp)
+            # the dry run's process works beside the resume legs alone,
+            # which time nothing; every wall above is taken without it
+            dry = threads.submit(timed_dryrun)
+            resume, paths["parallel_resume"] = _phase_resume(tmp)
+        legs, dry_s = dry.result()
+    finally:
+        distributed.shutdown()
+        pool.shutdown(wait=True, cancel_futures=True)
+        threads.shutdown(wait=True)
+    emit({"phase": "parallel_rest", "resume": resume, **observe, "mps": mps,
+          "dryrun": legs, "dryrun_s": dry_s, "seconds": time.time() - t0})
+    return paths
+
+
 def main():
     phase_environment()
     phase_build()
@@ -3475,6 +3916,7 @@ def main():
     paths.update(phase_pdhg_m256())
     paths.update(phase_sparse_m2048())
     paths.update(phase_general_form())
+    paths.update(phase_parallel())
 
     def entry(name, source, replaces, n_launches, rep, new_shapes=None):
         by_path = {path: counts[name] for path, counts in paths.items()
@@ -3560,4 +4002,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        _dp_worker(sys.argv[2:])
+    else:
+        main()

@@ -10,7 +10,10 @@ they are routing-parity constants, and the entry a machine without a CUDA
 device resolves to.
 
 * :func:`get_table` -- the thresholds for the current (or a named) card; a
-  key the card's entry lacks falls back to ``"default"``.
+  key the card's entry lacks falls back to ``"default"``.  The variable
+  ``LINPROG_TPU_TORCH_CALIBRATION`` names a file to read in place of the
+  packaged one (its missing keys still fall back to the packaged
+  defaults).
 * :func:`set_table` / :func:`reset_table` -- inject a table of the file's
   schema (tests, or a user on a new card).  The injection is plain module
   state.
@@ -28,22 +31,29 @@ _DATA_PATH = os.path.join(os.path.dirname(__file__), "data",
                           "calibration.json")
 
 _file_cache: Optional[dict] = None
+_packaged_cache: Optional[dict] = None
 _override: Optional[dict] = None
 
 
 def _load_file() -> dict:
     global _file_cache
     if _file_cache is None:
-        with open(_DATA_PATH) as f:
+        path = os.environ.get("LINPROG_TPU_TORCH_CALIBRATION", _DATA_PATH)
+        with open(path) as f:
             _file_cache = json.load(f)
     return _file_cache
 
 
 def _packaged_default() -> dict:
-    """A fresh copy of the packaged ``"default"`` entry, whatever
-    :func:`set_table` injected, so that a partial table still resolves
-    every key."""
-    return json.loads(json.dumps(_load_file()["default"]))
+    """The packaged ``"default"`` entry, read from the package's data file
+    whatever the environment or :func:`set_table` put over it, so that a
+    partial table still resolves every key (read once; a fresh copy each
+    call)."""
+    global _packaged_cache
+    if _packaged_cache is None:
+        with open(_DATA_PATH) as f:
+            _packaged_cache = json.load(f)["default"]
+    return json.loads(json.dumps(_packaged_cache))
 
 
 def set_table(table: dict) -> None:

@@ -26,7 +26,7 @@ followed by the restart check; a lane whose condition (RUNNING and
 as under ``vmap``, so ``iters`` grows in chunks and a lane can stop up to
 ``check_every - 1`` past ``maxiters``.  The host reads one flag a chunk;
 on a card the chunk's steps replay as one captured CUDA graph
-(:func:`_graphed`).
+(:func:`.utils.cuda_graph.graphed`).
 Matvecs are batched GEMVs in IEEE f32 (TF32 off) or float64, and gathers
 over the sparse pattern's padded slot tables (never a floating-point
 scatter).
@@ -43,6 +43,8 @@ import torch
 
 from . import status as st
 from .ipm import _DTYPES
+# a module-level name, so that a caller timing eager chunks can patch it
+from .utils.cuda_graph import graphed as _graphed
 from .ipm_sparse import SharedTables, _gather_sum, resolve_device
 from .results import LinProgResult
 
@@ -443,32 +445,6 @@ def _pdhg_core(c, K, q, n_eq, lb, ub, cfg: PDHGConfig):
                 for new, old in zip(s, state)))
 
     return init_state, run
-
-
-def _graphed(chunk, state: PDHGState):
-    """``chunk`` captured once as a CUDA graph over static copies of
-    ``state``'s tensors; the returned function copies a state in, replays
-    the graph and returns the graph's output tensors (valid until the next
-    replay).  An eager step is ~15-25 small launches, and launched one by
-    one the host's launch rate, not the device, set the step's time
-    (chip_smoke.py phases 17-18 time both)."""
-    static_in = PDHGState(*(t.clone() for t in state))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        chunk(static_in)  # warm-up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static_out = chunk(static_in)
-
-    def replay(s: PDHGState) -> PDHGState:
-        for dst, src in zip(static_in, s):
-            dst.copy_(src)
-        graph.replay()
-        return static_out
-
-    return replay
 
 
 def _solve(c, K, q, n_eq, lb, ub, maxiters, cfg):

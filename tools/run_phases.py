@@ -13,7 +13,9 @@ calibrate, 14 streaming kernel at m = 4096, 15 the m = 4096 exact path, 16
 bounded kernel's block branch and its path at m = 1280, 17 PDHG and PDHG ->
 crossover at m = 256, 18 the sparse families at m = 2048, 19 the
 general-form surface (the solver classes, solve_batch_general, the
-primal-dual batch, IPMSolver, ranging).  Each phase prints
+primal-dual batch, IPMSolver, ranging), 20 the parallel entry points (data
+parallel on one rank and across two processes, tensor parallel), then
+checkpoints, observability, MPS I/O and the dry run.  Each phase prints
 its report and exits nonzero where chip_smoke.py would; the ``kernels``
 line and the last line of chip_smoke.py are not printed.
 """
@@ -34,7 +36,7 @@ PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
           "13": cs.phase_calibrate, "14": cs.phase_stream_m4096,
           "15": cs.phase_exact_m4096, "16": cs.phase_bounded_block,
           "17": cs.phase_pdhg_m256, "18": cs.phase_sparse_m2048,
-          "19": cs.phase_general_form}
+          "19": cs.phase_general_form, "20": cs.phase_parallel}
 
 
 def main():
