@@ -7,7 +7,10 @@ crossover, the shared-pattern sparse IPM with its recovery, the sparse
 front door), the general-form surface (the solver classes,
 solve_batch_general, the primal-dual batch, IPMSolver, ranging), and the
 parallel entry points with the last modules (data and tensor parallelism,
-checkpoints, observability, MPS I/O, the dry run).
+checkpoints, observability, MPS I/O, the dry run), and the reference's last
+solver modes (split and sectional pricing, the ablation switch,
+Newton-Schulz refactorization, the Gondzio and minv IPM, the slack basis
+guess, the cumsum sparse assembly).
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -160,7 +163,28 @@ Phases, each printing one JSON line:
      uninterrupted runs' bits; solve_report on (a)'s result with the lanes
      below x >= 0; a profiler trace holding its label; an LP written to
      MPS, read back and solved by SimplexSolver within 1e-6 of HiGHS;
-     dryrun(1, "cuda").
+     dryrun(1, "cuda");
+ 21. last_modes: the reference's last modes.  (a) kernel 1's split-bf16
+     pricing at [1024, 256, 512], primal dantzig: 16 pivots in lockstep
+     with its plain version on every lane (bfs within 1e-4 of scale), a
+     full run on the
+     segment driver with the unsplit run's statuses and costs within 1e-4;
+     (b) the ablation modes 1-7 there (ablate = 0 the kernel's bits); the
+     in-segment ms an iteration of unsplit, split and each mode, and of the
+     plain versions; (c) kernel 3's sectional pricing at B = 64,
+     (2048, 4096), n_blk 256 (16 sections): 16 pivots in lockstep with its
+     plain version on every lane, the same bits at the other cluster size, ms an iteration
+     against full pricing and against the section's bound, and 8 lanes
+     solved to OPTIMAL with full and sectional pricing (costs within 1e-4,
+     pivots compared); (d) solve_batch_two_phase with
+     refactor_method="ns" at B = 1024, m = n = 256: every lane OPTIMAL,
+     HiGHS within 1e-5 on 16; (e) the IPM at B = 1024, m = n = 256 in f32
+     and float64: minv in float64 with at least the f32 default's OPTIMAL
+     lanes, gondzio=2 with at least the default's in float64, the f32
+     Gondzio and minv counts reported; (f) ipm_crossover_batch_canonical(guess="slack") at
+     B = 256, m = n = 256: every crossed lane certified; (g) the sparse IPM
+     with assembly="cumsum" against "segment" at B = 16, m = n = 2048, 1 %
+     (statuses, costs, walls in turns).
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -3894,6 +3918,444 @@ def phase_parallel():
     return paths
 
 
+# ---- phase 21: the reference's last modes ---------------------------------
+
+MODE_PIVOTS = 16  # pivots of a mode's lockstep run against its plain version
+# kernel 3's sectional pricing: lanes, m, structural n, section width; and
+# the lanes of the full solves (a bucket of 8: 8 CTAs a lane)
+PSB, PSM, PSN, PS_NBLK, PS_SOLVE_LANES = 64, 2048, 2048, 256, 8
+PS_MAXITERS = 200_000
+MODE_IPM_LANES = 1024  # 21e: the IPM's lanes at m = n = 256
+SLACK_LANES = 256  # 21f: the slack-guess crossover's lanes at m = n = 256
+CUMSUM_LANES = 16  # 21g: the sparse IPM's lanes at m = n = 2048, 1 %
+
+
+def _iter_ms(run, fresh, pivots=SEGMENT_PIVOTS, reps=3):
+    """The in-segment time an iteration of ``run(state, pivots)``:
+    (t_pivots - t_1) / (pivots - 1), each the median of ``reps`` CUDA-event
+    timings from fresh states (the launch's loading left out)."""
+    def timed(k):
+        states = iter([fresh() for _ in range(reps)])
+        return cuda_ms(lambda: run(next(states), k), reps)
+
+    t1 = timed(1)
+    return (timed(pivots) - t1) / (pivots - 1)
+
+
+def _lockstep16(label, k, p):
+    """Kernel and plain version after MODE_PIVOTS pivots from one state:
+    basis, status, iterations, c_B and penalties equal on every lane, bfs
+    within 1e-4 of scale."""
+    same = _lockstep_lanes(k, p, ("basis", "status", "iters", "cB", "pen"))
+    split = int((~same).sum())
+    if split:
+        fail(f"{label}: {MODE_PIVOTS} pivots left lockstep on {split} lanes")
+    scale = max(p.bfs[same].abs().max().item(), 1.0)
+    err = (k.bfs[same] - p.bfs[same]).abs().max().item()
+    if not err <= 1e-4 * scale:
+        fail(f"{label}: bfs differs by {err:.3e} after {MODE_PIVOTS} pivots "
+             f"(> 1e-4 of {scale:.3e})")
+    return {"lanes_in_lockstep": int(same.sum()), "max_abs_err_bfs": err,
+            "bfs_scale": scale}
+
+
+def _simplex_start(A, h, state0):
+    """The SimplexState of a segment instance's slack start."""
+    from linprog_tpu_torch.engine import SimplexState
+
+    return SimplexState(basis=state0.basis.clone(),
+                        inv_B=state0.invBT.transpose(1, 2).contiguous(),
+                        bfs=h.clone(), iters=state0.iters.clone(),
+                        status=state0.status.clone())
+
+
+def _exact_cost(A, c, b, basis):
+    """float64 objective at each lane's basis from an exact solve."""
+    xB = solve_or_nan(basis_matrix(A, basis).double(), b.double())
+    return (torch.gather(c, 1, basis.long()).double() * xB).sum(dim=1)
+
+
+def _phase_split_ablate():
+    """21a, 21b: kernel 1's split pricing and its ablation modes at
+    [1024, 256, 512], primal dantzig with the tuned settings."""
+    from linprog_tpu_torch.engine_batched import run_batched
+
+    cfg = tuned_config(M)
+    A, c, apen, h, state0 = _segment_instance(False, B, M, N, SEED + 21)
+    kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
+              packed=cfg.packed_select)
+    n = A.shape[2]
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    def kernel(s, pivots, **mode):
+        return sk.solve_segment(A, c, apen, 1 << 20, s, seg_len=pivots,
+                                **kw, **mode)
+
+    def plain(s, pivots, **mode):
+        return sk.solve_segment_plain(A, c, apen, 1 << 20, s, seg_len=pivots,
+                                      **kw, **mode)
+
+    k16, p16 = kernel(fresh(), MODE_PIVOTS, split=True), plain(
+        fresh(), MODE_PIVOTS, split=True)
+    torch.cuda.synchronize()
+    split16 = _lockstep16("solve_segment split", k16, p16)
+    split16["plan"] = sk.last_plan._asdict()
+    pivoted = int((k16.basis != state0.basis).any(dim=1).sum())
+    del k16, p16
+
+    # a full run on the segment driver, split against unsplit (the split
+    # mode's launches on a path: this run's)
+    full = {}
+    before = sk.launches_split
+    for name, mode_cfg in (("unsplit", cfg),
+                           ("split", cfg.replace(split_pricing=True))):
+        start = _simplex_start(A, h, state0)
+        t0 = time.time()
+        res = run_batched(
+            c, A, h, start, torch.ones(n, dtype=torch.bool, device=DEVICE),
+            20 * M, mode_cfg)
+        torch.cuda.synchronize()
+        full[name] = (res, time.time() - t0)
+    path_launches = sk.launches_split - before
+    (ru, wu), (rs, ws) = full["unsplit"], full["split"]
+    if not torch.equal(ru.status, rs.status):
+        fail(f"split full run: statuses differ on "
+             f"{int((ru.status != rs.status).sum())} lanes")
+    cu, cs_ = _exact_cost(A, c, h, ru.basis), _exact_cost(A, c, h, rs.basis)
+    both = (ru.status == st.OPTIMAL) & (rs.status == st.OPTIMAL)
+    rel = ((cs_ - cu).abs() / cu.abs().clamp_min(1.0))[both].max().item()
+    if not rel <= 1e-4:
+        fail(f"split full run: costs differ by {rel:.3e} relative (> 1e-4)")
+
+    # in-segment times: unsplit, split, each ablation mode, in turns; and
+    # the mean iterations a lane runs of the 64 (a mode that ends lanes
+    # early, such as 1 or 6, times fewer iterations)
+    ms, plain_ms, mean_iters = {}, {}, {}
+    for name, mode in [("unsplit", {}), ("split", {"split": True})] + [
+            (f"ablate{k}", {"ablate": k}) for k in range(1, 8)] + [
+            ("unsplit_again", {})]:
+        ms[name] = _iter_ms(lambda s, p: kernel(s, p, **mode), fresh)
+        if name != "unsplit_again":
+            plain_ms[name] = _iter_ms(lambda s, p: plain(s, p, **mode), fresh,
+                                      pivots=MODE_PIVOTS, reps=1)
+            ran = kernel(fresh(), SEGMENT_PIVOTS, **mode).iters
+            mean_iters[name] = ran.double().mean().item()
+    # ablate = 0 is the kernel as it was: the same bits as no switch at all
+    a0 = kernel(fresh(), MODE_PIVOTS, ablate=0)
+    d0 = kernel(fresh(), MODE_PIVOTS)
+    torch.cuda.synchronize()
+    if not all(same_bits(x, y) for x, y in zip(a0, d0)):
+        fail("solve_segment ablate=0 differs from the kernel without it")
+    del a0, d0
+    b_ms, b_by = segment_bound_ms(B, pivoted, M, n)
+    lb_ms, _ = launch_bound_ms(B, M, n, SEGMENT_PIVOTS)
+    return {
+        "shape": [B, M, n], "split_lockstep16": split16,
+        "full_run": {"status": status_counts(rs.status),
+                     "max_rel_cost_diff": rel, "tol_rel": 1e-4,
+                     "split_s": ws, "unsplit_s": wu,
+                     "split_launches": path_launches,
+                     "pivots_split": int(rs.iters.sum()),
+                     "pivots_unsplit": int(ru.iters.sum())},
+        "ablate0_same_bits": True,
+        "ms_per_iter": ms, "plain_ms_per_iter": plain_ms,
+        "mean_iters_of_64": mean_iters,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "launch_bound_ms_per_iter": lb_ms / SEGMENT_PIVOTS}
+
+
+def _partial_bound_ms(lanes, pivoting, m, n, n_blk):
+    """One batch-iteration of sectional pricing: a section of A (m n_blk)
+    and the factor read once per lane, the factor written once per
+    pivoting lane, the O(m + n) rows once."""
+    n_bytes = 4 * (lanes * (m * n_blk + m * m + 2 * (5 * m + 3 * n))
+                   + pivoting * m * m)
+    n_flops = lanes * (2 * m * n_blk + 4 * m * m) + pivoting * 2 * m * m
+    return bound_ms(n_bytes, n_flops)
+
+
+def _phase_partial():
+    """21c: kernel 3's sectional pricing at B = 64, (2048, 4096) primal,
+    n_blk = 256 (S = 16)."""
+    from linprog_tpu_torch.engine import SimplexState
+    from linprog_tpu_torch.engine_batched import run_batched_stream
+
+    cfg = tuned_config(PSM)
+    A, c, apen, h, state0 = _segment_instance(False, PSB, PSM, PSN,
+                                              SEED + 21)
+    n = A.shape[2]
+    kw = dict(pricing=1, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+              feas_tol=cfg.feas_tol, stall_limit=cfg.stall_limit,
+              packed=cfg.packed_select, a_resident=False, n_blk=PS_NBLK)
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    def run(fn, s, pivots, partial):
+        return fn(A, c, apen, 1 << 20, s, seg_len=pivots, partial=partial,
+                  **kw)
+
+    k16 = run(ssk.solve_segment_stream, fresh(), MODE_PIVOTS, True)
+    plan = ssk.last_plan
+    p16 = run(ssk.solve_segment_stream_plain, fresh(), MODE_PIVOTS, True)
+    torch.cuda.synchronize()
+    lock = _lockstep16("solve_segment_stream partial", k16, p16)
+    pivoted = int((k16.basis != state0.basis).any(dim=1).sum())
+    # the other built cluster size gives the same bits
+    others = []
+    for other in ssk.stream_plans(PSB, PSM, n):
+        if other.cluster == plan.cluster or other.aligned != plan.aligned:
+            continue
+        s = fresh()
+        ssk.launch_with_plan(other, A, c, apen, 1 << 20, s,
+                             seg_len=MODE_PIVOTS, partial=True,
+                             **{k: v for k, v in kw.items()
+                                if k != "a_resident"})
+        torch.cuda.synchronize()
+        if not all(same_bits(x, y) for x, y in zip(s, k16)):
+            fail(f"partial pricing: {other.cluster} CTAs a lane differ from "
+                 f"{plan.cluster} after {MODE_PIVOTS} pivots")
+        others.append(other.cluster)
+    del k16, p16
+
+    ms = {name: _iter_ms(lambda s, p: run(ssk.solve_segment_stream, s, p,
+                                          part), fresh)
+          for name, part in (("full", False), ("partial", True),
+                             ("full_again", False))}
+    plain_ms = {name: _iter_ms(lambda s, p: run(
+        ssk.solve_segment_stream_plain, s, p, part), fresh,
+        pivots=MODE_PIVOTS, reps=1) for name, part in (("full", False),
+                                                       ("partial", True))}
+    b_ms, b_by = _partial_bound_ms(PSB, pivoted, PSM, n, PS_NBLK)
+    fb_ms, fb_by = segment_bound_ms(PSB, pivoted, PSM, n)
+
+    # the first lanes solved to the end on the segment driver, with full
+    # and with sectional pricing
+    L = PS_SOLVE_LANES
+    sub = SimplexState(*(t[:L].clone() for t in _simplex_start(A, h,
+                                                                state0)))
+    solves = {}
+    before = ssk.launches_partial
+    for name, part in (("full", False), ("partial", True)):
+        t0 = time.time()
+        res = run_batched_stream(
+            c[:L], A[:L], h[:L], sub, torch.ones(n, dtype=torch.bool,
+                                                 device=DEVICE),
+            PS_MAXITERS, cfg.replace(partial_pricing=part),
+            variant="stream", n_blk=PS_NBLK)
+        torch.cuda.synchronize()
+        solves[name] = (res, time.time() - t0)
+    path_launches = ssk.launches_partial - before
+    (rf, wf), (rp, wp) = solves["full"], solves["partial"]
+    for name, r in (("full", rf), ("partial", rp)):
+        if not bool((r.status == st.OPTIMAL).all()):
+            fail(f"{name} pricing solve: {status_counts(r.status)}, "
+                 f"iterations {r.iters.tolist()}")
+    cf, cp = _exact_cost(A[:L], c[:L], h[:L], rf.basis), _exact_cost(
+        A[:L], c[:L], h[:L], rp.basis)
+    rel = ((cp - cf).abs() / cf.abs().clamp_min(1.0)).max().item()
+    if not rel <= 1e-4:
+        fail(f"partial pricing solve: costs {rel:.3e} from full pricing")
+    return {"shape": [PSB, PSM, n], "n_blk": PS_NBLK,
+            "sections": n // PS_NBLK, "plan": plan._asdict(),
+            "same_bits_at_clusters": others, "lockstep16": lock,
+            "ms_per_iter": ms, "plain_ms_per_iter": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "full_pricing_bound_ms": fb_ms, "full_pricing_bound_by": fb_by,
+            "solve": {"lanes": L, "status": status_counts(rp.status),
+                      "pivots_partial": rp.iters.tolist(),
+                      "pivots_full": rf.iters.tolist(),
+                      "pivot_ratio": float(rp.iters.sum() / rf.iters.sum()),
+                      "max_rel_cost_diff": rel, "tol_rel": 1e-4,
+                      "partial_s": wp, "full_s": wf,
+                      "partial_launches": path_launches}}
+
+
+def _phase_ns():
+    """21d: solve_batch_two_phase with refactor_method="ns" at B = 1024,
+    m = n = 256: every lane OPTIMAL, HiGHS within 1e-5 on 16 lanes."""
+    (_, _, _), (cs, As, bs) = _par_batch()
+    out = {}
+    for name, cfg in (("inv", tuned_config(M)),
+                      ("ns", tuned_config(M, refactor_method="ns"))):
+        res, wall = _walled(lambda: lt.solve_batch_two_phase(
+            cs, As, bs, PAR_MAXITERS, PAR_MAXITERS, cfg))
+        out[name] = {"status": status_counts(res.status), "wall_s": wall,
+                     "pivots": int(res.iters.sum())}
+        if name == "ns":
+            if out[name]["status"] != {"OPTIMAL": B}:
+                fail(f"21d ns two-phase: {out[name]['status']}")
+            gap = highs_gap(res.cost, cs, 16, A_eq=As, b_eq=bs)
+            out[name]["highs_gap_16"] = gap
+            if not gap <= 1e-5:
+                fail(f"21d ns two-phase: HiGHS gap {gap:.3e} (> 1e-5)")
+    return out
+
+
+def _phase_ipm_modes():
+    """21e: the IPM at B = 1024, m = n = 256 (eps 1e-3) under the default,
+    gondzio=2, minv, each in f32 and float64.  Guards: minv and gondzio=2
+    in float64 each have at least the float64 default's OPTIMAL lanes.  In f32 Gondzio's correctors strand lanes at the
+    KKT floor in the reference too (ROADMAP Queue 3), and minv collapses
+    (the reference's 1 of 32): both reported only."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    c, G, h = device_inequality_lps(gen, MODE_IPM_LANES, M, N, DEVICE)
+    out = {}
+    for dtype in ("float32", "float64"):
+        for name, kw in (("default", {}), ("gondzio2", {"gondzio": 2}),
+                         ("minv", {"newton_solver": "minv"})):
+            cfg = lt.IPMConfig(dtype=dtype, **kw)
+            res, wall = _walled(lambda: lt.ipm_solve_batch_canonical(
+                c, G, h, cfg))
+            out[f"{name}_{dtype}"] = {
+                "optimal": int((res.status == st.OPTIMAL).sum()),
+                "status": status_counts(res.status), "wall_s": wall,
+                "newton_steps_max": int(res.iters.max())}
+    for name, base in (("minv_float64", "default_float64"),
+                       ("gondzio2_float64", "default_float64")):
+        if out[name]["optimal"] < out[base]["optimal"]:
+            fail(f"21e {name}: {out[name]['optimal']} OPTIMAL lanes, fewer "
+                 f"than {base}'s {out[base]['optimal']}")
+    return out
+
+
+def _phase_slack_guess():
+    """21f: ipm_crossover_batch_canonical(guess="slack") at m = n = 256:
+    the crossed lanes, every one certified."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    c, G, h = device_inequality_lps(gen, SLACK_LANES, M, N, DEVICE)
+    (res, crossed), wall = _walled(lambda: lt.ipm_crossover_batch_canonical(
+        c, G, h, cfg=tuned_config(M), guess="slack"))
+    cert = lt.certify_vertex_batch(c, G, h, res.basis)["certified"]
+    if not bool(cert[crossed].all()):
+        fail(f"21f slack guess: {int((crossed & ~cert).sum())} crossed lanes "
+             "not certified")
+    return {"lanes": SLACK_LANES, "crossed": int(crossed.sum()),
+            "certified_of_crossed": int(cert[crossed].sum()), "wall_s": wall}
+
+
+def _phase_cumsum():
+    """21g: the sparse IPM with assembly="cumsum" at m = n = 2048, 1 %,
+    B = 16 against "segment" on the same lanes.  Guards: the compensated
+    prefix-sum normal matrix within 1e-5 relative of a float64 segment sum
+    on every lane, at a d spread over ~1e8 (where a plain f32 prefix
+    cancels); the same status on every lane, except a lane that one mode
+    ends OPTIMAL and the other freezes at the f32 KKT floor (ITER_LIMIT:
+    the two normal matrices round apart, so the floor strands different
+    lanes); at least segment's OPTIMAL lanes; costs within 2e-3 where both
+    are OPTIMAL (the eps 1e-3 class).  Walls in turns."""
+    from linprog_tpu_torch import ipm_sparse
+    from linprog_tpu_torch.generators import (
+        device_sparse_inequality_lps,
+        random_sparse_pattern,
+    )
+
+    rows, cols = random_sparse_pattern(SM, SM, SDENS, seed=0)
+    pat = lt.SparsePattern(rows, cols, SM, SM, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, vals, h = device_sparse_inequality_lps(gen, CUMSUM_LANES, rows, cols,
+                                              SM, SM, DEVICE)
+    d = torch.exp(torch.rand((CUMSUM_LANES, 2 * SM), generator=gen,
+                             device=DEVICE) * 18.0 - 9.0)
+    N_cum = ipm_sparse._SparseSlackOp(pat.cumsum_tables(DEVICE), vals, SM,
+                                      SM).normal(d)
+    N_64 = ipm_sparse._SparseSlackOp(pat.tables(DEVICE), vals.double(), SM,
+                                     SM).normal(d.double())
+    unit = ((N_cum.double() - N_64).abs().amax(dim=(1, 2))
+            / N_64.abs().amax(dim=(1, 2))).max()
+    del N_cum, N_64
+    icfg = lt.IPMConfig(eps_rel=1e-3, maxiters=40, frac=0.995)
+    out, res = {"normal_max_rel_err": float(unit)}, {}
+    for name in ("segment", "cumsum", "cumsum_again", "segment_again"):
+        mode = name.split("_")[0]
+        r, wall = _walled(lambda: lt.ipm_solve_batch_sparse_canonical(
+            c, rows, cols, vals, h, (SM, SM), icfg, pattern=pat,
+            assembly=mode))
+        out[name + "_s"] = wall
+        res.setdefault(mode, r)
+    seg, cum = res["segment"], res["cumsum"]
+    both = (seg.status == st.OPTIMAL) & (cum.status == st.OPTIMAL)
+    pair = torch.stack([seg.status, cum.status])
+    floor = ((pair.amin(dim=0) == st.OPTIMAL)
+             & (pair.amax(dim=0) == st.ITER_LIMIT))
+    rel = ((cum.cost - seg.cost).abs() / seg.cost.abs().clamp_min(1.0))
+    out.update({"lanes": CUMSUM_LANES, "m": SM, "density": SDENS,
+                "status_segment": status_counts(seg.status),
+                "status_cumsum": status_counts(cum.status),
+                "same_status_lanes": int((seg.status == cum.status).sum()),
+                "floor_swapped_lanes": int(floor.sum()),
+                "max_rel_cost_diff_both_optimal": float(rel[both].max()),
+                "pairs": int(pat.pair_ids.size)})
+    if not unit <= 1e-5:
+        fail(f"21g cumsum: normal matrix {float(unit):.3e} from float64 "
+             "(> 1e-5)")
+    if not bool(((seg.status == cum.status) | floor).all()):
+        fail(f"21g cumsum: statuses differ from segment: {out}")
+    if int((cum.status == st.OPTIMAL).sum()) < int(
+            (seg.status == st.OPTIMAL).sum()):
+        fail(f"21g cumsum: fewer OPTIMAL lanes than segment: {out}")
+    if not float(rel[both].max()) <= 2e-3:
+        fail(f"21g cumsum: costs differ from segment by > 2e-3: {out}")
+    return out
+
+
+def phase_last_modes():
+    """Phase 21: the reference's last modes (split pricing and the ablation
+    switch on kernel 1, sectional pricing on kernel 3, Newton-Schulz
+    refactorization, the Gondzio and minv IPM, the slack basis guess, the
+    cumsum sparse assembly).  Returns the launch counts of the phase's run
+    and the modes' numbers for the kernels line."""
+    t0 = time.time()
+    _reset_counts()
+    sk.launches_split = ssk.launches_partial = 0
+    sk.launches_ablate = {k: 0 for k in sk.launches_ablate}
+    k1 = _phase_split_ablate()
+    emit({"phase": "last_modes_kernel1", **k1})
+    k3 = _phase_partial()
+    emit({"phase": "last_modes_kernel3", **k3})
+    split_n = k1["full_run"]["split_launches"]
+    partial_n = k3["solve"]["partial_launches"]
+    for name, n_launch in (("split", split_n), ("partial", partial_n)):
+        if not n_launch:
+            fail(f"phase 21: the {name} mode was never launched on its path")
+    if not all(sk.launches_ablate.values()):
+        fail(f"phase 21: an ablation mode was never launched: "
+             f"{sk.launches_ablate}")
+    rest = {"ns_two_phase": _phase_ns(), "ipm_modes": _phase_ipm_modes(),
+            "slack_guess": _phase_slack_guess(),
+            "cumsum_assembly": _phase_cumsum()}
+    counts = dict(_read_counts(), solve_segment_split=sk.launches_split,
+                  solve_segment_ablate=dict(sk.launches_ablate),
+                  solve_segment_stream_partial=ssk.launches_partial)
+    emit({"phase": "last_modes_paths", **rest,
+          "launches": counts, "seconds": time.time() - t0})
+    split16 = k1["split_lockstep16"]
+    kernel1_modes = [dict(mode="split", ms=k1["ms_per_iter"]["split"],
+                          plain_ms=k1["plain_ms_per_iter"]["split"],
+                          bound_ms=k1["launch_bound_ms_per_iter"],
+                          bound_by="operations",
+                          max_abs_err=split16["max_abs_err_bfs"],
+                          launches=split_n)]
+    kernel1_modes += [dict(mode=f"ablate{k}", ms=k1["ms_per_iter"][f"ablate{k}"],
+                           plain_ms=k1["plain_ms_per_iter"][f"ablate{k}"],
+                           bound_ms=k1["launch_bound_ms_per_iter"],
+                           bound_by="operations", max_abs_err=None,
+                           # profiling only: the timing runs' launches
+                           launches=sk.launches_ablate[k],
+                           mean_iters_of_64=k1["mean_iters_of_64"][
+                               f"ablate{k}"])
+                      for k in range(1, 8)]
+    kernel3_modes = [dict(mode="partial", ms=k3["ms_per_iter"]["partial"],
+                          plain_ms=k3["plain_ms_per_iter"]["partial"],
+                          bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
+                          max_abs_err=k3["lockstep16"]["max_abs_err_bfs"],
+                          launches=partial_n)]
+    return {"last_modes": counts}, kernel1_modes, kernel3_modes
+
+
 def main():
     phase_environment()
     phase_build()
@@ -3917,8 +4379,11 @@ def main():
     paths.update(phase_sparse_m2048())
     paths.update(phase_general_form())
     paths.update(phase_parallel())
+    last_paths, kernel1_modes, kernel3_modes = phase_last_modes()
+    paths.update(last_paths)
 
-    def entry(name, source, replaces, n_launches, rep, new_shapes=None):
+    def entry(name, source, replaces, n_launches, rep, new_shapes=None,
+              modes=None):
         by_path = {path: counts[name] for path, counts in paths.items()
                    if counts.get(name)}
         if name == "solve_segment_stream":
@@ -3934,6 +4399,8 @@ def main():
                **{k: rep[k] for k in ("plans",) if k in rep}}
         if new_shapes:
             out["new_shapes"] = new_shapes
+        if modes:
+            out["modes"] = modes
         return out
 
     # this slice's shapes: kernel 3 at the m = 4096 path's lanes, kernel 2
@@ -3979,13 +4446,14 @@ def main():
     emit({"kernels": [
         entry("solve_segment", "solve_segment.cu",
               "linprog_tpu/ops/solve_kernel.py:552",
-              launches["solve_segment"], seg),
+              launches["solve_segment"], seg, modes=kernel1_modes),
         entry("panel_cholinv", "panel_cholinv.cu",
               "linprog_tpu/ops/cholinv_kernel.py:80",
               launches["panel_cholinv"], chol, chol_new),
         entry("solve_segment_stream", "solve_segment_stream.cu",
               "linprog_tpu/ops/stream_kernel.py:609",
-              x_launches["solve_segment_stream"], stream, stream_new),
+              x_launches["solve_segment_stream"], stream, stream_new,
+              modes=kernel3_modes),
         entry("solve_bounded_segment", "solve_bounded_segment.cu",
               "linprog_tpu/ops/bounded_kernel.py:279", bnd_launches, bnd,
               bnd_new),

@@ -47,6 +47,56 @@ def solve_batch_from_basis(c, A, b, basis, maxiters: int,
     return _to_result(c, states, n)
 
 
+def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
+                       cfg: SolverConfig):
+    """Dual simplex from exact factors for the OPTIMAL lanes whose basis
+    is primal infeasible: ``x_B`` below ``-feas_tol max(1, max|b|)`` in the
+    terminal f32 solve, confirmed by a float64 solve (past a few hundred
+    rows an f32 solve can put a feasible vertex below the tolerance).
+
+    A long unrefactored segment's f32 factors can end a lane at a basis
+    they call feasible and an exact solve does not
+    (``tests/data/two_phase_lane973.npz``: ``x_B`` -3.08e-4 exactly).  The
+    reference's path is exposed alike: its f32 rounding differs from the
+    port's, so the two part at some near-tie, and chance decides which one
+    reaches such a basis.  Such a basis is still dual feasible, so dual
+    pivots from a fresh factor and the solved ``x_B`` restore primal
+    feasibility.  A lane takes the
+    repaired basis only where the dual phase ends OPTIMAL at a basis that
+    float64 finds feasible; every other lane is left as it was."""
+    tol = cfg.feas_tol * torch.clamp_min(torch.abs(b).amax(dim=1), 1.0)
+    bad = ((states.status == st.OPTIMAL)
+           & (states.bfs.min(dim=1).values < -tol))
+    if not bool(bad.any()):
+        return states
+    idx = torch.nonzero(bad, as_tuple=True)[0]
+
+    def x64(Ai, bi, basis):
+        return solve_or_nan(basis_matrix(Ai, basis).double(), bi.double())
+
+    xb = x64(A[idx], b[idx], states.basis[idx])
+    idx = idx[xb.min(dim=1).values < -tol[idx]]
+    if not idx.numel():
+        return states
+    Ai, bi = A[idx], b[idx]
+    sub = engine.make_state(Ai, bi, states.basis[idx])
+    # x_B from the solve, not from the f32 inverse (whose product with b
+    # can put the lane above zero again)
+    sub = sub._replace(bfs=states.bfs[idx])
+    sub = _run_chunked(c[idx], Ai, bi, sub, allowed, maxiters, cfg, "dual")
+    xb = x64(Ai, bi, sub.basis)
+    fixed = ((sub.status == st.OPTIMAL) & torch.isfinite(xb).all(dim=1)
+             & (xb.min(dim=1).values >= -tol[idx]))
+    idx, sub = idx[fixed], type(sub)(*(t[fixed] for t in sub))
+    basis, inv_B, bfs, iters = (t.clone() for t in (
+        states.basis, states.inv_B, states.bfs, states.iters))
+    basis[idx] = sub.basis
+    inv_B[idx] = sub.inv_B
+    bfs[idx] = xb[fixed].to(bfs.dtype)
+    iters[idx] = iters[idx] + sub.iters
+    return states._replace(basis=basis, inv_B=inv_B, bfs=bfs, iters=iters)
+
+
 def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
                           maxiters2: int = 1000,
                           cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
@@ -102,6 +152,7 @@ def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
         status=torch.where(ok, states.status,
                            st.NUMERICAL_ERROR).to(torch.int32),
     )
+    states = _repair_infeasible(c2, A1, b, states, allowed2, maxiters2, cfg)
 
     if cfg.polish_pivots > 0:
         from .refine import dd_dot, dd_residual, polish_batch

@@ -143,7 +143,8 @@ def run_bounded_batched(c, A, b, lb, ub, state: BoundedState, maxiters: int,
             solve_bounded_segment(A, c, lb, ub, maxiters, seg, **kw)
             x_n = nonbasic_values(seg.vstate, lb, ub)
             rhs = b - torch.einsum("bmn,bn->bm", A, x_n)
-            refresh_running_lanes(A, rhs, seg)
+            refresh_running_lanes(A, rhs, seg,
+                                  compact=cfg.compact_refactor)
     else:
         solve_bounded_segment(A, c, lb, ub, maxiters, seg, **kw)
 

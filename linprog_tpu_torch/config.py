@@ -1,10 +1,8 @@
 """Simplex solver configuration (counterpart of :mod:`linprog_tpu.config`).
 
-The fields keep the reference's names and defaults.  Knobs of the reference
-that the port leaves out (``split_pricing``, ``partial_pricing``,
-``refactor_method="ns"``) and the one its kernel path never reads
-(``compact_refactor``) are not fields here;
-:func:`linprog_tpu_torch.convert.config_from_reference` checks them.
+The fields keep the reference's names, defaults and validation;
+:func:`linprog_tpu_torch.convert.config_from_reference` carries every one
+of them across.
 """
 
 from __future__ import annotations
@@ -45,6 +43,22 @@ class SolverConfig:
     entry points that take host arrays (the solver classes,
     ``solve_batch_general``, ``presolve_host.solve_with_presolve``); the
     batched entry points compute in their tensors' dtype.
+
+    ``split_pricing`` (kernel 1, primal mode, bland or dantzig, where the
+    reference's kernel holds ``A^T``) prices with the bf16 halves of ``y``
+    and ``A``: ``r = c - ((yh Ah + yh Al) + yl Ah) + pen``, every product of
+    halves exact in f32 and only ``yl Al`` dropped.  ``partial_pricing``
+    (kernel 3, primal mode, ``n`` a multiple of the section width: the
+    streaming variant's ``n_blk``, 256 for the resident one) prices one
+    section an iteration, stays in it while it yields an entering column
+    and rotates when it is exhausted; a lane is OPTIMAL after every section
+    came up empty under one basis.
+    ``refactor_method`` is ``"inv"`` (exact inversion between segments) or
+    ``"ns"`` (two Newton-Schulz steps, exact inversion only for lanes whose
+    residual stays above 0.1, then a polish of at most three rounds of
+    exact refactorization that reopens finished lanes).
+    ``compact_refactor`` inverts only the running lanes between segments
+    (False: the whole batch; the same bits on every running lane).
     """
 
     opt_tol: float = 1e-6
@@ -60,6 +74,10 @@ class SolverConfig:
     kernels: str = "cuda"
     update: str = "eta"
     dtype: str = "float32"
+    split_pricing: bool = False
+    partial_pricing: bool = False
+    compact_refactor: bool = True
+    refactor_method: str = "inv"
 
     def __post_init__(self):
         if self.pricing not in ("bland", "dantzig", "devex"):
@@ -70,6 +88,9 @@ class SolverConfig:
             raise ValueError(f"unknown update rule: {self.update!r}")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"unknown dtype: {self.dtype!r}")
+        if self.refactor_method not in ("inv", "ns"):
+            raise ValueError(
+                f"unknown refactor method: {self.refactor_method!r}")
         if self.unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {self.unroll}")
 

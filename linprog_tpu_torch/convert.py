@@ -21,13 +21,6 @@ from .ops.bounded_kernel import BoundedSegmentState
 from .ops.solve_kernel import SegmentState
 from .results import BatchResult
 
-# reference knobs the port leaves out: allowed only at their defaults
-_DROPPED_SOLVER = {"split_pricing": False, "partial_pricing": False,
-                   "refactor_method": "inv"}
-# reference knobs the port never reads
-_IGNORED_SOLVER = ("compact_refactor",)
-_DROPPED_IPM = {"gondzio": 0, "newton_solver": "w2"}
-
 
 def _fields(obj) -> dict:
     if isinstance(obj, dict):
@@ -44,21 +37,14 @@ def config_from_reference(d: dict):
     ``kernels="pallas"`` maps to ``"cuda"`` and ``kernels="xla"`` to
     ``"torch"`` (the per-step loop, which scales ``opt_tol`` by
     ``max(1, max|c|)`` as the reference's XLA path does, and the per-lane
-    engines).  A dropped knob at a non-default value is refused.
+    engines).  Every other field carries over as it is.
     """
     d = dict(d)
-    is_ipm = "eps_rel" in d
-    dropped = _DROPPED_IPM if is_ipm else _DROPPED_SOLVER
-    for key, default in dropped.items():
-        if key in d and d.pop(key) != default:
-            raise ValueError(f"{key} is not ported (only {default!r})")
-    if is_ipm:
+    if "eps_rel" in d:
         return IPMConfig(**d)
     kernels = d.pop("kernels", "xla")
     if kernels not in ("pallas", "xla"):
         raise ValueError(f"unknown reference kernels value {kernels!r}")
-    for key in _IGNORED_SOLVER:
-        d.pop(key, None)
     return SolverConfig(kernels={"pallas": "cuda", "xla": "torch"}[kernels],
                         **d)
 

@@ -17,6 +17,7 @@ from . import status as st
 from .batch import _run_chunked, _to_result
 from .config import DEFAULT_CONFIG, SolverConfig
 from .engine import basis_matrix, inv_or_nan
+from .ops.solve_kernel import _nonneg
 from .refine import solve_dd
 from .results import BatchResult
 
@@ -184,13 +185,16 @@ def ipm_crossover_batch_canonical(c, G, h, ipm_cfg=None,
     """Batched IPM, then crossover at the interior point.
 
     ``guess``: ``"tapia"`` ranks the basis guess by ``x / s`` (primal over
-    dual slack), ``"magnitude"`` by ``[x; h - Gx]``.  Where the crossover
-    verifies an optimal basis its vertex replaces the interior answer.
-    Returns ``(BatchResult, crossed)``.
+    dual slack), ``"magnitude"`` by ``[x; h - Gx]``, ``"slack"`` by
+    ``[max(x, 0); max(h - Gx, 0) + 1e-3 max(1, max|h|)]`` (magnitude with
+    the slack columns winning near ties; the reference measured it far
+    worse and keeps it as an experiment).  Where the crossover verifies an
+    optimal basis its vertex replaces the interior answer.  Returns
+    ``(BatchResult, crossed)``.
     """
     from .ipm import DEFAULT_IPM_CONFIG, ipm_canonical_state
 
-    if guess not in ("tapia", "magnitude"):
+    if guess not in ("tapia", "magnitude", "slack"):
         raise ValueError(f"unknown basis guess {guess!r}")
     ipm_cfg = ipm_cfg or DEFAULT_IPM_CONFIG
     B, m, n = G.shape
@@ -203,6 +207,10 @@ def ipm_crossover_batch_canonical(c, G, h, ipm_cfg=None,
     if guess == "tapia":
         ind = state.x / torch.clamp_min(state.s, 1e-30)
         ind = torch.where(_finite_rows(ind)[:, None], ind, 0.0).to(dt)
+    elif guess == "slack":
+        s_pr = _nonneg(h - torch.einsum("bmn,bn->bm", G, x))
+        scale = torch.clamp_min(torch.abs(h).amax(dim=1), 1.0)[:, None]
+        ind = torch.cat([_nonneg(x), s_pr + 1e-3 * scale], dim=1)
     res, crossed = crossover_batch_canonical(
         c, G, h, x, maxiters=crossover_maxiters, cfg=cfg, indicator=ind,
     )

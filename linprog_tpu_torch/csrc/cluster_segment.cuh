@@ -23,6 +23,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -210,6 +211,52 @@ __device__ void col_pass(const float* G, int ld, int ncols, int nrows,
         if (NV == 2) out1[k] = tree<0, NB>(t1[q]);
       }
     }
+  }
+  __syncthreads();
+}
+
+// ---- split pricing: the three bf16 products of the pricing pass ------------
+//
+// x = hi + lo with hi = bf16(x) and lo = bf16(x - hi), both rounded to
+// nearest even (the reference's astype(bfloat16)); x - hi is exact in f32.
+__device__ __forceinline__ void bf16_split(float x, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+}
+
+// The CTA's partials of the split product y A over its own rows, for every
+// k < ncols: hh[k] = sum_j yh[j] Ah[j, k], hl[k] = sum_j yh[j] Al[j, k],
+// lh[k] = sum_j yl[j] Ah[j, k] (the lo * lo term is dropped). The halves
+// are taken in registers from the resident f32 rows, so the pass reads no
+// more than the f32 pass; a product of two halves is exact in f32. The
+// order of every sum is col_pass's (a band's rows in order, then the
+// balanced tree over the CTA's bands). Ends synced.
+template <int NB>
+__device__ void col_pass_split(const float* G, int ld, int ncols, int nrows,
+                               int band, const float* v, float* hh, float* hl,
+                               float* lh) {
+  for (int k = threadIdx.x; k < ncols; k += kThreads) {
+    float t0[NB], t1[NB], t2[NB];
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) {
+      const int jlo = min(bi * band, nrows), jhi = min(jlo + band, nrows);
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll 2
+      for (int j = jlo; j < jhi; ++j) {
+        float yh, yl, xh, xl;
+        bf16_split(v[j], yh, yl);
+        bf16_split(G[(size_t)j * ld + k], xh, xl);
+        a0 = a0 + yh * xh;
+        a1 = a1 + yh * xl;
+        a2 = a2 + yl * xh;
+      }
+      t0[bi] = a0;
+      t1[bi] = a1;
+      t2[bi] = a2;
+    }
+    hh[k] = tree<0, NB>(t0);
+    hl[k] = tree<0, NB>(t1);
+    lh[k] = tree<0, NB>(t2);
   }
   __syncthreads();
 }

@@ -63,6 +63,24 @@
 // (w_j / d_l)^2 gamma_q) with gamma_q = max(gamma[enter], 1); the leaving
 // column re-enters at max(gamma_q / d_l^2, 1); everything is capped at 1e12.
 //
+// Split pricing (split = 1: primal mode, bland or dantzig) prices with the
+// bf16 halves of y and of A, r = (c - ((yh Ah + yh Al) + yl Ah)) + pen: the
+// three partial sums run in the pricing pass's own order and are added in
+// the reference's; the halves are taken in registers (__float2bfloat16_rn)
+// from the f32 A the kernel holds anyway, so the mode reads no more bytes
+// and the plans do not change. Each product of halves is exact in f32, and
+// only the lo * lo term is dropped.
+//
+// The ablation switch (ablate = 1..7, profiling only, the reference's modes)
+// drops one stage of the iteration so that its share of the time can be
+// read: 1 the pricing product (r = (c - sum y) + pen), 4 the entering
+// selection (enter = seg % n), 2 the direction product (d = a), 5 the
+// ratio-test reductions (leave = seg % m), 6 the masked scalar extracts
+// (d_l = 1, the rest 0), 3 the O(m^2) update of the factor (the cluster
+// branch still forms the next duals from the unchanged rows), 7 the
+// bookkeeping writes (basis, c_B, penalty). Modes 1, 2, 4 and 5 touch the
+// primal iteration only. ablate = 0 runs the kernel as it is.
+//
 // Semantics follow the Pallas kernel and the plain PyTorch version
 // (linprog_tpu_torch/ops/solve_kernel.py): absolute opt_tol, packed keys
 // with the index in the low bits (complemented for negative values,
@@ -101,7 +119,7 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
     float* cB_all, int* basis_all, float* pen_all, float* gamma_all,
     int* iters_all, int* status_all, int m, int n, int seg_len, int maxiters,
     float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-    int packed, int stall_limit) {
+    int packed, int stall_limit, int split, int ablate) {
   extern __shared__ float smem[];
   __shared__ Scratch red;
   const int tid = threadIdx.x;
@@ -259,17 +277,43 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
       // ---- pricing: r = (c - y A) + pen --------------------------------
       duals(invBT, s_cB, s_y, m);
       __syncthreads();
-      for (int k = tid; k < n; k += kThreads) {
-        float ay = 0.0f;
+      if (ablate == 1) {  // the pricing product dropped
+        float part = 0.0f;
+        for (int j = tid; j < m; j += kThreads) part += s_y[j];
+        const float ysum = block_sum(part, red);
+        for (int k = tid; k < n; k += kThreads)
+          s_r[k] = (s_c[k] - ysum) + s_pen[k];
+      } else if (split) {
+        for (int k = tid; k < n; k += kThreads) {
+          float hh = 0.0f, hl = 0.0f, lh = 0.0f;
 #pragma unroll 4
-        for (int j = 0; j < m; ++j) ay += s_y[j] * __ldg(A + (size_t)j * n + k);
-        s_r[k] = (s_c[k] - ay) + s_pen[k];
+          for (int j = 0; j < m; ++j) {
+            float yh, yl, xh, xl;
+            lpc::bf16_split(s_y[j], yh, yl);
+            lpc::bf16_split(__ldg(A + (size_t)j * n + k), xh, xl);
+            hh = hh + yh * xh;
+            hl = hl + yh * xl;
+            lh = lh + yl * xh;
+          }
+          s_r[k] = (s_c[k] - ((hh + hl) + lh)) + s_pen[k];
+        }
+      } else {
+        for (int k = tid; k < n; k += kThreads) {
+          float ay = 0.0f;
+#pragma unroll 4
+          for (int j = 0; j < m; ++j)
+            ay += s_y[j] * __ldg(A + (size_t)j * n + k);
+          s_r[k] = (s_c[k] - ay) + s_pen[k];
+        }
       }
       __syncthreads();
 
       // ---- entering column ---------------------------------------------
       bool eligible;
-      if (packed && pricing == 1) {
+      if (ablate == 4) {  // the entering selection skipped
+        enter = seg % n;
+        eligible = true;
+      } else if (packed && pricing == 1) {
         int key = kIntMax, first = n;
         for (int k = tid; k < n; k += kThreads) {
           const float r = s_r[k];
@@ -321,11 +365,21 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
         eligible = enter < n;
       }
       if (!eligible) enter = 0;
-      direction(A, invBT, s_col, s_d, m, n, enter);
+      if (ablate == 2) {  // the direction product dropped: d = a
+        for (int i = tid; i < m; i += kThreads)
+          s_d[i] = __ldg(A + (size_t)i * n + enter);
+        __syncthreads();
+      } else {
+        direction(A, invBT, s_col, s_d, m, n, enter);
+      }
 
       // ---- primal ratio test over d > pivot_tol ------------------------
       bool any_pos;
-      if (packed) {
+      if (ablate == 5) {  // the ratio-test reductions skipped
+        any_pos = true;
+        leave = seg % m;
+        ratio = 0.0f;
+      } else if (packed) {
         int key = kIntMax;
         for (int i = tid; i < m; i += kThreads) {
           const float di = s_d[i];
@@ -360,11 +414,12 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
 
     // ---- pivot: eta update of invBT, bfs and bookkeeping -----------------
     // scalars read as the reference's masked sums read them (-0.0 -> +0.0)
-    const float d_l = s_d[leave] + 0.0f;
-    const float bfs_l = s_bfs[leave] + 0.0f;
-    const int leaving_col = s_basis[leave];
-    const float c_enter = s_c[enter] + 0.0f;
-    const float r_enter = s_r[enter] + 0.0f;
+    const bool extract = ablate != 6;  // 6: the masked extracts skipped
+    const float d_l = extract ? s_d[leave] + 0.0f : 1.0f;
+    const float bfs_l = extract ? s_bfs[leave] + 0.0f : 0.0f;
+    const int leaving_col = extract ? s_basis[leave] : 0;
+    const float c_enter = extract ? s_c[enter] + 0.0f : 0.0f;
+    const float r_enter = extract ? s_r[enter] + 0.0f : 0.0f;
     const float gamma_q =
         devex ? lp::nan_max(s_gamma[enter] + 0.0f, 1.0f) : 1.0f;
     float dz = 0.0f;
@@ -389,11 +444,11 @@ __global__ void __launch_bounds__(kThreads) solve_segment_kernel(
           s_gamma[k] = lp::nan_min(g, 1e12f);
         }
       }
-      lp::eta_update(invBT, s_col, s_u, m);
+      if (ablate != 3) lp::eta_update(invBT, s_col, s_u, m);
       for (int i = tid; i < m; i += kThreads)
         s_bfs[i] = s_bfs[i] + s_u[i] * bfs_l;
       __syncthreads();
-      if (tid == 0) {
+      if (tid == 0 && ablate != 7) {
         s_basis[leave] = enter;
         s_cB[leave] = c_enter;
         s_pen[leaving_col] = apen[leaving_col];
@@ -447,7 +502,7 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
     float* cB_all, int* basis_all, float* pen_all, float* gamma_all,
     int* iters_all, int* status_all, int m, int n, int seg_len, int maxiters,
     float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-    int packed, int stall_limit, int aligned) {
+    int packed, int stall_limit, int aligned, int split, int ablate) {
   cg::cluster_group cl = cg::this_cluster();
   const unsigned rank = cl.block_rank();
   const int tid = threadIdx.x;
@@ -486,6 +541,8 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
   float* s_pen = s_c + n;
   float* s_gamma = s_pen + n;
   // the CTA's partials, read by every CTA of the cluster
+  // split pricing (never with devex or in dual mode) keeps its three
+  // partials of y A in s_p1 (yh Ah), s_pw (yh Al) and s_gamma (yl Ah)
   float* s_p1 = s_gamma + n;  // of y A
   float* s_pw = s_p1 + n;     // of the dual row, or of the devex pivot row
   float* s_p2 = s_pw + n;     // of the direction (m entries)
@@ -630,8 +687,19 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
                             : (!any_cand ? kDualUnbounded : kRunning);
     } else {
       // ---- partial of y A over own rows ---------------------------------
-      lpc::col_pass<1, false, NB, 2>(sA, n, n, nrows, band, s_y, nullptr, s_p1,
-                                     nullptr);
+      if (ablate == 1) {  // the pricing product dropped: the sum of y
+        float part = 0.0f;
+        for (int j = tid; j < nrows; j += lpc::kThreads) part += s_y[j];
+        part = lpc::block_sum(part, red);
+        if (tid == 0) s_p1[0] = part;
+        __syncthreads();
+      } else if (split) {
+        lpc::col_pass_split<NB>(sA, n, n, nrows, band, s_y, s_p1, s_pw,
+                                s_gamma);
+      } else {
+        lpc::col_pass<1, false, NB, 2>(sA, n, n, nrows, band, s_y, nullptr,
+                                       s_p1, nullptr);
+      }
       cl.sync();  // (a)
       if (pend) {  // the weights of the last pivot, before they are read
         devex_update(pend_safe, pend_gq, pend_lcol);
@@ -640,20 +708,32 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
       }
 
       // ---- pricing r = (c - y A) + pen and the entering column ----------
+      const float ysum = ablate == 1 ? sum(s_p1, 0) : 0.0f;
+      auto price = [&](int k) {
+        const float ya =
+            ablate == 1 ? ysum
+            : split     ? (sum(s_p1, k) + sum(s_pw, k)) + sum(s_gamma, k)
+                        : sum(s_p1, k);
+        return (s_c[k] - ya) + s_pen[k];
+      };
       const bool pk = packed && pricing == 1;
       Pick p = lpc::pick_init(n);
-      for (int k = tid; k < n; k += lpc::kThreads) {
-        const float r = (s_c[k] - sum(s_p1, k)) + s_pen[k];
-        if (r < -opt_tol) {
-          if (pk) p.key = min(p.key, pack_key(r, k, bits_n, true));
-          if (devex) lpc::amin(p, -((r * r) / s_gamma[k]), k, n);
-          p.first = min(p.first, k);
+      if (ablate != 4)
+        for (int k = tid; k < n; k += lpc::kThreads) {
+          const float r = price(k);
+          if (r < -opt_tol) {
+            if (pk) p.key = min(p.key, pack_key(r, k, bits_n, true));
+            if (devex) lpc::amin(p, -((r * r) / s_gamma[k]), k, n);
+            p.first = min(p.first, k);
+          }
+          if (dantzig && !pk && !devex) lpc::amin(p, r, k, n);
         }
-        if (dantzig && !pk && !devex) lpc::amin(p, r, k, n);
-      }
       p = lpc::block_pick(p, n, ps);
       bool eligible;
-      if (pk) {
+      if (ablate == 4) {  // the entering selection skipped
+        eligible = true;
+        enter = seg % n;
+      } else if (pk) {
         eligible = p.key != kIntMax;
         enter = use_bland ? p.first : (p.key & lo_n);
       } else if (devex) {
@@ -668,20 +748,27 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
       }
       if (!eligible) enter = 0;
       // the same expression as in the selection, so the same bits
-      r_enter = ((s_c[enter] - sum(s_p1, enter)) + s_pen[enter]) + 0.0f;
+      r_enter = price(enter) + 0.0f;
 
       // ---- partial of the direction over own rows ------------------------
-      for (int j = tid; j < nrows; j += lpc::kThreads)
-        s_col[j] = sA[(size_t)j * n + enter];
-      __syncthreads();
-      lpc::col_pass<1, true, NB, 1>(sB, m, m, nrows, band, s_col, nullptr,
-                                    s_p2, nullptr);
-      cl.sync();  // (c)
-      for (int i = tid; i < m; i += lpc::kThreads) s_d[i] = sum(s_p2, i);
+      if (ablate == 2) {  // the direction product dropped: d = a
+        cl.sync();  // (c)
+        for (int i = tid; i < m; i += lpc::kThreads)
+          s_d[i] = __ldg(A + (size_t)i * n + enter);
+      } else {
+        for (int j = tid; j < nrows; j += lpc::kThreads)
+          s_col[j] = sA[(size_t)j * n + enter];
+        __syncthreads();
+        lpc::col_pass<1, true, NB, 1>(sB, m, m, nrows, band, s_col, nullptr,
+                                      s_p2, nullptr);
+        cl.sync();  // (c)
+        for (int i = tid; i < m; i += lpc::kThreads) s_d[i] = sum(s_p2, i);
+      }
       __syncthreads();
 
       // ---- primal ratio test over d > pivot_tol ------------------------
       Pick q = lpc::pick_init(m);
+      if (ablate != 5)
       for (int i = tid; i < m; i += lpc::kThreads) {
         const float di = s_d[i];
         if (di > pivot_tol) {
@@ -694,7 +781,11 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
       }
       q = lpc::block_pick(q, m, ps);
       bool any_pos;
-      if (packed) {
+      if (ablate == 5) {  // the ratio-test reductions skipped
+        any_pos = true;
+        leave = seg % m;
+        ratio = 0.0f;
+      } else if (packed) {
         any_pos = q.key != kIntMax;
         leave = any_pos ? (q.key & lo_m) : 0;
         ratio = any_pos ? unpack_value(q.key, bits_m) : INFINITY;
@@ -711,6 +802,12 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
     }
     c_enter = s_c[enter] + 0.0f;
     if (devex) g_enter = s_gamma[enter];
+    if (ablate == 6) {  // the masked scalar extracts skipped
+      bfs_l = 0.0f;
+      leaving_col = 0;
+      c_enter = 0.0f;
+      r_enter = 0.0f;
+    }
 
     if (dual) {
       // ---- the direction: partial over own rows, then all of d ---------
@@ -729,7 +826,7 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
     float dz = 0.0f;
     if (do_pivot) {
       // scalars read as the reference's masked sums read them (-0.0 -> +0.0)
-      const float d_l = s_d[leave] + 0.0f;
+      const float d_l = ablate == 6 ? 1.0f : s_d[leave] + 0.0f;
       const float safe = d_l == 0.0f ? 1.0f : d_l;
       const float gamma_q = devex ? nan_max(g_enter + 0.0f, 1.0f) : 1.0f;
       for (int i = tid; i < m; i += lpc::kThreads)
@@ -739,7 +836,7 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
           s_colL[j] = sB[(size_t)j * m + leave];
       __syncthreads();  // every thread has read c_B, bfs and the basis
       // c_B of the new basis: the eta pass's dot products are the next duals
-      if (tid == 0) s_cB[leave] = c_enter;
+      if (tid == 0 && ablate != 7) s_cB[leave] = c_enter;
       if (devex && dual) {
         // w is the dual row; its partials are rewritten after the next
         // (l)-free start of an iteration, so the cluster waits for every
@@ -755,11 +852,14 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
         pend_lcol = leaving_col;
       }
       __syncthreads();
-      lpc::row_pass<true>(sB, s_cB, s_u, s_colL, s_y, m, nrows);
+      if (ablate == 3)  // the factor's update skipped; duals from its rows
+        lpc::row_pass<false>(sB, s_cB, nullptr, nullptr, s_y, m, nrows);
+      else
+        lpc::row_pass<true>(sB, s_cB, s_u, s_colL, s_y, m, nrows);
       for (int i = tid; i < m; i += lpc::kThreads)
         s_bfs[i] = s_bfs[i] + s_u[i] * bfs_l;
       __syncthreads();
-      if (tid == 0) {
+      if (tid == 0 && ablate != 7) {
         s_basis[leave] = enter;
         s_pen[leaving_col] = apen[leaving_col];
         s_pen[enter] = INFINITY;
@@ -811,8 +911,10 @@ extern "C" int lp_solve_segment(const float* A, const float* c,
                                 int m, int n, int seg_len, int maxiters,
                                 float opt_tol, float pivot_tol, float feas_tol,
                                 int dual, int pricing, int packed,
-                                int stall_limit, void* stream) {
-  if (pricing < 0 || pricing > 2 || m < 1 || n < 1)
+                                int stall_limit, int split, int ablate,
+                                void* stream) {
+  if (pricing < 0 || pricing > 2 || m < 1 || n < 1 || ablate < 0 ||
+      ablate > 7 || (split && (dual || pricing == 2)))
     return (int)cudaErrorInvalidValue;
   // the devex weights take a fifth row of n floats
   const size_t smem =
@@ -825,7 +927,7 @@ extern "C" int lp_solve_segment(const float* A, const float* c,
   solve_segment_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status, m, n,
       seg_len, maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, packed,
-      stall_limit);
+      stall_limit, split, ablate);
   return (int)cudaGetLastError();
 }
 
@@ -857,10 +959,11 @@ extern "C" int lp_solve_segment_cluster(
     float* bfs, float* cB, int* basis, float* pen, float* gamma, int* iters,
     int* status, int B, int m, int n, int seg_len, int maxiters,
     float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-    int packed, int stall_limit, int cluster, int aligned, int smem_bytes,
-    void* stream) {
+    int packed, int stall_limit, int split, int ablate, int cluster,
+    int aligned, int smem_bytes, void* stream) {
   if (pricing < 0 || pricing > 2 || m < 1 || n < 1 || B < 1 ||
-      !lpc::cluster_built(cluster))
+      !lpc::cluster_built(cluster) || ablate < 0 || ablate > 7 ||
+      (split && (dual || pricing == 2)))
     return (int)cudaErrorInvalidValue;
   if (aligned && !(m % 4 == 0 && n % 4 == 0 && (uintptr_t)A % 16 == 0 &&
                    (uintptr_t)invBT % 16 == 0))
@@ -876,7 +979,7 @@ extern "C" int lp_solve_segment_cluster(
                        (size_t)smem_bytes, s, A, c, apen, invBT, bfs, cB,    \
                        basis, pen, gamma, iters, status, m, n, seg_len,      \
                        maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, \
-                       packed, stall_limit, aligned);
+                       packed, stall_limit, aligned, split, ablate);
   LP_CLUSTER_SIZES(LP_LAUNCH)
 #undef LP_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -60,6 +60,18 @@
 //     y is recomputed from the factor each iteration, as the reference
 //     does; and since pricing needs y only on the CTA's own rows, y is
 //     never gathered.
+//   * Sectional pricing (partial = 1, primal only, n % n_blk == 0) prices
+//     one section of n_blk columns an iteration: each CTA's pricing pass
+//     streams only the section's columns of its rows (an S-th of A, S =
+//     n / n_blk) and reduces r on its slice of the section; the entering
+//     column is the section's by its local index (packed keys in
+//     bits_for(n_blk) bits, a stalled lane's first eligible entry of the
+//     section). The lane stays in a section while it yields a column, moves
+//     to the next when it comes up empty (an iteration without direction,
+//     ratio test or pivot), and is OPTIMAL after S empty sections in a row;
+//     the section and the count of empty ones start at 0 in every launch.
+//     The pass sums each column as the full pass does, so r on a section is
+//     the full pass's r bit for bit.
 // Vectors that every CTA needs whole (d, the eta vector u, c_B) are
 // gathered through distributed shared memory or kept as identical full
 // copies. Each selection is a per-CTA packed-key or value+index min, then a
@@ -640,8 +652,8 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : kScalarCtas)
         float* cB_all, int* basis_all, float* pen_all, int* iters_all,
         int* status_all, int m, int n, int seg_len, int maxiters,
         float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-        int packed, int stall_limit, int stages, int stage_floats,
-        int warp_stages, int chunk_floats) {
+        int packed, int stall_limit, int partial, int n_blk, int stages,
+        int stage_floats, int warp_stages, int chunk_floats) {
   cg::cluster_group cl = cg::this_cluster();
   const unsigned rank = cl.block_rank();
   extern __shared__ __align__(16) float smem[];
@@ -722,6 +734,12 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : kScalarCtas)
   const bool track = stall_limit > 0 && pricing >= 1;
   const int bits_n = bits_for(n), bits_m = bits_for(m);
   const int lo_n = (1 << bits_n) - 1, lo_m = (1 << bits_m) - 1;
+  // sectional pricing: the selection runs over the section's local indices
+  const int n_sec = partial ? n / n_blk : 1;
+  const int nsel = partial ? n_blk : n;
+  const int bits_sel = partial ? bits_for(n_blk) : bits_n;
+  const int lo_sel = (1 << bits_sel) - 1;
+  int sec = 0, empty = 0;  // the section, and empty sections in a row
 
   // segment-local stall state; the entry objective is summed band by band
   // and then as the tree of the column passes, whatever the cluster size
@@ -901,53 +919,60 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : kScalarCtas)
       reduce_slice<CL>(cl, s_pp, s_d + rows.lo, rows);
       cl.sync();  // (d)
     } else {
-      // ---- partial of y A over own rows, then r of own columns ---------
-      col_pass<RING, 1, false, NB>(A_own, n, n, nrows, band, s_y, nullptr, s_pp,
-                                   nullptr, pp);
+      // ---- partial of y A over own rows, then r of own columns (in
+      // sectional pricing: the section's columns, and r of the own slice of
+      // the section) -------------------------------------------------------
+      const int start = partial ? sec * n_blk : 0;
+      const Range rc = partial ? Range{max(cols.lo, start),
+                                       min(cols.hi, start + n_blk)}
+                               : cols;
+      col_pass<RING, 1, false, NB>(A_own + start, n, nsel, nrows, band, s_y,
+                                   nullptr, s_pp, nullptr, pp);
       cl.sync();  // (a)
-      reduce_slice<CL>(cl, s_pp, s_r, cols);
-      for (int k = cols.lo + tid; k < cols.hi; k += kThreads)
-        s_r[k - cols.lo] =
-            (s_c[k - cols.lo] - s_r[k - cols.lo]) + s_pen[k - cols.lo];
+      for (int k = rc.lo + tid; k < rc.hi; k += kThreads)
+        s_r[k - cols.lo] = (s_c[k - cols.lo] - tree_sum<0, CL>(cl, s_pp, k - start)) +
+                           s_pen[k - cols.lo];
       __syncthreads();
 
-      // ---- entering partial --------------------------------------------
+      // ---- entering partial (indices local to the section) ---------------
       {
-        int key = kIntMax, first = n, hot = n;
+        int key = kIntMax, first = nsel, hot = nsel;
         float val = INFINITY;
-        for (int k = cols.lo + tid; k < cols.hi; k += kThreads) {
+        for (int k = rc.lo + tid; k < rc.hi; k += kThreads) {
           const float r = s_r[k - cols.lo];
           if (r < -opt_tol) {
-            if (packed && pricing == 1) key = min(key, pack_key(r, k, bits_n, true));
-            first = min(first, k);
+            if (packed && pricing == 1)
+              key = min(key, pack_key(r, k - start, bits_sel, true));
+            first = min(first, k - start);
           }
           val = nan_min(val, r);
         }
         const int2 kf = block_min2(key, first, red);
         if (dantzig && !(packed && pricing == 1)) {
           val = block_min(val, red);
-          for (int k = cols.lo + tid; k < cols.hi; k += kThreads)
-            if (s_r[k - cols.lo] == val) hot = min(hot, k);
+          for (int k = rc.lo + tid; k < rc.hi; k += kThreads)
+            if (s_r[k - cols.lo] == val) hot = min(hot, k - start);
           hot = block_min2(hot, kIntMax, red).x;
         }
         if (tid == 0) s_part[1] = Part{kf.x, kf.y, hot, 0, val, 0.0f};
       }
       cl.sync();  // (b)
       if (tid == 0) {
-        Sel s = combine<CL>(cl, &s_part[1], n);
+        Sel s = combine<CL>(cl, &s_part[1], nsel);
         bool elig;
         int e;
         if (packed && pricing == 1) {
           elig = s.key != kIntMax;
-          e = use_bland ? s.first : (s.key & lo_n);
+          e = use_bland ? s.first : (s.key & lo_sel);
         } else if (dantzig) {
           elig = s.val < -opt_tol;
           e = use_bland ? s.first : s.hot;
         } else {
           e = s.first;
-          elig = e < n;
+          elig = e < nsel;
         }
         if (!elig) e = 0;
+        e += start;
         s.key = e;
         s.hot = elig;
         // the owner rewrites r only after the next (a)
@@ -962,6 +987,19 @@ __global__ void __launch_bounds__(kThreads, RING ? 1 : kScalarCtas)
       const bool eligible = s_sel.hot != 0;
       c_enter = s_sel.c_enter + 0.0f;
       r_enter = s_sel.r_enter + 0.0f;
+      if (partial) {
+        empty = eligible ? 0 : empty + 1;
+        if (!eligible) {
+          // an empty section: no direction, ratio test or pivot; OPTIMAL
+          // once every section came up empty under this basis
+          sec = sec + 1 == n_sec ? 0 : sec + 1;
+          status = empty >= n_sec ? kOptimal : kRunning;
+          iters += 1;
+          dz_prev = 0.0f;
+          __syncthreads();
+          continue;
+        }
+      }
 
       // ---- partial of the direction over own rows, then own slice and
       // the ratio partial --------------------------------------------------
@@ -1171,9 +1209,14 @@ extern "C" int lp_solve_segment_stream(
     float* bfs, float* cB, int* basis, float* pen, int* iters, int* status,
     int B, int m, int n, int seg_len, int maxiters, float opt_tol,
     float pivot_tol, float feas_tol, int dual, int pricing, int packed,
-    int stall_limit, int cluster, int aligned, int stages, int stage_floats,
-    int warp_stages, int chunk_floats, int smem_bytes, void* stream) {
+    int stall_limit, int partial, int n_blk, int cluster, int aligned,
+    int stages, int stage_floats, int warp_stages, int chunk_floats,
+    int smem_bytes, void* stream) {
   if (pricing < 0 || pricing > 1 || m < 1 || n < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  // sectional pricing: primal only, whole sections, and on the bulk-copy
+  // branch sections that start on 16 bytes
+  if (partial && (dual || n_blk < 1 || n % n_blk || (aligned && n_blk % 4)))
     return (int)cudaErrorInvalidValue;
   if (!size_built(cluster, aligned != 0)) return (int)cudaErrorInvalidValue;
   const size_t vec = vector_floats(m, n, cluster, dual);
@@ -1202,8 +1245,8 @@ extern "C" int lp_solve_segment_stream(
   return launch<CL, RING>(B, (size_t)smem_bytes, s, A, c, apen, invBT, bfs,   \
                           cB, basis, pen, iters, status, m, n, seg_len,       \
                           maxiters, opt_tol, pivot_tol, feas_tol, dual,       \
-                          pricing, packed, stall_limit, stages, stage_floats, \
-                          warp_stages, chunk_floats)
+                          pricing, packed, stall_limit, partial, n_blk,       \
+                          stages, stage_floats, warp_stages, chunk_floats)
   if (!aligned) LP_STREAM_LAUNCH(8, false);
   if (cluster == 2) LP_STREAM_LAUNCH(2, true);
   LP_STREAM_LAUNCH(8, true);

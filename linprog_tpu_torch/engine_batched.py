@@ -72,13 +72,57 @@ def compact_refactorize(A, b, basis, run):
     return inv, bfs
 
 
-def refresh_running_lanes(A, rhs, seg) -> None:
-    """Exact refactorization between two segments, in place on a packed
-    kernel state (``invBT``, ``bfs``, ``basis``, ``status``): the RUNNING
-    lanes get a fresh factor and ``bfs = inv_B rhs``; one whose fresh
-    factors are not finite freezes as ``NUMERICAL_ERROR`` instead."""
+def full_refactorize(A, b, basis):
+    """Exact refactorization of every lane: ``(inv[B, m, m], bfs[B, m])``
+    (a singular basis gives NaN factors)."""
+    inv = inv_or_nan(basis_matrix(A, basis))
+    return inv, torch.einsum("bmk,bk->bm", inv, b)
+
+
+def newton_schulz_refine(A, b, basis, inv_B, steps: int = 2,
+                         resid_tol: float = 1e-3):
+    """Drifted eta factors refined toward ``inv(A[:, basis])``, guarded.
+
+    ``steps`` Newton-Schulz iterations ``X <- X (2I - B X)`` square the
+    residual ``||I - B X||`` each, at two batched products a step; they
+    converge only inside ``||I - B X|| < 1``, so lanes whose largest
+    residual entry stays above ``resid_tol`` take an exact inversion
+    (computed only when some lane needs it).  In f32 past
+    ``engine.F64_PAST`` rows the products run in float64, as the exact
+    factorizations do.  Returns ``(inv_B, bfs)``.
+    """
+    B_mat = basis_matrix(A, basis)
+    W = engine._wide(B_mat)
+    X = inv_B.to(W.dtype)
+    eye = torch.eye(W.shape[-1], dtype=W.dtype, device=W.device)
+    for _ in range(steps):
+        X = torch.matmul(X, 2.0 * eye - torch.matmul(W, X))
+    resid = torch.matmul(W, X) - eye
+    bad = torch.abs(resid).amax(dim=(1, 2)) > resid_tol
+    X = X.to(inv_B.dtype)
+    if bool(bad.any()):
+        X = torch.where(bad[:, None, None], inv_or_nan(B_mat), X)
+    return X, torch.einsum("bmk,bk->bm", X, b)
+
+
+def refresh_running_lanes(A, rhs, seg, method: str = "inv",
+                          compact: bool = True) -> None:
+    """Refactorization between two segments, in place on a packed kernel
+    state (``invBT``, ``bfs``, ``basis``, ``status``): the RUNNING lanes get
+    a fresh factor and ``bfs = inv_B rhs``; one whose fresh factors are not
+    finite freezes as ``NUMERICAL_ERROR`` instead.  ``method="inv"``
+    inverts exactly, the running lanes only (``compact``) or the whole batch
+    (the same bits on every running lane); ``"ns"`` refines the eta factors
+    by :func:`newton_schulz_refine` with the reference's loose residual
+    bound of 0.1."""
     run = seg.status == st.RUNNING
-    inv, fresh_bfs = compact_refactorize(A, rhs, seg.basis, run)
+    if method == "ns":
+        inv, fresh_bfs = newton_schulz_refine(
+            A, rhs, seg.basis, seg.invBT.transpose(1, 2), resid_tol=1e-1)
+    elif compact:
+        inv, fresh_bfs = compact_refactorize(A, rhs, seg.basis, run)
+    else:
+        inv, fresh_bfs = full_refactorize(A, rhs, seg.basis)
     ok = _finite_lanes(inv, fresh_bfs)
     seg.status.copy_(torch.where(run & ~ok, st.NUMERICAL_ERROR,
                                  seg.status).to(torch.int32))
@@ -96,7 +140,10 @@ def _segment_pack(c, A, state: SimplexState, allowed):
     apen_row = torch.where(allowed, 0.0, float("inf")).to(A.dtype)
     apen = apen_row[None, :].expand(B, n).contiguous()
     seg = SegmentState(
-        invBT=state.inv_B.transpose(1, 2).contiguous(),
+        # always a copy: the kernels update it in place, and a caller's
+        # inv_B whose transpose is contiguous would otherwise be overwritten
+        invBT=state.inv_B.transpose(1, 2).clone(
+            memory_format=torch.contiguous_format),
         bfs=state.bfs.contiguous().clone(),
         cB=torch.gather(c, 1, state.basis.long()).contiguous(),
         basis=state.basis.to(torch.int32).contiguous().clone(),
@@ -109,11 +156,17 @@ def _segment_pack(c, A, state: SimplexState, allowed):
 
 
 def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
-                    cfg: SolverConfig, kernel, **kw) -> SimplexState:
+                    cfg: SolverConfig, kernel, polish: bool = False,
+                    **kw) -> SimplexState:
     """Segment loop shared by both kernels: each outer step runs up to
     ``cfg.refactor_every`` iterations per lane in one ``kernel`` launch,
-    then refactorizes the still-running lanes exactly.  With
-    ``refactor_every == 0`` one unbounded segment runs."""
+    then refactorizes the still-running lanes (by ``cfg.refactor_method``
+    and ``cfg.compact_refactor``).  With ``refactor_every == 0`` one
+    unbounded segment runs.  ``polish`` (kernel 1 under
+    ``refactor_method="ns"``, as in the reference): after the segments, at
+    most three rounds of exact refactorization of every lane, reopening the
+    OPTIMAL and PRIMAL_UNBOUNDED lanes and resuming, until no lane moves
+    more than the one iteration that re-confirms it."""
     A = A.contiguous()
     c = c.contiguous()
     seg_len = cfg.refactor_every if cfg.refactor_every > 0 else (1 << 30)
@@ -125,11 +178,27 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
     def any_running():
         return bool(((seg.status == st.RUNNING) & (seg.iters < maxiters)).any())
 
-    if cfg.refactor_every > 0:
+    def segments():
         while any_running():
             kernel(A, c, apen, maxiters, seg, **kw)
-            refresh_running_lanes(A, b, seg)
+            refresh_running_lanes(A, b, seg, cfg.refactor_method,
+                                  cfg.compact_refactor)
             seg.gamma.fill_(1.0)  # devex weights: fresh reference framework
+
+    if cfg.refactor_every > 0:
+        segments()
+        for _ in range(3 if polish and cfg.refactor_method == "ns" else 0):
+            inv, fresh_bfs = full_refactorize(A, b, seg.basis)
+            seg.invBT.copy_(inv.transpose(1, 2))
+            seg.bfs.copy_(fresh_bfs)
+            seg.gamma.fill_(1.0)
+            snapshot = seg.iters.clone()
+            reopen = ((seg.status == st.OPTIMAL)
+                      | (seg.status == st.PRIMAL_UNBOUNDED))
+            seg.status.masked_fill_(reopen, st.RUNNING)
+            segments()
+            if bool(((seg.iters - snapshot) <= 1).all()):
+                break
     else:
         kernel(A, c, apen, maxiters, seg, **kw)
 
@@ -146,11 +215,17 @@ def run_batched_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
                          cfg: SolverConfig, mode: str = "primal"
                          ) -> SimplexState:
     """Segment loop on the whole-segment kernel (counterpart of
-    ``run_batched_pallas``)."""
+    ``run_batched_pallas``).  ``cfg.split_pricing`` takes effect where the
+    reference's does: primal mode, bland or dantzig, at a shape where its
+    kernel holds ``A^T`` too."""
+    _, m, n = A.shape
+    pricing = _PRICING_CODES[cfg.pricing]
+    split = bool(cfg.split_pricing and mode == "primal" and pricing <= 1
+                 and _mega_kernel_fits(m, n, with_at=True))
     return _drive_segments(c, A, b, state, allowed, maxiters, cfg,
-                           solve_segment,
-                           pricing=_PRICING_CODES[cfg.pricing],
-                           dual=(mode == "dual"), unroll=cfg.unroll)
+                           solve_segment, polish=True, pricing=pricing,
+                           dual=(mode == "dual"), unroll=cfg.unroll,
+                           split=split)
 
 
 def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters: int,
@@ -158,11 +233,12 @@ def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters: int,
                        variant: str = "resident",
                        n_blk: int = 256) -> SimplexState:
     """Segment loop on the streaming kernel (counterpart of the
-    reference's ``run_batched_stream``): the same segments and exact
+    reference's ``run_batched_stream``): the same segments and
     refactorizations as :func:`run_batched_segments`.  ``variant`` is the
     reference's ``"resident"``, ``"stream"`` or ``"stream_blocked"``; the
-    last is primal only.  Devex raises ``ValueError``, as in the
-    reference."""
+    last is primal only.  ``cfg.partial_pricing`` prices by sections of
+    ``n_blk`` columns in primal mode off the blocked variant.  Devex raises
+    ``ValueError``, as in the reference."""
     if cfg.pricing == "devex":
         raise ValueError(
             "pricing='devex' is not implemented on the streaming (large-m) "
@@ -172,12 +248,21 @@ def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters: int,
         )
     if variant not in ("resident", "stream", "stream_blocked"):
         raise ValueError(f"unknown streaming variant {variant!r}")
+    # sectional pricing: primal only, never with the blocked factor; the
+    # resident variant's n_blk (0) becomes 256 where it divides n
+    partial = bool(cfg.partial_pricing and mode == "primal")
+    if partial and n_blk == 0:
+        n = A.shape[2]
+        n_blk = 256 if n % 256 == 0 else 0
+        partial = n_blk > 0
+    blocked = variant == "stream_blocked"
     return _drive_segments(c, A, b, state, allowed, maxiters, cfg,
                            solve_segment_stream,
                            pricing=_PRICING_CODES[cfg.pricing],
                            dual=(mode == "dual"),
                            a_resident=(variant == "resident"), n_blk=n_blk,
-                           factor_blocked=(variant == "stream_blocked"))
+                           factor_blocked=blocked,
+                           partial=partial and not blocked)
 
 
 def _mega_kernel_fits(m: int, n: int, with_at: bool, itemsize: int = 4,
@@ -403,7 +488,10 @@ def run_batched_steps(c, A, b, state: SimplexState, allowed, maxiters: int,
         while any_running(state, hi):
             state = step(state, hi)
         run = state.status == st.RUNNING
-        inv, fresh_bfs = compact_refactorize(A, b, state.basis, run)
+        if cfg.compact_refactor:
+            inv, fresh_bfs = compact_refactorize(A, b, state.basis, run)
+        else:
+            inv, fresh_bfs = full_refactorize(A, b, state.basis)
         ok = _finite_lanes(inv, fresh_bfs)
         take = run & ok
         state = state._replace(

@@ -10,8 +10,9 @@ into the INVERSE Cholesky factor ``W = L^{-1}``
 (:func:`block_cholesky_inverse`, whose f32 base panels are the
 ``panel_cholinv`` kernel), so every Newton solve is two batched GEMVs.
 The reference's ``lax.while_loop`` becomes a Python loop with a host check
-of "any lane running".  ``gondzio`` correctors and
-``newton_solver="minv"`` are not ported (off by default in the reference).
+of "any lane running".  ``IPMConfig.gondzio`` adds Gondzio's centrality
+correctors on the same factor; ``newton_solver="minv"`` squares the factor
+once an iteration (``M^{-1} = W'W``) so that every solve is one GEMV.
 
 :class:`IPMSolver` is the single-instance general-form surface on the
 standard-form IPM, with warm re-solves of perturbed data.
@@ -51,6 +52,12 @@ class IPMConfig:
     ``frac`` the fraction-to-boundary damping, ``reg`` the Tikhonov
     regularization (None: 1e-7 in f32, 1e-12 in f64), ``cert_tol`` the
     Farkas-certificate tolerance (None: 1e-4 in f32, 1e-6 in f64).
+    ``gondzio`` is the number of centrality correctors an iteration (each
+    one more solve on the iteration's factor, accepted per lane only where
+    both step lengths grow).  ``newton_solver`` is ``"w2"`` (``M^{-1} r =
+    W'(W r)``, two GEMVs a solve) or ``"minv"`` (``M^{-1} = W'W`` formed
+    once an iteration, one GEMV a solve; it squares the condition number
+    into one matrix and collapses in f32, so keep it for float64).
     """
 
     eps_rel: float = 1e-3
@@ -58,11 +65,18 @@ class IPMConfig:
     frac: float = 0.99
     reg: Optional[float] = None
     cert_tol: Optional[float] = None
+    gondzio: int = 0
+    newton_solver: str = "w2"
     dtype: str = "float32"
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype: {self.dtype!r}")
+        if self.newton_solver not in ("w2", "minv"):
+            raise ValueError(
+                f"unknown newton_solver: {self.newton_solver!r}")
+        if self.gondzio < 0:
+            raise ValueError(f"gondzio must be >= 0, got {self.gondzio}")
 
 
 DEFAULT_IPM_CONFIG = IPMConfig()
@@ -284,13 +298,22 @@ def _ipm_core(c, op, b, cfg: IPMConfig, init=None) -> IPMState:
         s_safe = torch.clamp_min(s, 1e-30)
         d = x / s_safe
         W = _normal_factor(op, d, reg)
+        if cfg.newton_solver == "minv":
+            # square once; every solve below is one GEMV
+            Minv = torch.matmul(W.transpose(1, 2), W)
+
+            def solve(r):
+                return torch.einsum("bij,bj->bi", Minv, r)
+        else:
+            def solve(r):
+                return _chol_solve(W, r)
         rb = op.mv(x) - b
         rc = op.mtv(y) + s - c
         mu = (x * s).sum(dim=1) / n
 
         def _direction(rxs):
             rhs = -rb + op.mv(rxs / s_safe - d * rc)
-            dy = _chol_solve(W, rhs)
+            dy = solve(rhs)
             ds = -rc - op.mtv(dy)
             dx = -rxs / s_safe - d * ds
             return dx, dy, ds
@@ -309,6 +332,28 @@ def _ipm_core(c, op, b, cfg: IPMConfig, init=None) -> IPMState:
         dx, dy, ds = _direction(rxs)
         ap = cfg.frac * _step_to_boundary(x, dx)
         ad = cfg.frac * _step_to_boundary(s, ds)
+
+        # Gondzio's centrality correctors on the same factor: push the
+        # products of a trial point at 1.2x the steps into [0.1, 10] mu_t;
+        # the corrector solves with rb = rc = 0 (the main direction carries
+        # them once)
+        mu_t = sigma * mu
+        for _ in range(cfg.gondzio):
+            ap_t = torch.clamp_max(1.2 * ap / cfg.frac, 1.0)
+            ad_t = torch.clamp_max(1.2 * ad / cfg.frac, 1.0)
+            v = (x + ap_t[:, None] * dx) * (s + ad_t[:, None] * ds)
+            target = torch.clamp(v, 0.1 * mu_t[:, None], 10.0 * mu_t[:, None])
+            rxs_c = v - target
+            dy_c = solve(op.mv(rxs_c / s_safe))
+            ds_c = -op.mtv(dy_c)
+            dx_c = -rxs_c / s_safe - d * ds_c
+            dx2, dy2, ds2 = dx + dx_c, dy + dy_c, ds + ds_c
+            ap2 = cfg.frac * _step_to_boundary(x, dx2)
+            ad2 = cfg.frac * _step_to_boundary(s, ds2)
+            acc = (ap2 >= ap) & (ad2 >= ad)  # both step lengths extend
+            dx, dy, ds = _where(acc, dx2, dx), _where(acc, dy2, dy), _where(acc, ds2, ds)
+            ap = torch.where(acc, ap2, ap)
+            ad = torch.where(acc, ad2, ad)
 
         x_new = x + ap[:, None] * dx
         y_new = y + ad[:, None] * dy

@@ -17,13 +17,13 @@ accuracy class.
   by ``torch.segment_reduce`` over the pair stream pre-sorted by target
   (a pattern constant), then written once onto their distinct targets.
   No floating-point ``index_add_`` or ``scatter_add_``: on a card those sum
-  through atomics in a different order on every run.
+  through atomics in a different order on every run.  ``assembly="cumsum"``
+  (the reference's second mode) reads each target instead as the
+  difference of a compensated prefix sum of the stream at the pattern's
+  segment bounds (:meth:`SparsePattern.seg_bounds`).
 * Everything downstream (the inverse-Cholesky factor on the panel kernel,
   predictor-corrector, Farkas certificates) is the dense family's
   ``ipm._ipm_core`` on the operator :class:`_SparseSlackOp`.
-
-The reference's ``assembly="cumsum"`` mode (measured slower on its TPU) is
-not ported.
 """
 
 from __future__ import annotations
@@ -188,6 +188,53 @@ class SparsePattern(SharedTables):
         self.pair_targets = targets.astype(np.int64)
         self.pair_starts = np.append(starts, self.pair_ids.size).astype(
             np.int64)
+        self._seg_bounds = None
+
+    def seg_bounds(self):
+        """``(starts, ends)[m * m]`` int32: each flat target's ``[start,
+        end)`` in the sorted pair stream (empty where ``start == end``), as
+        the reference's; computed on first use (only ``"cumsum"`` reads
+        them)."""
+        if self._seg_bounds is None:
+            grid = np.arange(self.m * self.m, dtype=np.int64)
+            self._seg_bounds = tuple(
+                np.searchsorted(self.pair_ids, grid, side=side)
+                .astype(np.int32) for side in ("left", "right"))
+        return self._seg_bounds
+
+    def cumsum_tables(self, device) -> dict:
+        """:meth:`tables` with the segment bounds as int64 tensors
+        (``seg_starts``, ``seg_ends``) for ``assembly="cumsum"``."""
+        dev = resolve_device(device)
+        key = "cumsum:" + str(dev)
+        if key not in self._dev:
+            starts, ends = self.seg_bounds()
+            self._dev[key] = dict(
+                self.tables(dev),
+                seg_starts=torch.as_tensor(starts, dtype=torch.long,
+                                           device=dev),
+                seg_ends=torch.as_tensor(ends, dtype=torch.long, device=dev))
+        return self._dev[key]
+
+
+def compensated_cumsum(pv):
+    """Exclusive prefix sums of ``pv[P, B]`` along dim 0 as ``(sum, err)``
+    pairs ``[P + 1, B]`` (row 0 zero), by a log-step scan under the TwoSum
+    combine: what a plain f32 prefix rounds away below ``eps |prefix|``
+    lives in ``err``, so ``(s[e] - s[a]) + (err[e] - err[a])`` recovers a
+    short segment's sum even where the prefix is 1e8 times larger."""
+    s, e = pv, torch.zeros_like(pv)
+    off, P = 1, pv.shape[0]
+    while off < P:
+        a, b = s[:-off], s[off:]
+        t = a + b
+        z = t - a
+        err = (a - (t - z)) + (b - z)
+        s = torch.cat([s[:off], t])
+        e = torch.cat([e[:off], (e[:-off] + e[off:]) + err])
+        off *= 2
+    zero = torch.zeros_like(pv[:1])
+    return torch.cat([zero, s]), torch.cat([zero, e])
 
 
 class _SparseSlackOp:
@@ -227,20 +274,31 @@ class _SparseSlackOp:
         """``G D_g G' + diag(D_s)`` from the sorted half-pair stream.
 
         Each live pair ``(j, a, b)`` gives ``d_j V[j, a] V[j, b]`` (the
-        reference's product order), laid out ``[pairs, B]`` so that one
+        reference's product order), laid out ``[pairs, B]``.  By default one
         ``segment_reduce`` over the pattern's constant offsets sums every
-        target's run in stream order; the sums are written onto their
-        distinct targets, and the symmetric matrix is the half plus its
-        transpose with the diagonal fixed."""
+        target's run in stream order, and the sums are written onto their
+        distinct targets.  With the segment bounds in the tables
+        (``assembly="cumsum"``) every target is read from the compensated
+        prefix sum instead (:func:`compensated_cumsum`; a plain f32 prefix
+        cancels catastrophically near convergence, where ``d`` spreads over
+        ~1e8).  The symmetric matrix is the half plus its transpose with the
+        diagonal fixed."""
         B, m, ng = self.B, self.m, self.ng
         dgT = d[:, :ng].t().contiguous()
         VcT = self.Vc.reshape(B, -1).t().contiguous()
         pv = (dgT.index_select(0, self._pj) * VcT.index_select(0, self._pa)
               * VcT.index_select(0, self._pb))  # [pairs, B]
-        sums = torch.segment_reduce(pv, "sum",
-                                    offsets=self.pat["pair_starts"], axis=0)
-        flat = torch.zeros((m * m, B), dtype=d.dtype, device=d.device)
-        flat.index_copy_(0, self.pat["pair_targets"], sums)
+        if "seg_starts" in self.pat:
+            s, e = compensated_cumsum(pv)
+            ends, starts = self.pat["seg_ends"], self.pat["seg_starts"]
+            flat = ((s.index_select(0, ends) - s.index_select(0, starts))
+                    + (e.index_select(0, ends) - e.index_select(0, starts)))
+        else:
+            sums = torch.segment_reduce(pv, "sum",
+                                        offsets=self.pat["pair_starts"],
+                                        axis=0)
+            flat = torch.zeros((m * m, B), dtype=d.dtype, device=d.device)
+            flat.index_copy_(0, self.pat["pair_targets"], sums)
         U = flat.t().reshape(B, m, m)
         N = U + U.transpose(1, 2)
         diagU = torch.diagonal(U, dim1=1, dim2=2)
@@ -299,16 +357,18 @@ def ipm_solve_batch_sparse_canonical(c, rows, cols, vals, h, shape,
     prebuilt :class:`SparsePattern` to build the tables once for many
     calls.  ``equilibrate`` runs a per-lane Ruiz scaling first and reports
     ``x``, ``cost`` and ``y`` in the original scaling.  ``assembly`` is
-    ``"segment"`` (the reference's ``"cumsum"`` is not ported).
+    ``"segment"`` (a segmented sum of the sorted pair stream) or
+    ``"cumsum"`` (differences of its compensated prefix sum; slower, and
+    kept as the reference keeps it).
     """
-    if assembly != "segment":
-        raise ValueError(f"unknown assembly mode {assembly!r}"
-                         + (" (not ported)" if assembly == "cumsum" else ""))
+    if assembly not in ("segment", "cumsum"):
+        raise ValueError(f"unknown assembly mode {assembly!r}")
     m, ng = shape
     dev = vals.device
     if pattern is None:
         pattern = SparsePattern(rows, cols, m, ng, device=dev)
-    pat = pattern.tables(dev)
+    pat = (pattern.cumsum_tables(dev) if assembly == "cumsum"
+           else pattern.tables(dev))
     dt = _DTYPES[cfg.dtype]
     B = vals.shape[0]
     c, vals, h = c.to(dt), vals.to(dt), h.to(dt)

@@ -122,20 +122,23 @@ def _declare(lib):
         i, i, i, i,  # dual, pricing, packed, stall_limit
         p,  # stream
     ]
-    # A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status
-    lib.lp_solve_segment.argtypes = [p] * 11 + tail
+    # A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status; then
+    # split and ablate before the stream
+    lib.lp_solve_segment.argtypes = [p] * 11 + tail[:-1] + [i, i, p]
     lib.lp_solve_segment.restype = i
     # the cluster-resident branch: the same, and the plan before the stream
     # (cluster, aligned, smem_bytes)
-    lib.lp_solve_segment_cluster.argtypes = [p] * 11 + tail[:-1] + [i] * 3 + [p]
+    lib.lp_solve_segment_cluster.argtypes = ([p] * 11 + tail[:-1] + [i, i]
+                                             + [i] * 3 + [p])
     lib.lp_solve_segment_cluster.restype = i
     lib.lp_solve_segment_cluster_max_clusters.argtypes = [i, i]  # cluster, smem
     lib.lp_solve_segment_cluster_max_clusters.restype = i
-    # the same without gamma (the streaming kernel has no devex), and the
-    # launch plan before the stream: cluster, aligned, stages, stage_floats,
-    # warp_stages, chunk_floats, smem_bytes
-    lib.lp_solve_segment_stream.argtypes = ([p] * 10 + tail[:-1] + [i] * 7
-                                            + [p])
+    # the same without gamma (the streaming kernel has no devex), then
+    # partial and n_blk (sectional pricing), and the launch plan before the
+    # stream: cluster, aligned, stages, stage_floats, warp_stages,
+    # chunk_floats, smem_bytes
+    lib.lp_solve_segment_stream.argtypes = ([p] * 10 + tail[:-1] + [i, i]
+                                            + [i] * 7 + [p])
     lib.lp_solve_segment_stream.restype = i
     lib.lp_solve_bounded_segment.argtypes = [
         p, p, p, p,  # A, c, lb, ub

@@ -26,6 +26,15 @@ What must carry over exactly, and does here in both versions:
 * a lane that is not RUNNING, or has reached ``maxiters``, is untouched;
 * ``unroll`` does not change results (it is accepted and ignored).
 
+Two more modes of the reference's kernel: ``split=True`` (primal mode,
+bland or dantzig) prices with the bf16 halves of ``y`` and ``A``, ``r = c -
+((yh Ah + yh Al) + yl Ah) + pen`` (every product of halves exact in f32, the
+lo * lo term dropped; the CUDA kernel takes the halves in registers from the
+f32 A it holds anyway), and ``ablate`` = 1..7 (profiling only) drops one
+stage of the iteration: 1 the pricing product, 4 the entering selection, 2
+the direction product, 5 the ratio-test reductions, 6 the masked scalar
+extracts, 3 the factor's update, 7 the bookkeeping writes.
+
 On the H100 (``csrc/solve_segment.cu``) two branches, chosen by the lane's
 shape (m, n) alone, never by the batch:
 
@@ -63,6 +72,8 @@ INTMAX = 0x7FFFFFFF
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
 launches_dual = 0  # those of them in dual mode
+launches_split = 0  # those of them with split pricing
+launches_ablate = {k: 0 for k in range(1, 8)}  # those with each ablation mode
 last_plan = None  # the SegmentPlan of the last launch
 
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -253,18 +264,58 @@ def _direction(a, invBT, factor_rb: int):
     return d
 
 
+def bf16_halves(x):
+    """``(hi, lo)`` in f32 with ``hi = bf16(x)`` and ``lo = bf16(x - hi)``,
+    both rounded to nearest even."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def split_price(y, A):
+    """``(yh Ah + yh Al) + yl Ah`` of the bf16 halves of ``y[B, m]`` and
+    ``A[B, m, n]``, each product in f32 (exact per term)."""
+    yh, yl = bf16_halves(y)
+    Ah, Al = bf16_halves(A)
+    prod = lambda u, M: torch.einsum("bj,bjk->bk", u, M)  # noqa: E731
+    return (prod(yh, Ah) + prod(yh, Al)) + prod(yl, Ah)
+
+
+def check_modes(dual: bool, pricing: int, split: bool, ablate: int,
+                what: str = "solve_segment") -> None:
+    """Raise for a mode the kernel does not run: split pricing outside
+    primal bland/dantzig (as the reference's wrapper raises), an unknown
+    ablation mode."""
+    if split and (dual or pricing == 2):
+        raise ValueError(
+            f"{what}: split pricing requires primal mode, bland/dantzig "
+            "pricing (the reference's exact column and pivot-row paths are "
+            "primal only; devex reads the pivot row of A)")
+    if ablate not in range(8):
+        raise ValueError(f"{what}: unknown ablation mode {ablate}")
+
+
 def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
                         seg_len: int, pricing: int, opt_tol: float,
                         pivot_tol: float, dual: bool = False,
                         feas_tol: float = 1e-6, stall_limit: int = 0,
-                        packed: bool = False,
-                        factor_rb: int = 0) -> SegmentState:
+                        packed: bool = False, factor_rb: int = 0,
+                        split: bool = False, ablate: int = 0,
+                        n_blk: int = 0) -> SegmentState:
     """The plain PyTorch version, batched over lanes; updates ``state`` in
     place and returns it.  Each pass of the loop is one gated iteration of
     every lane (the reference's ``unroll > 1`` form).  ``factor_rb > 0``
     accumulates the direction ``d = B^-1 a`` over row blocks of that many
     factor rows, in the summation order of the streaming kernel's
-    blocked-factor mode."""
+    blocked-factor mode.  ``split`` and ``ablate`` as in
+    :func:`solve_segment`.  ``n_blk > 0`` (primal, bland or dantzig) is the
+    streaming kernel's sectional pricing: each iteration prices the section
+    of ``n_blk`` columns it is in, stays there while the section yields an
+    entering column, moves to the next when it comes up empty (an iteration
+    without a pivot), and the lane is OPTIMAL once ``n / n_blk`` sections in
+    a row came up empty; the section's packed keys carry its local index in
+    ``(n_blk - 1).bit_length()`` bits, and a stalled lane takes the first
+    eligible column of the section."""
+    check_modes(dual, pricing, split, ablate)
     invBT, bfs, cB, basis, pen, gamma, iters, status = (
         t.clone() for t in state
     )
@@ -290,8 +341,18 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
     dz_prev = torch.full_like(z, inf)
     stall = zero_i.clone()
     bland = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if n_blk:
+        if dual or pricing == 2 or n % n_blk:
+            raise ValueError("sectional pricing: primal bland/dantzig with "
+                             f"n % n_blk == 0 (n={n}, n_blk={n_blk})")
+        n_sec = n // n_blk
+        lane_b = torch.arange(n_blk, dtype=torch.int32, device=dev)
+        bits_b = max(1, (n_blk - 1).bit_length())
+        sec = zero_i.clone()
+        empty = zero_i.clone()
+        nb_i = torch.full((B,), n_blk, dtype=torch.int32, device=dev)
 
-    for _ in range(seg_len):
+    for it in range(seg_len):
         run = (status == st.RUNNING) & (iters < maxiters)
         if not bool(run.any()):
             break
@@ -350,35 +411,85 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
             d = _direction(_column(A, enter), invBT, factor_rb)
         else:
             y = torch.einsum("bi,bji->bj", cB, invBT)
-            r = c - torch.einsum("bj,bjk->bk", y, A) + pen
-            neg = r < -opt_tol
-            first = first_where(neg, lane_n, n)
-            if packed and pricing == 1:
-                k0 = pack_min_keys(r, neg, lane_n, bits_n, True).min(dim=1).values
-                eligible = k0 != INTMAX
-                enter = torch.where(use_bland, first,
-                                    torch.bitwise_and(k0, lo_n))
-            else:
-                if pricing == 2:  # devex: maximize r^2 / gamma
-                    score = torch.where(neg, (r * r) / gamma, -inf)
-                    best_s = score.max(dim=1).values
-                    eligible = best_s > -inf
-                    hot = first_where(score == best_s[:, None], lane_n, n)
+            swept = torch.ones_like(bland)  # every column priced
+            if n_blk:  # the section's columns only; local indices
+                cols = ((sec * n_blk)[:, None] + lane_b[None, :]).long()
+                A_sec = torch.gather(A, 2, cols[:, None, :].expand(B, m,
+                                                                   n_blk))
+                r = (torch.gather(c, 1, cols)
+                     - torch.einsum("bj,bjk->bk", y, A_sec)
+                     + torch.gather(pen, 1, cols))
+                neg = r < -opt_tol
+                first = first_where(neg, lane_b, n_blk)
+                if dantzig and packed:
+                    k0 = pack_min_keys(r, neg, lane_b, bits_b,
+                                       True).min(dim=1).values
+                    eligible = k0 != INTMAX
+                    loc = torch.where(use_bland, first,
+                                      torch.bitwise_and(k0, (1 << bits_b) - 1))
                 elif dantzig:
                     best = r.min(dim=1).values
                     eligible = best < -opt_tol
-                    hot = first_where(r == best[:, None], lane_n, n)
+                    loc = torch.where(use_bland, first, first_where(
+                        r == best[:, None], lane_b, n_blk))
                 else:
-                    hot = first
-                    eligible = hot < n
-                enter = torch.where(use_bland, first, hot)
-            enter = torch.where(eligible, enter, zero_i)
-            d = _direction(_column(A, enter), invBT, factor_rb)
+                    loc = first
+                    eligible = loc < nb_i
+                loc = torch.where(eligible, loc, zero_i)
+                enter = sec * n_blk + loc
+                # an empty section: move on; every section empty in a row
+                # under this basis proves optimality
+                empty = torch.where(run, torch.where(eligible, zero_i,
+                                                     empty + 1), empty)
+                sec = torch.where(run & ~eligible, (sec + 1) % n_sec, sec)
+                swept = empty >= n_sec
+            else:
+                if ablate == 1:  # the pricing product dropped
+                    r = c - y.sum(dim=1)[:, None] + pen
+                elif split:
+                    r = c - split_price(y, A) + pen
+                else:
+                    r = c - torch.einsum("bj,bjk->bk", y, A) + pen
+                neg = r < -opt_tol
+                first = first_where(neg, lane_n, n)
+                if ablate == 4:  # the entering selection skipped
+                    enter = torch.full_like(zero_i, it % n)
+                    eligible = torch.ones_like(bland)
+                elif packed and pricing == 1:
+                    k0 = pack_min_keys(r, neg, lane_n, bits_n,
+                                       True).min(dim=1).values
+                    eligible = k0 != INTMAX
+                    enter = torch.where(use_bland, first,
+                                        torch.bitwise_and(k0, lo_n))
+                else:
+                    if pricing == 2:  # devex: maximize r^2 / gamma
+                        score = torch.where(neg, (r * r) / gamma, -inf)
+                        best_s = score.max(dim=1).values
+                        eligible = best_s > -inf
+                        hot = first_where(score == best_s[:, None], lane_n,
+                                          n)
+                    elif dantzig:
+                        best = r.min(dim=1).values
+                        eligible = best < -opt_tol
+                        hot = first_where(r == best[:, None], lane_n, n)
+                    else:
+                        hot = first
+                        eligible = hot < n
+                    enter = torch.where(use_bland, first, hot)
+                enter = loc = torch.where(eligible, enter, zero_i)
+            if ablate == 2:  # the direction product dropped: d = a
+                d = _column(A, enter)
+            else:
+                d = _direction(_column(A, enter), invBT, factor_rb)
             pos = d > pivot_tol
             theta = torch.where(
                 pos, _nonneg(bfs) / torch.where(pos, d, 1.0), inf
             )
-            if packed:
+            if ablate == 5:  # the ratio-test reductions skipped
+                any_pos = torch.ones_like(bland)
+                leave = torch.full_like(zero_i, it % m)
+                best_t = torch.zeros_like(z)
+            elif packed:
                 t0 = pack_min_keys(theta, pos, lane_m, bits_m,
                                    False).min(dim=1).values
                 any_pos = t0 != INTMAX
@@ -393,25 +504,35 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
                 leave = torch.where(any_pos, leave, zero_i)
             do_pivot = eligible & any_pos & run
             stop_status = torch.where(
-                ~eligible, st.OPTIMAL,
-                torch.where(~any_pos, st.PRIMAL_UNBOUNDED, st.RUNNING),
+                ~eligible & swept, st.OPTIMAL,
+                torch.where(eligible & ~any_pos, st.PRIMAL_UNBOUNDED,
+                            st.RUNNING),
             ).to(torch.int32)
+            r_enter = _take(r, loc)
 
         at_leave = lane_m[None, :] == leave[:, None]
         at_enter = lane_n[None, :] == enter[:, None]
-        d_l = _take(d, leave)
-        bfs_l = _take(bfs, leave)
-        leaving_col = _take(basis, leave)
-        c_enter = _take(c, enter)
+        if ablate == 6:  # the masked scalar extracts skipped
+            d_l = torch.ones_like(z)
+            bfs_l = torch.zeros_like(z)
+            leaving_col = zero_i
+            c_enter = torch.zeros_like(z)
+            r_enter = torch.zeros_like(z)
+        else:
+            d_l = _take(d, leave)
+            bfs_l = _take(bfs, leave)
+            leaving_col = _take(basis, leave)
+            c_enter = _take(c, enter)
         safe = torch.where(d_l == 0, 1.0, d_l)
         u = -d / safe[:, None]
         u = torch.where(at_leave, (1.0 / safe - 1.0)[:, None], u)
         u = torch.where(do_pivot[:, None], u, 0.0)
 
         col_l = _column(invBT, leave)  # column `leave` of B^-T
-        invBT = invBT + col_l[:, :, None] * u[:, None, :]
+        if ablate != 3:  # 3: the factor's update skipped
+            invBT = invBT + col_l[:, :, None] * u[:, None, :]
         bfs = bfs + u * bfs_l[:, None]
-        piv = do_pivot[:, None]
+        piv = do_pivot[:, None] & (ablate != 7)  # 7: no bookkeeping writes
         basis = torch.where(at_leave & piv, enter[:, None], basis)
         cB = torch.where(piv & at_leave, c_enter[:, None], cB)
         pen_new = torch.where(
@@ -438,7 +559,7 @@ def solve_segment_plain(A, c, apen, maxiters: int, state: SegmentState, *,
             if dual:
                 dz = -best_d * bfs_l
             else:
-                dz = best_t * _take(r, enter)
+                dz = best_t * r_enter
             dz = torch.where(do_pivot, dz, 0.0)
         else:
             dz = torch.zeros_like(z)
@@ -495,23 +616,29 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
                   seg_len: int, pricing: int, opt_tol: float,
                   pivot_tol: float, dual: bool = False,
                   feas_tol: float = 1e-6, stall_limit: int = 0,
-                  unroll: int = 1, packed: bool = False) -> SegmentState:
+                  unroll: int = 1, packed: bool = False, split: bool = False,
+                  ablate: int = 0) -> SegmentState:
     """Run up to ``seg_len`` simplex iterations per lane; updates ``state``
     in place and returns it.
 
     ``A[B, m, n]``, ``c[B, n]``, ``apen[B, n]`` (+inf on columns that may
     never enter), ``maxiters`` (host int), ``pricing`` 0 = bland,
-    1 = dantzig, 2 = devex.  ``unroll`` is accepted for parity with the
-    reference and ignored: it never changed results.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel.
+    1 = dantzig, 2 = devex.  ``split`` prices with bf16 halves (primal
+    bland/dantzig only; otherwise ``ValueError``), ``ablate`` 1..7 drops
+    one stage for profiling (see the module docstring).  ``unroll`` is
+    accepted for parity with the reference and ignored: it never changed
+    results.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel.
     """
     del unroll
     check_segment_args(A, c, apen, state)
     if pricing not in (0, 1, 2):
         raise ValueError(f"solve_segment: unknown pricing code {pricing}")
+    check_modes(dual, pricing, split, ablate)
     kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
               pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
-              stall_limit=stall_limit, packed=packed)
+              stall_limit=stall_limit, packed=packed, split=bool(split),
+              ablate=int(ablate))
     if A.device.type == "cpu":
         return solve_segment_plain(A, c, apen, maxiters, state, **kw)
     if A.device.type != "cuda":
@@ -532,17 +659,19 @@ def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
                      state: SegmentState, *, seg_len: int, pricing: int,
                      opt_tol: float, pivot_tol: float, dual: bool = False,
                      feas_tol: float = 1e-6, stall_limit: int = 0,
-                     packed: bool = False) -> SegmentState:
+                     packed: bool = False, split: bool = False,
+                     ablate: int = 0) -> SegmentState:
     """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`;
     the card tests hold every cluster size against the others).  CUDA
     tensors only; the C entry point refuses a plan that does not fit the
     shape."""
-    global launches, launches_dual, last_plan
+    global launches, launches_dual, launches_split, last_plan
     check_segment_args(A, c, apen, state)
     if A.device.type != "cuda":
         raise ValueError("launch_with_plan needs CUDA tensors")
     if pricing not in (0, 1, 2):
         raise ValueError(f"solve_segment: unknown pricing code {pricing}")
+    check_modes(dual, pricing, split, ablate)
     B, m, n = A.shape
     lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -554,6 +683,7 @@ def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
         B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
         float(opt_tol), float(pivot_tol), float(feas_tol),
         int(bool(dual)), int(pricing), int(bool(packed)), int(stall_limit),
+        int(bool(split)), int(ablate),
     )
     with torch.cuda.device(A.device):
         if plan.cluster == 0:
@@ -567,5 +697,8 @@ def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
     _build.check(code, "solve_segment launch")
     launches += 1
     launches_dual += int(bool(dual))
+    launches_split += int(bool(split))
+    if ablate:
+        launches_ablate[ablate] += 1
     last_plan = plan
     return state

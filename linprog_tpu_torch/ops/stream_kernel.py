@@ -10,8 +10,17 @@ VMEM: it DMAs ``B^-T`` into scratch, keeps Aᵀ resident or streams it in
 version here reuses :func:`~linprog_tpu_torch.ops.solve_kernel
 .solve_segment_plain`.  The one difference it reproduces is the
 blocked-factor mode's summation order for the direction ``d = B^-1 a``.
-``a_resident`` and ``n_blk`` choose VMEM choreography only: both versions
-accept them and ignore them.  The port takes ``A[B, m, n]``, not the
+``a_resident`` chooses VMEM choreography only, and so does ``n_blk``
+outside sectional pricing: both versions accept them and ignore them.
+``partial=True`` (primal mode, bland or dantzig, ``n % n_blk == 0``) is the
+reference's sectional pricing: each iteration prices one section of
+``n_blk`` columns, stays in it while it yields an entering column, moves
+on when it comes up empty, and calls a lane OPTIMAL after ``n / n_blk``
+empty sections in a row under one basis (the plain version:
+:func:`~linprog_tpu_torch.ops.solve_kernel.solve_segment_plain` with
+``n_blk``).  On the card each CTA's pricing pass then streams only the
+section's columns of its rows, an ``S``-th of A.  The port takes
+``A[B, m, n]``, not the
 reference's Aᵀ (which suits the TPU's sublane slices; on the card a copy
 of Aᵀ would cost ``m n`` floats per lane).
 
@@ -58,6 +67,7 @@ from .solve_kernel import SegmentState, check_segment_args, solve_segment_plain
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
 launches_dual = 0  # those of them in dual mode
+launches_partial = 0  # those of them with sectional pricing
 last_plan = None  # the StreamPlan of the last launch
 
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -221,7 +231,8 @@ def _factor_rb(m: int) -> int:
     return m
 
 
-def _check_mode(pricing: int, dual: bool, factor_blocked: bool) -> None:
+def _check_mode(pricing: int, dual: bool, factor_blocked: bool,
+                partial: bool = False, n: int = 0, n_blk: int = 0) -> None:
     if pricing not in (0, 1):
         raise ValueError(
             "solve_segment_stream: pricing must be bland (0) or dantzig (1); "
@@ -231,6 +242,13 @@ def _check_mode(pricing: int, dual: bool, factor_blocked: bool) -> None:
     if factor_blocked and dual:
         raise ValueError("solve_segment_stream: the blocked-factor mode is "
                          "primal only")
+    if partial:
+        if dual:
+            raise ValueError("partial pricing: primal mode only")
+        if factor_blocked:
+            raise ValueError("blocked-factor mode: plain primal only")
+        if n_blk < 1 or n % n_blk:
+            raise ValueError(f"n={n} not divisible by n_blk={n_blk}")
 
 
 def solve_segment_stream_plain(A, c, apen, maxiters: int,
@@ -240,17 +258,19 @@ def solve_segment_stream_plain(A, c, apen, maxiters: int,
                                feas_tol: float = 1e-6, stall_limit: int = 0,
                                packed: bool = False, a_resident: bool = True,
                                n_blk: int = 256,
-                               factor_blocked: bool = False) -> SegmentState:
+                               factor_blocked: bool = False,
+                               partial: bool = False) -> SegmentState:
     """The plain PyTorch version; updates ``state`` in place and returns
     it."""
-    del a_resident, n_blk
-    _check_mode(pricing, dual, factor_blocked)
-    m = A.shape[1]
+    del a_resident
+    _, m, n = A.shape
+    _check_mode(pricing, dual, factor_blocked, partial, n, n_blk)
     return solve_segment_plain(
         A, c, apen, maxiters, state, seg_len=seg_len, pricing=pricing,
         opt_tol=opt_tol, pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
         stall_limit=stall_limit, packed=packed,
         factor_rb=_factor_rb(m) if factor_blocked else 0,
+        n_blk=n_blk if partial else 0,
     )
 
 
@@ -260,29 +280,32 @@ def solve_segment_stream(A, c, apen, maxiters: int, state: SegmentState, *,
                          feas_tol: float = 1e-6, stall_limit: int = 0,
                          packed: bool = False, a_resident: bool = True,
                          n_blk: int = 256,
-                         factor_blocked: bool = False) -> SegmentState:
+                         factor_blocked: bool = False,
+                         partial: bool = False) -> SegmentState:
     """Run up to ``seg_len`` simplex iterations per lane; updates ``state``
     in place and returns it.
 
     Arguments as :func:`linprog_tpu_torch.ops.solve_kernel.solve_segment`
     (``pricing`` 0 = bland, 1 = dantzig; devex raises ``ValueError``), plus
-    the reference's mode switches: ``a_resident`` and ``n_blk`` are
-    accepted and ignored, ``factor_blocked`` (primal only) sums the
-    direction over row blocks of the factor in the plain version.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the cluster
+    the reference's mode switches: ``a_resident`` is accepted and ignored,
+    ``factor_blocked`` (primal only) sums the direction over row blocks of
+    the factor in the plain version, ``partial`` prices one section of
+    ``n_blk`` columns an iteration (primal only, ``n % n_blk == 0``, not
+    with ``factor_blocked``; the reference's ``ValueError`` otherwise).  A
+    CPU tensor takes the plain version; a CUDA tensor launches the cluster
     kernel, or raises for a lane too large for its shared memory.
     """
     check_segment_args(A, c, apen, state, "solve_segment_stream")
     kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
               pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
               stall_limit=stall_limit, packed=packed,
-              factor_blocked=factor_blocked)
+              factor_blocked=factor_blocked, partial=partial, n_blk=n_blk)
     if A.device.type == "cpu":
         return solve_segment_stream_plain(A, c, apen, maxiters, state, **kw)
     if A.device.type != "cuda":
         raise ValueError(f"solve_segment_stream: unsupported device {A.device}")
-    _check_mode(pricing, dual, factor_blocked)
     B, m, n = A.shape
+    _check_mode(pricing, dual, factor_blocked, partial, n, n_blk)
     if B == 0 or seg_len <= 0:
         # a lane too large raises all the same
         stream_plans(max(B, 1), m, n, dual=bool(dual))
@@ -296,24 +319,26 @@ def solve_segment_stream(A, c, apen, maxiters: int, state: SegmentState, *,
     return launch_with_plan(plan, A, c, apen, maxiters, state,
                             seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
                             pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
-                            stall_limit=stall_limit, packed=packed)
+                            stall_limit=stall_limit, packed=packed,
+                            partial=partial, n_blk=n_blk)
 
 
 def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
                      state: SegmentState, *, seg_len: int, pricing: int,
                      opt_tol: float, pivot_tol: float, dual: bool = False,
                      feas_tol: float = 1e-6, stall_limit: int = 0,
-                     packed: bool = False) -> SegmentState:
+                     packed: bool = False, partial: bool = False,
+                     n_blk: int = 256) -> SegmentState:
     """Launch the CUDA kernel under ``plan`` (one of :func:`stream_plans`,
     or a variation of one: the card tests hold cluster sizes and branches
     against each other).  CUDA tensors only; the C entry point refuses a
     plan that does not fit the shape."""
-    global launches, launches_dual, last_plan
+    global launches, launches_dual, launches_partial, last_plan
     check_segment_args(A, c, apen, state, "solve_segment_stream")
     if A.device.type != "cuda":
         raise ValueError("launch_with_plan needs CUDA tensors")
-    _check_mode(pricing, dual, False)
     B, m, n = A.shape
+    _check_mode(pricing, dual, False, partial, n, n_blk)
     lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
@@ -325,7 +350,7 @@ def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
             B, m, n, min(int(seg_len), 0x7FFFFFFF), int(maxiters),
             float(opt_tol), float(pivot_tol), float(feas_tol),
             int(bool(dual)), int(pricing), int(bool(packed)),
-            int(stall_limit),
+            int(stall_limit), int(bool(partial)), int(n_blk) if partial else 0,
             plan.cluster, int(plan.aligned), plan.stages, plan.stage_floats,
             plan.warp_stages, plan.chunk_floats, plan.smem_bytes,
             stream,
@@ -333,5 +358,6 @@ def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
     _build.check(code, "solve_segment_stream launch")
     launches += 1
     launches_dual += int(bool(dual))
+    launches_partial += int(bool(partial))
     last_plan = plan
     return state

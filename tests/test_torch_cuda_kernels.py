@@ -1600,3 +1600,169 @@ def test_pdhg_graphed_chunks_match_eager(cuda, monkeypatch):
            / eager[0][1].abs().clamp_min(1.0))
     assert rel.max().item() <= 2e-4
     assert torch.allclose(graphed[1].x, eager[1].x, atol=1e-3)
+
+
+# ---- the reference's last modes: split and sectional pricing, ablation -----
+
+
+@pytest.mark.parametrize("m,n", [(32, 48), (128, 256), (1100, 1100)],
+                         ids=["m32", "m128", "block"])
+@pytest.mark.parametrize("pricing", [0, 1], ids=["bland", "dantzig"])
+def test_segment_kernel_split_pricing_matches_plain(cuda, pricing, m, n):
+    """Split-bf16 pricing, 16 pivots with stall escalation at 2, on the
+    cluster branch (m = 32, 128) and the block-per-lane branch (m = 1100):
+    the plain version's basis, status, iterations, c_B and penalties, and
+    factors as accurate; the split path really ran (its own count)."""
+    B = 8 if m > 512 else 64
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=pricing + 30,
+                                            dual=False, dev=cuda,
+                                            degenerate=False)
+    before = solve_kernel.launches_split
+    k, p = _both(A, c, apen, state0, seg_len=16, pricing=pricing,
+                 opt_tol=1e-6, pivot_tol=1e-7, feas_tol=1e-6, stall_limit=2,
+                 packed=True, split=True)
+    assert solve_kernel.launches_split == before + 1
+    assert (solve_kernel.last_plan.cluster == 0) == (m > 512)
+    _assert_lockstep(A, h, k, p)
+    assert bool((k.iters > 0).all())
+
+
+def test_segment_kernel_split_same_answer_for_every_plan(cuda):
+    """Split pricing keeps a lane's bits independent of the cluster size:
+    the three partial sums run in the fixed band tree."""
+    B, m, n = 8, 128, 256
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=31, dual=False,
+                                            dev=cuda, degenerate=False)
+    kw = dict(seg_len=48, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
+              stall_limit=24, packed=True, split=True)
+    results = []
+    for pl in solve_kernel.segment_plans(B, m, n + m):
+        s = SegmentState(*(t.clone() for t in state0))
+        solve_kernel.launch_with_plan(pl, A, c, apen, 1 << 20, s, **kw)
+        torch.cuda.synchronize()
+        results.append(s)
+    assert len(results) >= 2
+    for s in results[1:]:
+        for a, b in zip(s, results[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("ablate", range(8))
+@pytest.mark.parametrize("m,n", [(128, 256), (1100, 1100)],
+                         ids=["cluster", "block"])
+def test_segment_kernel_ablation_modes_match_plain(cuda, m, n, ablate):
+    """Each ablation mode, 4 iterations on both branches: the plain
+    version's basis, status, iterations and penalties (what a mode drops is
+    dropped in both); ablate = 0 gives the bits of a call without it."""
+    B = 8
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=33, dual=False,
+                                            dev=cuda, degenerate=False)
+    kw = dict(seg_len=4, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
+              stall_limit=2, packed=True)
+    k, p = _both(A, c, apen, state0, ablate=ablate, **kw)
+    for name in ("basis", "status", "iters", "pen"):
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=0, atol=0)
+    if ablate == 0:
+        d = solve_kernel.solve_segment(
+            A, c, apen, 512, SegmentState(*(t.clone() for t in state0)), **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(k, d):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_segment_kernel_refuses_split_in_dual_mode_and_devex(cuda):
+    A, c, apen, h, state = _slack_instance(2, 8, 8, seed=0, dual=True,
+                                           dev=cuda)
+    kw = dict(seg_len=4, opt_tol=1e-6, pivot_tol=1e-7, split=True)
+    before = solve_kernel.launches
+    with pytest.raises(ValueError, match="split pricing requires"):
+        solve_kernel.solve_segment(A, c, apen, 10, state, pricing=1,
+                                   dual=True, **kw)
+    with pytest.raises(ValueError, match="split pricing requires"):
+        solve_kernel.solve_segment(A, c, apen, 10, state, pricing=2, **kw)
+    assert solve_kernel.launches == before
+
+
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("n_blk", [16, 64])
+@pytest.mark.parametrize("pricing", [0, 1], ids=["bland", "dantzig"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_stream_kernel_partial_pricing_matches_plain(cuda, packed, pricing,
+                                                     n_blk, B):
+    """Sectional pricing, 32 iterations with stall escalation at 2 (empty
+    sections counted) at 8 and 2 CTAs a lane: the plain version's basis,
+    status, iterations, c_B and penalties on every lane, factors as
+    accurate; its own launch count."""
+    A, c, apen, h, state0 = _slack_instance(B, 128, 128, seed=40 + pricing,
+                                            dual=False, dev=cuda,
+                                            degenerate=False)
+    before = stream_kernel.launches_partial
+    k, p = _stream_both(A, c, apen, state0, seg_len=32, pricing=pricing,
+                        opt_tol=1e-6, pivot_tol=1e-7, feas_tol=1e-6,
+                        stall_limit=2, packed=packed, partial=True,
+                        n_blk=n_blk)
+    assert stream_kernel.launches_partial == before + 1
+    assert stream_kernel.last_plan.cluster == (8 if B == 8 else 2)
+    _assert_lockstep(A, h, k, p)
+
+
+def test_stream_kernel_partial_runs_to_optimal_like_plain(cuda):
+    """Nondegenerate lanes to the end in one launch with sectional pricing:
+    every lane OPTIMAL in both versions, and the same objective to 1e-5
+    (over hundreds of pivots the two summation orders may split a lane's
+    path at a near tie, so iterations are not compared)."""
+    A, c, apen, h, state0 = _slack_instance(8, 64, 192, seed=44, dual=False,
+                                            dev=cuda, degenerate=False)
+    k, p = _stream_both(A, c, apen, state0, seg_len=4096, pricing=1,
+                        opt_tol=1e-6, pivot_tol=1e-7, feas_tol=1e-6,
+                        stall_limit=24, packed=True, partial=True, n_blk=64)
+    assert bool((k.status == st.OPTIMAL).all())
+    assert bool((p.status == st.OPTIMAL).all())
+
+    def objective(s):
+        xB = solve_or_nan(basis_matrix(A, s.basis), h)
+        return (torch.gather(c, 1, s.basis.long()).double() * xB.double()).sum(1)
+
+    ok, op = objective(k), objective(p)
+    assert ((ok - op).abs() / op.abs().clamp_min(1.0)).max().item() <= 1e-5
+
+
+def test_stream_kernel_partial_same_answer_for_every_plan(cuda):
+    """8 and 2 CTAs a lane give the same bits in sectional mode."""
+    B, m, n = 8, 128, 128
+    A, c, apen, h, state0 = _slack_instance(B, m, n, seed=45, dual=False,
+                                            dev=cuda, degenerate=False)
+    kw = dict(seg_len=48, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
+              stall_limit=24, packed=True, partial=True, n_blk=32)
+    results = []
+    for plan in stream_kernel.stream_plans(B, m, n + m):
+        s = SegmentState(*(t.clone() for t in state0))
+        stream_kernel.launch_with_plan(plan, A, c, apen, 1 << 20, s, **kw)
+        torch.cuda.synchronize()
+        results.append(s)
+    assert len(results) == 2
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_two_phase_lane973_on_card_ends_feasible(cuda):
+    """The lane of phase 20a that kernel 1's path ended at an infeasible
+    basis (tests/data/two_phase_lane973.npz) solved on the card: OPTIMAL
+    with x >= -1e-6 after the dual repair, cost within 1e-6 of HiGHS."""
+    import pathlib
+
+    from scipy.optimize import linprog
+
+    import linprog_tpu_torch as lt
+    from linprog_tpu_torch.config import tuned_config
+
+    d = np.load(pathlib.Path(__file__).parent / "data" /
+                "two_phase_lane973.npz")
+    c, A, b = (torch.tensor(d[k], device=cuda) for k in ("c", "A", "b"))
+    res = lt.solve_batch_two_phase(c, A, b, 4000, 4000, tuned_config(256))
+    assert int(res.status[0]) == st.OPTIMAL
+    assert float(res.x.min()) >= -1e-6
+    ref = linprog(d["c"][0].astype(np.float64), A_eq=d["A"][0], b_eq=d["b"][0],
+                  method="highs")
+    assert abs(float(res.cost[0]) - ref.fun) <= 1e-6 * max(1.0, abs(ref.fun))

@@ -246,10 +246,59 @@ def test_sparse_straggler_recovery_repairs_every_lane():
 
 
 def test_cumsum_assembly_is_not_ported():
+    """Once refused, ``assembly="cumsum"`` now runs (the name is kept from
+    when the mode was refused): it gives the segment assembly's statuses
+    and costs within 2e-3 (two answers of the eps 1e-3 class, the
+    reference's own tolerance between its two modes), and an unknown mode
+    still raises."""
     c, rows, cols, vals, h, _ = _instances()
-    with pytest.raises(ValueError, match="not ported"):
+    kw = dict(cfg=IPMConfig(eps_rel=1e-3, maxiters=40))
+    seg = ipm_solve_batch_sparse_canonical(*_t(c), rows, cols, *_t(vals, h),
+                                           (M, N), **kw)
+    cum = ipm_solve_batch_sparse_canonical(*_t(c), rows, cols, *_t(vals, h),
+                                           (M, N), assembly="cumsum", **kw)
+    np.testing.assert_array_equal(cum.status.numpy(), seg.status.numpy())
+    assert _rel(cum.cost.numpy(), seg.cost.numpy()).max() < 2e-3
+    with pytest.raises(ValueError, match="unknown assembly"):
         ipm_solve_batch_sparse_canonical(*_t(c), rows, cols, *_t(vals, h),
-                                         (M, N), assembly="cumsum")
+                                         (M, N), assembly="scatter")
+
+
+def test_cumsum_assembly_matches_float64_and_the_reference():
+    """At the size of the reference's own test
+    (``tests/test_ipm_sparse.py::test_cumsum_assembly_matches_segment_assembly``:
+    B = 6, m = n = 32, density 0.25, seed 2): the compensated prefix-sum
+    normal matrix is within 1e-5 relative of a float64 segment sum even
+    where d spreads over ~1e8 (where a plain f32 prefix cancels), the
+    segment bounds equal the reference's, and the IPM gives the
+    reference's cumsum statuses, Newton steps within 1 and costs within
+    2e-3 (the eps 1e-3 class: the two normal matrices round apart)."""
+    Bs, m, n = 6, 32, 32
+    c, rows, cols, vals, h = jgen.random_sparse_inequality_lps(
+        Bs, m, n, density=0.25, seed=2)
+    pat = SparsePattern(rows, cols, m, n, device="cpu")
+    ref_pat = jsp.SparsePattern(rows, cols, m, n)
+    for mine, theirs in zip(pat.seg_bounds(), ref_pat.seg_bounds()):
+        np.testing.assert_array_equal(mine, theirs)
+    rng = np.random.default_rng(0)
+    d = np.exp(rng.uniform(-9.0, 9.0, (Bs, n + m))).astype(np.float32)
+    vt, dt = torch.tensor(vals), torch.tensor(d)
+    N_cum = _SparseSlackOp(pat.cumsum_tables("cpu"), vt, m, n).normal(dt)
+    N_64 = _SparseSlackOp(pat.tables(), vt.double(), m, n).normal(dt.double())
+    err = (N_cum.double() - N_64).abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-5 * N_64.abs().amax(dim=(1, 2))).all()), err
+    # a plain f32 prefix sum loses these entries (what the pairs guard)
+    s, e = ipm_sparse.compensated_cumsum(torch.tensor([[1e8], [1.0], [1.0]]))
+    assert float((s[3] - s[1]) + (e[3] - e[1])) == 2.0
+    cfg = dict(eps_rel=1e-3, maxiters=40)
+    ref = jsp.ipm_solve_batch_sparse_canonical(
+        c, rows, cols, vals, h, (m, n), JaxIPMConfig(**cfg), assembly="cumsum")
+    res = ipm_solve_batch_sparse_canonical(*_t(c), rows, cols, *_t(vals, h),
+                                           (m, n), IPMConfig(**cfg),
+                                           assembly="cumsum")
+    np.testing.assert_array_equal(res.status.numpy(), np.asarray(ref.status))
+    assert np.abs(res.iters.numpy() - np.asarray(ref.iters)).max() <= 1
+    assert _rel(res.cost.numpy(), np.asarray(ref.cost)).max() < 2e-3
 
 
 def test_pattern_wants_a_card_or_the_cpu(monkeypatch):

@@ -93,11 +93,13 @@ def test_config_from_reference():
     with pytest.raises(ValueError, match="kernels"):
         config_from_reference(dict(dataclasses.asdict(JaxSolverConfig()),
                                    kernels="triton"))
-    with pytest.raises(ValueError, match="split_pricing"):
-        config_from_reference(dataclasses.asdict(
-            JAX_FAST_CONFIG.replace(split_pricing=True)))
-    with pytest.raises(ValueError, match="gondzio"):
-        config_from_reference(dataclasses.asdict(JaxIPMConfig(gondzio=2)))
+    # the reference's last modes carry over (they were refused before the
+    # port ran them)
+    assert config_from_reference(dataclasses.asdict(
+        JAX_FAST_CONFIG.replace(split_pricing=True))) == FAST_CONFIG.replace(
+            split_pricing=True)
+    assert config_from_reference(dataclasses.asdict(
+        JaxIPMConfig(gondzio=2))) == IPMConfig(gondzio=2)
     for name in ("pallas", "xla"):
         with pytest.raises(ValueError, match="kernels"):
             SolverConfig(kernels=name)
@@ -109,6 +111,39 @@ def test_config_from_reference():
         JaxSolverConfig(dtype="float64"))).dtype == "float64"
     with pytest.raises(ValueError, match="dtype"):
         SolverConfig(dtype="bfloat16")
+
+
+# a value other than the default for every field the reference accepts
+_SOLVER_NONDEFAULT = dict(
+    opt_tol=1e-5, feas_tol=1e-5, pivot_tol=1e-6, update="naive",
+    pricing="dantzig", refactor_every=64, stall_limit=12,
+    split_pricing=True, partial_pricing=True, unroll=2, packed_select=True,
+    polish_pivots=4, compact_refactor=False, dtype="float64",
+    kernels="pallas", refactor_method="ns", scaling=True)
+_IPM_NONDEFAULT = dict(eps_rel=1e-6, maxiters=40, frac=0.95, reg=1e-9,
+                       cert_tol=1e-5, gondzio=2, newton_solver="minv",
+                       dtype="float64")
+
+
+@pytest.mark.parametrize("which", ["solver", "ipm"])
+def test_config_from_reference_carries_every_field(which):
+    """Every field of the reference's configs, each at a value other than
+    its default, arrives with that value (``kernels="pallas"`` as
+    ``"cuda"``); no field of either class is left out of the table."""
+    ref_cls, table = ((JaxSolverConfig, _SOLVER_NONDEFAULT)
+                      if which == "solver" else
+                      (JaxIPMConfig, _IPM_NONDEFAULT))
+    fields = {f.name for f in dataclasses.fields(ref_cls)}
+    assert set(table) == fields
+    default = dataclasses.asdict(ref_cls())
+    assert all(table[k] != default[k] for k in fields)
+    got = config_from_reference(dataclasses.asdict(ref_cls(**table)))
+    want = dict(table, kernels="cuda") if which == "solver" else table
+    assert {k: getattr(got, k) for k in fields} == want
+    for key, bad in (("refactor_method", "lu"), ("newton_solver", "chol")):
+        if key in fields:
+            with pytest.raises(ValueError, match=key.split("_")[0]):
+                type(got)(**{key: bad})
 
 
 def test_package_exports_and_kernel_sources():
@@ -427,14 +462,14 @@ def _module_names(path):
 # Names of the reference that the port does not carry, by module: JAX's
 # compiled wrappers, the Pallas kernels' bodies and their interpret
 # switches (the kernels themselves are csrc/*.cu; ops/pallas_kernels.py's
-# two are ops/step_kernels.py), the knobs ROADMAP.md leaves out of the
-# port, and the orbax pair, which torch.save replaces.
+# two are ops/step_kernels.py), and the orbax pair, which torch.save
+# replaces.
 _NOT_PORTED = {
     "bounded.py": {"run_bounded_batched_pallas", "run_bounded_jit"},
     "checkpoint.py": {"load_state_orbax", "save_state_orbax"},
     "engine.py": {"pivot_jit", "run_jit"},
     "engine_batched.py": {"_gather_cols", "_pallas_pack",
-                          "newton_schulz_refine", "run_batched_pallas"},
+                          "run_batched_pallas"},
     "ipm.py": {"_ipm_canonical_jit", "_ipm_canonical_warm_jit",
                "_ipm_standard_warm_jit", "_use_panel_kernel"},
     "ipm_sparse.py": {"_ipm_sparse_jit"},

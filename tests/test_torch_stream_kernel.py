@@ -50,7 +50,8 @@ OPT_TOL, PIVOT_TOL, FEAS_TOL = 1e-6, 1e-7, 1e-6
 
 
 def _run_both(cs, A, state, *, seg_len, maxiters, pricing, dual, packed,
-              stall_limit, a_resident=True, n_blk=8, factor_blocked=False):
+              stall_limit, a_resident=True, n_blk=8, factor_blocked=False,
+              partial=False):
     B, m, n = A.shape
     packed_state = _pallas_pack(cs, A, state, jnp.ones((n,), bool))
     # host copies first: the reference kernel donates its state buffers
@@ -59,7 +60,7 @@ def _run_both(cs, A, state, *, seg_len, maxiters, pricing, dual, packed,
     kw = dict(seg_len=seg_len, pricing=pricing, opt_tol=OPT_TOL,
               pivot_tol=PIVOT_TOL, dual=dual, feas_tol=FEAS_TOL,
               a_resident=a_resident, n_blk=n_blk, stall_limit=stall_limit,
-              packed=packed, factor_blocked=factor_blocked)
+              packed=packed, factor_blocked=factor_blocked, partial=partial)
     ref = jsk.solve_segment_stream(
         jnp.swapaxes(A, 1, 2), c_row, apen,
         jnp.full((1, 1, 1), maxiters, jnp.int32), invBT, bfs, cB, basis, pen,

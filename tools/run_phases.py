@@ -15,7 +15,10 @@ crossover at m = 256, 18 the sparse families at m = 2048, 19 the
 general-form surface (the solver classes, solve_batch_general, the
 primal-dual batch, IPMSolver, ranging), 20 the parallel entry points (data
 parallel on one rank and across two processes, tensor parallel), then
-checkpoints, observability, MPS I/O and the dry run.  Each phase prints
+checkpoints, observability, MPS I/O and the dry run, 21 the reference's last
+modes (split pricing and the ablation switch on kernel 1, sectional pricing
+on kernel 3, Newton-Schulz refactorization, the Gondzio and minv IPM, the
+slack basis guess, the cumsum sparse assembly).  Each phase prints
 its report and exits nonzero where chip_smoke.py would; the ``kernels``
 line and the last line of chip_smoke.py are not printed.
 """
@@ -36,7 +39,8 @@ PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
           "13": cs.phase_calibrate, "14": cs.phase_stream_m4096,
           "15": cs.phase_exact_m4096, "16": cs.phase_bounded_block,
           "17": cs.phase_pdhg_m256, "18": cs.phase_sparse_m2048,
-          "19": cs.phase_general_form, "20": cs.phase_parallel}
+          "19": cs.phase_general_form, "20": cs.phase_parallel,
+          "21": cs.phase_last_modes}
 
 
 def main():
