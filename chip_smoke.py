@@ -110,9 +110,13 @@ Phases, each printing one JSON line:
      peak device memory), then the dd-KKT certificate: every lane reported
      crossed is certified, no lane NUMERICAL_ERROR, kernel 3 ran in dual
      mode, the two-phase fallback did not run;
- 16. bounded_block: the bounded kernel's block-per-lane branch against its
-     plain version at [16, 1280, 2560] (past the v5e line: one iteration
-     bit for bit, 16 in lockstep, packed and unpacked), then
+ 16. bounded_block: the bounded kernel's streaming branch (a cluster of
+     CTAs a lane, past the largest resident cluster) against its plain
+     version at [16, 1280, 2560] (past the v5e line: one iteration bit for
+     bit, 16 in lockstep, packed and unpacked, the same bits under every
+     other planned layout; its plan, resident clusters and in-segment ms
+     an iteration beside the bound and beside the block-per-lane branch it
+     replaced), then
      solve_batch_bounded on B = 16, m = 1280 with phase 8's settings and
      guards (its iteration cap scaled by m^2; one run, no warm-up);
  17. pdhg_m256: pdhg_solve_batch_canonical at B = 1024, m = n = 256, eps
@@ -264,11 +268,15 @@ SB, SM, SDENS = 128, 2048, 0.01
 # phases 14 and 15: the reference's exact_m4096 leg (bench.py:757): lanes,
 # m = n; the crossover's lanes are (4096, 8192), past the blocked-factor line
 XLB, XLM = 4, 4096
-# phase 16: kernel 4's block-per-lane branch past the v5e line: lanes, m = n
+# phase 16: kernel 4's streaming branch past the v5e line: lanes, m = n
 # (lanes of (1280, 2560)).  The iteration cap scales phase 8's with m^2, as
 # the iterations a lane of device_bounded_lps needs grow
 BBB, BBM = 16, 1280
 BLOCK_BOUNDED_MAXITERS = BOUNDED_MAXITERS * (BBM // M) ** 2
+# the block-per-lane branch the streaming branch replaced, at [16, 1280,
+# 2560]: ms a batch-iteration in a 64-pivot segment, packed (PERF.md,
+# section 6, kernel 4's history)
+REPLACED_BLOCK_MS = 3.182
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
@@ -352,6 +360,22 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
+def _branch(plan):
+    """The branch of a whole-segment kernel's plan."""
+    if isinstance(plan, bk.BoundedStreamPlan):
+        return "streaming"
+    return "cluster" if plan.cluster else "block per lane"
+
+
+def _layout(plan):
+    """A plan in words: its CTAs a lane, and a streaming plan's CTAs an SM
+    and load branch."""
+    if isinstance(plan, bk.BoundedStreamPlan):
+        return (f"{plan.cluster} CTAs a lane ({plan.ctas_per_sm} an SM, "
+                f"{'ring' if plan.aligned else 'scalar loads'})")
+    return f"{plan.cluster} CTAs a lane"
+
+
 def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
     """The launch plan of a whole-segment kernel (``kernel`` is the module:
     ``solve_kernel`` or ``bounded_kernel``) at ``shape`` and what it gives:
@@ -371,8 +395,9 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
         for name, x, y in zip(s._fields, s, ref16):
             if not same_bits(x, y):
                 fail(f"{label} {list(shape)}: {name} after 16 pivots differs "
-                     f"between {plan.cluster} and {chosen.cluster} CTAs a lane")
-        others.append(plan.cluster)
+                     f"between {_layout(plan)} and {_layout(chosen)}")
+        others.append(_layout(plan) if isinstance(plan, bk.BoundedStreamPlan)
+                      else plan.cluster)
         del s
     last = []
 
@@ -387,14 +412,14 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
     ms1 = timed(1)
     ms = timed(SEGMENT_PIVOTS)
     held = None
-    if chosen.cluster:
-        lib = _build.library()
-        query = (lib.lp_solve_segment_cluster_max_clusters
-                 if kernel is sk else lib.lp_solve_bounded_cluster_max_clusters)
-        held = query(chosen.cluster, chosen.smem_bytes)
+    if kernel is bk:
+        held = bk.clusters_held(chosen)
+    elif chosen.cluster:
+        held = _build.library().lp_solve_segment_cluster_max_clusters(
+            chosen.cluster, chosen.smem_bytes)
     lb_ms, lb_by = launch_bound_ms(b, m, n, SEGMENT_PIVOTS)
     return {"plan": chosen._asdict(),
-            "branch": "cluster" if chosen.cluster else "block per lane",
+            "branch": _branch(chosen),
             "resident_clusters": held,
             "same_bits_at_clusters": others,
             "segment": {"pivots": SEGMENT_PIVOTS, "ms": ms, "one_pivot_ms": ms1,
@@ -1358,9 +1383,10 @@ def _hold_bounded(b, m, n_g, packed, block=False):
     all-slack start: 16 iterations in lockstep (basis, variable states,
     status, iterations, c_B and the basic bounds equal on all but
     max(2, 16 of 1024) lanes; bfs within 1e-4 of scale there) on the
-    cluster-resident branch (``block``: on the block-per-lane branch), its
-    plan report, and one mid-solve iteration's time against the plain
-    version's, beside its bound (the lanes that pivot in it)."""
+    cluster-resident branch (``block``: on the streaming branch, which
+    replaced the block per lane past the largest cluster), its plan report,
+    and one mid-solve iteration's time against the plain version's, beside
+    its bound (the lanes that pivot in it)."""
     cfg = tuned_config(m)
     prob, _, _, state0 = _bounded_start(SEED + 7 + m, b, m, n_g)
     c, A, _, lb, ub = prob
@@ -1376,9 +1402,8 @@ def _hold_bounded(b, m, n_g, packed, block=False):
     p16 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
                                          seg_len=16, **kw)
     torch.cuda.synchronize()
-    if (bk.last_plan.cluster == 0) != block:
-        fail(f"{label} {shape}: took the "
-             f"{'block-per-lane' if not block else 'cluster-resident'} branch")
+    if isinstance(bk.last_plan, bk.BoundedStreamPlan) != block:
+        fail(f"{label} {shape}: took the {_branch(bk.last_plan)} branch")
     same = _lockstep_lanes(k16, p16, ("basis", "vstate", "status", "iters",
                                       "cB", "lbB", "ubB"))
     split, allowed = int((~same).sum()), max(2, b * SPLIT_LANES // B)
@@ -1466,9 +1491,9 @@ def phase_bounded_segment():
     plan = _plan_report(bk, lambda pl, s, n_piv: bk.launch_with_plan(
         pl, A, c, lb, ub, 1 << 20, s, seg_len=n_piv, **kw), fresh,
         (B, M, N + M), k16, "solve_bounded_segment")
-    if plan["plan"]["cluster"] == 0:
+    if plan["branch"] != "cluster":
         fail("solve_bounded_segment: the bounded leg's shape took the "
-             "block-per-lane branch")
+             f"{plan['branch']} branch")
 
     # one-iteration times from the mid-solve state (state copies outside
     # the timed region); the bound counts what this iteration moves
@@ -2854,9 +2879,10 @@ def phase_exact_m4096():
 
 
 def phase_bounded_block():
-    """Phase 16: kernel 4's block-per-lane branch at [16, 1280, 2560]
-    against its plain version, then solve_batch_bounded there with phase
-    8's settings and guards."""
+    """Phase 16: kernel 4's streaming branch (which replaced the block per
+    lane past the largest cluster) at [16, 1280, 2560] against its plain
+    version, then solve_batch_bounded there with phase 8's settings and
+    guards."""
     cfg = tuned_config(BBM)
     prob, _, _, state0 = _bounded_start(SEED + 16, BBB, BBM, BBM)
     c, A, b, lb, ub = prob
@@ -2872,8 +2898,9 @@ def phase_bounded_block():
     p1 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
                                         seg_len=1, **kw)
     torch.cuda.synchronize()
-    if bk.last_plan.cluster != 0:
-        fail("bounded block: [16, 1280, 2560] took the cluster branch")
+    if not isinstance(bk.last_plan, bk.BoundedStreamPlan):
+        fail("bounded block: [16, 1280, 2560] took the "
+             f"{_branch(bk.last_plan)} branch")
     for name, x, y in zip(k1._fields, k1, p1):
         if not same_bits(x, y):
             fail(f"bounded block: one iteration's {name} differs from plain")
@@ -2903,9 +2930,17 @@ def phase_bounded_block():
     scale = b.abs().max(dim=1).values.double().clamp_min(1.0)
     resid = (torch.einsum("bmn,bn->bm", A.double(), x) - b.double()).abs()
     resid_rel = (resid.max(dim=1).values / scale).max().item()
+    seg_bound, seg_by = segment_bound_ms(BBB, BBB, BBM, 2 * BBM)
     out = {"phase": "bounded_block", "shape": [BBB, BBM, 2 * BBM],
            "one_iter_from_start": {"bit_for_bit": True,
                                    "max_abs_err_bfs": err1},
+           "streaming": {"plan": hold[0]["plan"],
+                         "resident_clusters": hold[0]["resident_clusters"],
+                         "segment_ms_per_iter": {
+                             r["mode"]: r["segment"]["ms_per_iter"]
+                             for r in hold},
+                         "bound_ms": seg_bound, "bound_by": seg_by,
+                         "replaced_block_ms_per_iter": REPLACED_BLOCK_MS},
            "kernel": hold,
            "path": {"lanes": BBB, "m": BBM, "n": BBM, "seed": SEED,
                     "config": {"pricing": pcfg.pricing,
@@ -4403,8 +4438,8 @@ def main():
             out["modes"] = modes
         return out
 
-    # this slice's shapes: kernel 3 at the m = 4096 path's lanes, kernel 2
-    # at its panels, kernel 4 on its block-per-lane branch
+    # the later shapes: kernel 3 at the m = 4096 path's lanes, kernel 2 at
+    # its panels, kernel 4 on its streaming branch
     chol4 = next(r for r in chol["other_shapes"] if r["shape"] == [4, 32, 32])
     x4k = paths["exact_m4096"]
     stream_new = [{"shape": r["shape"], "mode": r["mode"],
@@ -4427,7 +4462,9 @@ def main():
                  "bound_ms": chol4["bound_ms"],
                  "bound_by": chol4["bound_by"],
                  "launches": x4k["panel_cholinv"]}]
-    bnd_new = [{"shape": r["shape"], "mode": r["mode"], "cluster": 0,
+    bnd_new = [{"shape": r["shape"], "mode": r["mode"],
+                "branch": r["branch"], "plan": r["plan"],
+                "resident_clusters": r["resident_clusters"],
                 "max_abs_err": r["segment16"]["max_abs_err_bfs"],
                 "ms": r["one_iter_mid_solve"]["ms"],
                 "plain_ms": r["one_iter_mid_solve"]["plain_ms"],

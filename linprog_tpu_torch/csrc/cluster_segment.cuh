@@ -414,8 +414,9 @@ __host__ __device__ __forceinline__ size_t round4(size_t v) {
   return (v + 3) / 4 * 4;
 }
 
-// The launch configuration of `lanes` clusters of CL CTAs of `kernel`.
-template <typename Kernel>
+// The launch configuration of `lanes` clusters of CL CTAs of `kernel`, each
+// CTA of THREADS threads.
+template <int THREADS = kThreads, typename Kernel>
 cudaError_t configure(Kernel kernel, int CL, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute* attr, int lanes, size_t smem,
                       cudaStream_t stream) {
@@ -434,7 +435,7 @@ cudaError_t configure(Kernel kernel, int CL, cudaLaunchConfig_t& cfg,
   attr->val.clusterDim.z = 1;
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3((unsigned)lanes * CL, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -444,23 +445,25 @@ cudaError_t configure(Kernel kernel, int CL, cudaLaunchConfig_t& cfg,
 
 // How many clusters of `kernel` the device holds at once (< 0: a negated
 // CUDA error).
-template <typename Kernel>
+template <int THREADS = kThreads, typename Kernel>
 int max_clusters(Kernel kernel, int CL, size_t smem) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(kernel, CL, cfg, &attr, 64, smem, nullptr);
+  cudaError_t e =
+      configure<THREADS>(kernel, CL, cfg, &attr, 64, smem, nullptr);
   if (e != cudaSuccess) return -(int)e;
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-template <typename Kernel, typename... Args>
+template <int THREADS = kThreads, typename Kernel, typename... Args>
 int launch(Kernel kernel, int CL, int lanes, size_t smem, cudaStream_t stream,
            Args... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = configure(kernel, CL, cfg, &attr, lanes, smem, stream);
+  cudaError_t e =
+      configure<THREADS>(kernel, CL, cfg, &attr, lanes, smem, stream);
   if (e != cudaSuccess) return (int)e;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;

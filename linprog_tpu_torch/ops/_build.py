@@ -140,23 +140,26 @@ def _declare(lib):
     lib.lp_solve_segment_stream.argtypes = ([p] * 10 + tail[:-1] + [i, i]
                                             + [i] * 7 + [p])
     lib.lp_solve_segment_stream.restype = i
-    lib.lp_solve_bounded_segment.argtypes = [
+    bounded = [
         p, p, p, p,  # A, c, lb, ub
         p, p, p, p, p, p, p, p, p,  # invBT, bfs, cB, basis, vstate, lbB,
         # ubB, iters, status
         i, i, i, i, i,  # B, m, n, seg_len, maxiters
         f, f,  # opt_tol, pivot_tol
         i,  # packed
-        p,  # stream
     ]
-    lib.lp_solve_bounded_segment.restype = i
-    # the cluster-resident branch: the same, and the plan before the stream
-    # (cluster, aligned, smem_bytes)
-    bounded = lib.lp_solve_bounded_segment.argtypes
-    lib.lp_solve_bounded_cluster.argtypes = bounded[:-1] + [i] * 3 + [p]
+    # kernel 4's two branches: the plan, then the stream. Cluster-resident:
+    # cluster, aligned, smem_bytes; streaming: cluster, aligned, stages,
+    # stage_floats, warp_stages, chunk_floats, smem_bytes
+    lib.lp_solve_bounded_cluster.argtypes = bounded + [i] * 3 + [p]
     lib.lp_solve_bounded_cluster.restype = i
     lib.lp_solve_bounded_cluster_max_clusters.argtypes = [i, i]
     lib.lp_solve_bounded_cluster_max_clusters.restype = i
+    lib.lp_solve_bounded_stream.argtypes = bounded + [i] * 7 + [p]
+    lib.lp_solve_bounded_stream.restype = i
+    # cluster, aligned, smem_bytes
+    lib.lp_solve_bounded_stream_max_clusters.argtypes = [i, i, i]
+    lib.lp_solve_bounded_stream_max_clusters.restype = i
     lib.lp_price_entering.argtypes = [
         p, p, p, p, p,  # cB, invB, A, c, penalty
         p, p,  # enter, eligible

@@ -33,19 +33,26 @@ Variable states are int8 codes (``AT_LB`` 0, ``AT_UB`` 1, ``BASIC`` 2); the
 reference's kernel carries them as f32 only because of a Mosaic rule.
 
 On the H100 (``csrc/solve_bounded_segment.cu``) the two branches of the
-whole-segment kernel, chosen by (m, n) alone: where A and ``B^-T`` fit a
+whole-segment kernel, chosen by (m, n) alone.  Where A and ``B^-T`` fit a
 cluster of at most 16 CTAs, the lane's cluster loads them into shared
 memory once and runs the segment on chip (band partials added through
 distributed shared memory in one fixed tree, the duals from each pivot's
-eta pass; the bits do not depend on the cluster size); past it one thread
-block per lane streams A and ``B^-T`` from device memory, bound by its
-bandwidth.  :func:`segment_plans` lays the launch out.
+eta pass; the bits do not depend on the cluster size).  Past it the
+streaming branch, in kernel 3's design (``csrc/stream_ring.cuh``): a
+cluster of 4 or 8 CTAs splits the lane by rows in 8 fixed bands, streams
+its rows of A and ``B^-T`` from device memory each pass (bulk-copy rings on
+aligned shapes, scalar loads otherwise), adds the partials through
+distributed shared memory in the same fixed tree, prices and selects over
+a slice of the columns per CTA, and takes the next duals from each pivot's
+eta pass; a lane's bits do not depend on the cluster size nor on the load
+branch.  It is bound by device-memory bandwidth: a pivot moves A once and
+``B^-T`` three times.  :func:`segment_plans` lays the launch out.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -62,15 +69,32 @@ from .solve_kernel import (
     check_tensors,
     pack_min_keys,
     pick_plan,
-    plans_for,
     resident,
+    resident_plans,
     slice_len,
 )
+from .stream_kernel import _STATIC_BYTES as _STREAM_STATIC_BYTES
+from .stream_kernel import _slice_len as _band_slice_len
+from .stream_kernel import ring_layout, slices_aligned
 
 AT_LB, AT_UB, BASIC = 0, 1, 2
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
-last_plan = None  # the SegmentPlan of the last launch
+last_plan = None  # the plan of the last launch
+
+# The streaming branch's builds (csrc/solve_bounded_segment.cu:
+# LP_STREAM_SIZES, kStreamCtas): 4 and 8 CTAs a lane on both load branches,
+# each instantiation capped at the registers of two CTAs an SM.
+STREAM_CLUSTERS = (4, 8)
+STREAM_CTAS = 2
+# (CTAs a lane, CTAs an SM) of the bulk-copy candidates: a ring that fills
+# the SM, or half of it so that two CTAs share the SM.  Listed best first
+# where waves and SMs tie: two CTAs an SM hide more of each pass's latency
+# (at [16, 1280, 2560] on an H100, 8 CTAs a lane two to an SM beat 4 a lane
+# one to an SM, both in one wave on 64 SMs; see PERF.md)
+STREAM_LAYOUTS = ((8, 2), (4, 1), (8, 1))
+SMEM_PER_SM = 233472  # bytes of shared memory of one SM (228 KB)
+_BLOCK_RESERVE = 1024  # bytes of it the card reserves for each block
 
 
 class BoundedSegmentState(NamedTuple):
@@ -102,34 +126,216 @@ def cluster_bytes(m: int, n: int, cluster: int) -> int:
                  + _round4(8 * m + 4 * n + 3 * ml)) + -(-n // 16) * 16)
 
 
-def block_bytes(m: int, n: int) -> int:
-    """Dynamic shared memory of the block-per-lane branch."""
-    return 4 * (9 * m + 5 * n)
+class BoundedStreamPlan(NamedTuple):
+    """How one launch of the streaming branch is laid out: the fields of
+    :class:`~linprog_tpu_torch.ops.stream_kernel.StreamPlan`, and the CTAs
+    an SM its shared memory is sized for."""
+
+    cluster: int  # CTAs a lane
+    aligned: bool  # bulk-copy rings (True) or scalar loads (False)
+    stages: int  # block ring: stages (0 on the scalar branch)
+    stage_floats: int  # block ring: floats per stage
+    warp_stages: int  # warp rings: stages per warp
+    chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
+    smem_bytes: int  # dynamic shared memory per CTA
+    ctas_per_sm: int  # CTAs an SM the plan leaves room for (1 or 2)
+
+
+def stream_vector_bytes(m: int, n: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA's vectors on the streaming branch:
+    d, u and c_B whole, its partial over ``max(m, n)`` entries, seven slices
+    of m (y, the entering column, the factor's column at the leaving row,
+    bfs, lbB, ubB, the basis) and five of n (c, lb, ub, the reduced costs,
+    the variable states), slices of whole bands of ``ceil(size / 8)``."""
+    ml, nl = _band_slice_len(m, cluster), _band_slice_len(n, cluster)
+    return 4 * _round4(3 * m + max(m, n) + 7 * ml + 5 * nl)
+
+
+def _stream_budget(ctas_per_sm: int, smem_limit: int) -> int:
+    """Dynamic shared memory a CTA may take when ``ctas_per_sm`` share an
+    SM, its static part left out."""
+    per_cta = SMEM_PER_SM // ctas_per_sm - _BLOCK_RESERVE
+    return min(smem_limit, per_cta) - _STREAM_STATIC_BYTES
+
+
+def stream_plan(cluster: int, ctas_per_sm: int, m: int, n: int,
+                aligned: bool = True,
+                smem_limit: int = SMEM_LIMIT) -> Optional[BoundedStreamPlan]:
+    """The streaming branch at ``cluster`` CTAs a lane sized for
+    ``ctas_per_sm`` CTAs an SM: on the bulk-copy branch the largest ring
+    that fits beside the vectors, on the scalar branch the vectors alone;
+    None where they do not fit."""
+    vec = stream_vector_bytes(m, n, cluster)
+    budget = _stream_budget(ctas_per_sm, smem_limit)
+    if not aligned:
+        if vec > budget:
+            return None
+        return BoundedStreamPlan(cluster, False, 0, 0, 0, 0, vec, ctas_per_sm)
+    ring = ring_layout(m, vec, budget)
+    if ring is None:
+        return None
+    return BoundedStreamPlan(cluster, True, *ring, ctas_per_sm)
+
+
+def scalar_plan(cluster: int, m: int, n: int,
+                smem_limit: int = SMEM_LIMIT) -> Optional[BoundedStreamPlan]:
+    """The scalar-load branch at ``cluster`` CTAs a lane, sized for as many
+    CTAs an SM as the build allows and its vectors leave room for."""
+    for ctas in range(STREAM_CTAS, 0, -1):
+        plan = stream_plan(cluster, ctas, m, n, False, smem_limit)
+        if plan is not None:
+            return plan
+    return None
+
+
+def _stream_candidates(m: int, n: int,
+                       smem_limit: int) -> List[BoundedStreamPlan]:
+    if slices_aligned(m, n):
+        plans = [stream_plan(cl, ctas, m, n, True, smem_limit)
+                 for cl, ctas in STREAM_LAYOUTS]
+    else:
+        plans = [scalar_plan(cl, m, n, smem_limit) for cl in STREAM_CLUSTERS]
+    return [p for p in plans if p is not None]
+
+
+def in_reach(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
+    """The line up to which the streaming branch is offered: that of the
+    one-block-per-lane branch it replaced, whose vectors (9m + 5n floats)
+    had to fit one block, m ~ 3000 at n = 2m.  The streaming branch's own
+    vectors are smaller; raising the line takes a card test of its own."""
+    return 4 * (9 * m + 5 * n) + _STATIC_BYTES <= smem_limit
 
 
 def has_plan(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
     """Whether a lane of (m, n) fits one of the kernel's branches (where it
     does not, :func:`segment_plans` raises): the cluster-resident branch, or
-    one block per lane, which reaches m ~ 3000 at n = 2m."""
+    the streaming branch up to :func:`in_reach`."""
     return (resident(m, n, smem_limit, cluster_bytes)
-            or block_bytes(m, n) + _STATIC_BYTES <= smem_limit)
+            or (in_reach(m, n, smem_limit)
+                and bool(_stream_candidates(m, n, smem_limit))))
+
+
+def plan_sms(plan: BoundedStreamPlan, B: int, held: int,
+             sm_count: int = SM_COUNT) -> int:
+    """SMs a launch of ``B`` lanes under ``plan`` fills in its first wave
+    when the card holds ``held`` of its clusters at once, its CTAs packed
+    ``plan.ctas_per_sm`` to an SM."""
+    ctas = min(B, held) * plan.cluster
+    return min(sm_count, -(-ctas // plan.ctas_per_sm))
+
+
+def _rank(plans, B: int, held, sm_count: int):
+    """``plans`` best first: the fewest waves of resident clusters
+    (``held(plan)`` of them at once), then the most SMs, then the listed
+    order; plans the card cannot hold (``held <= 0``) are left out."""
+    keyed = []
+    for i, plan in enumerate(plans):
+        h = held(plan)
+        if h > 0:
+            keyed.append(((-(-B // h), -plan_sms(plan, B, h, sm_count), i),
+                          plan))
+    return [plan for _, plan in sorted(keyed)]
+
+
+def estimated_held(plan: BoundedStreamPlan, sm_count: int = SM_COUNT) -> int:
+    """Clusters of ``plan`` the card holds at once, estimated without it: a
+    cluster lies within one GPC, which loses about one cluster across the
+    card (an H100 SXM holds 15 clusters of 8 CTAs at one CTA an SM, not
+    16).  The wrapper asks the built kernel instead."""
+    return max(1, sm_count * plan.ctas_per_sm // plan.cluster - 1)
 
 
 def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
-                  smem_limit: int = SMEM_LIMIT) -> List[SegmentPlan]:
-    """Candidate launch plans for ``B`` lanes of (m, n), best first, by the
-    rules of :func:`linprog_tpu_torch.ops.solve_kernel.segment_plans`.
-    Raises ``ValueError`` for a lane that fits no branch."""
-    return plans_for(B, m, n, cluster_bytes, block_bytes(m, n), sm_count,
-                     smem_limit, "solve_bounded_segment")
+                  smem_limit: int = SMEM_LIMIT) -> list:
+    """Candidate launch plans for ``B`` lanes of (m, n), best first.
+
+    The branch follows from (m, n) alone (:func:`resident`).  On the
+    cluster-resident branch the candidates are
+    :func:`~linprog_tpu_torch.ops.solve_kernel.resident_plans`
+    (:class:`~linprog_tpu_torch.ops.solve_kernel.SegmentPlan`).  Past it, up
+    to :func:`in_reach`, the streaming branch's
+    (:class:`BoundedStreamPlan`): on an aligned shape 8 CTAs a lane with
+    half an SM's ring (two CTAs an SM), and 4 and 8 with a ring that fills
+    the SM; on another shape the scalar branch at 8 and 4.  The same set at
+    every batch size; ordered by the fewest waves, then the most SMs
+    (:func:`estimated_held`, :func:`plan_sms`), then that listing, which
+    the wrapper settles with the occupancy query of the built kernel.
+    Raises ``ValueError`` for a lane that fits neither branch.
+    """
+    if B < 1 or m < 1 or n < 1:
+        raise ValueError("solve_bounded_segment: plans need B, m, n >= 1, "
+                         f"got {(B, m, n)}")
+    if resident(m, n, smem_limit, cluster_bytes):
+        return resident_plans(B, m, n, cluster_bytes, sm_count, smem_limit)
+    plans = (_stream_candidates(m, n, smem_limit)
+             if in_reach(m, n, smem_limit) else [])
+    if not plans:
+        raise ValueError(
+            f"solve_bounded_segment: a lane of m={m}, n={n} is past the "
+            f"streaming branch's line of {4 * (9 * m + 5 * n) + _STATIC_BYTES}"
+            f" bytes of shared memory (9m + 5n floats in one block) and "
+            f"needs {cluster_bytes(m, n, 16) + _STATIC_BYTES} per CTA of a "
+            f"16-CTA cluster, past the {smem_limit} a block of the card may "
+            "hold"
+        )
+    return _rank(plans, B, lambda p: estimated_held(p, sm_count), sm_count)
+
+
+def built_stream_plans(B: int, m: int, n: int) -> List[BoundedStreamPlan]:
+    """Every built layout of the streaming branch at (m, n): the candidates
+    of :func:`segment_plans`, then on an aligned shape the scalar-load
+    branch at each built cluster size (the card tests hold them against
+    each other; ``tools/time_segment_plans.py --bounded`` times them)."""
+    plans = list(segment_plans(B, m, n))
+    if not all(isinstance(p, BoundedStreamPlan) for p in plans):
+        raise ValueError(f"solve_bounded_segment: (m, n) = ({m}, {n}) takes "
+                         "the cluster-resident branch")
+    scalar = [scalar_plan(cl, m, n) for cl in STREAM_CLUSTERS]
+    return plans + [p for p in scalar if p is not None and p not in plans]
+
+
+def clusters_held(plan) -> int:
+    """Clusters of ``plan`` the current device holds at once, as the built
+    kernel's occupancy query counts them (< 0: a negated CUDA error)."""
+    lib = _build.library()
+    if isinstance(plan, BoundedStreamPlan):
+        return lib.lp_solve_bounded_stream_max_clusters(
+            plan.cluster, int(plan.aligned), plan.smem_bytes)
+    return lib.lp_solve_bounded_cluster_max_clusters(plan.cluster,
+                                                     plan.smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_plan(B: int, m: int, n: int, device_index: int) -> SegmentPlan:
+def _choose_plan(B: int, m: int, n: int, device_index: int,
+                 pointers_aligned: bool):
+    """The candidate that runs the batch in the fewest waves of resident
+    clusters on this device, then on the most SMs (ties: the earlier
+    candidate).  Unaligned pointers take each candidate's scalar branch."""
     props = torch.cuda.get_device_properties(device_index)
     plans = segment_plans(B, m, n, props.multi_processor_count)
-    query = _build.library().lp_solve_bounded_cluster_max_clusters
-    return pick_plan(plans, B, query, device_index, "solve_bounded_segment")
+    if not isinstance(plans[0], BoundedStreamPlan):
+        query = _build.library().lp_solve_bounded_cluster_max_clusters
+        return pick_plan(plans, B, query, device_index,
+                         "solve_bounded_segment")
+    if not pointers_aligned:
+        plans = list(dict.fromkeys(
+            p if not p.aligned else scalar_plan(p.cluster, m, n)
+            for p in plans))
+    seen = {}
+
+    def held(plan):
+        with torch.cuda.device(device_index):  # the query asks this device
+            seen[plan] = clusters_held(plan)
+        return seen[plan]
+
+    ranked = _rank(plans, B, held, props.multi_processor_count)
+    if not ranked:
+        raise RuntimeError(
+            "solve_bounded_segment: the device holds no cluster of any "
+            f"planned streaming layout for m={m}, n={n}: (plan, resident or "
+            f"negated CUDA error) = {list(seen.items())}"
+        )
+    return ranked[0]
 
 
 def _pick(v, at):
@@ -341,7 +547,9 @@ def solve_bounded_segment(A, c, lb, ub, maxiters: int,
     index = A.device.index
     if index is None:
         index = torch.cuda.current_device()
-    plan = _choose_plan(B, m, n, index)
+    pointers_aligned = (A.data_ptr() % 16 == 0
+                        and state.invBT.data_ptr() % 16 == 0)
+    plan = _choose_plan(B, m, n, index, pointers_aligned)
     return launch_with_plan(plan, A, c, lb, ub, maxiters, state, **kw)
 
 
@@ -349,9 +557,10 @@ def launch_with_plan(plan: SegmentPlan, A, c, lb, ub, maxiters: int,
                      state: BoundedSegmentState, *, seg_len: int,
                      opt_tol: float, pivot_tol: float,
                      packed: bool = False) -> BoundedSegmentState:
-    """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`).
-    CUDA tensors only; the C entry point refuses a plan that does not fit
-    the shape."""
+    """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`,
+    or a variation of one: the card tests hold cluster sizes and load
+    branches against each other).  CUDA tensors only; the C entry point
+    refuses a plan that does not fit the shape."""
     global launches, last_plan
     check_bounded_args(A, c, lb, ub, state)
     if A.device.type != "cuda":
@@ -369,8 +578,11 @@ def launch_with_plan(plan: SegmentPlan, A, c, lb, ub, maxiters: int,
         float(opt_tol), float(pivot_tol), int(bool(packed)),
     )
     with torch.cuda.device(A.device):
-        if plan.cluster == 0:
-            code = lib.lp_solve_bounded_segment(*args, stream)
+        if isinstance(plan, BoundedStreamPlan):
+            code = lib.lp_solve_bounded_stream(
+                *args, plan.cluster, int(plan.aligned), plan.stages,
+                plan.stage_floats, plan.warp_stages, plan.chunk_floats,
+                plan.smem_bytes, stream)
         else:
             aligned = (m % 4 == 0 and n % 4 == 0
                        and A.data_ptr() % 16 == 0

@@ -139,6 +139,20 @@ def resident(m: int, n: int, smem_limit: int = SMEM_LIMIT,
     return cbytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES <= smem_limit
 
 
+def resident_plans(B: int, m: int, n: int, cbytes, sm_count: int,
+                   smem_limit: int) -> List[SegmentPlan]:
+    """The cluster-resident candidates of a lane that :func:`resident` holds:
+    the built cluster sizes whose CTA holds its share, first the largest
+    that keeps the batch within the card's SMs, else the smallest that fits,
+    then the others from the smallest up."""
+    fits = [cl for cl in CLUSTERS
+            if cbytes(m, n, cl) + _STATIC_BYTES <= smem_limit]
+    wide = [cl for cl in fits if B * cl <= sm_count]
+    first = wide[-1] if wide else fits[0]
+    order = [first] + [cl for cl in fits if cl != first]
+    return [SegmentPlan(cl, cbytes(m, n, cl)) for cl in order]
+
+
 def plans_for(B: int, m: int, n: int, cbytes, bbytes: int, sm_count: int,
               smem_limit: int, what: str) -> List[SegmentPlan]:
     """The candidates of a whole-segment kernel whose CTA takes
@@ -147,12 +161,7 @@ def plans_for(B: int, m: int, n: int, cbytes, bbytes: int, sm_count: int,
     if B < 1 or m < 1 or n < 1:
         raise ValueError(f"{what}: plans need B, m, n >= 1, got {(B, m, n)}")
     if resident(m, n, smem_limit, cbytes):
-        fits = [cl for cl in CLUSTERS
-                if cbytes(m, n, cl) + _STATIC_BYTES <= smem_limit]
-        wide = [cl for cl in fits if B * cl <= sm_count]
-        first = wide[-1] if wide else fits[0]
-        order = [first] + [cl for cl in fits if cl != first]
-        return [SegmentPlan(cl, cbytes(m, n, cl)) for cl in order]
+        return resident_plans(B, m, n, cbytes, sm_count, smem_limit)
     if bbytes + _STATIC_BYTES <= smem_limit:
         return [SegmentPlan(0, bbytes)]
     raise ValueError(

@@ -128,6 +128,24 @@ def scalar_plan(cluster: int, m: int, n: int, dual: bool = False,
     return StreamPlan(cluster, False, 0, 0, 0, 0, vec)
 
 
+def ring_layout(m: int, vec_bytes: int, budget: int):
+    """The largest ring of ``_RINGS`` that fits ``budget`` bytes of dynamic
+    shared memory beside ``vec_bytes`` of vectors, as ``(stages,
+    stage_floats, warp_stages, chunk_floats, smem_bytes)``, or None.  The
+    warps' view: ``warp_stages`` chunks of a row of ``B^-T`` a warp; the
+    block's view of the same memory: four stages, each as many row segments
+    of a sweep as fit (a stage costs the same to turn over whatever its
+    size, so few large ones)."""
+    for warp_stages, chunk in _RINGS:
+        chunk = min(chunk, m)
+        ring = _WARPS * warp_stages * chunk
+        smem = vec_bytes + 4 * ring
+        if smem <= budget:
+            stage = ring // _BLOCK_STAGES // 4 * 4
+            return _BLOCK_STAGES, stage, warp_stages, chunk, smem
+    return None
+
+
 def _plan_for(cluster: int, m: int, n: int, dual: bool,
               smem_limit: int) -> Optional[StreamPlan]:
     """The plan at ``cluster`` blocks a lane: on an aligned shape the
@@ -135,19 +153,9 @@ def _plan_for(cluster: int, m: int, n: int, dual: bool,
     all of a thread's registers, so it counts on no second block)."""
     if not slices_aligned(m, n):
         return scalar_plan(cluster, m, n, dual, smem_limit)
-    vec = _vector_bytes(m, n, cluster, dual)
-    for warp_stages, chunk in _RINGS:
-        chunk = min(chunk, m)
-        ring = _WARPS * warp_stages * chunk
-        smem = vec + 4 * ring
-        if smem + _STATIC_BYTES <= smem_limit:
-            # the block's view: four stages, each as many row segments of a
-            # sweep as fit (a stage costs the same to turn over whatever
-            # its size, so few large ones)
-            stage = ring // _BLOCK_STAGES // 4 * 4
-            return StreamPlan(cluster, True, _BLOCK_STAGES, stage,
-                              warp_stages, chunk, smem)
-    return None
+    ring = ring_layout(m, _vector_bytes(m, n, cluster, dual),
+                       smem_limit - _STATIC_BYTES)
+    return None if ring is None else StreamPlan(cluster, True, *ring)
 
 
 def stream_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,

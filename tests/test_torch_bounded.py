@@ -249,12 +249,17 @@ def test_shapes_off_the_bounded_kernel_are_not_ported():
     the v5e's whole-segment gate raised).  ``kernels="cuda"`` raises only
     past the bounded kernel's block-per-lane branch, naming
     ``kernels="torch"`` (zero-stride tensors: nothing is computed before
-    the check); a lane past the v5e gate but inside the block branch has a
-    plan; ``"torch"`` runs the per-lane engine, as the reference's
+    the check); a lane past the v5e gate but inside that line has a plan,
+    now on the streaming branch that replaced the block per lane;
+    ``"torch"`` runs the per-lane engine, as the reference's
     ``"xla"`` vmaps its own (statuses, bases and iterations equal, x within
     2e-4 of the lane's scale)."""
     from linprog_tpu_torch.engine_batched import _mega_kernel_fits
-    from linprog_tpu_torch.ops.bounded_kernel import has_plan, segment_plans
+    from linprog_tpu_torch.ops.bounded_kernel import (
+        BoundedStreamPlan,
+        has_plan,
+        segment_plans,
+    )
 
     zero = torch.zeros(())
     m, n = 3072, 6144
@@ -266,7 +271,7 @@ def test_shapes_off_the_bounded_kernel_are_not_ported():
     with pytest.raises(NotImplementedError, match="kernels='torch'"):
         lt.solve_batch_bounded(*args)
     assert has_plan(1280, 2560) and not _mega_kernel_fits(1280, 2560, False)
-    assert segment_plans(16, 1280, 2560)[0].cluster == 0  # block per lane
+    assert isinstance(segment_plans(16, 1280, 2560)[0], BoundedStreamPlan)
 
     prob = bounded_lps(4, 8, 10, seed=5)
     basis, vs = slack_start(4, 8, 10)

@@ -881,16 +881,24 @@ def test_bounded_kernel_tie_between_the_two_ratio_minima(cuda, packed):
 
 
 def test_bounded_kernel_launches_at_48kb_of_dynamic_shared_memory(cuda):
-    """m = 432, n = 1680, past the largest cluster: the block-per-lane
-    branch's vectors take exactly 48 KB of dynamic shared memory; with the
-    static part on top the launch needs the opt-in limit, which the wrapper
-    sets at every launch."""
-    m, n = 432, 1680 - 432
-    assert (9 * m + 5 * (n + m)) * 4 == 48 * 1024
+    """m = 1715, n = 3465, past the largest cluster and not 16-byte
+    aligned: the streaming branch (which replaced the block per lane) takes
+    its scalar-load plan at 8 CTAs a lane, whose vectors, (3m + n + 7
+    ceil(m / 8) + 5 ceil(n / 8)) floats, take exactly 48 KB of dynamic
+    shared memory; with the static part on top the launch needs the opt-in
+    limit, which the wrapper sets at every launch."""
+    m, n = 1715, 1750
+    assert 4 * (3 * m + (n + m) + 7 * -(-m // 8) + 5 * -(-(n + m) // 8)
+                + 3) // 16 * 16 == 48 * 1024
+    plan = bounded_kernel.segment_plans(2, m, n + m)[0]
+    assert isinstance(plan, bounded_kernel.BoundedStreamPlan)
+    assert plan.smem_bytes == 48 * 1024 and not plan.aligned
     A, c, lb, ub, b, state0 = _bounded_instance(2, m, n, seed=1, dev=cuda)
     k, p = _bounded_both(A, c, lb, ub, state0, seg_len=2, opt_tol=1e-6,
                          pivot_tol=1e-7, packed=True)
-    assert bounded_kernel.last_plan.cluster == 0
+    assert isinstance(bounded_kernel.last_plan,
+                      bounded_kernel.BoundedStreamPlan)
+    assert bounded_kernel.last_plan.smem_bytes == 48 * 1024
     torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
     torch.testing.assert_close(k.vstate, p.vstate, rtol=0, atol=0)
     assert bool((k.iters == 2).all())
@@ -982,14 +990,18 @@ def test_bounded_kernel_same_answer_for_every_plan(cuda, packed, m, n):
 
 @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
 def test_bounded_kernel_block_branch_past_the_largest_cluster(cuda, packed):
-    """m = 1024, n = 2048 does not fit a 16-CTA cluster: the block-per-lane
-    branch runs it, 16 iterations in lockstep with the plain version."""
+    """m = 1024, n = 2048 does not fit a 16-CTA cluster: the streaming
+    branch runs it (the name dates from the block per lane it replaced),
+    16 iterations in lockstep with the plain version."""
     m, n = 1024, 1024
-    assert bounded_kernel.segment_plans(4, m, n + m)[0].cluster == 0
+    plans = bounded_kernel.segment_plans(4, m, n + m)
+    assert all(isinstance(pl, bounded_kernel.BoundedStreamPlan)
+               for pl in plans)
     A, c, lb, ub, b, state0 = _bounded_instance(4, m, n, seed=9, dev=cuda)
     k, p = _bounded_both(A, c, lb, ub, state0, seg_len=16, opt_tol=1e-6,
                          pivot_tol=1e-7, packed=packed)
-    assert bounded_kernel.last_plan.cluster == 0
+    assert isinstance(bounded_kernel.last_plan,
+                      bounded_kernel.BoundedStreamPlan)
     _assert_bounded_lockstep(k, p)
 
 
@@ -1351,16 +1363,18 @@ def test_stream_kernel_unblocked_dual_at_a_blocked_shape(cuda, blocked_shape):
 
 @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
 def test_bounded_kernel_block_branch_at_1280(cuda, packed):
-    """[4, 1280, 2560], past the v5e line and inside the block-per-lane
-    branch: the same bits under every plan the branch offers, and 16
-    iterations in lockstep with the plain version."""
+    """[4, 1280, 2560], past the v5e line, on the streaming branch (the
+    name dates from the block per lane it replaced): the same bits under
+    every plan the branch offers, and 16 iterations in lockstep with the
+    plain version."""
     m = 1280
     plans = bounded_kernel.segment_plans(4, m, 2 * m)
-    assert [pl.cluster for pl in plans] == [0]
+    assert len(plans) >= 2 and all(
+        isinstance(pl, bounded_kernel.BoundedStreamPlan) for pl in plans)
     A, c, lb, ub, b, state0 = _bounded_instance(4, m, m, seed=12, dev=cuda)
     kw = dict(seg_len=16, opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
     k, p = _bounded_both(A, c, lb, ub, state0, **kw)
-    assert bounded_kernel.last_plan == plans[0]
+    assert bounded_kernel.last_plan in plans
     _assert_bounded_lockstep(k, p)
     for pl in plans:
         s = BoundedSegmentState(*(t.clone() for t in state0))
@@ -1368,6 +1382,136 @@ def test_bounded_kernel_block_branch_at_1280(cuda, packed):
         torch.cuda.synchronize()
         for a, q in zip(s, k):
             torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_stream_one_iteration_from_the_slack_start(cuda, packed):
+    """[16, 1280, 2560] (phase 16's lanes) from the all-slack start: zero
+    duals and an identity factor, so every sum has one nonzero term, and
+    one iteration equals the plain version's bit for bit on every lane."""
+    m = 1280
+    A, c, lb, ub, b, state0 = _bounded_instance(16, m, m, seed=16, dev=cuda)
+    k, p = _bounded_both(A, c, lb, ub, state0, seg_len=1, opt_tol=1e-6,
+                         pivot_tol=1e-7, packed=packed)
+    assert isinstance(bounded_kernel.last_plan,
+                      bounded_kernel.BoundedStreamPlan)
+    for name, a, q in zip(k._fields, k, p):
+        torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+    assert bool((k.iters == 1).all())
+
+
+@pytest.mark.parametrize("m", [1280, 1279], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_stream_same_bits_under_every_plan_and_branch(cuda, packed,
+                                                              m):
+    """Past the cluster line, 16 iterations from a state 8 iterations into
+    the solve (a dense factor: the sums reorder) give the same state bit
+    for bit under every built layout of the streaming branch: 4 and 8 CTAs
+    a lane, a ring that fills the SM or half of it, and on the aligned
+    shape the scalar-load branch too (fixed row bands, one tree, the same
+    order on both load branches)."""
+    B = 4
+    A, c, lb, ub, b, slack = _bounded_instance(B, m, m, seed=m, dev=cuda)
+    kw = dict(opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
+    state0 = bounded_kernel.solve_bounded_segment_plain(
+        A, c, lb, ub, 1 << 20,
+        BoundedSegmentState(*(t.clone() for t in slack)), seg_len=8, **kw)
+    plans = bounded_kernel.built_stream_plans(B, m, 2 * m)
+    assert len(plans) >= 2
+    assert any(not pl.aligned for pl in plans)
+    if m % 4 == 0:
+        assert any(pl.aligned for pl in plans)
+    results = []
+    for pl in plans:
+        assert bounded_kernel.clusters_held(pl) > 0, pl
+        s = BoundedSegmentState(*(t.clone() for t in state0))
+        bounded_kernel.launch_with_plan(pl, A, c, lb, ub, 1 << 20, s,
+                                        seg_len=16, **kw)
+        torch.cuda.synchronize()
+        results.append((pl, s))
+    first = results[0][1]
+    assert bool((first.iters == 24).any())
+    for pl, s in results[1:]:
+        for name, a, q in zip(s._fields, s, first):
+            torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} under {pl}")
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_bounded_stream_lockstep_from_mid_solve_with_flips(cuda, packed):
+    """[8, 1280, 2560] with upper bounds on half of x cut to a thousandth
+    (so that an entering column of that half crosses to its other bound
+    before any basic variable leaves) and infinite ones on the slacks, from
+    a state 12 iterations into the solve:
+    16 iterations in lockstep with the plain version (basis, variable
+    states, status, iterations, c_B and the basic bounds equal on all but
+    max(2, 16 of 1024) lanes, as the cluster-resident branch's mid-solve
+    test allows for near ties that the sums' order decides; bfs within 1e-4
+    of scale there), through bound flips, which the plain version's
+    iteration-by-iteration run counts."""
+    B, m = 8, 1280
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    c, A, b, lb, ub = device_bounded_lps(gen, B, m, m, cuda)
+    ub[:, : m // 2] *= 1e-3
+    assert bool(torch.isinf(ub[:, m:]).all())
+    _, _, _, _, _, slack = _bounded_instance(B, m, m, seed=29, dev=cuda)
+    slack = slack._replace(bfs=b.clone())
+    kw = dict(opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
+    state0 = bounded_kernel.solve_bounded_segment_plain(
+        A, c, lb, ub, 1 << 20,
+        BoundedSegmentState(*(t.clone() for t in slack)), seg_len=12, **kw)
+    k, _ = _bounded_both(A, c, lb, ub, state0, seg_len=16, **kw)
+    assert isinstance(bounded_kernel.last_plan,
+                      bounded_kernel.BoundedStreamPlan)
+    p, flips = BoundedSegmentState(*(t.clone() for t in state0)), 0
+    for _ in range(16):
+        before = BoundedSegmentState(*(t.clone() for t in p))
+        bounded_kernel.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, p,
+                                                   seg_len=1, **kw)
+        flips += int(((p.vstate != before.vstate).any(dim=1)
+                      & (p.basis == before.basis).all(dim=1)).sum())
+    assert flips > 0
+    same = torch.ones(B, dtype=torch.bool, device=cuda)
+    for name in ("basis", "vstate", "status", "iters", "cB", "lbB", "ubB"):
+        a, q = getattr(k, name), getattr(p, name)
+        same &= (a == q).reshape(B, -1).all(dim=1)
+    assert int((~same).sum()) <= 2
+    assert bool((k.iters == 28).any())
+    scale = max(p.bfs[same].abs().max().item(), 1.0)
+    assert (k.bfs[same] - p.bfs[same]).abs().max().item() <= 1e-4 * scale
+
+
+def test_bounded_stream_path_matches_cpu(cuda):
+    """solve_batch_bounded at B = 4, m = 640, n = 1280, past the cluster
+    line, on the card (the streaming branch) against the CPU run (the plain
+    version) of the same instances: the same statuses, objectives within
+    1e-5 relative."""
+    import linprog_tpu_torch as lt
+
+    B, m = 4, 640
+    assert isinstance(bounded_kernel.segment_plans(B, m, 2 * m)[0],
+                      bounded_kernel.BoundedStreamPlan)
+    gen = torch.Generator().manual_seed(7)
+    prob = device_bounded_lps(gen, B, m, m, "cpu")
+    basis = torch.arange(m, 2 * m, dtype=torch.int32).expand(B, m)
+    vs = torch.zeros((B, 2 * m), dtype=torch.int8)
+    vs[:, m:] = bounded_kernel.BASIC
+    cfg = lt.SolverConfig(pricing="dantzig", refactor_every=256,
+                          polish_pivots=8, packed_select=True)
+    res_cpu = lt.solve_batch_bounded(*prob, basis, vs, 20000, cfg)
+    before = bounded_kernel.launches
+    res = lt.solve_batch_bounded(*(t.to(cuda) for t in prob), basis.to(cuda),
+                                 vs.to(cuda), 20000, cfg)
+    assert bounded_kernel.launches > before
+    assert isinstance(bounded_kernel.last_plan,
+                      bounded_kernel.BoundedStreamPlan)
+    assert bool((res.status == st.OPTIMAL).all())
+    np.testing.assert_array_equal(res.status.cpu().numpy(),
+                                  res_cpu.status.numpy())
+    rel = ((res.cost.cpu() - res_cpu.cost).abs()
+           / res_cpu.cost.abs().clamp_min(1.0)).max().item()
+    assert rel <= 1e-5
 
 
 @pytest.mark.parametrize("mode", ["primal", "dual"])

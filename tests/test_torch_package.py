@@ -160,7 +160,7 @@ def test_package_exports_and_kernel_sources():
         "solve_segment.cu": "lp_solve_segment",
         "panel_cholinv.cu": "lp_panel_cholinv",
         "solve_segment_stream.cu": "lp_solve_segment_stream",
-        "solve_bounded_segment.cu": "lp_solve_bounded_segment",
+        "solve_bounded_segment.cu": "lp_solve_bounded_stream",
         "price_entering.cu": "lp_price_entering",
         "ratio_eta_pivot.cu": "lp_ratio_eta_pivot",
     }

@@ -89,15 +89,20 @@ def test_branch_depends_on_the_lane_shape_only(kernel, m, n):
     """Every batch size gives the same branch and the same set of cluster
     sizes at (m, n) (only their order follows the batch), so a lane's
     result does not depend on its batch; past the largest cluster the one
-    plan is the block-per-lane branch."""
+    plan of kernel 1 is the block-per-lane branch, and kernel 4's plans are
+    all of its streaming branch (which replaced its block per lane)."""
     mod = KERNELS[kernel]
     resident = sk.resident(m, n, cbytes=mod.cluster_bytes)
     sizes = None
     for B in BATCHES:
         plans = mod.segment_plans(B, m, n)
-        assert (plans[0].cluster > 0) == resident
-        if not resident:
-            assert plans == [sk.SegmentPlan(0, mod.block_bytes(m, n))]
+        if kernel == "segment":
+            assert (plans[0].cluster > 0) == resident
+            if not resident:
+                assert plans == [sk.SegmentPlan(0, mod.block_bytes(m, n))]
+        else:
+            streaming = [isinstance(p, bk.BoundedStreamPlan) for p in plans]
+            assert all(streaming) if not resident else not any(streaming)
         got = sorted(p.cluster for p in plans)
         assert sizes is None or got == sizes
         sizes = got
@@ -105,6 +110,122 @@ def test_branch_depends_on_the_lane_shape_only(kernel, m, n):
         assert resident
     if m >= 1024:
         assert not resident
+
+
+# kernel 4's streaming branch (past the largest cluster): shapes that took
+# the block-per-lane branch it replaced, aligned and not, the phase 16
+# shape among them
+STREAMED = [(1024, 2048), (1180, 2360), (1279, 2558), (1280, 2560),
+            (2000, 4000), (3044, 6088), (3045, 6090), (2048, 1024),
+            (5000, 2000), (600, 9000)]
+
+
+def _old_block_line(m, n):
+    # the block-per-lane branch's vectors: 9m + 5n floats in one block
+    return 4 * (9 * m + 5 * n) + 1024 <= 232448
+
+
+@pytest.mark.parametrize("ratio", [0.25, 0.5, 1, 2, 3, 5])
+def test_bounded_has_plan_is_the_block_branch_line(ratio):
+    """Whether kernel 4 takes a lane is what it was before the streaming
+    branch replaced the block per lane: the cluster-resident branch, or the
+    block branch's line (m ~ 3000 at n = 2m), up to it and past it."""
+    for m in range(1, 7000, 13):
+        n = max(1, int(m * ratio))
+        want = (sk.resident(m, n, cbytes=bk.cluster_bytes)
+                or _old_block_line(m, n))
+        assert bk.has_plan(m, n) == want, (m, n)
+        if not want:
+            with pytest.raises(ValueError, match="shared memory"):
+                bk.segment_plans(16, m, n)
+
+
+def _stream_bytes(m, n, cl, plan):
+    # d, u, c_B whole, the partial over max(m, n), seven slices of m and
+    # five of n (whole bands of an eighth of the lane); then the ring: the
+    # warps' view, which the block's view of four stages fits into
+    ml, nl = (8 // cl) * -(-m // 8), (8 // cl) * -(-n // 8)
+    vec = 4 * _r4(3 * m + max(m, n) + 7 * ml + 5 * nl)
+    return vec + 4 * 8 * plan.warp_stages * plan.chunk_floats
+
+
+@pytest.mark.parametrize("m,n", STREAMED, ids=lambda v: str(v))
+def test_bounded_streaming_plans_fit_and_take_whole_bands(m, n):
+    """Every shape the block-per-lane branch took gets plans of the
+    streaming branch only: 4 and 8 CTAs a lane, bulk-copy rings where the
+    rows are 16-byte aligned (a ring that fills the SM at 4 and 8, half of
+    it for two CTAs an SM at 8), scalar loads otherwise; each CTA's bytes
+    fit the 232,448 a block may use less its static part (two CTAs an SM:
+    half of the SM's 228 KB less the card's 1 KB a block); its slices are
+    whole bands of an eighth of the lane, which cover it."""
+    assert not sk.resident(m, n, cbytes=bk.cluster_bytes)
+    assert _old_block_line(m, n)
+    plans = bk.segment_plans(16, m, n)
+    aligned = m % 4 == 0 and n % 4 == 0
+    assert all(isinstance(p, bk.BoundedStreamPlan) for p in plans)
+    assert {p.aligned for p in plans} == {aligned}
+    if aligned:
+        # two CTAs an SM where half the SM holds a CTA's vectors and a ring
+        layouts = {(p.cluster, p.ctas_per_sm) for p in plans}
+        assert {(4, 1), (8, 1)} <= layouts <= {(4, 1), (8, 1), (8, 2)}
+        smallest = bk.BoundedStreamPlan(8, True, 4, 0, 2, min(256, m), 0, 2)
+        half = _stream_bytes(m, n, 8, smallest) + 2048 + 1024 <= 233472 // 2
+        assert ((8, 2) in layouts) == half
+    else:
+        assert sorted(p.cluster for p in plans) == [4, 8]
+    for p in plans:
+        assert p.smem_bytes + 2048 <= 232448
+        assert p.ctas_per_sm * (p.smem_bytes + 2048 + 1024) <= 233472
+        assert p.smem_bytes == _stream_bytes(m, n, p.cluster, p)
+        if aligned:
+            assert p.stages * p.stage_floats <= (8 * p.warp_stages
+                                                 * p.chunk_floats)
+            assert p.chunk_floats % 32 == 0 or p.chunk_floats >= m
+        band = -(-m // 8)
+        assert bk._band_slice_len(m, p.cluster) == (8 // p.cluster) * band
+        assert p.cluster * bk._band_slice_len(m, p.cluster) >= m
+
+
+@pytest.mark.parametrize("m,n", STREAMED, ids=lambda v: str(v))
+def test_bounded_streaming_set_does_not_depend_on_the_batch(m, n):
+    """The streaming candidates at (m, n) are the same plans at every batch
+    size (only their order follows the batch), so a lane's bits, which do
+    not depend on the cluster size nor on the load branch, do not depend on
+    its batch."""
+    sets = {frozenset(bk.segment_plans(B, m, n)) for B in BATCHES}
+    assert len(sets) == 1
+
+
+@pytest.mark.parametrize("m,n", STREAMED, ids=lambda v: str(v))
+def test_bounded_built_stream_plans_add_the_scalar_branch(m, n):
+    """The layouts the card tests hold against each other: the candidates,
+    then on an aligned shape the scalar-load branch at 4 and 8 CTAs a lane
+    (an unaligned shape's candidates are those already); a resident shape
+    has none."""
+    plans = bk.segment_plans(16, m, n)
+    built = bk.built_stream_plans(16, m, n)
+    assert built[:len(plans)] == plans and len(set(built)) == len(built)
+    assert sorted(p.cluster for p in built if not p.aligned) == [4, 8]
+    with pytest.raises(ValueError, match="cluster-resident"):
+        bk.built_stream_plans(16, 256, 512)
+
+
+def test_bounded_streaming_order_by_waves_then_sms():
+    """The candidates' order: the fewest waves of resident clusters (an
+    estimate that loses one cluster to the GPCs: 15 clusters of 8 at one
+    CTA an SM), then the most SMs, then the listed order.  At [16, 1280,
+    2560] (phase 16) 8 CTAs a lane at one CTA an SM takes two waves, and 8
+    at two an SM and 4 at one both fill 64 SMs: the measured choice, 8 at
+    two an SM, comes first.  Four lanes take 8 CTAs a lane on 32 SMs."""
+    first = bk.segment_plans(16, 1280, 2560)[0]
+    assert (first.cluster, first.ctas_per_sm, first.aligned) == (8, 2, True)
+    (ring8,) = [p for p in bk.segment_plans(16, 1280, 2560)
+                if (p.cluster, p.ctas_per_sm) == (8, 1)]
+    assert bk.estimated_held(ring8) == 15
+    assert bk.segment_plans(16, 1280, 2560)[-1] == ring8
+    four = bk.segment_plans(4, 1280, 2560)[0]
+    assert (four.cluster, four.ctas_per_sm) == (8, 1)
+    assert bk.plan_sms(four, 4, bk.estimated_held(four)) == 32
 
 
 def test_devex_changes_only_the_block_branch():

@@ -7,12 +7,14 @@ Run from the repository root on a machine with a CUDA device:
     python3 tools/time_segment_plans.py [--bounded] [B m n_g ...]
 
 For each ``B m n_g`` triple (default: the shapes the paths launch, and the
-same lanes one at a time and one wave at a time) it builds the
+same lanes one at a time and one wave at a time; with ``--bounded`` the
+lanes of chip_smoke.py's phase 16, 16 and 4 of (1280, 2560)) it builds the
 crossover-shaped batch of chip_smoke.py ([G | I], so n = n_g + m; for
 kernel 4 ``device_bounded_lps`` from its all-slack start), lists every
-candidate of ``segment_plans`` with the clusters the device holds at once,
-and times a 1-pivot and a 65-pivot primal segment under each (the best of 3
-launches; CUDA events).  It prints milliseconds per batch-iteration inside
+candidate of ``segment_plans`` with the clusters the device holds at once
+(for kernel 4's streaming branch also its scalar-load plans), and times a
+1-pivot and a 65-pivot primal segment under each (the best of 3 launches;
+CUDA events).  It prints milliseconds per batch-iteration inside
 the segment, (t65 - t1) / 64, which leaves out the loading of the lanes, and
 per iteration of one wave of resident clusters; the card's name and power
 limit come first.
@@ -37,6 +39,7 @@ DEFAULT = [(1024, 256, 256), (30, 256, 256), (1, 256, 256),
            (64, 512, 512), (7, 512, 512), (1, 512, 512),
            (256, 256, 256), (1024, 128, 256), (66, 128, 256),
            (1, 128, 256)]
+BOUNDED_DEFAULT = [(16, 1280, 1280), (4, 1280, 1280)]
 
 
 def _instance(bounded, B, m, n_g):
@@ -91,25 +94,47 @@ def time_plan(launch, kind, state0, plan, seg_len):
     return min(times)
 
 
+def _held(bounded, plan):
+    """Clusters of ``plan`` the device holds at once (None: one block a
+    lane)."""
+    if bounded:
+        return bk.clusters_held(plan)
+    if not plan.cluster:
+        return None
+    return _build.library().lp_solve_segment_cluster_max_clusters(
+        plan.cluster, plan.smem_bytes)
+
+
+def _candidates(bounded, B, m, n):
+    if bounded and not bk.resident(m, n, cbytes=bk.cluster_bytes):
+        return bk.built_stream_plans(B, m, n)
+    return (bk if bounded else sk).segment_plans(B, m, n)
+
+
+def _label(plan):
+    if isinstance(plan, bk.BoundedStreamPlan):
+        return (f"cluster {plan.cluster} ({plan.ctas_per_sm} an SM, "
+                + (f"ring {plan.warp_stages} x {plan.chunk_floats}"
+                   if plan.aligned else "scalar loads") + ")")
+    return f"cluster {plan.cluster}"
+
+
 def run(bounded, B, m, n_g):
-    lib = _build.library()
-    mod, kind, launch, state0 = _instance(bounded, B, m, n_g)
+    _, kind, launch, state0 = _instance(bounded, B, m, n_g)
     n = n_g + m
-    query = (lib.lp_solve_bounded_cluster_max_clusters if bounded
-             else lib.lp_solve_segment_cluster_max_clusters)
     print(f"{'bounded' if bounded else 'segment'} B={B} (m, n)=({m}, {n})",
           flush=True)
-    for plan in mod.segment_plans(B, m, n):
-        held = query(plan.cluster, plan.smem_bytes) if plan.cluster else None
+    for plan in _candidates(bounded, B, m, n):
+        held = _held(bounded, plan)
         if held is not None and held <= 0:
-            print(f"  cluster {plan.cluster}: not granted ({held})")
+            print(f"  {_label(plan)}: not granted ({held})")
             continue
         one = time_plan(launch, kind, state0, plan, 1)
         seg = time_plan(launch, kind, state0, plan, ITERS)
         per = (seg - one) / (ITERS - 1)
         waves = -(-B // held) if held else None
         wave_us = 1e3 * per / waves if waves else None
-        print(f"  cluster {plan.cluster}: {plan.smem_bytes} B shared, "
+        print(f"  {_label(plan)}: {plan.smem_bytes} B shared, "
               f"{held} resident clusters ({waves} waves): one pivot "
               f"{one:.4f} ms, {ITERS} pivots {seg:.3f} ms, "
               f"{per:.4f} ms/iteration in the segment"
@@ -126,7 +151,8 @@ def main():
     argv = sys.argv[1:]
     bounded = "--bounded" in argv
     args = [int(a) for a in argv if a != "--bounded"]
-    cases = list(zip(args[0::3], args[1::3], args[2::3])) or DEFAULT
+    cases = (list(zip(args[0::3], args[1::3], args[2::3]))
+             or (BOUNDED_DEFAULT if bounded else DEFAULT))
     for B, m, n_g in cases:
         run(bounded, B, m, n_g)
         torch.cuda.empty_cache()
