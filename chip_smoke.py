@@ -32,9 +32,12 @@ Phases, each printing one JSON line:
      iteration and a full segment; at the shapes phases 10-12 give it
      ([64, 512, 1024], [256, 256, 512], [1024, 128, 384]), both modes and
      devex, one iteration and a 16-pivot segment in lockstep; the
-     block-per-lane branch at [64, 1024, 2048]; each shape with its launch
-     plan, the same bits under every other planned cluster size, and a
-     64-pivot segment's time an iteration beside the launch bound; then
+     streaming branch at [64, 1024, 2048] (past the largest cluster: both
+     modes and devex, its in-segment time beside the one-iteration bound
+     and beside the block per lane it replaced); each shape with its launch
+     plan, the same bits under every other planned cluster size and
+     layout, and a 64-pivot segment's time an iteration beside the launch
+     bound; then
      devex pricing at [1024, 256, 512]: one iteration and a 16-pivot
      segment against the plain version, and a full solve_batch_two_phase
      run with pricing="devex" at B = 1024, m = n = 256 (all OPTIMAL, HiGHS
@@ -188,7 +191,15 @@ Phases, each printing one JSON line:
      Gondzio and minv counts reported; (f) ipm_crossover_batch_canonical(guess="slack") at
      B = 256, m = n = 256: every crossed lane certified; (g) the sparse IPM
      with assembly="cumsum" against "segment" at B = 16, m = n = 2048, 1 %
-     (statuses, costs, walls in turns).
+     (statuses, costs, walls in turns);
+ 22. exact_m1024: the reference's ipm_xover_m1024 leg (bench.py:983):
+     solve_batch_exact at B = 32, m = n = 1024, past the cluster line (a
+     warm-up, then the median of 3 timed runs with CUDA events; crossed,
+     retry_crossed and fallback; kernel 1's launches by branch and mode,
+     the streaming branch in both; CUDA-event spans of kernel 1, the
+     batched LU and the stages), the dd-KKT certificate on every lane
+     outside the wall and HiGHS on one lane in a worker process: 32/32
+     OPTIMAL, >= 31 certified, HiGHS gap <= 1e-5.
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -236,8 +247,11 @@ SPLIT_LANES = 16  # lanes of 1024 that may leave lockstep over 16 pivots
 # bucket at m = 512, the crossover at m = 256, the two-phase simplex at
 # m = 128 with its artificials
 SEGMENT_SHAPES = [(64, 512, 512), (256, 256, 256), (1024, 128, 256)]
-# kernel 1's block-per-lane branch: a lane past the largest cluster
+# kernel 1's streaming branch: a lane past the largest cluster
 BLOCK_SHAPE = (64, 1024, 1024)
+# the block-per-lane branch it replaced there: ms a batch-iteration in a
+# 64-pivot segment, primal and dual (PERF.md, section 6, kernel 1's history)
+REPLACED_SEGMENT_BLOCK_MS = {"primal": 2.216, "dual": 2.859}
 SEGMENT_PIVOTS = 64  # pivots of the segment timed inside one launch
 # kernel 2 on those paths (lanes, mb): the IPM at B = 128 and at B = 256
 CHOLINV_SHAPES = [(B, 32), (XB, 32), (128, 32), (256, 32), (B, 48),
@@ -268,6 +282,9 @@ SB, SM, SDENS = 128, 2048, 0.01
 # phases 14 and 15: the reference's exact_m4096 leg (bench.py:757): lanes,
 # m = n; the crossover's lanes are (4096, 8192), past the blocked-factor line
 XLB, XLM = 4, 4096
+# phase 22: the reference's ipm_xover_m1024 leg (bench.py:983): lanes, m = n,
+# timed runs after the warm-up (median)
+XMB, XMM, XM_REPEATS = 32, 1024, 3
 # phase 16: kernel 4's streaming branch past the v5e line: lanes, m = n
 # (lanes of (1280, 2560)).  The iteration cap scales phase 8's with m^2, as
 # the iterations a lane of device_bounded_lps needs grow
@@ -361,8 +378,10 @@ def same_bits(a, b):
 
 
 def _branch(plan):
-    """The branch of a whole-segment kernel's plan."""
-    if isinstance(plan, bk.BoundedStreamPlan):
+    """The branch of a whole-segment kernel's plan (kernels 1 and 4); a
+    plan of cluster 0 is the block per lane of a tree before kernel 1's
+    streaming branch (phase 22 runs in a parent checkout to compare)."""
+    if isinstance(plan, getattr(sk, "StreamingPlan", ())):
         return "streaming"
     return "cluster" if plan.cluster else "block per lane"
 
@@ -370,24 +389,31 @@ def _branch(plan):
 def _layout(plan):
     """A plan in words: its CTAs a lane, and a streaming plan's CTAs an SM
     and load branch."""
-    if isinstance(plan, bk.BoundedStreamPlan):
+    if isinstance(plan, sk.StreamingPlan):
         return (f"{plan.cluster} CTAs a lane ({plan.ctas_per_sm} an SM, "
                 f"{'ring' if plan.aligned else 'scalar loads'})")
     return f"{plan.cluster} CTAs a lane"
 
 
-def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
+def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False):
     """The launch plan of a whole-segment kernel (``kernel`` is the module:
     ``solve_kernel`` or ``bounded_kernel``) at ``shape`` and what it gives:
     the plan ``ref16`` was run under (the last launch's) and the clusters
     the card holds at once; the same state bit for bit after 16 pivots
-    under every other planned cluster size; a 64-pivot segment's time (CUDA
-    events, median of 3 from fresh states) and its time an iteration,
-    beside the launch bound and the one-iteration bound."""
+    under every other planned cluster size (and, on a streaming branch,
+    every other built layout); a 64-pivot segment's time (CUDA events,
+    median of 3 from fresh states) and its time an iteration, beside the
+    launch bound and the one-iteration bound."""
     b, m, n = shape
     chosen = kernel.last_plan
     others = []
-    for plan in kernel.segment_plans(b, m, n):
+    if kernel is sk and isinstance(chosen, sk.StreamingPlan):
+        plans = sk.built_stream_plans(b, m, n, devex=devex)
+    elif kernel is sk:
+        plans = sk.segment_plans(b, m, n, devex=devex)
+    else:
+        plans = kernel.segment_plans(b, m, n)
+    for plan in plans:
         if plan == chosen:
             continue
         s = run_plan(plan, fresh(), 16)
@@ -396,7 +422,7 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
             if not same_bits(x, y):
                 fail(f"{label} {list(shape)}: {name} after 16 pivots differs "
                      f"between {_layout(plan)} and {_layout(chosen)}")
-        others.append(_layout(plan) if isinstance(plan, bk.BoundedStreamPlan)
+        others.append(_layout(plan) if isinstance(plan, sk.StreamingPlan)
                       else plan.cluster)
         del s
     last = []
@@ -411,12 +437,7 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label):
 
     ms1 = timed(1)
     ms = timed(SEGMENT_PIVOTS)
-    held = None
-    if kernel is bk:
-        held = bk.clusters_held(chosen)
-    elif chosen.cluster:
-        held = _build.library().lp_solve_segment_cluster_max_clusters(
-            chosen.cluster, chosen.smem_bytes)
+    held = kernel.clusters_held(chosen)
     lb_ms, lb_by = launch_bound_ms(b, m, n, SEGMENT_PIVOTS)
     return {"plan": chosen._asdict(),
             "branch": _branch(chosen),
@@ -711,9 +732,9 @@ def _hold_segment(dual, b, m, n_g, pricing=1):
     p16 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=16,
                                  **kw)
     torch.cuda.synchronize()
-    if (sk.last_plan.cluster == 0) != ((m, n_g) == BLOCK_SHAPE[1:]):
+    if (_branch(sk.last_plan) == "streaming") != ((m, n_g) == BLOCK_SHAPE[1:]):
         fail(f"solve_segment {mode} {shape}: took the "
-             f"{'block' if sk.last_plan.cluster == 0 else 'cluster'} branch")
+             f"{_branch(sk.last_plan)} branch")
     same = _lockstep_lanes(k16, p16, ("basis", "status", "iters", "pen",
                                       "cB"))
     split, allowed = int((~same).sum()), max(2, b * SPLIT_LANES // B)
@@ -734,7 +755,7 @@ def _hold_segment(dual, b, m, n_g, pricing=1):
     b_ms, b_by = segment_bound_ms(b, pivoted, m, n_g + m)
     plan = _plan_report(sk, lambda pl, s, n_piv: sk.launch_with_plan(
         pl, A, c, apen, 1 << 20, s, seg_len=n_piv, **kw), fresh, tuple(shape),
-        k16, f"solve_segment {mode}")
+        k16, f"solve_segment {mode}", devex=pricing == 2)
     return {"shape": shape, "mode": mode, **plan,
             "one_iter": {"excluded_tie_lanes": int(tie.sum()),
                          "pivoted_lanes": pivoted, "max_abs_err_bfs": err1,
@@ -847,11 +868,25 @@ def phase_segment():
                            for shape in SEGMENT_SHAPES + [BLOCK_SHAPE]
                            for dual in (False, True)]
     out["other_shapes"] += [_hold_segment(False, *shape, pricing=2)
-                            for shape in SEGMENT_SHAPES]
+                            for shape in SEGMENT_SHAPES + [BLOCK_SHAPE]]
+    # the streaming branch past the largest cluster, beside the block per
+    # lane it replaced and the one-iteration bound (A read once, the factor
+    # read and written once a lane)
+    b, m, n_g = BLOCK_SHAPE
+    big = [r for r in out["other_shapes"] if r["shape"] == [b, m, n_g + m]]
+    s_bound, s_by = segment_bound_ms(b, b, m, n_g + m)
+    out["streaming"] = {
+        "shape": [b, m, n_g + m], "plan": big[0]["plan"],
+        "resident_clusters": big[0]["resident_clusters"],
+        "same_bits_under": big[0]["same_bits_at_clusters"],
+        "segment_ms_per_iter": {r["mode"]: r["segment"]["ms_per_iter"]
+                                for r in big},
+        "bound_ms": s_bound, "bound_by": s_by,
+        "replaced_block_ms_per_iter": REPLACED_SEGMENT_BLOCK_MS}
     emit(out)
     return {"max_abs_err": worst_err, "ms": one_ms["primal"][0],
             "plain_ms": one_ms["primal"][1], "bound_ms": b_ms,
-            "bound_by": b_by, **_plan_summary(
+            "bound_by": b_by, "streaming_shapes": big, **_plan_summary(
                 [(B, M, N + M, "primal", plans["primal"]),
                  (B, M, N + M, "dual", plans["dual"])]
                 + [(*r["shape"], r["mode"], r) for r in out["other_shapes"]])}
@@ -1872,14 +1907,19 @@ def phase_step_kernels():
 
 def _reset_counts():
     sk.launches = sk.launches_dual = ck.launches = 0
+    sk.launches_streaming = sk.launches_streaming_dual = 0
     ssk.launches = ssk.launches_dual = bk.launches = 0
 
 
 def _read_counts():
-    """The wrappers' launch counts; kernels 1 and 3 also by mode."""
+    """The wrappers' launch counts; kernels 1 and 3 also by mode, kernel 1
+    by branch."""
     return {"solve_segment": sk.launches,
             "solve_segment_dual": sk.launches_dual,
             "solve_segment_primal": sk.launches - sk.launches_dual,
+            "solve_segment_streaming_dual": sk.launches_streaming_dual,
+            "solve_segment_streaming_primal": (sk.launches_streaming
+                                               - sk.launches_streaming_dual),
             "panel_cholinv": ck.launches,
             "solve_segment_stream": ssk.launches,
             "solve_segment_stream_dual": ssk.launches_dual,
@@ -4337,6 +4377,123 @@ def _phase_cumsum():
     return out
 
 
+def phase_exact_m1024():
+    """Phase 22: the reference's ipm_xover_m1024 leg, solve_batch_exact at
+    B = 32, m = n = 1024, past the cluster line: kernel 1's streaming
+    branch in the crossover, its retry and the repair, both modes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import linprog_tpu_torch.batch as lb
+    import linprog_tpu_torch.crossover as lx
+    import linprog_tpu_torch.engine_batched as le
+    import linprog_tpu_torch.ipm as li
+    import linprog_tpu_torch.refine as lr
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    c, G, h = device_inequality_lps(gen, XMB, XMM, XMM, DEVICE)
+    # HiGHS takes ~30 s a lane at this size: a worker process solves lane 0
+    # while the card runs
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing
+                               .get_context("spawn"))
+    try:
+        job = pool.submit(_highs_general, {
+            "c": c[0].double().cpu().numpy(), "G": G[0].double().cpu().numpy(),
+            "h": h[0].double().cpu().numpy()})
+        t0 = time.time()
+        lt.solve_batch_exact(c, G, h)  # warm-up
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+
+        def seg_label(A, *args, **kw):
+            return (f"{_branch(sk.last_plan)} "
+                    f"{'dual' if kw.get('dual') else 'primal'} B={A.shape[0]}")
+
+        runs = []
+        for _ in range(XM_REPEATS):
+            _reset_counts()
+            with _stage_spans([
+                    ("ipm", li, "ipm_canonical_state", None),
+                    ("crossover", lx, "crossover_batch_canonical", None),
+                    ("polish", lr, "polish_batch", None),
+                    ("fallback_two_phase", lb, "solve_batch_two_phase", None),
+                    ("batched_lu", le, "refresh_running_lanes", None),
+                    ("segment_kernel", le, "solve_segment", seg_label),
+                    ("stream_kernel", le, "solve_segment_stream", None),
+            ]) as spans:
+                t_a = torch.cuda.Event(enable_timing=True)
+                t_b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t_a.record()
+                res, info = lt.solve_batch_exact(c, G, h)
+                t_b.record()
+                torch.cuda.synchronize()
+            stage_s, seg_s = {}, {}
+            for name, label, e_a, e_b in spans:
+                sec = e_a.elapsed_time(e_b) / 1e3
+                entry = stage_s.setdefault(name, {"calls": 0, "seconds": 0.0})
+                entry["calls"] += 1
+                entry["seconds"] += sec
+                if label is not None:
+                    entry = seg_s.setdefault(label, {"launches": 0,
+                                                     "seconds": 0.0})
+                    entry["launches"] += 1
+                    entry["seconds"] += sec
+            runs.append({"wall_s": t_a.elapsed_time(t_b) / 1e3,
+                         "launches": _read_counts(), "stages_s": stage_s,
+                         "segment_kernel_by_branch": seg_s,
+                         "crossed": info["crossed"],
+                         "retry_crossed": info["retry_crossed"],
+                         "fallback": info["fallback"]})
+        walls = [r["wall_s"] for r in runs]
+        mid = runs[int(np.argsort(walls)[len(walls) // 2])]
+
+        t1 = time.time()
+        cert = lt.certify_vertex_batch(c, G, h, res.basis)
+        summ = lt.certificate_summary(cert)
+        torch.cuda.synchronize()
+        cert_wall = time.time() - t1
+        status, ref = job.result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    if status != 0:
+        fail(f"m = 1024 path: HiGHS did not solve lane 0 (status {status})")
+    gap = abs(float(res.cost[0]) - ref) / max(1.0, abs(ref))
+    launches = runs[0]["launches"]
+    counts = status_counts(res.status)
+    uncertified = torch.nonzero(~cert["certified"]).flatten().tolist()
+    out = {"phase": "exact_m1024", "lanes": XMB, "m": XMM, "n": XMM,
+           "seed": SEED, "lane_status": counts,
+           "wall_s": float(np.median(walls)), "walls_s": walls,
+           "warmup_wall_s": warm, "lps_per_sec": XMB / float(np.median(walls)),
+           "crossed": mid["crossed"], "retry_crossed": mid["retry_crossed"],
+           "fallback": mid["fallback"], "launches": launches,
+           "median_run": {k: mid[k] for k in ("stages_s",
+                                              "segment_kernel_by_branch")},
+           "segment_kernel_s": [r["stages_s"].get("segment_kernel", {})
+                                .get("seconds") for r in runs],
+           "batched_lu_s": [r["stages_s"].get("batched_lu", {})
+                            .get("seconds") for r in runs],
+           "certified": summ["certified"], "uncertified_lanes": uncertified,
+           "cert_wall_s": cert_wall, "highs_lanes": 1,
+           "max_rel_gap_vs_highs": gap, "iters_total": int(res.iters.sum())}
+    emit(out)
+    if res.x.shape != (XMB, XMM) or not torch.isfinite(res.cost).all():
+        fail("m = 1024 path: result has the wrong shape or non-finite costs")
+    if counts.get("OPTIMAL", 0) != XMB:
+        fail(f"m = 1024 path: {counts}")
+    if summ["certified"] < XMB - 1:
+        fail(f"m = 1024 path: {summ['certified']}/{XMB} certified "
+             f"(< {XMB - 1})")
+    if not gap <= 1e-5:
+        fail(f"m = 1024 path: HiGHS gap {gap:.3e} > 1e-5")
+    for mode in ("primal", "dual"):
+        if launches[f"solve_segment_streaming_{mode}"] <= 0:
+            fail(f"m = 1024 path: kernel 1's streaming branch was never "
+                 f"launched in {mode} mode")
+    return launches
+
+
 def phase_last_modes():
     """Phase 21: the reference's last modes (split pricing and the ablation
     switch on kernel 1, sectional pricing on kernel 3, Newton-Schulz
@@ -4416,6 +4573,7 @@ def main():
     paths.update(phase_parallel())
     last_paths, kernel1_modes, kernel3_modes = phase_last_modes()
     paths.update(last_paths)
+    paths["exact_m1024"] = phase_exact_m1024()
 
     def entry(name, source, replaces, n_launches, rep, new_shapes=None,
               modes=None):
@@ -4424,6 +4582,10 @@ def main():
         if name == "solve_segment_stream":
             by_path["exact_m4096_dual"] = paths["exact_m4096"][
                 "solve_segment_stream_dual"]
+        if name == "solve_segment":
+            by_path["exact_m1024_streaming"] = {
+                mode: paths["exact_m1024"][f"solve_segment_streaming_{mode}"]
+                for mode in ("primal", "dual")}
         out = {"name": name, "route": "cuda",
                "launches_by_path": by_path,
                "source": f"linprog_tpu_torch/csrc/{source}",
@@ -4474,6 +4636,19 @@ def main():
                 "launches": paths["bounded_block"]["solve_bounded_segment"]}
                for r in blk["kernel"]]
 
+    # kernel 1's streaming branch at [64, 1024, 2048] (phase 3), launched
+    # on phase 22's path
+    seg_new = [{"shape": r["shape"], "mode": r["mode"], "branch": "streaming",
+                "source": "linprog_tpu_torch/csrc/solve_segment_large.cu",
+                "plan": r["plan"], "resident_clusters": r["resident_clusters"],
+                "max_abs_err": r["segment16"]["max_abs_err_bfs"],
+                "ms": r["one_iter"]["ms"], "plain_ms": r["one_iter"]["plain_ms"],
+                "segment_ms_per_iter": r["segment"]["ms_per_iter"],
+                "bound_ms": r["one_iter"]["bound_ms"],
+                "bound_by": r["one_iter"]["bound_by"],
+                "launches": paths["exact_m1024"]["solve_segment_streaming_"
+                                                 + r["mode"].split()[0]]}
+               for r in seg["streaming_shapes"]]
     price = dict(steps["price_entering"],
                  max_abs_err=steps["price_entering"]["max_abs_err_r_enter"])
     ratio = dict(steps["ratio_eta_pivot"],
@@ -4483,7 +4658,7 @@ def main():
     emit({"kernels": [
         entry("solve_segment", "solve_segment.cu",
               "linprog_tpu/ops/solve_kernel.py:552",
-              launches["solve_segment"], seg, modes=kernel1_modes),
+              launches["solve_segment"], seg, seg_new, modes=kernel1_modes),
         entry("panel_cholinv", "panel_cholinv.cu",
               "linprog_tpu/ops/cholinv_kernel.py:80",
               launches["panel_cholinv"], chol, chol_new),

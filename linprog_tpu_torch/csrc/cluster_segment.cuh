@@ -23,7 +23,6 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -217,12 +216,7 @@ __device__ void col_pass(const float* G, int ld, int ncols, int nrows,
 
 // ---- split pricing: the three bf16 products of the pricing pass ------------
 //
-// x = hi + lo with hi = bf16(x) and lo = bf16(x - hi), both rounded to
-// nearest even (the reference's astype(bfloat16)); x - hi is exact in f32.
-__device__ __forceinline__ void bf16_split(float x, float& hi, float& lo) {
-  hi = __bfloat162float(__float2bfloat16_rn(x));
-  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
-}
+using lp::bf16_split;  // the halves of x, in registers (common.cuh)
 
 // The CTA's partials of the split product y A over its own rows, for every
 // k < ncols: hh[k] = sum_j yh[j] Ah[j, k], hl[k] = sum_j yh[j] Al[j, k],

@@ -1,6 +1,7 @@
 // Shared device helpers for the linprog_tpu_torch kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -125,55 +126,19 @@ __device__ __forceinline__ float nonneg(float x) {
   return x > 0.0f ? x : (x != x ? x : 0.0f);
 }
 
+// x = hi + lo with hi = bf16(x) and lo = bf16(x - hi), both rounded to
+// nearest even (the reference's astype(bfloat16)); x - hi is exact in f32,
+// and a product of two halves is exact in f32.
+__device__ __forceinline__ void bf16_split(float x, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+}
+
 // Index bits of a packed key over `size` entries: max(1, bit_length(size-1)).
 __device__ __forceinline__ int bits_for(int size) {
   const int v = size - 1;
   const int bl = v <= 0 ? 0 : 32 - __clz(v);
   return bl < 1 ? 1 : bl;
-}
-
-// y[j] = sum_i cB[i] invBT[j, i]: one warp per row of invBT.  The caller
-// syncs before it reads s_y.
-__device__ __forceinline__ void duals(const float* invBT, const float* s_cB,
-                                      float* s_y, int m) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  for (int j = w; j < m; j += kWarps) {
-    const float* row = invBT + (size_t)j * m;
-    float acc = 0.0f;
-    for (int i = l; i < m; i += 32) acc += row[i] * s_cB[i];
-    acc = warp_sum(acc);
-    if (l == 0) s_y[j] = acc;
-  }
-}
-
-// s_col = A[:, enter]; s_d[i] = sum_j s_col[j] invBT[j, i] (thread per
-// column of invBT, coalesced).  Ends synced.
-__device__ __forceinline__ void direction(const float* __restrict__ A,
-                                          const float* invBT, float* s_col,
-                                          float* s_d, int m, int n,
-                                          int enter) {
-  for (int j = threadIdx.x; j < m; j += kThreads)
-    s_col[j] = __ldg(A + (size_t)j * n + enter);
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < m; ++j) acc += s_col[j] * invBT[(size_t)j * m + i];
-    s_d[i] = acc;
-  }
-  __syncthreads();
-}
-
-// invBT += col (x) u with col = s_col (column `leave` of the old invBT,
-// staged by the caller) and u = s_u: one warp per row.
-__device__ __forceinline__ void eta_update(float* invBT, const float* s_col,
-                                           const float* s_u, int m) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  for (int j = w; j < m; j += kWarps) {
-    const float cj = s_col[j];
-    float* row = invBT + (size_t)j * m;
-    for (int i = l; i < m; i += 32) row[i] = row[i] + cj * s_u[i];
-  }
 }
 
 }  // namespace lp

@@ -299,7 +299,9 @@ __device__ __forceinline__ float madd(float a, float b, float acc) {
 //
 // out0[k] = sum_j v0[j] G[j, k] over the `nrows` rows of G that the CTA
 // owns (and out1 with v1 when NV == 2), for every k < ncols: one thread
-// per column. The order of the sum is fixed by the lane's kBands row bands
+// per column. NV == 3 is kernel 1's split-bf16 pricing: the three products
+// of the halves of v0 and of G (taken in registers, exact in f32), yh Gh
+// into out0, yh Gl into out1 and yl Gh into out2. The order of the sum is fixed by the lane's kBands row bands
 // of `band` rows, not by the cluster size: the rows of a band in order, in
 // partial sums of kSumBlock rows that are added up in order; then the CTA's
 // NB = kBands / CL bands as a balanced tree, which reduce_slice continues
@@ -321,34 +323,53 @@ __device__ __forceinline__ void close_band(float& a, float& prev, float& tot,
   a = 0.0f;
 }
 
+// One row's terms: x = G[j, k] against v0[j] (and v1[j]), or the split
+// products of their halves.
+template <int NV, bool FMA>
+__device__ __forceinline__ void add_terms(float y0, float y1, float x,
+                                          float& p0, float& p1, float& p2) {
+  if constexpr (NV == 3) {
+    float yh, yl, xh, xl;
+    lp::bf16_split(y0, yh, yl);
+    lp::bf16_split(x, xh, xl);
+    p0 = p0 + yh * xh;
+    p1 = p1 + yh * xl;
+    p2 = p2 + yl * xh;
+  } else {
+    p0 = madd<FMA>(y0, x, p0);
+    if (NV == 2) p1 = madd<FMA>(y1, x, p1);
+  }
+}
+
 template <int NV, bool FMA, int NB>
 __device__ void col_pass_scalar(const float* G, int ld, int ncols, int nrows,
                                 int band, const float* v0, const float* v1,
-                                float* out0, float* out1) {
+                                float* out0, float* out1, float* out2) {
   for (int k = threadIdx.x; k < ncols; k += kThreads) {
     const float* g = G + k;
-    float a0 = 0.0f, a1 = 0.0f, prev0 = 0.0f, prev1 = 0.0f, tot0 = 0.0f,
-          tot1 = 0.0f;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, prev0 = 0.0f, prev1 = 0.0f,
+          prev2 = 0.0f, tot0 = 0.0f, tot1 = 0.0f, tot2 = 0.0f;
     int j = 0;
     for (int bi = 0; bi < NB; ++bi) {
       const int jend = min(j + band, nrows);  // an empty band sums to 0
       while (j < jend) {
         const int bend = min(j + kSumBlock, jend);
-        float p0 = 0.0f, p1 = 0.0f;
+        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
 #pragma unroll 8
-        for (; j < bend; ++j) {
-          const float x = ldcg(g + (size_t)j * ld);
-          p0 = madd<FMA>(v0[j], x, p0);
-          if (NV == 2) p1 = madd<FMA>(v1[j], x, p1);
-        }
+        for (; j < bend; ++j)
+          add_terms<NV, FMA>(v0[j], NV == 2 ? v1[j] : 0.0f,
+                             ldcg(g + (size_t)j * ld), p0, p1, p2);
         a0 += p0;
-        if (NV == 2) a1 += p1;
+        if (NV >= 2) a1 += p1;
+        if (NV == 3) a2 += p2;
       }
       close_band<NB>(a0, prev0, tot0, bi);
-      if (NV == 2) close_band<NB>(a1, prev1, tot1, bi);
+      if (NV >= 2) close_band<NB>(a1, prev1, tot1, bi);
+      if (NV == 3) close_band<NB>(a2, prev2, tot2, bi);
     }
     out0[k] = tot0;
-    if (NV == 2) out1[k] = tot1;
+    if (NV >= 2) out1[k] = tot1;
+    if (NV == 3) out2[k] = tot2;
   }
   __syncthreads();
 }
@@ -364,7 +385,8 @@ __device__ void col_pass_scalar(const float* G, int ld, int ncols, int nrows,
 template <int NV, int KPT, bool FMA, int NB>
 __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
                               int band, const float* v0, const float* v1,
-                              float* out0, float* out1, Pipe& pp) {
+                              float* out0, float* out1, float* out2,
+                              Pipe& pp) {
   const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
   const int S = pp.S, SF = pp.stage_floats;
   const int lag = min(kLag, S - 1);
@@ -388,12 +410,12 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
 
     if (warp == 0)
       for (int t = 0; t < min(S, T); ++t) issue(t);
-    float p0[KPT], p1[KPT], a0[KPT], a1[KPT], prev0[KPT], prev1[KPT],
-        tot0[KPT], tot1[KPT];
+    float p0[KPT], p1[KPT], p2[KPT], a0[KPT], a1[KPT], a2[KPT], prev0[KPT],
+        prev1[KPT], prev2[KPT], tot0[KPT], tot1[KPT], tot2[KPT];
 #pragma unroll
     for (int q = 0; q < KPT; ++q)
-      p0[q] = p1[q] = a0[q] = a1[q] = prev0[q] = prev1[q] = tot0[q] = tot1[q] =
-          0.0f;
+      p0[q] = p1[q] = p2[q] = a0[q] = a1[q] = a2[q] = prev0[q] = prev1[q] =
+          prev2[q] = tot0[q] = tot1[q] = tot2[q] = 0.0f;
     int jb = 0, bi = 0;  // rows into the band, bands into the CTA's rows
     for (int t = 0; t < T; ++t) {
       const int s = t % S, j0 = t * rps, nr = min(rps, nrows - j0);
@@ -413,11 +435,8 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
 #pragma unroll
           for (int q = 0; q < KPT; ++q) {
             const int k = tid + q * kThreads;
-            if (q < kpt && k < wc) {
-              const float x = brow[k];
-              p0[q] = madd<FMA>(y0, x, p0[q]);
-              if (NV == 2) p1[q] = madd<FMA>(y1, x, p1[q]);
-            }
+            if (q < kpt && k < wc)
+              add_terms<NV, FMA>(y0, y1, brow[k], p0[q], p1[q], p2[q]);
           }
         }
         jb += run;
@@ -427,9 +446,13 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
           for (int q = 0; q < KPT; ++q) {
             a0[q] += p0[q];
             p0[q] = 0.0f;
-            if (NV == 2) {
+            if (NV >= 2) {
               a1[q] += p1[q];
               p1[q] = 0.0f;
+            }
+            if (NV == 3) {
+              a2[q] += p2[q];
+              p2[q] = 0.0f;
             }
           }
         }
@@ -437,7 +460,8 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
 #pragma unroll
           for (int q = 0; q < KPT; ++q) {
             close_band<NB>(a0[q], prev0[q], tot0[q], bi);
-            if (NV == 2) close_band<NB>(a1[q], prev1[q], tot1[q], bi);
+            if (NV >= 2) close_band<NB>(a1[q], prev1[q], tot1[q], bi);
+            if (NV == 3) close_band<NB>(a2[q], prev2[q], tot2[q], bi);
           }
           jb = 0;
           ++bi;
@@ -457,7 +481,8 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
 #pragma unroll
       for (int q = 0; q < KPT; ++q) {
         close_band<NB>(a0[q], prev0[q], tot0[q], bi);
-        if (NV == 2) close_band<NB>(a1[q], prev1[q], tot1[q], bi);
+        if (NV >= 2) close_band<NB>(a1[q], prev1[q], tot1[q], bi);
+        if (NV == 3) close_band<NB>(a2[q], prev2[q], tot2[q], bi);
       }
     }
 #pragma unroll
@@ -465,7 +490,8 @@ __device__ void col_pass_ring(const float* G, int ld, int ncols, int nrows,
       const int k = tid + q * kThreads;
       if (q < kpt && k < wc) {
         out0[cc + k] = tot0[q];
-        if (NV == 2) out1[cc + k] = tot1[q];
+        if (NV >= 2) out1[cc + k] = tot1[q];
+        if (NV == 3) out2[cc + k] = tot2[q];
       }
     }
     __syncthreads();  // every warp has left the ring; the partials are written
@@ -476,12 +502,14 @@ template <bool RING, int NV, bool FMA, int NB>
 __device__ __forceinline__ void col_pass(const float* G, int ld, int ncols,
                                          int nrows, int band, const float* v0,
                                          const float* v1, float* out0,
-                                         float* out1, Pipe& pp) {
+                                         float* out1, Pipe& pp,
+                                         float* out2 = nullptr) {
   if (RING)
     col_pass_ring<NV, NV == 1 ? 8 : 4, FMA, NB>(G, ld, ncols, nrows, band, v0,
-                                                v1, out0, out1, pp);
+                                                v1, out0, out1, out2, pp);
   else
-    col_pass_scalar<NV, FMA, NB>(G, ld, ncols, nrows, band, v0, v1, out0, out1);
+    col_pass_scalar<NV, FMA, NB>(G, ld, ncols, nrows, band, v0, v1, out0, out1,
+                                 out2);
 }
 
 template <bool RING, bool ETA>

@@ -122,17 +122,22 @@ def _declare(lib):
         i, i, i, i,  # dual, pricing, packed, stall_limit
         p,  # stream
     ]
-    # A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters, status; then
-    # split and ablate before the stream
-    lib.lp_solve_segment.argtypes = [p] * 11 + tail[:-1] + [i, i, p]
-    lib.lp_solve_segment.restype = i
-    # the cluster-resident branch: the same, and the plan before the stream
-    # (cluster, aligned, smem_bytes)
+    # kernel 1: A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters,
+    # status; then split and ablate, and the plan before the stream. The
+    # cluster-resident branch: cluster, aligned, smem_bytes
     lib.lp_solve_segment_cluster.argtypes = ([p] * 11 + tail[:-1] + [i, i]
                                              + [i] * 3 + [p])
     lib.lp_solve_segment_cluster.restype = i
     lib.lp_solve_segment_cluster_max_clusters.argtypes = [i, i]  # cluster, smem
     lib.lp_solve_segment_cluster_max_clusters.restype = i
+    # the streaming branch: cluster, aligned, stages, stage_floats,
+    # warp_stages, chunk_floats, smem_bytes
+    lib.lp_solve_segment_large.argtypes = ([p] * 11 + tail[:-1] + [i, i]
+                                           + [i] * 7 + [p])
+    lib.lp_solve_segment_large.restype = i
+    # cluster, aligned, smem_bytes
+    lib.lp_solve_segment_large_max_clusters.argtypes = [i, i, i]
+    lib.lp_solve_segment_large_max_clusters.restype = i
     # the same without gamma (the streaming kernel has no devex), then
     # partial and n_blk (sectional pricing), and the launch plan before the
     # stream: cluster, aligned, stages, stage_floats, warp_stages,

@@ -67,15 +67,19 @@ from .solve_kernel import (
     _nonneg,
     _round4,
     check_tensors,
+    estimated_held,
     pack_min_keys,
     pick_plan,
+    plan_sms,  # noqa: F401 (the plan interface of this module)
+    rank_plans,
     resident,
     resident_plans,
     slice_len,
+    slices_aligned,
+    streaming_plan,
 )
-from .stream_kernel import _STATIC_BYTES as _STREAM_STATIC_BYTES
-from .stream_kernel import _slice_len as _band_slice_len
-from .stream_kernel import ring_layout, slices_aligned
+from .solve_kernel import StreamingPlan as BoundedStreamPlan
+from .solve_kernel import band_slice_len as _band_slice_len
 
 AT_LB, AT_UB, BASIC = 0, 1, 2
 
@@ -93,8 +97,6 @@ STREAM_CTAS = 2
 # (at [16, 1280, 2560] on an H100, 8 CTAs a lane two to an SM beat 4 a lane
 # one to an SM, both in one wave on 64 SMs; see PERF.md)
 STREAM_LAYOUTS = ((8, 2), (4, 1), (8, 1))
-SMEM_PER_SM = 233472  # bytes of shared memory of one SM (228 KB)
-_BLOCK_RESERVE = 1024  # bytes of it the card reserves for each block
 
 
 class BoundedSegmentState(NamedTuple):
@@ -126,21 +128,6 @@ def cluster_bytes(m: int, n: int, cluster: int) -> int:
                  + _round4(8 * m + 4 * n + 3 * ml)) + -(-n // 16) * 16)
 
 
-class BoundedStreamPlan(NamedTuple):
-    """How one launch of the streaming branch is laid out: the fields of
-    :class:`~linprog_tpu_torch.ops.stream_kernel.StreamPlan`, and the CTAs
-    an SM its shared memory is sized for."""
-
-    cluster: int  # CTAs a lane
-    aligned: bool  # bulk-copy rings (True) or scalar loads (False)
-    stages: int  # block ring: stages (0 on the scalar branch)
-    stage_floats: int  # block ring: floats per stage
-    warp_stages: int  # warp rings: stages per warp
-    chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
-    smem_bytes: int  # dynamic shared memory per CTA
-    ctas_per_sm: int  # CTAs an SM the plan leaves room for (1 or 2)
-
-
 def stream_vector_bytes(m: int, n: int, cluster: int) -> int:
     """Dynamic shared memory of one CTA's vectors on the streaming branch:
     d, u and c_B whole, its partial over ``max(m, n)`` entries, seven slices
@@ -151,13 +138,6 @@ def stream_vector_bytes(m: int, n: int, cluster: int) -> int:
     return 4 * _round4(3 * m + max(m, n) + 7 * ml + 5 * nl)
 
 
-def _stream_budget(ctas_per_sm: int, smem_limit: int) -> int:
-    """Dynamic shared memory a CTA may take when ``ctas_per_sm`` share an
-    SM, its static part left out."""
-    per_cta = SMEM_PER_SM // ctas_per_sm - _BLOCK_RESERVE
-    return min(smem_limit, per_cta) - _STREAM_STATIC_BYTES
-
-
 def stream_plan(cluster: int, ctas_per_sm: int, m: int, n: int,
                 aligned: bool = True,
                 smem_limit: int = SMEM_LIMIT) -> Optional[BoundedStreamPlan]:
@@ -165,16 +145,9 @@ def stream_plan(cluster: int, ctas_per_sm: int, m: int, n: int,
     ``ctas_per_sm`` CTAs an SM: on the bulk-copy branch the largest ring
     that fits beside the vectors, on the scalar branch the vectors alone;
     None where they do not fit."""
-    vec = stream_vector_bytes(m, n, cluster)
-    budget = _stream_budget(ctas_per_sm, smem_limit)
-    if not aligned:
-        if vec > budget:
-            return None
-        return BoundedStreamPlan(cluster, False, 0, 0, 0, 0, vec, ctas_per_sm)
-    ring = ring_layout(m, vec, budget)
-    if ring is None:
-        return None
-    return BoundedStreamPlan(cluster, True, *ring, ctas_per_sm)
+    return streaming_plan(cluster, ctas_per_sm,
+                          stream_vector_bytes(m, n, cluster), m, aligned,
+                          smem_limit)
 
 
 def scalar_plan(cluster: int, m: int, n: int,
@@ -215,36 +188,6 @@ def has_plan(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
                 and bool(_stream_candidates(m, n, smem_limit))))
 
 
-def plan_sms(plan: BoundedStreamPlan, B: int, held: int,
-             sm_count: int = SM_COUNT) -> int:
-    """SMs a launch of ``B`` lanes under ``plan`` fills in its first wave
-    when the card holds ``held`` of its clusters at once, its CTAs packed
-    ``plan.ctas_per_sm`` to an SM."""
-    ctas = min(B, held) * plan.cluster
-    return min(sm_count, -(-ctas // plan.ctas_per_sm))
-
-
-def _rank(plans, B: int, held, sm_count: int):
-    """``plans`` best first: the fewest waves of resident clusters
-    (``held(plan)`` of them at once), then the most SMs, then the listed
-    order; plans the card cannot hold (``held <= 0``) are left out."""
-    keyed = []
-    for i, plan in enumerate(plans):
-        h = held(plan)
-        if h > 0:
-            keyed.append(((-(-B // h), -plan_sms(plan, B, h, sm_count), i),
-                          plan))
-    return [plan for _, plan in sorted(keyed)]
-
-
-def estimated_held(plan: BoundedStreamPlan, sm_count: int = SM_COUNT) -> int:
-    """Clusters of ``plan`` the card holds at once, estimated without it: a
-    cluster lies within one GPC, which loses about one cluster across the
-    card (an H100 SXM holds 15 clusters of 8 CTAs at one CTA an SM, not
-    16).  The wrapper asks the built kernel instead."""
-    return max(1, sm_count * plan.ctas_per_sm // plan.cluster - 1)
-
-
 def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
                   smem_limit: int = SMEM_LIMIT) -> list:
     """Candidate launch plans for ``B`` lanes of (m, n), best first.
@@ -278,7 +221,8 @@ def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
             f"16-CTA cluster, past the {smem_limit} a block of the card may "
             "hold"
         )
-    return _rank(plans, B, lambda p: estimated_held(p, sm_count), sm_count)
+    return rank_plans(plans, B, lambda p: estimated_held(p, sm_count),
+                      sm_count)
 
 
 def built_stream_plans(B: int, m: int, n: int) -> List[BoundedStreamPlan]:
@@ -328,7 +272,7 @@ def _choose_plan(B: int, m: int, n: int, device_index: int,
             seen[plan] = clusters_held(plan)
         return seen[plan]
 
-    ranked = _rank(plans, B, held, props.multi_processor_count)
+    ranked = rank_plans(plans, B, held, props.multi_processor_count)
     if not ranked:
         raise RuntimeError(
             "solve_bounded_segment: the device holds no cluster of any "

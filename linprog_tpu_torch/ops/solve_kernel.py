@@ -35,11 +35,12 @@ stage of the iteration: 1 the pricing product, 4 the entering selection, 2
 the direction product, 5 the ratio-test reductions, 6 the masked scalar
 extracts, 3 the factor's update, 7 the bookkeeping writes.
 
-On the H100 (``csrc/solve_segment.cu``) two branches, chosen by the lane's
-shape (m, n) alone, never by the batch:
+On the H100 two branches, chosen by the lane's shape (m, n) alone, never by
+the batch:
 
-* cluster-resident, for every lane whose A and ``B^-T`` fit the shared
-  memory of a cluster of at most 16 CTAs (m up to 512 at n = 2m): one
+* cluster-resident (``csrc/solve_segment.cu``), for every lane whose A and
+  ``B^-T`` fit the shared memory of a cluster of at most 16 CTAs (m up to
+  512 at n = 2m): one
   cluster of 1, 2, 4, 8 or 16 CTAs a lane loads the lane's A and ``B^-T``
   into shared memory once at launch, CTA k owning whole bands of the lane's
   16 fixed row bands, and runs every iteration of the segment on chip.
@@ -51,17 +52,25 @@ shape (m, n) alone, never by the batch:
   the eta update of the own rows yields the next duals.  Device memory sees
   A and the factor once a launch; an iteration's latency bounds it.
   :func:`segment_plans` lays the launch out;
-* block per lane, for lanes past the largest cluster: A and ``B^-T`` stay in
-  device memory and only the O(m + n) vectors live in shared memory.  Each
-  primal iteration streams A once and ``B^-T`` four times (duals,
-  direction, the eta read and write), so it is bound by device-memory
-  bandwidth.
+* streaming (``csrc/solve_segment_large.cu``), for lanes past the largest
+  cluster, up to the line of the block per lane it replaced (:func:`in_reach`),
+  in the design of kernel 3 (:mod:`~linprog_tpu_torch.ops.stream_kernel`):
+  a cluster of 2, 4 or 8 CTAs a lane splits it by rows in 8 fixed bands,
+  streams its rows of A and ``B^-T`` from device memory each pass
+  (bulk-copy rings on aligned shapes, scalar loads otherwise), adds the
+  partials through distributed shared memory in one fixed tree, prices and
+  selects over a slice of the columns per CTA, and takes the next duals
+  from each pivot's eta pass; a devex pivot's row rides the next pricing
+  pass.  A lane's bits do not depend on the cluster size nor on the load
+  branch.  A primal pivot moves A once and ``B^-T`` three times, so it is
+  bound by device-memory bandwidth.  :func:`segment_plans` lays it out as a
+  :class:`StreamingPlan`.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -73,14 +82,39 @@ INTMAX = 0x7FFFFFFF
 launches = 0  # CUDA launches of the kernel (never the plain version)
 launches_dual = 0  # those of them in dual mode
 launches_split = 0  # those of them with split pricing
+launches_streaming = 0  # those of them on the streaming branch
+launches_streaming_dual = 0  # those of them in dual mode
 launches_ablate = {k: 0 for k in range(1, 8)}  # those with each ablation mode
-last_plan = None  # the SegmentPlan of the last launch
+last_plan = None  # the plan of the last launch
 
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
 _STATIC_BYTES = 1024  # a block's static shared memory and a reserve
 _BANDS = 16  # row bands of a lane (csrc/cluster_segment.cuh: kBands)
 CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes the resident branch is built for
+
+# The streaming branches of kernels 1 and 4 (csrc/stream_ring.cuh): a lane's
+# rows in 8 fixed bands, a CTA's share whole bands of them.
+_STREAM_BANDS = 8
+_STREAM_STATIC_BYTES = 2048  # a streaming CTA's static shared memory, reserve
+SMEM_PER_SM = 233472  # bytes of shared memory of one SM (228 KB)
+_BLOCK_RESERVE = 1024  # bytes of it the card reserves for each block
+_WARPS = 8  # warps of a streaming CTA (csrc/common.cuh: kThreads / 32)
+# (stages of a warp's ring, floats per stage), largest ring first
+_RINGS = ((4, 1024), (4, 768), (2, 1024), (2, 768), (2, 512), (2, 256))
+_BLOCK_STAGES = 4  # stages of the same memory seen as the block's ring
+
+# Kernel 1's streaming branch (csrc/solve_segment_large.cuh: the builds of
+# LP_LARGE_RING_BUILDS and LP_LARGE_SCALAR_BUILDS, each capped at the
+# registers of LARGE_CTAS CTAs an SM). (CTAs a lane, CTAs an SM) of the
+# bulk-copy candidates, listed best first where waves and SMs tie: at
+# [64, 1024, 2048] on an H100, 2 a lane one to an SM 0.519 ms an iteration
+# against 4 two to an SM 0.848 (the card holds 62 of those, not 65); at
+# [32, 1024, 2048] 8 a lane two to an SM 0.380 against 4 one to an SM 0.437
+# (PERF.md, section 6).
+LARGE_LAYOUTS = ((2, 1), (8, 2), (4, 2), (4, 1))
+LARGE_SCALAR_CLUSTERS = (4, 8)
+LARGE_CTAS = 2
 
 
 class SegmentState(NamedTuple):
@@ -100,10 +134,26 @@ class SegmentState(NamedTuple):
 
 
 class SegmentPlan(NamedTuple):
-    """How one launch of the segment kernel is laid out."""
+    """How one launch of the cluster-resident branch is laid out."""
 
-    cluster: int  # CTAs a lane on the cluster-resident branch; 0: block per lane
-    smem_bytes: int  # dynamic shared memory per block
+    cluster: int  # CTAs a lane
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+class StreamingPlan(NamedTuple):
+    """How one launch of a streaming branch (kernel 1's past the largest
+    cluster, kernel 4's too) is laid out: the fields of
+    :class:`~linprog_tpu_torch.ops.stream_kernel.StreamPlan`, and the CTAs
+    an SM its shared memory is sized for."""
+
+    cluster: int  # CTAs a lane
+    aligned: bool  # bulk-copy rings (True) or scalar loads (False)
+    stages: int  # block ring: stages (0 on the scalar branch)
+    stage_floats: int  # block ring: floats per stage
+    warp_stages: int  # warp rings: stages per warp
+    chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
+    smem_bytes: int  # dynamic shared memory per CTA
+    ctas_per_sm: int  # CTAs an SM the plan leaves room for (1 or 2)
 
 
 def slice_len(size: int, cluster: int) -> int:
@@ -126,10 +176,150 @@ def cluster_bytes(m: int, n: int, cluster: int) -> int:
                 + _round4(6 * m + 5 * n + 3 * ml))
 
 
-def block_bytes(m: int, n: int, devex: bool = False) -> int:
-    """Dynamic shared memory of the block-per-lane branch: seven rows of m
-    floats and four of n (five with the devex weights)."""
-    return 4 * (7 * m + (5 if devex else 4) * n)
+def band_slice_len(size: int, cluster: int) -> int:
+    """Entries of a streaming CTA's slice: whole bands of
+    ``ceil(size / 8)``."""
+    return (_STREAM_BANDS // cluster) * -(-size // _STREAM_BANDS)
+
+
+def slices_aligned(m: int, n: int) -> bool:
+    """Every row of A and of ``B^-T`` starts on a multiple of 4 floats and
+    is a multiple of 4 floats long, so each row segment a CTA streams (a
+    slice is whole rows) can be a 16-byte-aligned bulk copy."""
+    return m % 4 == 0 and n % 4 == 0
+
+
+def ring_layout(m: int, vec_bytes: int, budget: int):
+    """The largest ring of ``_RINGS`` that fits ``budget`` bytes of dynamic
+    shared memory beside ``vec_bytes`` of vectors, as ``(stages,
+    stage_floats, warp_stages, chunk_floats, smem_bytes)``, or None.  The
+    warps' view: ``warp_stages`` chunks of a row of ``B^-T`` a warp; the
+    block's view of the same memory: four stages, each as many row segments
+    of a sweep as fit (a stage costs the same to turn over whatever its
+    size, so few large ones)."""
+    for warp_stages, chunk in _RINGS:
+        chunk = min(chunk, m)
+        ring = _WARPS * warp_stages * chunk
+        smem = vec_bytes + 4 * ring
+        if smem <= budget:
+            stage = ring // _BLOCK_STAGES // 4 * 4
+            return _BLOCK_STAGES, stage, warp_stages, chunk, smem
+    return None
+
+
+def streaming_plan(cluster: int, ctas_per_sm: int, vec_bytes: int, m: int,
+                   aligned: bool, smem_limit: int = SMEM_LIMIT
+                   ) -> Optional[StreamingPlan]:
+    """A streaming branch at ``cluster`` CTAs a lane whose CTA keeps
+    ``vec_bytes`` of vectors, sized for ``ctas_per_sm`` CTAs an SM: on the
+    bulk-copy branch the largest ring that fits beside the vectors, on the
+    scalar branch the vectors alone; None where they do not fit."""
+    # the CTA's share of the SM's shared memory, its static part left out
+    budget = (min(smem_limit, SMEM_PER_SM // ctas_per_sm - _BLOCK_RESERVE)
+              - _STREAM_STATIC_BYTES)
+    if not aligned:
+        if vec_bytes > budget:
+            return None
+        return StreamingPlan(cluster, False, 0, 0, 0, 0, vec_bytes,
+                             ctas_per_sm)
+    ring = ring_layout(m, vec_bytes, budget)
+    if ring is None:
+        return None
+    return StreamingPlan(cluster, True, *ring, ctas_per_sm)
+
+
+def plan_sms(plan: StreamingPlan, B: int, held: int,
+             sm_count: int = SM_COUNT) -> int:
+    """SMs a launch of ``B`` lanes under ``plan`` fills in its first wave
+    when the card holds ``held`` of its clusters at once, its CTAs packed
+    ``plan.ctas_per_sm`` to an SM."""
+    ctas = min(B, held) * plan.cluster
+    return min(sm_count, -(-ctas // plan.ctas_per_sm))
+
+
+def rank_plans(plans, B: int, held, sm_count: int):
+    """``plans`` best first: the fewest waves of resident clusters
+    (``held(plan)`` of them at once), then the most SMs, then the listed
+    order; plans the card cannot hold (``held <= 0``) are left out."""
+    keyed = []
+    for i, plan in enumerate(plans):
+        h = held(plan)
+        if h > 0:
+            keyed.append(((-(-B // h), -plan_sms(plan, B, h, sm_count), i),
+                          plan))
+    return [plan for _, plan in sorted(keyed)]
+
+
+def estimated_held(plan: StreamingPlan, sm_count: int = SM_COUNT) -> int:
+    """Clusters of ``plan`` the card holds at once, estimated without it: a
+    cluster lies within one GPC, which loses about one cluster across the
+    card (an H100 SXM holds 15 clusters of 8 CTAs at one CTA an SM, not
+    16).  The wrappers ask the built kernel instead."""
+    return max(1, sm_count * plan.ctas_per_sm // plan.cluster - 1)
+
+
+def in_reach(m: int, n: int, devex: bool = False,
+             smem_limit: int = SMEM_LIMIT) -> bool:
+    """The line up to which kernel 1's streaming branch is offered: that of
+    the one-block-per-lane branch it replaced, whose vectors (7m + 4n
+    floats, 5n with the devex weights) had to fit one block, m ~ 3850 at
+    n = 2m.  The streaming branch's own vectors are smaller; raising the
+    line takes a card test of its own."""
+    return 4 * (7 * m + (5 if devex else 4) * n) + _STATIC_BYTES <= smem_limit
+
+
+def large_vector_bytes(m: int, n: int, cluster: int,
+                       devex: bool = False) -> int:
+    """Dynamic shared memory of one CTA's vectors on kernel 1's streaming
+    branch: d, u and c_B whole; its partials over ``max(m, n)`` and twice
+    over n (the dual or devex row and split pricing's products); five
+    slices of m (y, the entering column, the factor's column at the leaving
+    row, bfs, the basis) and four of n (c, pen, r, the dual row), five with
+    the devex weights; slices of whole bands of ``ceil(size / 8)``."""
+    ml, nl = band_slice_len(m, cluster), band_slice_len(n, cluster)
+    return 4 * _round4(3 * m + max(m, n) + 2 * n + 5 * ml
+                       + (5 if devex else 4) * nl)
+
+
+def large_plan(cluster: int, ctas_per_sm: int, m: int, n: int,
+               aligned: bool = True, devex: bool = False,
+               smem_limit: int = SMEM_LIMIT) -> Optional[StreamingPlan]:
+    """Kernel 1's streaming branch at ``cluster`` CTAs a lane sized for
+    ``ctas_per_sm`` CTAs an SM, or None."""
+    return streaming_plan(cluster, ctas_per_sm,
+                          large_vector_bytes(m, n, cluster, devex), m,
+                          aligned, smem_limit)
+
+
+def large_scalar_plan(cluster: int, m: int, n: int, devex: bool = False,
+                      smem_limit: int = SMEM_LIMIT
+                      ) -> Optional[StreamingPlan]:
+    """The scalar-load branch at a built cluster size, sized for as many
+    CTAs an SM as the build allows and its vectors leave room for; None for
+    a size the branch is not built at or vectors that do not fit."""
+    if cluster not in LARGE_SCALAR_CLUSTERS:
+        return None
+    for ctas in range(LARGE_CTAS, 0, -1):
+        plan = large_plan(cluster, ctas, m, n, False, devex, smem_limit)
+        if plan is not None:
+            return plan
+    return None
+
+
+def _large_candidates(m: int, n: int, devex: bool,
+                      smem_limit: int) -> List[StreamingPlan]:
+    """The bulk-copy layouts that fit on an aligned shape; the scalar
+    branch on another shape, or where no ring fits beside the vectors."""
+    plans = []
+    if slices_aligned(m, n):
+        plans = [large_plan(cl, ctas, m, n, True, devex, smem_limit)
+                 for cl, ctas in LARGE_LAYOUTS]
+        plans = [p for p in plans if p is not None]
+    if not plans:
+        plans = [large_scalar_plan(cl, m, n, devex, smem_limit)
+                 for cl in LARGE_SCALAR_CLUSTERS]
+        plans = [p for p in plans if p is not None]
+    return plans
 
 
 def resident(m: int, n: int, smem_limit: int = SMEM_LIMIT,
@@ -153,52 +343,83 @@ def resident_plans(B: int, m: int, n: int, cbytes, sm_count: int,
     return [SegmentPlan(cl, cbytes(m, n, cl)) for cl in order]
 
 
-def plans_for(B: int, m: int, n: int, cbytes, bbytes: int, sm_count: int,
-              smem_limit: int, what: str) -> List[SegmentPlan]:
-    """The candidates of a whole-segment kernel whose CTA takes
-    ``cbytes(m, n, cluster)`` bytes on the cluster-resident branch and
-    ``bbytes`` on the block-per-lane branch (see :func:`segment_plans`)."""
-    if B < 1 or m < 1 or n < 1:
-        raise ValueError(f"{what}: plans need B, m, n >= 1, got {(B, m, n)}")
-    if resident(m, n, smem_limit, cbytes):
-        return resident_plans(B, m, n, cbytes, sm_count, smem_limit)
-    if bbytes + _STATIC_BYTES <= smem_limit:
-        return [SegmentPlan(0, bbytes)]
-    raise ValueError(
-        f"{what}: a lane of m={m}, n={n} needs {bbytes + _STATIC_BYTES} bytes "
-        f"of shared memory per block on the block-per-lane branch (and "
-        f"{cbytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES} per CTA of a "
-        f"{CLUSTERS[-1]}-CTA cluster), past the {smem_limit} a block of the "
-        "card may hold"
-    )
-
-
 def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
-                  smem_limit: int = SMEM_LIMIT,
-                  devex: bool = False) -> List[SegmentPlan]:
+                  smem_limit: int = SMEM_LIMIT, devex: bool = False) -> list:
     """Candidate launch plans for ``B`` lanes of (m, n), best first.
 
     The branch follows from (m, n) alone (:func:`resident`).  On the
     cluster-resident branch the candidates are the built cluster sizes whose
-    CTA holds its share of the lane: first the largest that keeps the batch
-    within the card's SMs (``B * cluster <= sm_count``), else the smallest
-    that fits, then the others from the smallest up.  The wrapper takes the
-    first that runs the batch in the fewest waves of resident clusters, as
-    the occupancy query of the built kernel counts them.  Past the largest
-    cluster the one plan is the block-per-lane branch.  Raises
-    ``ValueError`` for a lane that fits neither.
+    CTA holds its share of the lane (:class:`SegmentPlan`): first the largest
+    that keeps the batch within the card's SMs (``B * cluster <=
+    sm_count``), else the smallest that fits, then the others from the
+    smallest up; the wrapper takes the first that runs the batch in the
+    fewest waves of resident clusters, as the occupancy query of the built
+    kernel counts them.  Past the largest cluster, up to :func:`in_reach`,
+    the streaming branch's (:class:`StreamingPlan`): on an aligned shape
+    the layouts of ``LARGE_LAYOUTS`` that fit, else the scalar branch at 4
+    and 8 CTAs a lane; the same set at every batch size, ordered by the
+    fewest waves, then the most SMs (:func:`estimated_held`,
+    :func:`plan_sms`), then that listing.  The wrapper takes the first that
+    the built kernel's occupancy query grants, and not the query's own
+    count of waves: the card holds 30 clusters of 8 CTAs two to an SM
+    where the estimate says 32, yet 32 lanes run faster on them (a tail of
+    2 lanes) than on the 64 SMs of one wave of 2 CTAs a lane (PERF.md,
+    section 6).  ``devex`` moves the reach
+    line and the streaming plans' bytes (the weights' slice).  Raises
+    ``ValueError`` for a lane that fits neither branch.
     """
-    return plans_for(B, m, n, cluster_bytes, block_bytes(m, n, devex),
-                     sm_count, smem_limit, "solve_segment")
+    if B < 1 or m < 1 or n < 1:
+        raise ValueError("solve_segment: plans need B, m, n >= 1, got "
+                         f"{(B, m, n)}")
+    if resident(m, n, smem_limit):
+        return resident_plans(B, m, n, cluster_bytes, sm_count, smem_limit)
+    plans = (_large_candidates(m, n, devex, smem_limit)
+             if in_reach(m, n, devex, smem_limit) else [])
+    if not plans:
+        line = 4 * (7 * m + (5 if devex else 4) * n) + _STATIC_BYTES
+        raise ValueError(
+            f"solve_segment: a lane of m={m}, n={n} is past the streaming "
+            f"branch's line of {line} bytes of shared memory (the vectors of "
+            f"the block per lane it replaced) and needs "
+            f"{cluster_bytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES} per CTA of "
+            f"a {CLUSTERS[-1]}-CTA cluster, past the {smem_limit} a block of "
+            "the card may hold"
+        )
+    return rank_plans(plans, B, lambda p: estimated_held(p, sm_count),
+                      sm_count)
+
+
+def built_stream_plans(B: int, m: int, n: int,
+                       devex: bool = False) -> List[StreamingPlan]:
+    """Every built layout of the streaming branch at (m, n): the candidates
+    of :func:`segment_plans`, then on an aligned shape the scalar-load
+    branch at each built cluster size (the card tests hold them against
+    each other; ``tools/time_segment_plans.py`` times them)."""
+    plans = list(segment_plans(B, m, n, devex=devex))
+    if not all(isinstance(p, StreamingPlan) for p in plans):
+        raise ValueError(f"solve_segment: (m, n) = ({m}, {n}) takes the "
+                         "cluster-resident branch")
+    scalar = [large_scalar_plan(cl, m, n, devex)
+              for cl in LARGE_SCALAR_CLUSTERS]
+    return plans + [p for p in scalar if p is not None and p not in plans]
+
+
+def clusters_held(plan) -> int:
+    """Clusters of ``plan`` the current device holds at once, as the built
+    kernel's occupancy query counts them (< 0: a negated CUDA error)."""
+    lib = _build.library()
+    if isinstance(plan, StreamingPlan):
+        return lib.lp_solve_segment_large_max_clusters(
+            plan.cluster, int(plan.aligned), plan.smem_bytes)
+    return lib.lp_solve_segment_cluster_max_clusters(plan.cluster,
+                                                     plan.smem_bytes)
 
 
 def pick_plan(plans: List[SegmentPlan], B: int, query, device_index: int,
               what: str) -> SegmentPlan:
-    """The candidate that runs ``B`` lanes in the fewest waves of resident
-    clusters on the device (ties: the earlier candidate); ``query(cluster,
-    smem_bytes)`` is the built kernel's occupancy query."""
-    if plans[0].cluster == 0:
-        return plans[0]
+    """The cluster-resident candidate that runs ``B`` lanes in the fewest
+    waves of resident clusters on the device (ties: the earlier candidate);
+    ``query(cluster, smem_bytes)`` is the built kernel's occupancy query."""
     best, best_waves, seen = None, None, []
     for plan in plans:
         with torch.cuda.device(device_index):  # the query asks this device
@@ -218,12 +439,35 @@ def pick_plan(plans: List[SegmentPlan], B: int, query, device_index: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_plan(B: int, m: int, n: int, devex: bool,
-                 device_index: int) -> SegmentPlan:
+def _choose_plan(B: int, m: int, n: int, devex: bool, device_index: int,
+                 pointers_aligned: bool):
+    """On the cluster-resident branch the candidate that runs the batch in
+    the fewest waves of resident clusters on this device (ties: the earlier
+    candidate); on the streaming branch the first candidate the device
+    grants.  Unaligned pointers take each streaming candidate's scalar
+    branch."""
     props = torch.cuda.get_device_properties(device_index)
     plans = segment_plans(B, m, n, props.multi_processor_count, devex=devex)
-    query = _build.library().lp_solve_segment_cluster_max_clusters
-    return pick_plan(plans, B, query, device_index, "solve_segment")
+    if not isinstance(plans[0], StreamingPlan):
+        query = _build.library().lp_solve_segment_cluster_max_clusters
+        return pick_plan(plans, B, query, device_index, "solve_segment")
+    if not pointers_aligned:
+        plans = [p if not p.aligned else large_scalar_plan(p.cluster, m, n,
+                                                           devex)
+                 for p in plans]
+        plans = list(dict.fromkeys(p for p in plans if p is not None))
+    seen = []
+    for plan in plans:
+        with torch.cuda.device(device_index):  # the query asks this device
+            held = clusters_held(plan)
+        if held > 0:
+            return plan
+        seen.append((plan, held))
+    raise RuntimeError(
+        "solve_segment: the device holds no cluster of any planned streaming "
+        f"layout for m={m}, n={n}: (plan, resident or negated CUDA error) = "
+        f"{seen}"
+    )
 
 
 def pack_min_keys(vals, mask, idx, bits: int, negate: bool):
@@ -660,21 +904,24 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     index = A.device.index
     if index is None:
         index = torch.cuda.current_device()
-    plan = _choose_plan(B, m, n, pricing == 2, index)
+    pointers_aligned = (A.data_ptr() % 16 == 0
+                        and state.invBT.data_ptr() % 16 == 0)
+    plan = _choose_plan(B, m, n, pricing == 2, index, pointers_aligned)
     return launch_with_plan(plan, A, c, apen, maxiters, state, **kw)
 
 
-def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
+def launch_with_plan(plan, A, c, apen, maxiters: int,
                      state: SegmentState, *, seg_len: int, pricing: int,
                      opt_tol: float, pivot_tol: float, dual: bool = False,
                      feas_tol: float = 1e-6, stall_limit: int = 0,
                      packed: bool = False, split: bool = False,
                      ablate: int = 0) -> SegmentState:
-    """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`;
-    the card tests hold every cluster size against the others).  CUDA
-    tensors only; the C entry point refuses a plan that does not fit the
-    shape."""
+    """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`,
+    or a variation of one: the card tests hold cluster sizes and load
+    branches against each other).  CUDA tensors only; the C entry point
+    refuses a plan that does not fit the shape."""
     global launches, launches_dual, launches_split, last_plan
+    global launches_streaming, launches_streaming_dual
     check_segment_args(A, c, apen, state)
     if A.device.type != "cuda":
         raise ValueError("launch_with_plan needs CUDA tensors")
@@ -694,9 +941,13 @@ def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
         int(bool(dual)), int(pricing), int(bool(packed)), int(stall_limit),
         int(bool(split)), int(ablate),
     )
+    streaming = isinstance(plan, StreamingPlan)
     with torch.cuda.device(A.device):
-        if plan.cluster == 0:
-            code = lib.lp_solve_segment(*args, stream)
+        if streaming:
+            code = lib.lp_solve_segment_large(
+                *args, plan.cluster, int(plan.aligned), plan.stages,
+                plan.stage_floats, plan.warp_stages, plan.chunk_floats,
+                plan.smem_bytes, stream)
         else:
             aligned = (m % 4 == 0 and n % 4 == 0
                        and A.data_ptr() % 16 == 0
@@ -707,6 +958,8 @@ def launch_with_plan(plan: SegmentPlan, A, c, apen, maxiters: int,
     launches += 1
     launches_dual += int(bool(dual))
     launches_split += int(bool(split))
+    launches_streaming += int(streaming)
+    launches_streaming_dual += int(streaming and bool(dual))
     if ablate:
         launches_ablate[ablate] += 1
     last_plan = plan

@@ -63,7 +63,13 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from . import _build
-from .solve_kernel import SegmentState, check_segment_args, solve_segment_plain
+from .solve_kernel import (
+    SegmentState,
+    check_segment_args,
+    ring_layout,
+    slices_aligned,
+    solve_segment_plain,
+)
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
 launches_dual = 0  # those of them in dual mode
@@ -73,14 +79,9 @@ last_plan = None  # the StreamPlan of the last launch
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
 _STATIC_BYTES = 2048  # the kernel's static shared memory and a block's reserve
-_WARPS = 8  # warps of a block (csrc/common.cuh: kThreads / 32)
 _BANDS = 8  # row bands of a lane (csrc/solve_segment_stream.cu: kBands)
 _CLUSTERS = (8, 2)  # cluster sizes the bulk-copy branch is built for
 _SCALAR_CLUSTERS = (8,)  # cluster sizes the scalar branch is built for
-# (stages of a warp's ring, floats per stage), largest ring first
-_RINGS = ((4, 1024), (4, 768), (2, 1024), (2, 768), (2, 512), (2, 256))
-_BLOCK_STAGES = 4  # stages of the same memory seen as the block's ring
-
 
 class StreamPlan(NamedTuple):
     """How one launch of the streaming kernel is laid out."""
@@ -109,13 +110,6 @@ def _vector_bytes(m: int, n: int, cluster: int, dual: bool) -> int:
     return 4 * (-(-floats // 4) * 4)
 
 
-def slices_aligned(m: int, n: int) -> bool:
-    """Every row of A and of ``B^-T`` starts on a multiple of 4 floats and
-    is a multiple of 4 floats long, so each row segment a block streams (a
-    slice is whole rows) can be a 16-byte-aligned bulk copy."""
-    return m % 4 == 0 and n % 4 == 0
-
-
 def scalar_plan(cluster: int, m: int, n: int, dual: bool = False,
                 smem_limit: int = SMEM_LIMIT) -> Optional[StreamPlan]:
     """The scalar-load branch at ``cluster`` blocks a lane (no ring), or
@@ -126,24 +120,6 @@ def scalar_plan(cluster: int, m: int, n: int, dual: bool = False,
     if vec + _STATIC_BYTES > smem_limit:
         return None
     return StreamPlan(cluster, False, 0, 0, 0, 0, vec)
-
-
-def ring_layout(m: int, vec_bytes: int, budget: int):
-    """The largest ring of ``_RINGS`` that fits ``budget`` bytes of dynamic
-    shared memory beside ``vec_bytes`` of vectors, as ``(stages,
-    stage_floats, warp_stages, chunk_floats, smem_bytes)``, or None.  The
-    warps' view: ``warp_stages`` chunks of a row of ``B^-T`` a warp; the
-    block's view of the same memory: four stages, each as many row segments
-    of a sweep as fit (a stage costs the same to turn over whatever its
-    size, so few large ones)."""
-    for warp_stages, chunk in _RINGS:
-        chunk = min(chunk, m)
-        ring = _WARPS * warp_stages * chunk
-        smem = vec_bytes + 4 * ring
-        if smem <= budget:
-            stage = ring // _BLOCK_STAGES // 4 * 4
-            return _BLOCK_STAGES, stage, warp_stages, chunk, smem
-    return None
 
 
 def _plan_for(cluster: int, m: int, n: int, dual: bool,

@@ -399,16 +399,17 @@ def test_exact_large_m_route_on_card_matches_cpu(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("kernel,m,n", [("stream", 2000, 1355),
-                                        ("segment", 1024, 256),
+                                        ("segment", 520, 2451),
                                         ("segment-cluster", 16, 910)],
                          ids=["stream", "segment", "segment-cluster"])
 def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
     """Shapes whose dynamic shared memory is exactly 48 KB (the stream
     kernel on its scalar branch, which has no ring, at a ragged (2000,
-    3355); the segment kernel's block-per-lane branch at (1024, 1280), past
-    the largest cluster, with its vectors alone; its cluster-resident branch
-    at (16, 926) at 2 CTAs a lane): with the static shared memory on top
-    they need the opt-in limit, which the wrappers set at every launch."""
+    3355); the segment kernel's streaming branch at a ragged (520, 2971),
+    past the largest cluster, on its scalar branch at 8 CTAs a lane with
+    its vectors alone; its cluster-resident branch at (16, 926) at 2 CTAs a
+    lane): with the static shared memory on top they need the opt-in
+    limit, which the wrappers set at every launch."""
     A, c, apen, h, state0 = _slack_instance(2, m, n, seed=1, dual=False,
                                             dev=cuda, degenerate=False)
     kw = dict(seg_len=2, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
@@ -418,9 +419,12 @@ def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
         assert not stream_kernel.last_plan.aligned
         assert stream_kernel.last_plan.smem_bytes == 48 * 1024
     elif kernel == "segment":
-        assert (7 * m + 4 * (n + m)) * 4 == 48 * 1024
+        plan = solve_kernel.large_scalar_plan(8, m, n + m)
+        floats = (3 * m + 3 * (n + m) + 5 * -(-m // 8)
+                  + 4 * -(-(n + m) // 8))
+        assert plan.smem_bytes == 48 * 1024 == 4 * (-(-floats // 4) * 4)
         k, p = _both(A, c, apen, state0, **kw)
-        assert solve_kernel.last_plan.cluster == 0
+        assert solve_kernel.last_plan == plan
     else:
         plan = solve_kernel.SegmentPlan(2, solve_kernel.cluster_bytes(
             m, n + m, 2))
@@ -547,8 +551,9 @@ def test_segment_kernel_same_answer_for_every_plan(cuda, dual, pricing, m, n):
 
 @pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
 def test_segment_kernel_block_branch_past_the_largest_cluster(cuda, dual):
-    """m = 1024, n = 2048 does not fit a 16-CTA cluster: the block-per-lane
-    branch runs it, 16 pivots in lockstep with the plain version."""
+    """m = 1024, n = 2048 does not fit a 16-CTA cluster: the streaming
+    branch runs it (the name dates from the block per lane it replaced),
+    16 pivots in lockstep with the plain version."""
     m, n = 1024, 1024
     assert not solve_kernel.resident(m, n + m)
     A, c, apen, h, state0 = _slack_instance(4, m, n, seed=9, dual=dual,
@@ -556,9 +561,118 @@ def test_segment_kernel_block_branch_past_the_largest_cluster(cuda, dual):
     k, p = _both(A, c, apen, state0, seg_len=16, pricing=1, opt_tol=1e-6,
                  pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
                  packed=True)
-    assert solve_kernel.last_plan.cluster == 0
+    assert isinstance(solve_kernel.last_plan, solve_kernel.StreamingPlan)
+    assert solve_kernel.last_plan in solve_kernel.segment_plans(4, m, n + m)
     _assert_lockstep(A, h, k, p)
     assert bool((k.iters == 16).all())
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_stream_one_iteration_from_the_slack_start(cuda, dual):
+    """[8, 1024, 2048] from the slack start on the streaming branch: zero
+    duals and an identity factor, so every sum has one nonzero term, and one
+    iteration equals the plain version's bit for bit on every lane."""
+    m = 1024
+    A, c, apen, h, state0 = _device_slack_instance(8, m, m, 41 + dual, dual,
+                                                   cuda)
+    k, p = _both(A, c, apen, state0, seg_len=1, pricing=1, opt_tol=1e-6,
+                 pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
+                 packed=True)
+    assert isinstance(solve_kernel.last_plan, solve_kernel.StreamingPlan)
+    for name, a, q in zip(k._fields, k, p):
+        torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+    assert bool((k.iters == 1).all()) and bool((k.basis != state0.basis).any())
+
+
+@pytest.mark.parametrize("m", [1024, 1023], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("pricing", [1, 2], ids=["dantzig", "devex"])
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_stream_same_bits_under_every_plan_and_branch(cuda, dual,
+                                                              pricing, m):
+    """Past the cluster line, 16 pivots from a state 8 pivots into the solve
+    (a dense factor: the sums reorder) give the same state bit for bit
+    under every built layout of the streaming branch: 2, 4 and 8 CTAs a
+    lane, a ring that fills the SM or half of it, and on the aligned shape
+    the scalar-load branch too (fixed row bands, one tree, the same order
+    on both load branches); devex's weights included."""
+    B = 4
+    A, c, apen, h, slack = _device_slack_instance(B, m, m, m + dual, dual,
+                                                  cuda)
+    kw = dict(pricing=pricing, opt_tol=1e-6, pivot_tol=1e-7, dual=dual,
+              feas_tol=1e-6, stall_limit=24, packed=True)
+    state0 = _segment_mid_solve(A, c, apen, slack, 8, **kw)
+    plans = solve_kernel.built_stream_plans(B, m, 2 * m, devex=pricing == 2)
+    assert len(plans) >= 2 and any(not pl.aligned for pl in plans)
+    if m % 4 == 0:
+        assert {(pl.cluster, pl.ctas_per_sm) for pl in plans if pl.aligned} \
+            == set(solve_kernel.LARGE_LAYOUTS)
+    results = []
+    for pl in plans:
+        assert solve_kernel.clusters_held(pl) > 0, pl
+        s = SegmentState(*(t.clone() for t in state0))
+        solve_kernel.launch_with_plan(pl, A, c, apen, 1 << 20, s, seg_len=16,
+                                      **kw)
+        torch.cuda.synchronize()
+        results.append((pl, s))
+    first = results[0][1]
+    assert bool((first.iters == 24).any())
+    for pl, s in results[1:]:
+        for name, a, q in zip(s._fields, s, first):
+            torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} under {pl}")
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_segment_stream_devex_lockstep_with_plain(cuda, dual):
+    """Devex on the streaming branch at [8, 1024, 2048]: 16 pivots in
+    lockstep with the plain version (basis, status, iterations, penalties
+    and c_B equal on all but 2 lanes, as the mid-solve tests allow for near
+    ties that the sums' order decides), and the weights within 1e-3
+    relative on the lanes in lockstep, the bound of chip_smoke.py's 16-pivot
+    devex check on the cluster-resident branch (a weight grows as 1 / d_l^2,
+    so the sums' order moves it by twice d_l's relative error: 1.4e-4 in
+    dual mode on the H100; the pivot row of the primal mode rides the next
+    pricing pass, the launch's last one takes a pass of its own)."""
+    B, m = 8, 1024
+    A, c, apen, h, state0 = _device_slack_instance(B, m, m, 51 + dual, dual,
+                                                   cuda)
+    k, p = _both(A, c, apen, state0, seg_len=16, pricing=2, opt_tol=1e-6,
+                 pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
+                 packed=True)
+    assert isinstance(solve_kernel.last_plan, solve_kernel.StreamingPlan)
+    same = torch.ones(B, dtype=torch.bool, device=cuda)
+    for name in ("basis", "status", "iters", "pen", "cB"):
+        a, q = getattr(k, name), getattr(p, name)
+        same &= (a == q).reshape(B, -1).all(dim=1)
+    assert int((~same).sum()) <= 2
+    assert bool((k.iters == 16).any())
+    assert bool((p.gamma[same] != 1.0).any())
+    rel = ((k.gamma[same] - p.gamma[same]).abs()
+           / p.gamma[same].abs().clamp_min(1.0)).max().item()
+    assert rel <= 1e-3
+
+
+def test_segment_stream_exact_path_matches_cpu(cuda):
+    """solve_batch_exact at B = 4, m = n = 768, past the cluster line, on
+    the card (the crossover on the streaming branch) against the CPU run
+    (the plain version) of the same instances: the same statuses, costs
+    within 1e-5 relative."""
+    import linprog_tpu_torch as lt
+
+    B, m = 4, 768
+    assert not solve_kernel.resident(m, 2 * m)
+    c, G, h = (torch.tensor(a) for a in random_inequality_lps(B, m, m,
+                                                               seed=13))
+    res_cpu, _ = lt.solve_batch_exact(c, G, h)
+    before = solve_kernel.launches_streaming
+    res, info = lt.solve_batch_exact(c.to(cuda), G.to(cuda), h.to(cuda))
+    assert solve_kernel.launches_streaming > before
+    np.testing.assert_array_equal(res.status.cpu().numpy(),
+                                  res_cpu.status.numpy())
+    rel = ((res.cost.cpu() - res_cpu.cost).abs()
+           / res_cpu.cost.abs().clamp_min(1.0)).max().item()
+    assert rel <= 1e-5
 
 
 def test_segment_kernel_refuses_a_plan_that_does_not_fit(cuda):
@@ -1754,9 +1868,10 @@ def test_pdhg_graphed_chunks_match_eager(cuda, monkeypatch):
 @pytest.mark.parametrize("pricing", [0, 1], ids=["bland", "dantzig"])
 def test_segment_kernel_split_pricing_matches_plain(cuda, pricing, m, n):
     """Split-bf16 pricing, 16 pivots with stall escalation at 2, on the
-    cluster branch (m = 32, 128) and the block-per-lane branch (m = 1100):
-    the plain version's basis, status, iterations, c_B and penalties, and
-    factors as accurate; the split path really ran (its own count)."""
+    cluster branch (m = 32, 128) and the streaming branch (m = 1100, the id
+    from the block per lane it replaced): the plain version's basis,
+    status, iterations, c_B and penalties, and factors as accurate; the
+    split path really ran (its own count)."""
     B = 8 if m > 512 else 64
     A, c, apen, h, state0 = _slack_instance(B, m, n, seed=pricing + 30,
                                             dual=False, dev=cuda,
@@ -1766,7 +1881,8 @@ def test_segment_kernel_split_pricing_matches_plain(cuda, pricing, m, n):
                  opt_tol=1e-6, pivot_tol=1e-7, feas_tol=1e-6, stall_limit=2,
                  packed=True, split=True)
     assert solve_kernel.launches_split == before + 1
-    assert (solve_kernel.last_plan.cluster == 0) == (m > 512)
+    assert isinstance(solve_kernel.last_plan,
+                      solve_kernel.StreamingPlan) == (m > 512)
     _assert_lockstep(A, h, k, p)
     assert bool((k.iters > 0).all())
 
@@ -1795,15 +1911,19 @@ def test_segment_kernel_split_same_answer_for_every_plan(cuda):
 @pytest.mark.parametrize("m,n", [(128, 256), (1100, 1100)],
                          ids=["cluster", "block"])
 def test_segment_kernel_ablation_modes_match_plain(cuda, m, n, ablate):
-    """Each ablation mode, 4 iterations on both branches: the plain
-    version's basis, status, iterations and penalties (what a mode drops is
-    dropped in both); ablate = 0 gives the bits of a call without it."""
+    """Each ablation mode, 4 iterations on both branches (m = 1100: the
+    streaming branch, the id from the block per lane it replaced): the
+    plain version's basis, status, iterations and penalties (what a mode
+    drops is dropped in both); ablate = 0 gives the bits of a call without
+    it."""
     B = 8
     A, c, apen, h, state0 = _slack_instance(B, m, n, seed=33, dual=False,
                                             dev=cuda, degenerate=False)
     kw = dict(seg_len=4, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
               stall_limit=2, packed=True)
     k, p = _both(A, c, apen, state0, ablate=ablate, **kw)
+    assert isinstance(solve_kernel.last_plan,
+                      solve_kernel.StreamingPlan) == (m > 512)
     for name in ("basis", "status", "iters", "pen"):
         torch.testing.assert_close(getattr(k, name), getattr(p, name),
                                    rtol=0, atol=0)

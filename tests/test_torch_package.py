@@ -5,6 +5,7 @@ refuse what their kernels do not take."""
 import ast
 import dataclasses
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,8 +148,9 @@ def test_config_from_reference_carries_every_field(which):
 
 
 def test_package_exports_and_kernel_sources():
-    """The public surface, and one CUDA source with a C entry point for
-    each of the six kernels."""
+    """The public surface, and a CUDA source with a C entry point for each
+    of the six kernels (two for kernel 1: its cluster-resident and its
+    streaming branch)."""
     for name in ("solve_batch_exact", "solve_batch_two_phase",
                  "solve_batch_bounded", "certify_vertex_batch",
                  "ipm_solve_batch_canonical", "SolverConfig", "tuned_config",
@@ -157,7 +159,8 @@ def test_package_exports_and_kernel_sources():
         assert name in linprog_tpu_torch.__all__
         assert callable(getattr(linprog_tpu_torch, name))
     entry_points = {
-        "solve_segment.cu": "lp_solve_segment",
+        "solve_segment.cu": "lp_solve_segment_cluster",
+        "solve_segment_large.cu": "lp_solve_segment_large",
         "panel_cholinv.cu": "lp_panel_cholinv",
         "solve_segment_stream.cu": "lp_solve_segment_stream",
         "solve_bounded_segment.cu": "lp_solve_bounded_stream",
@@ -168,7 +171,10 @@ def test_package_exports_and_kernel_sources():
     for source, entry in entry_points.items():
         text = (PKG / "csrc" / source).read_text()
         assert f'extern "C" int {entry}(' in text, source
-        assert "__global__" in text and "Replaces linprog_tpu/ops/" in text
+        # the kernel is in the source or in a header of its own it includes
+        own = "".join((PKG / "csrc" / h).read_text() for h in re.findall(
+            r'#include "(%s\.cuh)"' % source[:-3], text))
+        assert "__global__" in text + own and "Replaces linprog_tpu/ops/" in text
         assert f"lib.{entry}.argtypes" in build_src
     from linprog_tpu_torch.ops import (
         bounded_kernel,

@@ -88,21 +88,18 @@ def test_slices_are_whole_bands_at_every_cluster_size(size, cluster):
 def test_branch_depends_on_the_lane_shape_only(kernel, m, n):
     """Every batch size gives the same branch and the same set of cluster
     sizes at (m, n) (only their order follows the batch), so a lane's
-    result does not depend on its batch; past the largest cluster the one
-    plan of kernel 1 is the block-per-lane branch, and kernel 4's plans are
-    all of its streaming branch (which replaced its block per lane)."""
+    result does not depend on its batch; past the largest cluster the plans
+    of both kernels are all of their streaming branches (which replaced
+    their blocks per lane)."""
     mod = KERNELS[kernel]
     resident = sk.resident(m, n, cbytes=mod.cluster_bytes)
     sizes = None
     for B in BATCHES:
         plans = mod.segment_plans(B, m, n)
-        if kernel == "segment":
-            assert (plans[0].cluster > 0) == resident
-            if not resident:
-                assert plans == [sk.SegmentPlan(0, mod.block_bytes(m, n))]
-        else:
-            streaming = [isinstance(p, bk.BoundedStreamPlan) for p in plans]
-            assert all(streaming) if not resident else not any(streaming)
+        streaming = [isinstance(p, sk.StreamingPlan) for p in plans]
+        assert all(streaming) if not resident else not any(streaming)
+        if kernel == "segment" and not resident:
+            assert set(plans) == set(sk.segment_plans(1, m, n))
         got = sorted(p.cluster for p in plans)
         assert sizes is None or got == sizes
         sizes = got
@@ -230,11 +227,29 @@ def test_bounded_streaming_order_by_waves_then_sms():
 
 def test_devex_changes_only_the_block_branch():
     """The cluster-resident layout holds the devex weights in every mode;
-    the block-per-lane branch takes a fifth row of n floats for them."""
+    past it (where the block per lane took a fifth row of n floats for
+    them) devex moves the streaming branch's reach line, the old block
+    line with that fifth row, and its plans' vectors by a slice of n."""
     assert sk.segment_plans(64, 256, 512, devex=True) == \
         sk.segment_plans(64, 256, 512)
-    (blk,) = sk.segment_plans(8, 1024, 2048, devex=True)
-    assert blk.cluster == 0 and blk.smem_bytes == 4 * (7 * 1024 + 5 * 2048)
+    for B in (8, 32, 64):
+        dv = sk.segment_plans(B, 1024, 2048, devex=True)
+        plain = sk.segment_plans(B, 1024, 2048)
+        assert [(p.cluster, p.ctas_per_sm) for p in dv] == \
+            [(p.cluster, p.ctas_per_sm) for p in plain]
+        for p in dv:
+            vec = sk.large_vector_bytes(1024, 2048, p.cluster, devex=True)
+            assert vec == sk.large_vector_bytes(1024, 2048, p.cluster) \
+                + 4 * sk.band_slice_len(2048, p.cluster)
+            assert p.smem_bytes == vec + 4 * 8 * p.warp_stages * p.chunk_floats
+    # the line: 7m + 4n floats, 7m + 5n with devex
+    m = 3000
+    n = ((232448 - 1024) // 4 - 7 * m) // 4
+    assert sk.in_reach(m, n) and not sk.in_reach(m, n + 1)
+    assert not sk.in_reach(m, n, devex=True)
+    sk.segment_plans(8, m, n)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.segment_plans(8, m, n, devex=True)
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
@@ -250,9 +265,10 @@ def test_plans_raise_for_a_lane_that_fits_no_branch(kernel):
 
 def test_plans_follow_the_card():
     """A smaller shared-memory limit pushes a lane to larger clusters, or to
-    the block-per-lane branch; more SMs let a batch take larger clusters."""
+    the streaming branch; more SMs let a batch take larger clusters."""
     assert sk.segment_plans(1024, 256, 512, smem_limit=150 * 1024)[0].cluster == 8
-    assert sk.segment_plans(8, 512, 1024, smem_limit=150 * 1024)[0].cluster == 0
+    assert isinstance(sk.segment_plans(8, 512, 1024, smem_limit=150 * 1024)[0],
+                      sk.StreamingPlan)
     assert sk.segment_plans(64, 256, 512, sm_count=264)[0].cluster == 4
     assert sk.segment_plans(64, 128, 384, sm_count=264)[0].cluster == 4
 
@@ -295,3 +311,123 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_whatever_the_size(kernel):
                                 opt_tol=1e-6, pivot_tol=1e-7)
     assert out.status.tolist() == [1, 1]
     assert KERNELS[kernel].launches == before
+
+
+# kernel 1's streaming branch (past the largest cluster): shapes that took
+# the block-per-lane branch it replaced, aligned and not, the m = 1024
+# crossover's (1024, 2048) among them
+SEGMENT_STREAMED = [(528, 1056), (1023, 2046), (1024, 2048), (1100, 1100),
+                    (1180, 2360), (2000, 4000), (3000, 6000), (3400, 6800),
+                    (2048, 1024), (5000, 2000), (600, 9000), (8, 11000)]
+
+
+def _old_segment_line(m, n, devex=False):
+    # the block-per-lane branch's vectors: 7m + 4n floats (5n with devex)
+    return 4 * (7 * m + (5 if devex else 4) * n) + 1024 <= 232448
+
+
+@pytest.mark.parametrize("devex", [False, True], ids=["dantzig", "devex"])
+@pytest.mark.parametrize("ratio", [0.125, 0.5, 1, 2, 3, 8])
+def test_segment_reach_is_the_block_branch_line(ratio, devex):
+    """Kernel 1 takes a lane where it did before the streaming branch
+    replaced the block per lane: the cluster-resident branch, or the block
+    branch's line (m ~ 3850 at n = 2m, 7m + 4n floats, 5n with devex), up to
+    it and past it; where it does not, the plans raise naming shared
+    memory."""
+    for m in range(1, 9000, 17):
+        n = max(1, int(m * ratio))
+        want = sk.resident(m, n) or _old_segment_line(m, n, devex)
+        try:
+            plans = sk.segment_plans(16, m, n, devex=devex)
+        except ValueError as e:
+            assert not want, (m, n, str(e))
+            assert "shared memory" in str(e)
+        else:
+            assert want and plans, (m, n)
+
+
+def _large_bytes(m, n, cl, devex, plan):
+    # d, u, c_B whole, the partial over max(m, n) and two over n, five
+    # slices of m and four of n (five with devex), whole bands of an eighth
+    # of the lane; then the ring: the warps' view, which the block's view
+    # of four stages fits into
+    ml, nl = (8 // cl) * -(-m // 8), (8 // cl) * -(-n // 8)
+    vec = 4 * _r4(3 * m + max(m, n) + 2 * n + 5 * ml + (5 if devex else 4) * nl)
+    return vec + 4 * 8 * plan.warp_stages * plan.chunk_floats
+
+
+@pytest.mark.parametrize("devex", [False, True], ids=["dantzig", "devex"])
+@pytest.mark.parametrize("m,n", SEGMENT_STREAMED, ids=lambda v: str(v))
+def test_segment_streaming_plans_fit_and_take_whole_bands(m, n, devex):
+    """Every shape the block-per-lane branch took past the largest cluster
+    gets plans of kernel 1's streaming branch only: bulk-copy rings where
+    the rows are 16-byte aligned (2 CTAs a lane one to an SM, 4 two to an
+    SM or one, 8 two to an SM, where a ring fits), scalar loads at 4 and 8
+    otherwise; each CTA's bytes fit the 232,448 a block may use less its
+    static part (two CTAs an SM: half of the SM's 228 KB less the card's 1
+    KB a block); its slices are whole bands of an eighth of the lane, which
+    cover it."""
+    assert not sk.resident(m, n) and _old_segment_line(m, n, devex)
+    plans = sk.segment_plans(64, m, n, devex=devex)
+    assert all(isinstance(p, sk.StreamingPlan) for p in plans)
+    layouts = {(p.cluster, p.ctas_per_sm) for p in plans}
+    if plans[0].aligned:
+        assert m % 4 == 0 and n % 4 == 0
+        assert all(p.aligned for p in plans)
+        assert layouts <= set(sk.LARGE_LAYOUTS)
+    else:
+        assert not any(p.aligned for p in plans)
+        assert {p.cluster for p in plans} <= {4, 8}
+    for p in plans:
+        assert p.smem_bytes + 2048 <= 232448
+        assert p.ctas_per_sm * (p.smem_bytes + 2048 + 1024) <= 233472
+        assert p.smem_bytes == _large_bytes(m, n, p.cluster, devex, p)
+        if p.aligned:
+            assert p.stages * p.stage_floats <= (8 * p.warp_stages
+                                                 * p.chunk_floats)
+            assert p.chunk_floats % 32 == 0 or p.chunk_floats >= m
+        band = -(-m // 8)
+        assert sk.band_slice_len(m, p.cluster) == (8 // p.cluster) * band
+        assert p.cluster * sk.band_slice_len(m, p.cluster) >= m
+
+
+@pytest.mark.parametrize("devex", [False, True], ids=["dantzig", "devex"])
+@pytest.mark.parametrize("m,n", SEGMENT_STREAMED, ids=lambda v: str(v))
+def test_segment_streaming_set_does_not_depend_on_the_batch(m, n, devex):
+    """Kernel 1's streaming candidates at (m, n) are the same plans at
+    every batch size (only their order follows the batch), so a lane's
+    bits, which do not depend on the cluster size nor on the load branch,
+    do not depend on its batch."""
+    sets = {frozenset(sk.segment_plans(B, m, n, devex=devex))
+            for B in BATCHES}
+    assert len(sets) == 1
+
+
+@pytest.mark.parametrize("devex", [False, True], ids=["dantzig", "devex"])
+@pytest.mark.parametrize("B,layout", [(64, (2, 1)), (32, (8, 2)),
+                                      (8, (8, 2))])
+def test_segment_streaming_first_plan_is_the_measured_one(B, layout, devex):
+    """The first candidate at (1024, 2048), the m = 1024 crossover's lanes:
+    at B = 64 2 CTAs a lane one to an SM (one wave on 128 SMs; 0.519 ms an
+    iteration on an H100 against 0.612-0.848 for the other rings), at B = 32
+    8 two to an SM (128 SMs; 0.380 against 0.415 for 2 a lane on 64 SMs and
+    0.437 for 4 one to an SM, listed after it), and so at the fallback's
+    bucket of 8 lanes (64 SMs)."""
+    first = sk.segment_plans(B, 1024, 2048, devex=devex)[0]
+    assert (first.cluster, first.ctas_per_sm, first.aligned) == (*layout, True)
+    assert sk.plan_sms(first, B, sk.estimated_held(first)) == min(
+        128, B * first.cluster // first.ctas_per_sm)
+
+
+@pytest.mark.parametrize("m,n", SEGMENT_STREAMED, ids=lambda v: str(v))
+def test_segment_built_stream_plans_add_the_scalar_branch(m, n):
+    """The layouts the card tests hold against each other: the candidates,
+    then on an aligned shape the scalar-load branch at 4 and 8 CTAs a lane
+    (an unaligned shape's candidates are those already); a resident shape
+    has none."""
+    plans = sk.segment_plans(16, m, n)
+    built = sk.built_stream_plans(16, m, n)
+    assert built[:len(plans)] == plans and len(set(built)) == len(built)
+    assert sorted(p.cluster for p in built if not p.aligned) == [4, 8]
+    with pytest.raises(ValueError, match="cluster-resident"):
+        sk.built_stream_plans(16, 256, 512)

@@ -18,7 +18,8 @@ parallel on one rank and across two processes, tensor parallel), then
 checkpoints, observability, MPS I/O and the dry run, 21 the reference's last
 modes (split pricing and the ablation switch on kernel 1, sectional pricing
 on kernel 3, Newton-Schulz refactorization, the Gondzio and minv IPM, the
-slack basis guess, the cumsum sparse assembly).  Each phase prints
+slack basis guess, the cumsum sparse assembly), 22 the m = 1024 exact
+path on kernel 1's streaming branch.  Each phase prints
 its report and exits nonzero where chip_smoke.py would; the ``kernels``
 line and the last line of chip_smoke.py are not printed.
 """
@@ -40,7 +41,7 @@ PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
           "15": cs.phase_exact_m4096, "16": cs.phase_bounded_block,
           "17": cs.phase_pdhg_m256, "18": cs.phase_sparse_m2048,
           "19": cs.phase_general_form, "20": cs.phase_parallel,
-          "21": cs.phase_last_modes}
+          "21": cs.phase_last_modes, "22": cs.phase_exact_m1024}
 
 
 def main():

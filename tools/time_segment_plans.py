@@ -7,12 +7,13 @@ Run from the repository root on a machine with a CUDA device:
     python3 tools/time_segment_plans.py [--bounded] [B m n_g ...]
 
 For each ``B m n_g`` triple (default: the shapes the paths launch, and the
-same lanes one at a time and one wave at a time; with ``--bounded`` the
+same lanes one at a time and one wave at a time, then kernel 1's streaming
+branch at [64, 1024, 2048] and [32, 1024, 2048]; with ``--bounded`` the
 lanes of chip_smoke.py's phase 16, 16 and 4 of (1280, 2560)) it builds the
 crossover-shaped batch of chip_smoke.py ([G | I], so n = n_g + m; for
 kernel 4 ``device_bounded_lps`` from its all-slack start), lists every
 candidate of ``segment_plans`` with the clusters the device holds at once
-(for kernel 4's streaming branch also its scalar-load plans), and times a
+(on a streaming branch also its scalar-load plans), and times a
 1-pivot and a 65-pivot primal segment under each (the best of 3 launches;
 CUDA events).  It prints milliseconds per batch-iteration inside
 the segment, (t65 - t1) / 64, which leaves out the loading of the lanes, and
@@ -30,7 +31,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 from linprog_tpu_torch.config import tuned_config  # noqa: E402
-from linprog_tpu_torch.ops import _build  # noqa: E402
 from linprog_tpu_torch.ops import bounded_kernel as bk  # noqa: E402
 from linprog_tpu_torch.ops import solve_kernel as sk  # noqa: E402
 
@@ -38,7 +38,7 @@ ITERS = 65
 DEFAULT = [(1024, 256, 256), (30, 256, 256), (1, 256, 256),
            (64, 512, 512), (7, 512, 512), (1, 512, 512),
            (256, 256, 256), (1024, 128, 256), (66, 128, 256),
-           (1, 128, 256)]
+           (1, 128, 256), (64, 1024, 1024), (32, 1024, 1024)]
 BOUNDED_DEFAULT = [(16, 1280, 1280), (4, 1280, 1280)]
 
 
@@ -94,25 +94,15 @@ def time_plan(launch, kind, state0, plan, seg_len):
     return min(times)
 
 
-def _held(bounded, plan):
-    """Clusters of ``plan`` the device holds at once (None: one block a
-    lane)."""
-    if bounded:
-        return bk.clusters_held(plan)
-    if not plan.cluster:
-        return None
-    return _build.library().lp_solve_segment_cluster_max_clusters(
-        plan.cluster, plan.smem_bytes)
-
-
 def _candidates(bounded, B, m, n):
-    if bounded and not bk.resident(m, n, cbytes=bk.cluster_bytes):
-        return bk.built_stream_plans(B, m, n)
-    return (bk if bounded else sk).segment_plans(B, m, n)
+    mod = bk if bounded else sk
+    if not sk.resident(m, n, cbytes=mod.cluster_bytes):
+        return mod.built_stream_plans(B, m, n)
+    return mod.segment_plans(B, m, n)
 
 
 def _label(plan):
-    if isinstance(plan, bk.BoundedStreamPlan):
+    if isinstance(plan, sk.StreamingPlan):
         return (f"cluster {plan.cluster} ({plan.ctas_per_sm} an SM, "
                 + (f"ring {plan.warp_stages} x {plan.chunk_floats}"
                    if plan.aligned else "scalar loads") + ")")
@@ -125,21 +115,20 @@ def run(bounded, B, m, n_g):
     print(f"{'bounded' if bounded else 'segment'} B={B} (m, n)=({m}, {n})",
           flush=True)
     for plan in _candidates(bounded, B, m, n):
-        held = _held(bounded, plan)
-        if held is not None and held <= 0:
+        held = (bk if bounded else sk).clusters_held(plan)
+        if held <= 0:
             print(f"  {_label(plan)}: not granted ({held})")
             continue
         one = time_plan(launch, kind, state0, plan, 1)
         seg = time_plan(launch, kind, state0, plan, ITERS)
         per = (seg - one) / (ITERS - 1)
-        waves = -(-B // held) if held else None
-        wave_us = 1e3 * per / waves if waves else None
+        waves = -(-B // held)
         print(f"  {_label(plan)}: {plan.smem_bytes} B shared, "
               f"{held} resident clusters ({waves} waves): one pivot "
               f"{one:.4f} ms, {ITERS} pivots {seg:.3f} ms, "
-              f"{per:.4f} ms/iteration in the segment"
-              + (f", {wave_us:.2f} us an iteration of one wave"
-                 if wave_us else ""), flush=True)
+              f"{per:.4f} ms/iteration in the segment, "
+              f"{1e3 * per / waves:.2f} us an iteration of one wave",
+              flush=True)
 
 
 def main():
