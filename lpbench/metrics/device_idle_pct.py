@@ -1,0 +1,9 @@
+"""The share of the profiled stretch in which no operation ran on the
+device (kernels, copies and sets from the ``torch.profiler`` trace)."""
+
+
+def read(run):
+    p = run.profile
+    if p is None or p.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - p.busy_s / p.window_s)
