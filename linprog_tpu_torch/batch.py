@@ -24,6 +24,7 @@ from . import engine
 from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
 from .engine import basis_matrix, solve_or_nan
+from .observability import host_read, spanned
 from .results import BatchResult
 
 
@@ -67,15 +68,16 @@ def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
     tol = cfg.feas_tol * torch.clamp_min(torch.abs(b).amax(dim=1), 1.0)
     bad = ((states.status == st.OPTIMAL)
            & (states.bfs.min(dim=1).values < -tol))
-    if not bool(bad.any()):
+    if not host_read(bool, bad.any()):
         return states
-    idx = torch.nonzero(bad, as_tuple=True)[0]
+    idx = host_read(torch.nonzero, bad, as_tuple=True)[0]
 
     def x64(Ai, bi, basis):
         return solve_or_nan(basis_matrix(Ai, basis).double(), bi.double())
 
     xb = x64(A[idx], b[idx], states.basis[idx])
-    idx = idx[xb.min(dim=1).values < -tol[idx]]
+    idx = host_read(torch.masked_select, idx,
+                    xb.min(dim=1).values < -tol[idx])
     if not idx.numel():
         return states
     Ai, bi = A[idx], b[idx]
@@ -87,16 +89,18 @@ def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
     xb = x64(Ai, bi, sub.basis)
     fixed = ((sub.status == st.OPTIMAL) & torch.isfinite(xb).all(dim=1)
              & (xb.min(dim=1).values >= -tol[idx]))
-    idx, sub = idx[fixed], type(sub)(*(t[fixed] for t in sub))
+    keep = host_read(torch.nonzero, fixed, as_tuple=True)[0]
+    idx, sub = idx[keep], type(sub)(*(t[keep] for t in sub))
     basis, inv_B, bfs, iters = (t.clone() for t in (
         states.basis, states.inv_B, states.bfs, states.iters))
     basis[idx] = sub.basis
     inv_B[idx] = sub.inv_B
-    bfs[idx] = xb[fixed].to(bfs.dtype)
+    bfs[idx] = xb[keep].to(bfs.dtype)
     iters[idx] = iters[idx] + sub.iters
     return states._replace(basis=basis, inv_B=inv_B, bfs=bfs, iters=iters)
 
 
+@spanned("solve_batch_two_phase")
 def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
                           maxiters2: int = 1000,
                           cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
@@ -391,6 +395,7 @@ def reoptimize_batch_new_rhs(c, A, b_new, basis, maxiters: int,
     return _to_result(c, states, n)
 
 
+@spanned("solve_batch_bounded")
 def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
                         cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
     """Batched bounded-variable simplex: ``min c'x, Ax = b, lb <= x <= ub``.

@@ -41,7 +41,9 @@ from .engine import (
     run_lanes,
     tree_select,
 )
-from .engine_batched import _finite_lanes, refresh_running_lanes
+from .engine_batched import (_finite_lanes, refresh_running_lanes,
+                             segment_launch)
+from .observability import host_read
 from .ops.bounded_kernel import (
     AT_LB,
     AT_UB,
@@ -139,14 +141,17 @@ def run_bounded_batched(c, A, b, lb, ub, state: BoundedState, maxiters: int,
               unroll=cfg.unroll, packed=cfg.packed_select)
 
     if cfg.refactor_every > 0:
-        while bool(((seg.status == st.RUNNING) & (seg.iters < maxiters)).any()):
-            solve_bounded_segment(A, c, lb, ub, maxiters, seg, **kw)
+        while host_read(bool, ((seg.status == st.RUNNING)
+                               & (seg.iters < maxiters)).any()):
+            segment_launch(4, "primal", seg, solve_bounded_segment, A, c, lb,
+                           ub, maxiters, seg, **kw)
             x_n = nonbasic_values(seg.vstate, lb, ub)
             rhs = b - torch.einsum("bmn,bn->bm", A, x_n)
             refresh_running_lanes(A, rhs, seg,
                                   compact=cfg.compact_refactor)
     else:
-        solve_bounded_segment(A, c, lb, ub, maxiters, seg, **kw)
+        segment_launch(4, "primal", seg, solve_bounded_segment, A, c, lb, ub,
+                       maxiters, seg, **kw)
 
     return BoundedState(
         basis=seg.basis,

@@ -17,6 +17,7 @@ from . import status as st
 from .batch import _run_chunked, _to_result
 from .config import DEFAULT_CONFIG, SolverConfig
 from .engine import basis_matrix, inv_or_nan
+from .observability import by_status, current, host_read, span, spanned
 from .ops.solve_kernel import _nonneg
 from .refine import solve_dd
 from .results import BatchResult
@@ -30,6 +31,7 @@ def _finite_rows(*ts):
     return ok
 
 
+@spanned("crossover")
 def crossover_batch_canonical(c, G, h, x, maxiters: int = 512,
                               cfg: SolverConfig = DEFAULT_CONFIG,
                               indicator=None, repair_rounds: int = 2):
@@ -57,14 +59,16 @@ def crossover_batch_canonical(c, G, h, x, maxiters: int = 512,
         xs = indicator
 
     # ---- basis guess: the m largest components ---------------------------
-    idx = torch.topk(xs, m, dim=1).indices
-    basis = torch.sort(idx, dim=1).values.to(torch.int32)
+    with span("xover.guess"):
+        idx = torch.topk(xs, m, dim=1).indices
+        basis = torch.sort(idx, dim=1).values.to(torch.int32)
 
-    inv_B = inv_or_nan(basis_matrix(As, basis))
-    bfs0 = torch.einsum("bij,bj->bi", inv_B, h)
-    finite = _finite_rows(inv_B, bfs0)
-    scale = torch.clamp_min(torch.abs(h).max(dim=1).values, 1.0)
-    feasible = finite & (bfs0 >= -cfg.feas_tol * scale[:, None]).all(dim=1)
+        inv_B = inv_or_nan(basis_matrix(As, basis))
+        bfs0 = torch.einsum("bij,bj->bi", inv_B, h)
+        finite = _finite_rows(inv_B, bfs0)
+        scale = torch.clamp_min(torch.abs(h).max(dim=1).values, 1.0)
+        feasible = finite & (bfs0 >= -cfg.feas_tol * scale[:, None]).all(
+            dim=1)
     allowed = torch.ones((n + m,), dtype=torch.bool, device=dev)
 
     states = engine.SimplexState(
@@ -81,20 +85,23 @@ def crossover_batch_canonical(c, G, h, x, maxiters: int = 512,
     verified = torch.zeros((B,), dtype=torch.bool, device=dev)
     participate = finite
     rounds = max(1, repair_rounds)
+    busy_rounds = 0
     for rnd in range(rounds):
         states = _run_chunked(cs, As, h, states, allowed, maxiters, cfg,
                               "dual")
         # primal-feasible lanes continue from an exact refactorization;
         # DUAL_UNBOUNDED means the guess has no primal-feasible completion
         to_primal = (states.status == st.OPTIMAL) & participate
-        any_p = bool(participate.any())
-        if any_p:
-            inv_fresh = inv_or_nan(basis_matrix(As, states.basis))
-            bfs_fresh = torch.einsum("bij,bj->bi", inv_fresh, h)
-        else:
-            inv_fresh = torch.zeros_like(states.inv_B)
-            bfs_fresh = torch.zeros_like(states.bfs)
-        fresh_ok = _finite_rows(inv_fresh, bfs_fresh)
+        any_p = host_read(bool, participate.any())
+        busy_rounds += any_p
+        with span("xover.refactor"):
+            if any_p:
+                inv_fresh = inv_or_nan(basis_matrix(As, states.basis))
+                bfs_fresh = torch.einsum("bij,bj->bi", inv_fresh, h)
+            else:
+                inv_fresh = torch.zeros_like(states.inv_B)
+                bfs_fresh = torch.zeros_like(states.bfs)
+            fresh_ok = _finite_rows(inv_fresh, bfs_fresh)
         status = torch.where(
             participate,
             torch.where(
@@ -124,13 +131,15 @@ def crossover_batch_canonical(c, G, h, x, maxiters: int = 512,
         # past the whole-segment regime: there a plain f32 solve (~1e-4
         # relative error at m = 2048) passes bases whose basic values the
         # certificate finds negative
-        if any_p:
-            bfs_exact = solve_dd(basis_matrix(As, states.basis), h)
-        else:
-            bfs_exact = torch.zeros_like(states.bfs)
-        ok = torch.isfinite(bfs_exact).all(dim=1)
-        verified_new = ok & (bfs_exact >= -cfg.feas_tol * scale[:, None]).all(dim=1)
-        verified = torch.where(participate, verified_new, verified)
+        with span("xover.verify"):
+            if any_p:
+                bfs_exact = solve_dd(basis_matrix(As, states.basis), h)
+            else:
+                bfs_exact = torch.zeros_like(states.bfs)
+            ok = torch.isfinite(bfs_exact).all(dim=1)
+            verified_new = ok & (bfs_exact >= -cfg.feas_tol
+                                 * scale[:, None]).all(dim=1)
+            verified = torch.where(participate, verified_new, verified)
         states = states._replace(
             bfs=torch.where((participate & ok)[:, None], bfs_exact,
                             states.bfs),
@@ -165,6 +174,9 @@ def crossover_batch_canonical(c, G, h, x, maxiters: int = 512,
 
     res = _to_result(cs, states, n + m)
     crossed = (res.status == st.OPTIMAL) & verified
+    sp = current()
+    if sp:
+        sp.set(rounds=busy_rounds, uncrossed=by_status(res.status, ~crossed))
     if cfg.polish_pivots > 0:
         from .refine import dd_dot
 

@@ -31,6 +31,7 @@ from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
 from . import engine
 from .engine import SimplexState, _gather_cols, basis_matrix, inv_or_nan
+from .observability import host_read, span, spanned
 from .ops.solve_kernel import SegmentState, solve_segment
 from .ops.step_kernels import price_entering, ratio_eta_pivot
 from .ops.stream_kernel import solve_segment_stream
@@ -64,7 +65,7 @@ def compact_refactorize(A, b, basis, run):
     B, m, _ = A.shape
     inv = torch.zeros((B, m, m), dtype=A.dtype, device=A.device)
     bfs = torch.zeros((B, m), dtype=A.dtype, device=A.device)
-    idx = torch.nonzero(run, as_tuple=True)[0]
+    idx = host_read(torch.nonzero, run, as_tuple=True)[0]
     if idx.numel():
         invp = inv_or_nan(basis_matrix(A[idx], basis[idx]))
         inv[idx] = invp
@@ -100,11 +101,12 @@ def newton_schulz_refine(A, b, basis, inv_B, steps: int = 2,
     resid = torch.matmul(W, X) - eye
     bad = torch.abs(resid).amax(dim=(1, 2)) > resid_tol
     X = X.to(inv_B.dtype)
-    if bool(bad.any()):
+    if host_read(bool, bad.any()):
         X = torch.where(bad[:, None, None], inv_or_nan(B_mat), X)
     return X, torch.einsum("bmk,bk->bm", X, b)
 
 
+@spanned("batched_lu")
 def refresh_running_lanes(A, rhs, seg, method: str = "inv",
                           compact: bool = True) -> None:
     """Refactorization between two segments, in place on a packed kernel
@@ -155,11 +157,27 @@ def _segment_pack(c, A, state: SimplexState, allowed):
     return apen, seg
 
 
+def segment_launch(number: int, mode: str, seg, kernel, *args, **kw):
+    """``kernel(*args, **kw)``, one launch of kernel ``number`` on the
+    packed state ``seg``, as a span ``segment`` with the lanes running at
+    the launch and the pivots it did (device counts, no host read)."""
+    sp = span("segment")
+    if sp:
+        before = seg.iters.clone()
+        sp.set(kernel=number, mode=mode,
+               running=(seg.status == st.RUNNING).sum())
+    with sp:
+        kernel(*args, **kw)
+    if sp:
+        sp.set(pivots=(seg.iters - before).sum())
+
+
 def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
-                    cfg: SolverConfig, kernel, polish: bool = False,
-                    **kw) -> SimplexState:
+                    cfg: SolverConfig, kernel, number: int,
+                    polish: bool = False, **kw) -> SimplexState:
     """Segment loop shared by both kernels: each outer step runs up to
-    ``cfg.refactor_every`` iterations per lane in one ``kernel`` launch,
+    ``cfg.refactor_every`` iterations per lane in one ``kernel`` launch
+    (kernel ``number``: 1 or 3),
     then refactorizes the still-running lanes (by ``cfg.refactor_method``
     and ``cfg.compact_refactor``).  With ``refactor_every == 0`` one
     unbounded segment runs.  ``polish`` (kernel 1 under
@@ -175,12 +193,16 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
               pivot_tol=cfg.pivot_tol, feas_tol=cfg.feas_tol,
               stall_limit=cfg.stall_limit, packed=cfg.packed_select)
 
+    mode = "dual" if kw.get("dual") else "primal"
+
     def any_running():
-        return bool(((seg.status == st.RUNNING) & (seg.iters < maxiters)).any())
+        return host_read(bool, ((seg.status == st.RUNNING)
+                                & (seg.iters < maxiters)).any())
 
     def segments():
         while any_running():
-            kernel(A, c, apen, maxiters, seg, **kw)
+            segment_launch(number, mode, seg, kernel, A, c, apen, maxiters,
+                           seg, **kw)
             refresh_running_lanes(A, b, seg, cfg.refactor_method,
                                   cfg.compact_refactor)
             seg.gamma.fill_(1.0)  # devex weights: fresh reference framework
@@ -197,10 +219,11 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
                       | (seg.status == st.PRIMAL_UNBOUNDED))
             seg.status.masked_fill_(reopen, st.RUNNING)
             segments()
-            if bool(((seg.iters - snapshot) <= 1).all()):
+            if host_read(bool, ((seg.iters - snapshot) <= 1).all()):
                 break
     else:
-        kernel(A, c, apen, maxiters, seg, **kw)
+        segment_launch(number, mode, seg, kernel, A, c, apen, maxiters, seg,
+                       **kw)
 
     return SimplexState(
         basis=seg.basis,
@@ -223,7 +246,7 @@ def run_batched_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
     split = bool(cfg.split_pricing and mode == "primal" and pricing <= 1
                  and _mega_kernel_fits(m, n, with_at=True))
     return _drive_segments(c, A, b, state, allowed, maxiters, cfg,
-                           solve_segment, polish=True, pricing=pricing,
+                           solve_segment, 1, polish=True, pricing=pricing,
                            dual=(mode == "dual"), unroll=cfg.unroll,
                            split=split)
 
@@ -257,7 +280,7 @@ def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters: int,
         partial = n_blk > 0
     blocked = variant == "stream_blocked"
     return _drive_segments(c, A, b, state, allowed, maxiters, cfg,
-                           solve_segment_stream,
+                           solve_segment_stream, 3,
                            pricing=_PRICING_CODES[cfg.pricing],
                            dual=(mode == "dual"),
                            a_resident=(variant == "resident"), n_blk=n_blk,

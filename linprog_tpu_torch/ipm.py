@@ -37,6 +37,7 @@ import torch
 
 from . import engine as _engine
 from . import status as st
+from .observability import current, host_read, spanned
 from .ops.cholinv_kernel import panel_cholinv
 from .ops.solve_kernel import _nonneg
 from .results import BatchResult, LinProgResult
@@ -241,6 +242,7 @@ def _where(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
+@spanned("ipm")
 def _ipm_core(c, op, b, cfg: IPMConfig, init=None) -> IPMState:
     """The Mehrotra loop over the constraint operator ``op``; ``c``/``b``
     already in the working dtype.  ``init`` (optional) is a warm-start
@@ -277,7 +279,8 @@ def _ipm_core(c, op, b, cfg: IPMConfig, init=None) -> IPMState:
     bx, by, bs = x, y, s
     bcrit = _criterion(x, y, s)
     it = 0
-    while it < cfg.maxiters and bool((status == st.RUNNING).any()):
+    while it < cfg.maxiters and host_read(bool,
+                                          (status == st.RUNNING).any()):
         running = status == st.RUNNING
         # grade the current iterate; keep the best seen per lane
         crit = _criterion(x, y, s)
@@ -367,6 +370,7 @@ def _ipm_core(c, op, b, cfg: IPMConfig, init=None) -> IPMState:
         iters = torch.where(step, iters + 1, iters)
         status = status.to(torch.int32)
         it += 1
+    current().set(steps=it)
 
     # ---- Farkas certificates from the (possibly diverging) final iterate --
     cert_tol = cfg.cert_tol if cfg.cert_tol is not None else (

@@ -1,5 +1,6 @@
 """Observability: structured solve summaries, residuals, profiling hooks
-(counterpart of :mod:`linprog_tpu.observability`).
+and the in-memory span recorder (counterpart of
+:mod:`linprog_tpu.observability`).
 
 * :func:`solution_quality` -- per-instance quality metrics of a batch
   (primal residual ``||Ax - b||_inf``, bound violation, objective),
@@ -9,12 +10,71 @@
 * :func:`trace` -- a ``torch.profiler`` window around a region, written as
   a Chrome trace; :func:`annotate` names a region in it (and, on a card,
   in an NVTX range).
+* :func:`start` / :func:`stop` -- the span recorder (:class:`Recorder`).
+  It starts off.  Off, a span site costs one check of a module-level
+  reference and returns a shared no-op, and :func:`host_read` is the read
+  itself.  On, each span holds its name, a start and an end event
+  (``torch.cuda.Event`` on a card, the host clock on a CPU), its parent,
+  the id of the root call it belongs to and a small dict of counts; the
+  first span opened with no span open is the root of a call.  While a
+  ``torch.profiler`` trace is being taken, every span also opens
+  :func:`annotate` with its name, so the trace holds the spans as nested
+  ranges on its own clock (and NVTX ranges on a card).
+  Recording changes no result and adds no host synchronisation: counts
+  that live on the device stay device tensors until they are read.
+
+Recording, reading a call's spans, and seeing them in a trace::
+
+    from linprog_tpu_torch import observability as obs
+
+    obs.start()
+    res, info = solve_batch_exact(c, G, h)
+    with obs.trace("/tmp/trace"):          # ranges inside the trace
+        solve_batch_exact(c, G, h)
+    rec = obs.stop()
+    for call in rec.calls():                # one list per root call
+        for sp in call:                     # the root first, then in order
+            print(sp.name, sp.parent.name if sp.parent else None,
+                  sp.ms(), sp.read_counts())
+
+Spans (name: where; counts):
+
+* ``solve_batch_exact``, ``solve_batch_two_phase``,
+  ``solve_batch_bounded``: the entry points of the same names (a root, or
+  a child where one runs inside another, as the exact router's fallback
+  does).
+* ``ipm``: :func:`ipm._ipm_core`; ``steps``, the Newton loop's count.
+* ``crossover``: :func:`crossover.crossover_batch_canonical`; ``rounds``
+  (repair rounds with lanes in them) and ``uncrossed`` (the lanes it did
+  not cross, by status code); its children ``xover.guess`` (the basis
+  guess, its inverse and ``bfs0``), ``xover.refactor`` (the exact
+  refactorization after each dual phase) and ``xover.verify`` (the
+  terminal dd solve and its check).
+* ``segment``: one kernel launch of a segment loop; ``kernel`` (1, 3 or
+  4), ``mode``, and the device counts ``running`` (lanes running at the
+  launch) and ``pivots`` (pivots it did).
+* ``batched_lu``: :func:`engine_batched.refresh_running_lanes`.
+* ``polish`` and ``bounded_polish``: :func:`refine.polish_batch` and
+  :func:`refine.polish_bounded_batch`; ``pivots``, the rounds that
+  pivoted.
+* ``fallback``: the exact router's two-phase fallback with its repair
+  crossover; ``lanes``, ``bucket`` and ``reason`` (the uncrossed lanes by
+  the status code they carry out of the IPM, a device count; the
+  crossover's ``uncrossed`` says why it did not cross them).
+* ``host_read``: each blocking read of a device value on these paths
+  (:func:`host_read`).  On a card its events bracket the read, so its
+  device time is the stretch in which the queue stood empty waiting for
+  the host to come back.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
 from typing import Optional
 
@@ -112,3 +172,228 @@ def trace(logdir: Optional[str] = None, label: str = "linprog_solve"):
 
 
 trace.last_elapsed_s = None
+
+
+# ---- the span recorder ----------------------------------------------------
+
+
+class _HostEvent:
+    """The host clock in the place of ``torch.cuda.Event`` (no card)."""
+
+    __slots__ = ("t",)
+
+    def __init__(self):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end) -> float:
+        return 1e3 * (end.t - self.t)
+
+
+class Recorder:
+    """The spans of the last ``KEEP_CALLS`` root calls, in memory; timed
+    with CUDA events where there is a card (on the stream current when
+    the root call opened), else with the host clock."""
+
+    def __init__(self):
+        self.cuda = torch.cuda.is_available()
+        self._calls = collections.deque(maxlen=KEEP_CALLS)
+        self._ids = itertools.count()
+        self._local = threading.local()
+
+    def event(self):
+        if self.cuda:
+            return torch.cuda.Event(enable_timing=True)
+        return _HostEvent()
+
+    def thread(self):
+        """This thread's open spans (``open``, the innermost last), the
+        list of spans of its current root call (``call``) and the stream
+        its events are recorded on (``stream``)."""
+        state = getattr(self._local, "state", None)
+        if state is None:
+            state = self._local.state = _ThreadState()
+        return state
+
+    def calls(self) -> list:
+        """The recorded root calls, oldest first: each a list of its
+        :class:`Span` s, the root first, then in the order they opened."""
+        return [list(call) for call in self._calls]
+
+
+class _ThreadState:
+    __slots__ = ("open", "call", "stream")
+
+    def __init__(self):
+        self.open, self.call, self.stream = [], None, None
+
+
+class Span:
+    """One span: ``name``, ``parent`` (None for a root), ``root`` (the id
+    of its root call), ``counts`` and the ``start`` / ``end`` events."""
+
+    __slots__ = ("name", "parent", "root", "counts", "start", "end",
+                 "_rec", "_state", "_range")
+
+    def __init__(self, rec: Recorder, name: str):
+        self._rec = rec
+        self.name = name
+        self.counts = {}
+
+    def __bool__(self):
+        return True
+
+    def __enter__(self):
+        rec = self._rec
+        state = self._state = rec.thread()
+        if state.open:
+            self.parent = state.open[-1]
+            self.root = self.parent.root
+        else:
+            self.parent = None
+            self.root = next(rec._ids)
+            state.call = []
+            rec._calls.append(state.call)
+            # one stream lookup a call (it costs as much as a record)
+            state.stream = torch.cuda.current_stream() if rec.cuda else None
+        state.call.append(self)
+        state.open.append(self)
+        self._rec = None  # spans kept for reading hold no recorder
+        # a range in the torch.profiler trace where one is being taken
+        # (record_function costs ~10 us a span and records nothing else)
+        self._range = (annotate(self.name)
+                       if torch._C._autograd._profiler_enabled() else None)
+        if self._range is not None:
+            self._range.__enter__()
+        self.start, self.end = rec.event(), rec.event()
+        self.start.record(state.stream)
+        return self
+
+    def __exit__(self, *exc):
+        state = self._state
+        self.end.record(state.stream)
+        state.open.pop()
+        self._state = None
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
+
+    def set(self, **counts) -> None:
+        """Add counts: host numbers, or device tensors read only by
+        :meth:`read_counts`."""
+        self.counts.update(counts)
+
+    def ms(self) -> float:
+        """The span's time in ms (waits for its end event on a card)."""
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end)
+
+    def read_counts(self) -> dict:
+        """``counts`` with device tensors read to host numbers (a list for
+        a tensor of more than one element)."""
+        return {k: (v.tolist() if isinstance(v, torch.Tensor) else v)
+                for k, v in self.counts.items()}
+
+
+class _NoSpan:
+    """What a span site gets while recording is off."""
+
+    __slots__ = ()
+
+    def __bool__(self):
+        return False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **counts) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+# root calls a recorder keeps (a benchmark window holds a few hundred)
+KEEP_CALLS = 4096
+# the recording flag: None while recording is off
+_recorder: Optional[Recorder] = None
+
+
+def start() -> Recorder:
+    """Turn recording on (a no-op if it is on) and return the
+    recorder."""
+    global _recorder
+    if _recorder is None:
+        _recorder = Recorder()
+    return _recorder
+
+
+def stop() -> Optional[Recorder]:
+    """Turn recording off; returns the recorder that was on (or None)."""
+    global _recorder
+    rec, _recorder = _recorder, None
+    return rec
+
+
+def span(name: str):
+    """A span ``name`` around a ``with`` block: a :class:`Span` while
+    recording is on, else the shared no-op (falsy, so a site computes a
+    device count only under ``if sp:``)."""
+    rec = _recorder
+    if rec is None:
+        return _NO_SPAN
+    return Span(rec, name)
+
+
+def spanned(name: str):
+    """Decorator: the function's calls as spans ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            rec = _recorder
+            if rec is None:
+                return fn(*args, **kw)
+            with Span(rec, name):
+                return fn(*args, **kw)
+        return inner
+    return wrap
+
+
+def current():
+    """The innermost open span of this thread (the no-op where none is
+    open or recording is off)."""
+    rec = _recorder
+    if rec is None:
+        return _NO_SPAN
+    open_ = rec.thread().open
+    return open_[-1] if open_ else _NO_SPAN
+
+
+def host_read(read, *args, **kw):
+    """``read(*args, **kw)``, a read that makes the host wait for the
+    device (``bool`` or ``int`` of a device scalar, ``torch.nonzero``,
+    ``Tensor.tolist``), as a span ``host_read`` while recording is on."""
+    rec = _recorder
+    if rec is None:
+        return read(*args, **kw)
+    with Span(rec, "host_read"):
+        return read(*args, **kw)
+
+
+def by_status(status, mask=None):
+    """Lanes by status code, ``[len(STATUS_NAMES)]`` int64 on the lanes'
+    device, over the lanes of ``mask`` (all where None); compares and sums
+    where ``torch.bincount`` on a card would read its maximum on the
+    host."""
+    codes = torch.arange(len(st.STATUS_NAMES), device=status.device)
+    hit = status.long()[:, None] == codes
+    if mask is not None:
+        hit = hit & mask[:, None]
+    return hit.sum(dim=0)

@@ -19,6 +19,7 @@ import torch
 
 from .calibration import get_table
 from .engine import basis_matrix, in_basis_mask, inv_or_nan, solve_or_nan
+from .observability import current, host_read, spanned
 
 
 def _split(x):
@@ -177,6 +178,7 @@ def solve_dd(M, rhs, inv_M=None):
     return refine_bfs(M, rhs, inv_M, x, steps=steps)
 
 
+@spanned("bounded_polish")
 def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
                          max_pivots: int = 16, dd_tol: float = 2e-6,
                          pivot_tol: float = 1e-9, inv_B=None):
@@ -213,7 +215,7 @@ def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
 
     act = active
     k = 0
-    while k < max_pivots and bool(act.any()):
+    while k < max_pivots and host_read(bool, act.any()):
         Bmat = basis_matrix(A, basis)
         cB = torch.gather(c, 1, basis.long())
         y = refine_duals(cB, Bmat, inv_B)
@@ -264,7 +266,7 @@ def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
         new_basis[lanes, leave] = enter.to(torch.int32)
         basis = torch.where(piv[:, None], new_basis, basis)
         act = go
-        k += int(bool(go.any()))
+        k += int(host_read(bool, go.any()))
 
     Bmat = basis_matrix(A, basis)
     rhs = rhs_of(var_state)
@@ -272,9 +274,11 @@ def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
     xB = refine_bfs(Bmat, rhs, inv_B, xB, steps=3)
     cB = torch.gather(c, 1, basis.long())
     y = refine_duals(cB, Bmat, inv_B)
+    current().set(pivots=k)
     return basis, var_state, xB, y, inv_B
 
 
+@spanned("polish")
 def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
                  dd_tol: float = 2e-6, pivot_tol: float = 1e-9, inv_B=None):
     """dd-guided cleanup pivots at a terminal basis.
@@ -298,7 +302,7 @@ def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
         inv_B = inv_or_nan(basis_matrix(A, basis))
     act = active
     k = 0
-    while k < max_pivots and bool(act.any()):
+    while k < max_pivots and host_read(bool, act.any()):
         Bmat = basis_matrix(A, basis)
         r = price(basis, Bmat, inv_B)
         enter = torch.argmin(r, dim=1)
@@ -328,11 +332,12 @@ def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
         new_basis[lanes, leave] = enter.to(torch.int32)
         basis = torch.where(go[:, None], new_basis, basis)
         act = go
-        k += int(bool(go.any()))
+        k += int(host_read(bool, go.any()))
 
     Bmat = basis_matrix(A, basis)
     xB = torch.einsum("bmk,bk->bm", inv_B, b)
     xB = refine_bfs(Bmat, b, inv_B, xB, steps=3)
     cB = torch.gather(c, 1, basis.long())
     y = refine_duals(cB, Bmat, inv_B)
+    current().set(pivots=k)
     return basis, xB, y, inv_B, k

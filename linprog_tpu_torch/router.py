@@ -26,6 +26,7 @@ import torch
 from . import status as st
 from .calibration import get_table
 from .config import SolverConfig, tuned_config
+from .observability import by_status, host_read, span, spanned
 from .results import BatchResult
 
 _FAMILIES = ("simplex", "ipm", "ipm+crossover", "pdhg")
@@ -181,6 +182,7 @@ def _bucket(bad, B: int):
     return bad[torch.arange(size, device=bad.device) % nb]
 
 
+@spanned("solve_batch_exact")
 def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
                       maxiters: Optional[int] = None, guess: str = "tapia"):
     """Exact vertices of ``min c'x, Gx <= h, x >= 0`` for a batch.
@@ -211,8 +213,9 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
     res, crossed = ipm_crossover_batch_canonical(
         c, G, h, crossover_maxiters=budget, cfg=cfg, guess=guess
     )
-    info = {"crossed": int(crossed.sum()), "fallback": 0, "retry_crossed": 0}
-    bad = torch.nonzero(~crossed, as_tuple=True)[0]
+    info = {"crossed": host_read(int, crossed.sum()), "fallback": 0,
+            "retry_crossed": 0}
+    bad = host_read(torch.nonzero, ~crossed, as_tuple=True)[0]
     if bad.numel() == 0:
         return res, info
 
@@ -234,7 +237,9 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         )
         # the first crossed occurrence of each lane is written back
         seen, lanes, rows = set(), [], []
-        for k, (lane, ok) in enumerate(zip(idx.tolist(), crossed2.tolist())):
+        for k, (lane, ok) in enumerate(zip(
+                host_read(torch.Tensor.tolist, idx),
+                host_read(torch.Tensor.tolist, crossed2))):
             if ok and lane not in seen:
                 seen.add(lane)
                 lanes.append(lane)
@@ -244,7 +249,8 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
                          torch.tensor(rows, device=bad.device))
             info["retry_crossed"] = len(lanes)
             info["crossed"] += len(lanes)
-            keep = [lane for lane in bad.tolist() if lane not in seen]
+            keep = [lane for lane in host_read(torch.Tensor.tolist, bad)
+                    if lane not in seen]
             bad = torch.tensor(keep, dtype=bad.dtype, device=bad.device)
         if bad.numel() == 0:
             return res, info
@@ -254,31 +260,39 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         info["uncrossed"] = int(bad.numel())
         return res, info
 
-    # gather the uncrossed lanes into a power-of-two bucket (cyclic fill)
-    nb = int(bad.numel())
-    idx = _bucket(bad, B)
-    cg, Gg, hg = c[idx], G[idx], h[idx]
-    cs, As, bs = device_standard_form_batch(cg, Gg, hg)
-    it = 4 * m if m >= 256 else 2000
-    sub = solve_batch_two_phase(cs, As, bs, it, it, cfg)
-    info["fallback"] = nb
-    # two-phase duals live in the sign-flipped row space -> unflip
-    sub = sub._replace(x=sub.x[:, :n], y=torch.where(hg < 0, -sub.y, sub.y))
+    with span("fallback") as sp:
+        # gather the uncrossed lanes into a power-of-two bucket (cyclic
+        # fill)
+        nb = int(bad.numel())
+        idx = _bucket(bad, B)
+        if sp:
+            sp.set(lanes=nb, bucket=int(idx.numel()),
+                   reason=by_status(res.status[bad]))
+        cg, Gg, hg = c[idx], G[idx], h[idx]
+        cs, As, bs = device_standard_form_batch(cg, Gg, hg)
+        it = 4 * m if m >= 256 else 2000
+        sub = solve_batch_two_phase(cs, As, bs, it, it, cfg)
+        info["fallback"] = nb
+        # two-phase duals live in the sign-flipped row space -> unflip
+        sub = sub._replace(x=sub.x[:, :n],
+                           y=torch.where(hg < 0, -sub.y, sub.y))
 
-    # At large m the two-phase vertex can end outside the certificate's
-    # primal tolerance (its f32 simplex cannot resolve basic values of
-    # ~1e-4 relative).  One crossover pass from that vertex -- dual phase
-    # first, dd-refined verification -- repairs it; where the pass
-    # verifies, its vertex replaces the two-phase one.
-    fix, fixed = crossover_batch_canonical(cg, Gg, hg, sub.x, maxiters=budget,
-                                           cfg=cfg)
-    sub = BatchResult(*(
-        torch.where(fixed.view(-1, *([1] * (a.dim() - 1))), f, a)
-        for a, f in zip(sub, fix._replace(iters=sub.iters + fix.iters))
-    ))
+        # At large m the two-phase vertex can end outside the
+        # certificate's primal tolerance (its f32 simplex cannot resolve
+        # basic values of ~1e-4 relative).  One crossover pass from that
+        # vertex -- dual phase first, dd-refined verification -- repairs
+        # it; where the pass verifies, its vertex replaces the two-phase
+        # one.
+        fix, fixed = crossover_batch_canonical(cg, Gg, hg, sub.x,
+                                               maxiters=budget, cfg=cfg)
+        sub = BatchResult(*(
+            torch.where(fixed.view(-1, *([1] * (a.dim() - 1))), f, a)
+            for a, f in zip(sub, fix._replace(iters=sub.iters + fix.iters))
+        ))
 
-    # the first nb bucket entries are exactly the bad lanes, in order
-    return _merge(res, bad, sub, torch.arange(nb, device=bad.device)), info
+        # the first nb bucket entries are exactly the bad lanes, in order
+        out = _merge(res, bad, sub, torch.arange(nb, device=bad.device))
+    return out, info
 
 
 def choose_family_sparse(m: int, n: int, nnz: int, accuracy: float,

@@ -58,7 +58,8 @@ def _imported_modules(path):
                                  REPO / "tools" / "diag_m4096.py",
                                  REPO / "tools" / "diag_pdhg_m4096.py",
                                  REPO / "tools" / "diag_sparse_m2048.py",
-                                 REPO / "tools" / "diag_general_batch.py"]
+                                 REPO / "tools" / "diag_general_batch.py",
+                                 REPO / "tools" / "trace_check.py"]
     + sorted((REPO / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(REPO)),
 )
