@@ -37,11 +37,17 @@ Phases, each printing one JSON line:
      and beside the block per lane it replaced); each shape with its launch
      plan, the same bits under every other planned cluster size and
      layout, and a 64-pivot segment's time an iteration beside the launch
-     bound; then
+     bound; kernel 1's unit layout (A's trailing unit columns as a row and
+     a value a lane) at the two-phase simplex's Phase-I lanes [1024, 256,
+     768] and the crossover's [1024, 256, 512], primal, dual and devex:
+     one iteration and a 16-pivot segment in lockstep with the plain
+     version, the dense launch's state bit for bit, whether solve_segment
+     takes it (where it saves CTAs), its plan report beside the dense
+     launch's in-segment time, with the bounds of the work it does; then
      devex pricing at [1024, 256, 512]: one iteration and a 16-pivot
      segment against the plain version, and a full solve_batch_two_phase
      run with pricing="devex" at B = 1024, m = n = 256 (all OPTIMAL, HiGHS
-     gap on 4 lanes);
+     gap on 4 lanes, its Phase-I lanes in the unit layout);
   4. the m = 256 path: solve_batch_exact at B = 1024, m = n = 256 (wall:
      the median of 10 runs after a warm-up; launch counts from the first),
      then the dd-KKT certificate and a HiGHS check on 16 lanes;
@@ -221,7 +227,9 @@ import torch
 import linprog_tpu_torch as lt
 from linprog_tpu_torch import status as st
 from linprog_tpu_torch.config import tuned_config
-from linprog_tpu_torch.engine import basis_matrix, solve_or_nan
+from linprog_tpu_torch.engine import (basis_matrix, slack_crash_state,
+                                      solve_or_nan)
+from linprog_tpu_torch.engine_batched import _segment_pack
 from linprog_tpu_torch.generators import (
     device_bounded_lps,
     device_inequality_lps,
@@ -249,6 +257,11 @@ SPLIT_LANES = 16  # lanes of 1024 that may leave lockstep over 16 pivots
 SEGMENT_SHAPES = [(64, 512, 512), (256, 256, 256), (1024, 128, 256)]
 # kernel 1's streaming branch: a lane past the largest cluster
 BLOCK_SHAPE = (64, 1024, 1024)
+# kernel 1's unit layout at B = 1024, m = 256: the two-phase simplex's
+# Phase-I lanes [G | I | I] (n = 768, 4 CTAs a lane against the dense 8)
+# and the crossover's [G | I] (n = 512, 4 either way); the modes it holds
+UNIT_KINDS = ("two_phase", "slack")
+UNIT_MODES = ((False, 1), (True, 1), (False, 2))  # (dual, pricing)
 # the block-per-lane branch it replaced there: ms a batch-iteration in a
 # 64-pivot segment, primal and dual (PERF.md, section 6, kernel 1's history)
 REPLACED_SEGMENT_BLOCK_MS = {"primal": 2.216, "dual": 2.859}
@@ -350,23 +363,37 @@ def bound_ms(n_bytes, n_flops):
     return by_ops, "operations"
 
 
-def segment_bound_ms(lanes, pivoting, m, n):
-    """One batch-iteration of a whole-segment simplex kernel: A and the
-    factor read once per lane, the factor written once per pivoting lane,
-    the O(m + n) rows read and written once."""
-    n_bytes = 4 * (lanes * (m * n + m * m + 2 * (5 * m + 3 * n))
+def _a_work(m, n, n_d):
+    """Floats of A a lane reads and products its pricing takes: all of A,
+    m n; in kernel 1's unit layout (``n_d`` < n) the leading n_d columns
+    and the row and value of each unit column, m n_d + 2 (n - n_d), and
+    one product a unit column, m n_d + (n - n_d)."""
+    n_d = n if n_d is None else n_d
+    return m * n_d + 2 * (n - n_d), m * n_d + (n - n_d)
+
+
+def segment_bound_ms(lanes, pivoting, m, n, n_d=None):
+    """One batch-iteration of a whole-segment simplex kernel: A (in the
+    unit layout its held columns and map, :func:`_a_work`) and the factor
+    read once per lane, the factor written once per pivoting lane, the
+    O(m + n) rows read and written once."""
+    a_floats, products = _a_work(m, n, n_d)
+    n_bytes = 4 * (lanes * (a_floats + m * m + 2 * (5 * m + 3 * n))
                    + pivoting * m * m)
-    n_flops = lanes * (2 * m * n + 4 * m * m) + pivoting * 2 * m * m
+    n_flops = lanes * (2 * products + 4 * m * m) + pivoting * 2 * m * m
     return bound_ms(n_bytes, n_flops)
 
 
-def launch_bound_ms(lanes, m, n, pivots):
+def launch_bound_ms(lanes, m, n, pivots, n_d=None):
     """One launch of a whole-segment kernel that runs ``pivots`` iterations
-    on every lane: A, the factor and the O(m + n) rows read once, the factor
-    and the rows written once; the iterations' operations (pricing 2mn, the
-    duals, the direction and the eta update 2m^2 each) at the f32 rate."""
-    n_bytes = 4 * lanes * (m * n + 2 * m * m + 2 * (5 * m + 3 * n))
-    n_flops = lanes * pivots * (2 * m * n + 6 * m * m)
+    on every lane: A (in the unit layout its held columns and map,
+    :func:`_a_work`), the factor and the O(m + n) rows read once, the
+    factor and the rows written once; the iterations' operations (pricing
+    2mn, or 2 (m n_d + n - n_d) in the unit layout, the duals, the
+    direction and the eta update 2m^2 each) at the f32 rate."""
+    a_floats, products = _a_work(m, n, n_d)
+    n_bytes = 4 * lanes * (a_floats + 2 * m * m + 2 * (5 * m + 3 * n))
+    n_flops = lanes * pivots * (2 * products + 6 * m * m)
     return bound_ms(n_bytes, n_flops)
 
 
@@ -395,9 +422,11 @@ def _layout(plan):
     return f"{plan.cluster} CTAs a lane"
 
 
-def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False):
+def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False,
+                 n_d=None):
     """The launch plan of a whole-segment kernel (``kernel`` is the module:
-    ``solve_kernel`` or ``bounded_kernel``) at ``shape`` and what it gives:
+    ``solve_kernel`` or ``bounded_kernel``; ``n_d``: kernel 1's unit layout,
+    its plans and bounds) at ``shape`` and what it gives:
     the plan ``ref16`` was run under (the last launch's) and the clusters
     the card holds at once; the same state bit for bit after 16 pivots
     under every other planned cluster size (and, on a streaming branch,
@@ -410,7 +439,7 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False):
     if kernel is sk and isinstance(chosen, sk.StreamingPlan):
         plans = sk.built_stream_plans(b, m, n, devex=devex)
     elif kernel is sk:
-        plans = sk.segment_plans(b, m, n, devex=devex)
+        plans = sk.segment_plans(b, m, n, devex=devex, n_d=n_d)
     else:
         plans = kernel.segment_plans(b, m, n)
     for plan in plans:
@@ -438,7 +467,7 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False):
     ms1 = timed(1)
     ms = timed(SEGMENT_PIVOTS)
     held = kernel.clusters_held(chosen)
-    lb_ms, lb_by = launch_bound_ms(b, m, n, SEGMENT_PIVOTS)
+    lb_ms, lb_by = launch_bound_ms(b, m, n, SEGMENT_PIVOTS, n_d)
     return {"plan": chosen._asdict(),
             "branch": _branch(chosen),
             "resident_clusters": held,
@@ -768,6 +797,143 @@ def _hold_segment(dual, b, m, n_g, pricing=1):
                           "bfs_scale": scale}}
 
 
+def _unit_instance(kind, dual):
+    """``(A, c, apen, state0)`` for :func:`_hold_unit`: ``"slack"`` is
+    :func:`_segment_instance`; ``"two_phase"`` the Phase-I lanes of the
+    two-phase simplex at [B, M, N + 2M] (the standard form's sign-flipped
+    rows, then the artificials) from the crash basis, with the Phase-I
+    costs (primal mode) or, as in Phase II, |c| with the artificials barred
+    and every third basic value negated (dual mode)."""
+    if kind == "slack":
+        A, c, apen, _, state0 = _segment_instance(dual)
+        return A, c, apen, state0
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    c_std, A, b = device_standard_form_batch(*device_inequality_lps(
+        gen, B, M, N, DEVICE))
+    A = torch.cat([A, torch.eye(M, device=DEVICE).expand(B, M, M)],
+                  dim=2).contiguous()
+    crash = slack_crash_state(A, b, N + M)
+    zeros = torch.zeros((B, M), device=DEVICE)
+    if dual:
+        cost = torch.cat([c_std.abs(), zeros], dim=1)
+        crash = crash._replace(bfs=torch.where(
+            torch.arange(M, device=DEVICE) % 3 == 0, -crash.bfs, crash.bfs))
+        allowed = torch.arange(A.shape[2], device=DEVICE) < N + M
+    else:
+        cost = torch.cat([torch.zeros_like(c_std), zeros + 1.0], dim=1)
+        allowed = torch.ones(A.shape[2], dtype=torch.bool, device=DEVICE)
+    apen, state0 = _segment_pack(cost, A, crash, allowed)
+    return A, cost.contiguous(), apen, state0
+
+
+def _hold_unit(kind, dual, pricing):
+    """Kernel 1's unit layout (the map of ``unit_columns``) against its
+    plain version at ``kind``'s [1024, 256, n] with the tuned settings:
+    one iteration (basis and status equal on every lane without a near
+    tie) and a 16-pivot segment in lockstep (as :func:`_hold_segment`);
+    the dense launch's state bit for bit after 16 pivots; whether
+    ``solve_segment`` takes the layout (where it saves CTAs: n = 768);
+    the plan report of the unit layout beside the dense launch's 64-pivot
+    time an iteration, with the bounds of the work the layout does."""
+    cfg = tuned_config(M)
+    A, c, apen, state0 = _unit_instance(kind, dual)
+    b, m, n = A.shape
+    mode = ("dual" if dual else "primal") + (" devex" if pricing == 2 else "")
+    label = f"solve_segment unit {kind} {mode} {[b, m, n]}"
+    unit = sk.unit_columns(A)
+    if unit is None or unit.n_d != N:
+        fail(f"{label}: unit columns from "
+             f"{None if unit is None else unit.n_d}, not {N}")
+    kw = dict(pricing=pricing, opt_tol=cfg.opt_tol,
+              pivot_tol=cfg.pivot_tol, dual=dual, feas_tol=cfg.feas_tol,
+              stall_limit=cfg.stall_limit, packed=cfg.packed_select)
+    devex = pricing == 2
+    unit_plan = sk.segment_plans(b, m, n, devex=devex, n_d=unit.n_d)[0]
+    dense_plan = sk.segment_plans(b, m, n, devex=devex)[0]
+
+    def fresh():
+        return sk.SegmentState(*(t.clone() for t in state0))
+
+    def run(plan, s, pivots, layout=unit):
+        return sk.launch_with_plan(plan, A, c, apen, 1 << 20, s,
+                                   seg_len=pivots, unit=layout, **kw)
+
+    before = sk.launches_unit
+    k1 = run(unit_plan, fresh(), 1)
+    p1 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=1, **kw)
+    torch.cuda.synchronize()
+    tie = _tie_lanes(A, c + apen, state0, dual, cfg)  # barred: never taken
+    bad = ~tie & ~_lockstep_lanes(k1, p1, ("basis", "status"))
+    if bad.any():
+        fail(f"{label}: one-iteration basis/status differ on "
+             f"{int(bad.sum())} non-tied lanes")
+    err1 = (k1.bfs[~tie] - p1.bfs[~tie]).abs().max().item()
+    pivoted = int((k1.basis != state0.basis).any(dim=1).sum())
+    if pivoted == 0:
+        fail(f"{label}: no lane pivoted")
+    del k1, p1
+
+    d16 = run(dense_plan, fresh(), 16, layout=None)
+    k16 = run(unit_plan, fresh(), 16)
+    p16 = sk.solve_segment_plain(A, c, apen, 1 << 20, fresh(), seg_len=16,
+                                 **kw)
+    torch.cuda.synchronize()
+    if sk.launches_unit - before != 2:
+        fail(f"{label}: the unit layout was not taken")
+    for name, x, y in zip(k16._fields, k16, d16):
+        if not same_bits(x, y):
+            fail(f"{label}: {name} after 16 pivots differs from the dense "
+                 "launch")
+    same = _lockstep_lanes(k16, p16, ("basis", "status", "iters", "pen",
+                                      "cB"))
+    split = int((~same).sum())
+    if split > SPLIT_LANES:
+        fail(f"{label}: the 16-pivot segment left lockstep on {split} "
+             f"lanes (> {SPLIT_LANES})")
+    scale = p16.bfs[same].abs().max().item()
+    err16 = (k16.bfs[same] - p16.bfs[same]).abs().max().item()
+    if not err16 <= 1e-4 * scale:
+        fail(f"{label}: bfs differs by {err16:.3e} after 16 pivots "
+             f"(> 1e-4 of {scale:.3e})")
+    del d16, p16
+    takes = sk.unit_pays(b, m, n, unit.n_d, DEVICE)
+    if takes != (kind == "two_phase"):
+        fail(f"{label}: unit_pays is {takes}")
+
+    states = iter([fresh() for _ in range(10)])
+    ms_k = cuda_ms(lambda: run(unit_plan, next(states), 1), 10)
+    states = iter([fresh() for _ in range(10)])
+    ms_p = cuda_ms(lambda: sk.solve_segment_plain(
+        A, c, apen, 1 << 20, next(states), seg_len=1, **kw), 10)
+    dense_ms = {}
+    for pivots in (1, SEGMENT_PIVOTS):
+        states = iter([fresh() for _ in range(3)])
+        dense_ms[pivots] = cuda_ms(
+            lambda: run(dense_plan, next(states), pivots, layout=None), 3)
+    del states
+    b_ms, b_by = segment_bound_ms(b, pivoted, m, n, unit.n_d)
+    run(unit_plan, fresh(), 1)  # the plan report's chosen plan
+    plan = _plan_report(sk, lambda pl, s, n_piv: run(pl, s, n_piv), fresh,
+                        (b, m, n), k16, label, devex=devex, n_d=unit.n_d)
+    return {"shape": [b, m, n], "kind": kind, "mode": mode,
+            "n_d": unit.n_d, "solve_segment_takes_it": takes, **plan,
+            "dense": {"cluster": dense_plan.cluster,
+                      "resident_clusters": sk.clusters_held(dense_plan),
+                      "segment_ms_per_iter": (
+                          (dense_ms[SEGMENT_PIVOTS] - dense_ms[1])
+                          / (SEGMENT_PIVOTS - 1)),
+                      "one_pivot_ms": dense_ms[1]},
+            "one_iter": {"excluded_tie_lanes": int(tie.sum()),
+                         "pivoted_lanes": pivoted, "max_abs_err_bfs": err1,
+                         "ms": ms_k, "plain_ms": ms_p, "reps": 10,
+                         "bound_ms": b_ms, "bound_by": b_by},
+            "segment16": {"lanes_in_lockstep": int(same.sum()),
+                          "allowed_split": SPLIT_LANES,
+                          "same_bits_as_dense": True,
+                          "max_abs_err_bfs": err16, "tol": "1e-4 of scale",
+                          "bfs_scale": scale}}
+
+
 def phase_segment():
     cfg = tuned_config(M)
     out = {"phase": "solve_segment", "shape": [B, M, N + M],
@@ -869,6 +1035,9 @@ def phase_segment():
                            for dual in (False, True)]
     out["other_shapes"] += [_hold_segment(False, *shape, pricing=2)
                             for shape in SEGMENT_SHAPES + [BLOCK_SHAPE]]
+    out["unit_layout"] = [_hold_unit(kind, dual, pricing)
+                          for kind in UNIT_KINDS
+                          for dual, pricing in UNIT_MODES]
     # the streaming branch past the largest cluster, beside the block per
     # lane it replaced and the one-iteration bound (A read once, the factor
     # read and written once a lane)
@@ -886,7 +1055,8 @@ def phase_segment():
     emit(out)
     return {"max_abs_err": worst_err, "ms": one_ms["primal"][0],
             "plain_ms": one_ms["primal"][1], "bound_ms": b_ms,
-            "bound_by": b_by, "streaming_shapes": big, **_plan_summary(
+            "bound_by": b_by, "streaming_shapes": big,
+            "unit_layout": out["unit_layout"], **_plan_summary(
                 [(B, M, N + M, "primal", plans["primal"]),
                  (B, M, N + M, "dual", plans["dual"])]
                 + [(*r["shape"], r["mode"], r) for r in out["other_shapes"]])}
@@ -980,13 +1150,13 @@ def phase_segment_devex():
     cc, G, hh = device_inequality_lps(gen, B, M, N, DEVICE)
     cs, As, bs = device_standard_form_batch(cc, G, hh)
     lt.solve_batch_two_phase(cs, As, bs, 4000, 4000, cfg)  # warm-up
-    sk.launches = 0
+    sk.launches = sk.launches_unit = 0
     torch.cuda.synchronize()
     t0 = time.time()
     res = lt.solve_batch_two_phase(cs, As, bs, 4000, 4000, cfg)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = sk.launches
+    launches, launches_unit = sk.launches, sk.launches_unit
     gap = highs_gap(res.cost, cc, 4, A_ub=G, b_ub=hh)
     out = {"phase": "solve_segment_devex", "shape": [B, M, N + M], **plan,
            "one_iter": {"lanes_equal": int(same1.sum()),
@@ -998,6 +1168,7 @@ def phase_segment_devex():
            "two_phase": {"lanes": B, "m": M, "n": N,
                          "lane_status": status_counts(res.status),
                          "wall_s": wall, "launches": launches,
+                         "launches_unit": launches_unit,
                          "iters_total": int(res.iters.sum()),
                          "highs_lanes": 4, "max_rel_gap_vs_highs": gap}}
     emit(out)
@@ -1007,6 +1178,10 @@ def phase_segment_devex():
         fail(f"devex two-phase: HiGHS gap {gap:.3e} > 1e-5")
     if launches <= 0:
         fail("devex two-phase: kernel solve_segment was never launched")
+    if launches_unit <= 0:
+        fail("devex two-phase: the [1024, 256, 768] Phase-I lanes never took "
+             "the unit layout")
+    return {"solve_segment": launches, "solve_segment_unit": launches_unit}
 
 
 def phase_main_path():
@@ -1019,7 +1194,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     warm = time.time() - t0
 
-    sk.launches = 0
+    sk.launches = sk.launches_unit = 0
     ck.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1027,6 +1202,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"solve_segment": sk.launches,
+                "solve_segment_unit": sk.launches_unit,
                 "panel_cholinv": ck.launches}
     MAIN_PATH["basis"] = res.basis
 
@@ -1091,8 +1267,10 @@ def phase_main_path():
         fail(f"main path: {summ['certified']}/{B} certified (< 1020)")
     if not max_gap <= 1e-5:
         fail(f"main path: HiGHS gap {max_gap:.3e} > 1e-5")
+    # the unit layout is counted, not required: the crossover's [G | I]
+    # saves no CTA by it, so it keeps the dense launch
     for name, cnt in launches.items():
-        if cnt <= 0:
+        if cnt <= 0 and name != "solve_segment_unit":
             fail(f"main path: kernel {name} was never launched")
     return launches
 
@@ -1908,6 +2086,7 @@ def phase_step_kernels():
 def _reset_counts():
     sk.launches = sk.launches_dual = ck.launches = 0
     sk.launches_streaming = sk.launches_streaming_dual = 0
+    sk.launches_unit = 0
     ssk.launches = ssk.launches_dual = bk.launches = 0
 
 
@@ -1920,6 +2099,7 @@ def _read_counts():
             "solve_segment_streaming_dual": sk.launches_streaming_dual,
             "solve_segment_streaming_primal": (sk.launches_streaming
                                                - sk.launches_streaming_dual),
+            "solve_segment_unit": sk.launches_unit,
             "panel_cholinv": ck.launches,
             "solve_segment_stream": ssk.launches,
             "solve_segment_stream_dual": ssk.launches_dual,
@@ -4553,7 +4733,7 @@ def main():
     phase_build()
     chol = phase_cholinv()
     seg = phase_segment()
-    phase_segment_devex()
+    devex_two_phase = phase_segment_devex()
     launches = phase_main_path()
     stream = phase_stream()
     x_launches = phase_exact_m2048()
@@ -4598,6 +4778,33 @@ def main():
             out["new_shapes"] = new_shapes
         if modes:
             out["modes"] = modes
+        if name == "solve_segment":
+            # the unit layout: its launches on the main path (phase 4) and
+            # by path, and phase 3's leg of it
+            by_path = {path: counts["solve_segment_unit"]
+                       for path, counts in paths.items()
+                       if counts.get("solve_segment_unit")}
+            by_path["two_phase_devex"] = devex_two_phase["solve_segment_unit"]
+            out["launches_unit"] = launches["solve_segment_unit"]
+            out["launches_unit_by_path"] = by_path
+            out["unit_layout"] = [
+                {"shape": r["shape"], "mode": r["mode"], "n_d": r["n_d"],
+                 "solve_segment_takes_it": r["solve_segment_takes_it"],
+                 "cluster": r["plan"]["cluster"],
+                 "resident_clusters": r["resident_clusters"],
+                 "max_abs_err": r["segment16"]["max_abs_err_bfs"],
+                 "ms": r["one_iter"]["ms"],
+                 "plain_ms": r["one_iter"]["plain_ms"],
+                 "segment_ms_per_iter": r["segment"]["ms_per_iter"],
+                 "dense_cluster": r["dense"]["cluster"],
+                 "dense_segment_ms_per_iter":
+                     r["dense"]["segment_ms_per_iter"],
+                 "bound_ms": r["one_iter"]["bound_ms"],
+                 "bound_by": r["one_iter"]["bound_by"],
+                 "launch_bound_ms_per_iter":
+                     r["segment"]["launch_bound_ms_per_iter"],
+                 "launch_bound_by": r["segment"]["launch_bound_by"]}
+                for r in rep["unit_layout"]]
         return out
 
     # the later shapes: kernel 3 at the m = 4096 path's lanes, kernel 2 at

@@ -19,7 +19,8 @@
 // Loading. At launch each CTA copies its rows of A and invBT into shared
 // memory once: one bulk copy (cp.async.bulk, completion on an mbarrier) per
 // piece of at most kCopyBytes where the rows are 16-byte aligned, plain
-// loads otherwise. invBT is written back once at exit.
+// loads otherwise (load_resident_rows: the leading columns of each row of
+// A, for kernel 1's unit layout). invBT is written back once at exit.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -146,6 +147,38 @@ __device__ __forceinline__ void load_resident(float* sA, const float* gA,
   __syncthreads();
 }
 
+// Copy the leading `ncols` floats of `nrows` rows of gA (row length `ld`)
+// to sA (row length `ncols`), and `nB` floats from gB to sB. `aligned`: ld,
+// ncols and nB are multiples of 4 floats and both pieces start on 16 bytes,
+// so bulk copies carry gB while every thread loads the rows of gA by 16
+// bytes (on an H100, a bulk copy a row issued one by one loads 64 rows of
+// 1 KB slower than the dense layout's two copies of 64 KB); otherwise
+// every thread loads.
+// `bar` is initialised with count 1. Ends synced.
+__device__ __forceinline__ void load_resident_rows(
+    float* sA, const float* gA, int nrows, int ld, int ncols, float* sB,
+    const float* gB, int nB, bool aligned, unsigned long long* bar) {
+  if (aligned) {
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = (uint32_t)nB * sizeof(float);
+      mbar_expect(bar, bytes);
+      for (uint32_t off = 0; off < bytes; off += kCopyBytes)
+        bulk_g2s(sB + off / 4, gB + off / 4, min(kCopyBytes, bytes - off),
+                 bar);
+    }
+    const int q = ncols / 4;
+    for (int i = threadIdx.x; i < nrows * q; i += kThreads)
+      reinterpret_cast<float4*>(sA)[i] = __ldg(
+          reinterpret_cast<const float4*>(gA + (size_t)(i / q) * ld) + i % q);
+    mbar_wait(bar, 0u);
+  } else {
+    for (int i = threadIdx.x; i < nrows * ncols; i += kThreads)
+      sA[i] = __ldg(gA + (size_t)(i / ncols) * ld + i % ncols);
+    for (int i = threadIdx.x; i < nB; i += kThreads) sB[i] = gB[i];
+  }
+  __syncthreads();
+}
+
 // acc + a * b: fused (one rounding, as a library GEMV sums) or with the
 // product rounded first (the build's --fmad=false).
 template <bool FMA>
@@ -212,6 +245,60 @@ __device__ void col_pass(const float* G, int ld, int ncols, int nrows,
     }
   }
   __syncthreads();
+}
+
+// ---- unit columns: col_pass's partials of columns with one nonzero ------------
+//
+// Column k = n_d + u of the lane's A holds a[u] at row r[u] and zeros
+// elsewhere, and only the leading n_d columns lie in shared memory. Over
+// the CTA's rows col_pass sums +0 + v[j] * 0 on every row but r[u]: +-0
+// where v[j] is finite, which leaves the sum alone (a -0 product becomes
+// +0), and NaN where it is not. So its partial is +0 + v[r] a[u] where
+// r[u] is an own row and +0 where it is not, while no other own v[j] is
+// infinite or NaN; the canonical NaN where one is (v[r] = +-inf alone gives
+// +-inf, as col_pass does). out0[k] from v0, and out1[k] from v1 when
+// NV == 2, for n_d <= k < n; v indexed from the CTA's first row `row_lo`.
+// The threads that the col_pass over the held columns leaves idle (those
+// from n_d on, where n_d < kThreads) take the unit columns. Does not sync:
+// that col_pass follows and ends synced.
+
+// The one own row j < nrows whose v[j] is not finite, -1 where none is,
+// -2 where two or more are; each warp looks at every row.
+__device__ __forceinline__ int nonfinite_row(const float* v, int nrows) {
+  int count = 0, at = -1;
+  for (int j = threadIdx.x & 31; j < nrows; j += 32)
+    if (!isfinite(v[j])) {
+      ++count;
+      at = j;
+    }
+  count = __reduce_add_sync(lp::kFullMask, count);
+  at = __reduce_max_sync(lp::kFullMask, at);
+  return count == 0 ? -1 : count == 1 ? at : -2;
+}
+
+template <int NV>
+__device__ void unit_pass(const int* s_urow, const float* s_uval, int n_d,
+                          int n, int row_lo, int nrows, const float* v0,
+                          const float* v1, float* out0, float* out1) {
+  const int bad0 = nonfinite_row(v0, nrows);
+  const int bad1 = NV == 2 ? nonfinite_row(v1, nrows) : -1;
+  const float nan = __int_as_float(0x7fffffff);
+  const int idle = kThreads - n_d;
+  const int first = idle > 0 ? (int)threadIdx.x - n_d : (int)threadIdx.x;
+  const int step = idle > 0 ? idle : kThreads;
+  for (int k = n_d + first; first >= 0 && k < n; k += step) {
+    const int j = s_urow[k - n_d] - row_lo;
+    const bool own = j >= 0 && j < nrows;
+    const float a = s_uval[k - n_d];
+    // NaN where a non-finite v meets a zero of the column
+    out0[k] = bad0 == -2 || (bad0 >= 0 && bad0 != j)
+                  ? nan
+                  : (own ? 0.0f + v0[j] * a : 0.0f);
+    if (NV == 2)
+      out1[k] = bad1 == -2 || (bad1 >= 0 && bad1 != j)
+                    ? nan
+                    : (own ? 0.0f + v1[j] * a : 0.0f);
+  }
 }
 
 // ---- split pricing: the three bf16 products of the pricing pass ------------

@@ -43,6 +43,18 @@
 // remote reads, three block reductions, the shared-memory passes), with a
 // batch larger than the resident clusters run in waves.
 //
+// The unit layout (n_d < n): where the trailing columns n_d .. n - 1 of
+// every lane hold one nonzero each (the slack and artificial columns of a
+// standard form), the CTAs hold only their rows of the leading n_d columns
+// and every lane's unit columns come as a row and a value. A pass gives a
+// unit column the partial col_pass would (lpc::unit_pass: +0 + v_r a in
+// the CTA that owns row r, +0 elsewhere, NaN where an own v off row r is
+// not finite), and an entering unit column's entries are a at its row, 0
+// elsewhere, so every bit is the dense launch's. At m = 256 the two-phase
+// simplex's [G | I | I] (n = 768) then fits 4 CTAs a lane, not 8, and the
+// card holds 30 lanes at once instead of 15; the driver takes the layout
+// only where it saves CTAs (solve_kernel.unit_pays).
+//
 // Dual mode picks the leaving row first, prices the row B^-1[l, :] A and
 // r = c - y A in one pass over A, and takes the dual ratio test. Devex
 // pricing (pricing = 2) keeps the reference weights gamma[n]: the entering
@@ -103,13 +115,15 @@ using lp::nan_max;
 using lpc::Pick;
 
 // Floats of one CTA's dynamic shared memory at `cl` CTAs a lane: its rows of
-// A and of invBT; d, u, c_B, bfs and the basis whole; c, pen and the devex
-// weights whole; the CTA's partials over n (pricing, the dual or devex row)
-// and over m (the direction); three slices of m.
-size_t cluster_floats(int m, int n, int cl) {
+// the leading n_d columns of A and of invBT; d, u, c_B, bfs and the basis
+// whole; c, pen and the devex weights whole; the CTA's partials over n
+// (pricing, the dual or devex row) and over m (the direction); three slices
+// of m; the row and value of each of the n - n_d unit columns.
+size_t cluster_floats(int m, int n, int cl, int n_d) {
   const size_t ml = (size_t)(lpc::kBands / cl) * ((m + lpc::kBands - 1) / lpc::kBands);
-  return lpc::round4(ml * n) + lpc::round4(ml * m) +
-         lpc::round4(6 * (size_t)m + 5 * (size_t)n + 3 * ml);
+  return lpc::round4(ml * n_d) + lpc::round4(ml * m) +
+         lpc::round4(6 * (size_t)m + 5 * (size_t)n + 3 * ml) +
+         lpc::round4(2 * (size_t)(n - n_d));
 }
 
 template <int CL>
@@ -117,9 +131,11 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
     const float* __restrict__ A_all, const float* __restrict__ c_all,
     const float* __restrict__ apen_all, float* invBT_all, float* bfs_all,
     float* cB_all, int* basis_all, float* pen_all, float* gamma_all,
-    int* iters_all, int* status_all, int m, int n, int seg_len, int maxiters,
-    float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-    int packed, int stall_limit, int aligned, int split, int ablate) {
+    int* iters_all, int* status_all, const int* __restrict__ urow_all,
+    const float* __restrict__ uval_all, int m, int n, int n_d, int seg_len,
+    int maxiters, float opt_tol, float pivot_tol, float feas_tol, int dual,
+    int pricing, int packed, int stall_limit, int aligned, int split,
+    int ablate) {
   cg::cluster_group cl = cg::this_cluster();
   const unsigned rank = cl.block_rank();
   const int tid = threadIdx.x;
@@ -145,9 +161,13 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
   const float* apen = apen_all + lane * n;
   float* invBT = invBT_all + lane * m * m;
   const bool devex = pricing == 2;
+  // the unit layout: columns n_d .. n - 1 hold one nonzero each, kept as
+  // its row and value; shared memory holds the leading n_d columns
+  const bool unit = n_d < n;
+  const int n_u = n - n_d;
 
-  float* sA = smem;                               // own rows of A
-  float* sB = sA + lpc::round4((size_t)ml * n);   // own rows of invBT
+  float* sA = smem;                                // own rows of A[:, :n_d]
+  float* sB = sA + lpc::round4((size_t)ml * n_d);  // own rows of invBT
   // whole vectors, identical in every CTA
   float* s_d = sB + lpc::round4((size_t)ml * m);  // the direction
   float* s_u = s_d + m;    // the eta vector
@@ -167,15 +187,27 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
   float* s_y = s_p2 + m;
   float* s_col = s_y + ml;     // entering column, own rows
   float* s_colL = s_col + ml;  // invBT[j, leave], own rows
+  int* s_urow = reinterpret_cast<int*>(s_colL + ml);  // unit columns' rows
+  float* s_uval = reinterpret_cast<float*>(s_urow + n_u);  // and values
 
   if (tid == 0) {
     lpc::mbar_init(&s_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  lpc::load_resident(sA, A + (size_t)rows.lo * n, nrows * n, sB,
-                     invBT + (size_t)rows.lo * m, nrows * m, aligned != 0,
-                     &s_bar);
+  if (unit) {
+    lpc::load_resident_rows(sA, A + (size_t)rows.lo * n, nrows, n, n_d, sB,
+                            invBT + (size_t)rows.lo * m, nrows * m,
+                            aligned != 0, &s_bar);
+    for (int u = tid; u < n_u; u += lpc::kThreads) {
+      s_urow[u] = urow_all[lane * n_u + u];
+      s_uval[u] = uval_all[lane * n_u + u];
+    }
+  } else {
+    lpc::load_resident(sA, A + (size_t)rows.lo * n, nrows * n, sB,
+                       invBT + (size_t)rows.lo * m, nrows * m, aligned != 0,
+                       &s_bar);
+  }
   for (int i = tid; i < m; i += lpc::kThreads) {
     s_cB[i] = cB_all[lane * m + i];
     s_bfs[i] = bfs_all[lane * m + i];
@@ -204,6 +236,27 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
   // entry k of a product: the CTAs' partials added in the band tree
   auto sum = [&](float* part, int k) {
     return lpc::tree_sum<0, CL>(cl, part, k);
+  };
+  // the CTA's partials of v0 A over its rows: the unit columns from their
+  // map, the held columns by col_pass
+  auto a_pass1 = [&](const float* v0, float* out0) {
+    if (unit)
+      lpc::unit_pass<1>(s_urow, s_uval, n_d, n, rows.lo, nrows, v0, nullptr,
+                        out0, nullptr);
+    lpc::col_pass<1, false, NB, 2>(sA, n_d, n_d, nrows, band, v0, nullptr,
+                                   out0, nullptr);
+  };
+  // the entering column's entries in own rows
+  auto load_col = [&](int k) {
+    if (k < n_d) {
+      for (int j = tid; j < nrows; j += lpc::kThreads)
+        s_col[j] = sA[(size_t)j * n_d + k];
+    } else {
+      const int r = s_urow[k - n_d] - rows.lo;
+      const float a = s_uval[k - n_d];
+      for (int j = tid; j < nrows; j += lpc::kThreads)
+        s_col[j] = j == r ? a : 0.0f;
+    }
   };
   // devex weights from the pivot row w (the partials in s_pw)
   auto devex_update = [&](float safe, float gq, int lcol) {
@@ -271,8 +324,11 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
       for (int j = tid; j < nrows; j += lpc::kThreads)
         s_colL[j] = sB[(size_t)j * m + leave];
       __syncthreads();
-      lpc::col_pass<2, false, NB, 1>(sA, n, n, nrows, band, s_colL, s_y, s_pw,
-                                     s_p1);
+      if (unit)
+        lpc::unit_pass<2>(s_urow, s_uval, n_d, n, rows.lo, nrows, s_colL,
+                          s_y, s_pw, s_p1);
+      lpc::col_pass<2, false, NB, 1>(sA, n_d, n_d, nrows, band, s_colL, s_y,
+                                     s_pw, s_p1);
       cl.sync();  // (a)
 
       // ---- dual ratio test over urow < -pivot_tol, pen == 0 ------------
@@ -310,12 +366,11 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
         part = lpc::block_sum(part, red);
         if (tid == 0) s_p1[0] = part;
         __syncthreads();
-      } else if (split) {
+      } else if (split) {  // never with the unit layout
         lpc::col_pass_split<NB>(sA, n, n, nrows, band, s_y, s_p1, s_pw,
                                 s_gamma);
       } else {
-        lpc::col_pass<1, false, NB, 2>(sA, n, n, nrows, band, s_y, nullptr,
-                                       s_p1, nullptr);
+        a_pass1(s_y, s_p1);
       }
       cl.sync();  // (a)
       if (pend) {  // the weights of the last pivot, before they are read
@@ -373,8 +428,7 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
         for (int i = tid; i < m; i += lpc::kThreads)
           s_d[i] = __ldg(A + (size_t)i * n + enter);
       } else {
-        for (int j = tid; j < nrows; j += lpc::kThreads)
-          s_col[j] = sA[(size_t)j * n + enter];
+        load_col(enter);
         __syncthreads();
         lpc::col_pass<1, true, NB, 1>(sB, m, m, nrows, band, s_col, nullptr,
                                       s_p2, nullptr);
@@ -428,8 +482,7 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
 
     if (dual) {
       // ---- the direction: partial over own rows, then all of d ---------
-      for (int j = tid; j < nrows; j += lpc::kThreads)
-        s_col[j] = sA[(size_t)j * n + enter];
+      load_col(enter);
       __syncthreads();
       lpc::col_pass<1, true, NB, 1>(sB, m, m, nrows, band, s_col, nullptr,
                                     s_p2, nullptr);
@@ -461,8 +514,7 @@ __global__ void __launch_bounds__(lpc::kThreads, 1) solve_segment_cluster_kernel
         devex_update(safe, gamma_q, leaving_col);
       } else if (devex) {
         // the pivot row of the OLD tableau, summed after the next barrier
-        lpc::col_pass<1, false, NB, 2>(sA, n, n, nrows, band, s_colL, nullptr,
-                                       s_pw, nullptr);
+        a_pass1(s_colL, s_pw);
         pend = true;
         pend_safe = safe;
         pend_gq = gamma_q;
@@ -544,21 +596,29 @@ extern "C" int lp_solve_segment_cluster_max_clusters(int cluster,
 // The cluster-resident branch under a launch plan (cluster, aligned,
 // smem_bytes) from ops/solve_kernel.py :: segment_plans, checked here
 // against the shape before anything is launched.
+//
+// The unit layout (n_d < n): every lane's columns n_d .. n - 1 hold one
+// nonzero each, at row urow[b, k - n_d] with value uval[b, k - n_d]
+// ([B, n - n_d] each); the CTAs hold only the leading n_d columns of A.
+// Never with split pricing or an ablation mode. With n_d == n (urow and
+// uval unused) the lane is held whole.
 extern "C" int lp_solve_segment_cluster(
     const float* A, const float* c, const float* apen, float* invBT,
     float* bfs, float* cB, int* basis, float* pen, float* gamma, int* iters,
     int* status, int B, int m, int n, int seg_len, int maxiters,
     float opt_tol, float pivot_tol, float feas_tol, int dual, int pricing,
-    int packed, int stall_limit, int split, int ablate, int cluster,
-    int aligned, int smem_bytes, void* stream) {
+    int packed, int stall_limit, int split, int ablate, const int* urow,
+    const float* uval, int n_d, int cluster, int aligned, int smem_bytes,
+    void* stream) {
   if (pricing < 0 || pricing > 2 || m < 1 || n < 1 || B < 1 ||
       !lpc::cluster_built(cluster) || ablate < 0 || ablate > 7 ||
-      (split && (dual || pricing == 2)))
+      (split && (dual || pricing == 2)) || n_d < 0 || n_d > n ||
+      (n_d < n && (split || ablate || urow == nullptr || uval == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (aligned && !(m % 4 == 0 && n % 4 == 0 && (uintptr_t)A % 16 == 0 &&
-                   (uintptr_t)invBT % 16 == 0))
+  if (aligned && !(m % 4 == 0 && n % 4 == 0 && n_d % 4 == 0 &&
+                   (uintptr_t)A % 16 == 0 && (uintptr_t)invBT % 16 == 0))
     return (int)cudaErrorInvalidValue;
-  const size_t need = cluster_floats(m, n, cluster) * sizeof(float);
+  const size_t need = cluster_floats(m, n, cluster, n_d) * sizeof(float);
   if (smem_bytes < 0 || (size_t)smem_bytes < need ||
       (size_t)smem_bytes + kClusterStatic > lpc::kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -567,9 +627,10 @@ extern "C" int lp_solve_segment_cluster(
   if (cluster == CL)                                                         \
     return lpc::launch(solve_segment_cluster_kernel<CL>, CL, B,              \
                        (size_t)smem_bytes, s, A, c, apen, invBT, bfs, cB,    \
-                       basis, pen, gamma, iters, status, m, n, seg_len,      \
-                       maxiters, opt_tol, pivot_tol, feas_tol, dual, pricing, \
-                       packed, stall_limit, aligned, split, ablate);
+                       basis, pen, gamma, iters, status, urow, uval, m, n,   \
+                       n_d, seg_len, maxiters, opt_tol, pivot_tol, feas_tol, \
+                       dual, pricing, packed, stall_limit, aligned, split,   \
+                       ablate);
   LP_CLUSTER_SIZES(LP_LAUNCH)
 #undef LP_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -32,7 +32,8 @@ from .config import DEFAULT_CONFIG, SolverConfig
 from . import engine
 from .engine import SimplexState, _gather_cols, basis_matrix, inv_or_nan
 from .observability import host_read, span, spanned
-from .ops.solve_kernel import SegmentState, solve_segment
+from .ops.solve_kernel import (SegmentState, solve_segment, unit_count,
+                               unit_map, unit_pays)
 from .ops.step_kernels import price_entering, ratio_eta_pivot
 from .ops.stream_kernel import solve_segment_stream
 
@@ -159,13 +160,18 @@ def _segment_pack(c, A, state: SimplexState, allowed):
 
 def segment_launch(number: int, mode: str, seg, kernel, *args, **kw):
     """``kernel(*args, **kw)``, one launch of kernel ``number`` on the
-    packed state ``seg``, as a span ``segment`` with the lanes running at
-    the launch and the pivots it did (device counts, no host read)."""
+    packed state ``seg`` (``args[0]`` is A), as a span ``segment`` with the
+    lanes running at the launch and the pivots it did (device counts, no
+    host read), the columns of A it held in shared memory (``held_cols``:
+    kernel 1's ``n_d`` in the unit layout, else n) and its CTAs a lane
+    (``cluster``), which the kernel's wrapper gives the span; a plain
+    version launches nothing (``cluster`` 0)."""
     sp = span("segment")
     if sp:
         before = seg.iters.clone()
         sp.set(kernel=number, mode=mode,
-               running=(seg.status == st.RUNNING).sum())
+               running=(seg.status == st.RUNNING).sum(),
+               held_cols=args[0].shape[2], cluster=0)
     with sp:
         kernel(*args, **kw)
     if sp:
@@ -184,7 +190,12 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
     ``refactor_method="ns"``, as in the reference): after the segments, at
     most three rounds of exact refactorization of every lane, reopening the
     OPTIMAL and PRIMAL_UNBOUNDED lanes and resuming, until no lane moves
-    more than the one iteration that re-confirms it."""
+    more than the one iteration that re-confirms it.  Kernel 1 gets the
+    map of A's trailing unit columns where its unit layout could take fewer
+    CTAs a lane than the dense launch
+    (:func:`~linprog_tpu_torch.ops.solve_kernel.unit_pays`): their count
+    rides on the drive's first read of the running lanes, and the map is
+    built only where the count makes the layout pay."""
     A = A.contiguous()
     c = c.contiguous()
     seg_len = cfg.refactor_every if cfg.refactor_every > 0 else (1 << 30)
@@ -192,12 +203,26 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
     kw = dict(kw, seg_len=seg_len, opt_tol=cfg.opt_tol,
               pivot_tol=cfg.pivot_tol, feas_tol=cfg.feas_tol,
               stall_limit=cfg.stall_limit, packed=cfg.packed_select)
+    B, m, n = A.shape
+    # the unit-column count, on the device, where a map could pay
+    probe = (unit_count(A) if number == 1 and not kw.get("split")
+             and not kw.get("ablate") and unit_pays(B, m, n, 0, A.device)
+             else None)
 
     mode = "dual" if kw.get("dual") else "primal"
 
     def any_running():
-        return host_read(bool, ((seg.status == st.RUNNING)
-                                & (seg.iters < maxiters)).any())
+        nonlocal probe
+        running = ((seg.status == st.RUNNING) & (seg.iters < maxiters)).any()
+        if probe is None:
+            return host_read(bool, running)
+        go, n_u = host_read(torch.Tensor.tolist,
+                            torch.stack([running.to(probe.dtype), probe]))
+        probe = None
+        unit = unit_map(A, n_u)
+        kw["unit"] = (unit if unit is not None
+                      and unit_pays(B, m, n, unit.n_d, A.device) else None)
+        return bool(go)
 
     def segments():
         while any_running():
@@ -222,6 +247,8 @@ def _drive_segments(c, A, b, state: SimplexState, allowed, maxiters: int,
             if host_read(bool, ((seg.iters - snapshot) <= 1).all()):
                 break
     else:
+        if probe is not None:
+            any_running()  # the map: its one read
         segment_launch(number, mode, seg, kernel, A, c, apen, maxiters, seg,
                        **kw)
 

@@ -51,8 +51,10 @@ Spans (name: where; counts):
   refactorization after each dual phase) and ``xover.verify`` (the
   terminal dd solve and its check).
 * ``segment``: one kernel launch of a segment loop; ``kernel`` (1, 3 or
-  4), ``mode``, and the device counts ``running`` (lanes running at the
-  launch) and ``pivots`` (pivots it did).
+  4), ``mode``, the device counts ``running`` (lanes running at the
+  launch) and ``pivots`` (pivots it did), ``held_cols`` (the columns of A
+  it held in shared memory: kernel 1's ``n_d`` in its unit layout, else
+  n) and ``cluster`` (its CTAs a lane; 0 for a plain version).
 * ``batched_lu``: :func:`engine_batched.refresh_running_lanes`.
 * ``polish`` and ``bounded_polish``: :func:`refine.polish_batch` and
   :func:`refine.polish_bounded_batch`; ``pivots``, the rounds that
@@ -374,6 +376,16 @@ def current():
         return _NO_SPAN
     open_ = rec.thread().open
     return open_[-1] if open_ else _NO_SPAN
+
+
+def note(name: str, **counts) -> None:
+    """Add ``counts`` to the innermost open span where it is a span
+    ``name`` (a no-op otherwise, and while recording is off): how a callee
+    reports on the span its caller opened, as a kernel's wrapper gives the
+    ``segment`` span its launch's layout."""
+    sp = current()
+    if sp and sp.name == name:
+        sp.set(**counts)
 
 
 def host_read(read, *args, **kw):

@@ -124,9 +124,10 @@ def _declare(lib):
     ]
     # kernel 1: A, c, apen, invBT, bfs, cB, basis, pen, gamma, iters,
     # status; then split and ablate, and the plan before the stream. The
-    # cluster-resident branch: cluster, aligned, smem_bytes
+    # cluster-resident branch: the unit layout's rows, values and n_d, then
+    # cluster, aligned, smem_bytes
     lib.lp_solve_segment_cluster.argtypes = ([p] * 11 + tail[:-1] + [i, i]
-                                             + [i] * 3 + [p])
+                                             + [p, p, i] + [i] * 3 + [p])
     lib.lp_solve_segment_cluster.restype = i
     lib.lp_solve_segment_cluster_max_clusters.argtypes = [i, i]  # cluster, smem
     lib.lp_solve_segment_cluster_max_clusters.restype = i

@@ -57,6 +57,7 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from .. import status as st
+from ..observability import note
 from . import _build
 from .solve_kernel import (
     _STATIC_BYTES,
@@ -536,4 +537,5 @@ def launch_with_plan(plan: SegmentPlan, A, c, lb, ub, maxiters: int,
     _build.check(code, "solve_bounded_segment launch")
     launches += 1
     last_plan = plan
+    note("segment", held_cols=n, cluster=plan.cluster)
     return state

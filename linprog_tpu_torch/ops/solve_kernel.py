@@ -51,7 +51,12 @@ the batch:
   selection over whole vectors, so an iteration has two cluster barriers;
   the eta update of the own rows yields the next duals.  Device memory sees
   A and the factor once a launch; an iteration's latency bounds it.
-  :func:`segment_plans` lays the launch out;
+  :func:`segment_plans` lays the launch out.  Where the trailing columns
+  ``[n_d, n)`` of A hold one nonzero each in every lane (the slack and
+  artificial columns of a standard form; :func:`unit_columns` finds them),
+  the unit layout keeps only the leading ``n_d`` columns in shared memory
+  and each trailing column as its row and value; its passes give the bits
+  of the dense launch, and its smaller CTAs let the card hold more lanes;
 * streaming (``csrc/solve_segment_large.cu``), for lanes past the largest
   cluster, up to the line of the block per lane it replaced (:func:`in_reach`),
   in the design of kernel 3 (:mod:`~linprog_tpu_torch.ops.stream_kernel`):
@@ -75,6 +80,7 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from .. import status as st
+from ..observability import host_read, note
 from . import _build
 
 INTMAX = 0x7FFFFFFF
@@ -85,6 +91,7 @@ launches_split = 0  # those of them with split pricing
 launches_streaming = 0  # those of them on the streaming branch
 launches_streaming_dual = 0  # those of them in dual mode
 launches_ablate = {k: 0 for k in range(1, 8)}  # those with each ablation mode
+launches_unit = 0  # those of them in the unit layout
 last_plan = None  # the plan of the last launch
 
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -133,6 +140,62 @@ class SegmentState(NamedTuple):
     status: torch.Tensor
 
 
+class UnitColumns(NamedTuple):
+    """The trailing columns ``[n_d, n)`` of ``A[B, m, n]``, each with one
+    nonzero in every lane: its row ``rows[b, k - n_d]`` (i32) and value
+    ``vals[b, k - n_d]`` (f32), ``[B, n - n_d]`` each."""
+
+    n_d: int
+    rows: torch.Tensor
+    vals: torch.Tensor
+
+
+def unit_count(A) -> torch.Tensor:
+    """The length of the longest run of trailing columns of ``A[B, m, n]``
+    that hold exactly one nonzero in every lane, as a device int32 scalar:
+    reductions over A, with no temporary of A's size and no host read."""
+    nnz = torch.linalg.vector_norm(A, ord=0, dim=1)  # [B, n] nonzeros
+    unit = (nnz == 1).all(dim=0)
+    return unit.flip(0).to(torch.int32).cumprod(0).sum()
+
+
+def unit_map(A, n_u: int) -> Optional[UnitColumns]:
+    """The last ``n_u`` columns of ``A[B, m, n]`` (unit columns, from
+    :func:`unit_count`) as :class:`UnitColumns`, their start rounded up to a
+    multiple of 4 (so the held rows stay 16-byte aligned); None where that
+    leaves no column."""
+    B, m, n = A.shape
+    n_d = _round4(n - n_u)
+    if n_d >= n:
+        return None
+    tail = A[:, :, n_d:]
+    vals = tail.sum(dim=1)  # the one nonzero, exactly
+    rows = torch.where(vals > 0, tail.argmax(dim=1), tail.argmin(dim=1))
+    return UnitColumns(n_d, rows.to(torch.int32).contiguous(),
+                       vals.contiguous())
+
+
+def unit_columns(A) -> Optional[UnitColumns]:
+    """:func:`unit_map` of :func:`unit_count`: one host read."""
+    return unit_map(A, host_read(int, unit_count(A)))
+
+
+def unit_pays(B: int, m: int, n: int, n_d: int, device) -> bool:
+    """Whether the unit layout that holds the leading ``n_d`` columns of
+    ``B`` lanes of (m, n) takes fewer CTAs a lane on ``device`` than the
+    dense launch.  Only then does it let the card hold more lanes; at the
+    same cluster it trades the dense pass for the map's, and is no faster
+    (at [1024, 256, 512] an iteration takes 0.457 against 0.448 ms).  False
+    off a CUDA device, off the cluster-resident branch and for no lanes."""
+    device = torch.device(device)
+    if device.type != "cuda" or B < 1 or n_d >= n or not resident(m, n):
+        return False
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    dense = _choose_plan(B, m, n, False, index, True)
+    return _choose_plan(B, m, n, False, index, True, n_d).cluster < dense.cluster
+
+
 class SegmentPlan(NamedTuple):
     """How one launch of the cluster-resident branch is laid out."""
 
@@ -165,15 +228,19 @@ def _round4(v: int) -> int:
     return -(-v // 4) * 4
 
 
-def cluster_bytes(m: int, n: int, cluster: int) -> int:
+def cluster_bytes(m: int, n: int, cluster: int,
+                  n_d: Optional[int] = None) -> int:
     """Dynamic shared memory of one CTA on the cluster-resident branch: its
     rows of A and of ``B^-T``; d, u, c_B, bfs and the basis whole; c, pen and
     the devex weights whole; its partials over n (pricing, the dual or devex
     row) and over m (the direction); three slices of m (every mode alike, so
-    the branch does not depend on the mode)."""
+    the branch does not depend on the mode).  In the unit layout (``n_d <
+    n``) its rows of the leading ``n_d`` columns of A only, and the row and
+    value of each of the ``n - n_d`` unit columns."""
+    n_d = n if n_d is None else n_d
     ml = slice_len(m, cluster)
-    return 4 * (_round4(ml * n) + _round4(ml * m)
-                + _round4(6 * m + 5 * n + 3 * ml))
+    return 4 * (_round4(ml * n_d) + _round4(ml * m)
+                + _round4(6 * m + 5 * n + 3 * ml) + _round4(2 * (n - n_d)))
 
 
 def band_slice_len(size: int, cluster: int) -> int:
@@ -344,12 +411,14 @@ def resident_plans(B: int, m: int, n: int, cbytes, sm_count: int,
 
 
 def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
-                  smem_limit: int = SMEM_LIMIT, devex: bool = False) -> list:
+                  smem_limit: int = SMEM_LIMIT, devex: bool = False,
+                  n_d: Optional[int] = None) -> list:
     """Candidate launch plans for ``B`` lanes of (m, n), best first.
 
     The branch follows from (m, n) alone (:func:`resident`).  On the
     cluster-resident branch the candidates are the built cluster sizes whose
-    CTA holds its share of the lane (:class:`SegmentPlan`): first the largest
+    CTA holds its share of the lane (:class:`SegmentPlan`; in the unit
+    layout its share of the leading ``n_d`` columns): first the largest
     that keeps the batch within the card's SMs (``B * cluster <=
     sm_count``), else the smallest that fits, then the others from the
     smallest up; the wrapper takes the first that runs the batch in the
@@ -372,7 +441,8 @@ def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
         raise ValueError("solve_segment: plans need B, m, n >= 1, got "
                          f"{(B, m, n)}")
     if resident(m, n, smem_limit):
-        return resident_plans(B, m, n, cluster_bytes, sm_count, smem_limit)
+        cbytes = functools.partial(cluster_bytes, n_d=n_d)
+        return resident_plans(B, m, n, cbytes, sm_count, smem_limit)
     plans = (_large_candidates(m, n, devex, smem_limit)
              if in_reach(m, n, devex, smem_limit) else [])
     if not plans:
@@ -440,14 +510,15 @@ def pick_plan(plans: List[SegmentPlan], B: int, query, device_index: int,
 
 @functools.lru_cache(maxsize=None)
 def _choose_plan(B: int, m: int, n: int, devex: bool, device_index: int,
-                 pointers_aligned: bool):
+                 pointers_aligned: bool, n_d: Optional[int] = None):
     """On the cluster-resident branch the candidate that runs the batch in
     the fewest waves of resident clusters on this device (ties: the earlier
     candidate); on the streaming branch the first candidate the device
     grants.  Unaligned pointers take each streaming candidate's scalar
     branch."""
     props = torch.cuda.get_device_properties(device_index)
-    plans = segment_plans(B, m, n, props.multi_processor_count, devex=devex)
+    plans = segment_plans(B, m, n, props.multi_processor_count, devex=devex,
+                          n_d=n_d)
     if not isinstance(plans[0], StreamingPlan):
         query = _build.library().lp_solve_segment_cluster_max_clusters
         return pick_plan(plans, B, query, device_index, "solve_segment")
@@ -865,12 +936,31 @@ def check_segment_args(A, c, apen, state: SegmentState,
     }, A.device)
 
 
+def _unit_layout(unit: Optional[UnitColumns], A, split: bool,
+                 ablate: int) -> Optional[UnitColumns]:
+    """``unit`` where a launch takes the unit layout: the cluster-resident
+    branch, neither split pricing nor an ablation mode, and a map that
+    leaves some column out of shared memory; None for the dense launch.
+    Raises for a map of the wrong shape, type or device."""
+    B, m, n = A.shape
+    if unit is None or unit.n_d >= n or split or ablate or not resident(m, n):
+        return None
+    if unit.n_d < 0:
+        raise ValueError(f"solve_segment: unit columns from {unit.n_d}")
+    check_tensors("solve_segment", {
+        "unit.rows": (unit.rows, (B, n - unit.n_d), torch.int32),
+        "unit.vals": (unit.vals, (B, n - unit.n_d), torch.float32),
+    }, A.device)
+    return unit
+
+
 def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
                   seg_len: int, pricing: int, opt_tol: float,
                   pivot_tol: float, dual: bool = False,
                   feas_tol: float = 1e-6, stall_limit: int = 0,
                   unroll: int = 1, packed: bool = False, split: bool = False,
-                  ablate: int = 0) -> SegmentState:
+                  ablate: int = 0,
+                  unit: Optional[UnitColumns] = None) -> SegmentState:
     """Run up to ``seg_len`` simplex iterations per lane; updates ``state``
     in place and returns it.
 
@@ -878,10 +968,13 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
     never enter), ``maxiters`` (host int), ``pricing`` 0 = bland,
     1 = dantzig, 2 = devex.  ``split`` prices with bf16 halves (primal
     bland/dantzig only; otherwise ``ValueError``), ``ablate`` 1..7 drops
-    one stage for profiling (see the module docstring).  ``unroll`` is
-    accepted for parity with the reference and ignored: it never changed
-    results.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel.
+    one stage for profiling (see the module docstring).  ``unit`` (from
+    :func:`unit_columns`) lets the cluster-resident branch take the unit
+    layout, with the same bits, where it takes fewer CTAs a lane
+    (:func:`unit_pays`); the other launches and the plain version ignore
+    it.  ``unroll`` is accepted for parity with the reference and
+    ignored: it never changed results.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel.
     """
     del unroll
     check_segment_args(A, c, apen, state)
@@ -906,8 +999,13 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
         index = torch.cuda.current_device()
     pointers_aligned = (A.data_ptr() % 16 == 0
                         and state.invBT.data_ptr() % 16 == 0)
-    plan = _choose_plan(B, m, n, pricing == 2, index, pointers_aligned)
-    return launch_with_plan(plan, A, c, apen, maxiters, state, **kw)
+    unit = _unit_layout(unit, A, split, ablate)
+    if unit is not None and not unit_pays(B, m, n, unit.n_d, A.device):
+        unit = None
+    plan = _choose_plan(B, m, n, pricing == 2, index, pointers_aligned,
+                        None if unit is None else unit.n_d)
+    return launch_with_plan(plan, A, c, apen, maxiters, state, unit=unit,
+                            **kw)
 
 
 def launch_with_plan(plan, A, c, apen, maxiters: int,
@@ -915,13 +1013,16 @@ def launch_with_plan(plan, A, c, apen, maxiters: int,
                      opt_tol: float, pivot_tol: float, dual: bool = False,
                      feas_tol: float = 1e-6, stall_limit: int = 0,
                      packed: bool = False, split: bool = False,
-                     ablate: int = 0) -> SegmentState:
+                     ablate: int = 0,
+                     unit: Optional[UnitColumns] = None) -> SegmentState:
     """Launch the CUDA kernel under ``plan`` (one of :func:`segment_plans`,
-    or a variation of one: the card tests hold cluster sizes and load
-    branches against each other).  CUDA tensors only; the C entry point
-    refuses a plan that does not fit the shape."""
+    or a variation of one: the card tests hold cluster sizes, load
+    branches and layouts against each other); a cluster-resident plan takes
+    the unit layout where :func:`solve_segment` would (``plan`` then from
+    ``segment_plans(..., n_d=unit.n_d)``).  CUDA tensors only; the C entry
+    point refuses a plan that does not fit the shape."""
     global launches, launches_dual, launches_split, last_plan
-    global launches_streaming, launches_streaming_dual
+    global launches_streaming, launches_streaming_dual, launches_unit
     check_segment_args(A, c, apen, state)
     if A.device.type != "cuda":
         raise ValueError("launch_with_plan needs CUDA tensors")
@@ -942,6 +1043,8 @@ def launch_with_plan(plan, A, c, apen, maxiters: int,
         int(bool(split)), int(ablate),
     )
     streaming = isinstance(plan, StreamingPlan)
+    unit = None if streaming else _unit_layout(unit, A, split, ablate)
+    n_d = n if unit is None else unit.n_d
     with torch.cuda.device(A.device):
         if streaming:
             code = lib.lp_solve_segment_large(
@@ -949,18 +1052,22 @@ def launch_with_plan(plan, A, c, apen, maxiters: int,
                 plan.stage_floats, plan.warp_stages, plan.chunk_floats,
                 plan.smem_bytes, stream)
         else:
-            aligned = (m % 4 == 0 and n % 4 == 0
+            aligned = (m % 4 == 0 and n % 4 == 0 and n_d % 4 == 0
                        and A.data_ptr() % 16 == 0
                        and state.invBT.data_ptr() % 16 == 0)
             code = lib.lp_solve_segment_cluster(
-                *args, plan.cluster, int(aligned), plan.smem_bytes, stream)
+                *args, None if unit is None else unit.rows.data_ptr(),
+                None if unit is None else unit.vals.data_ptr(), n_d,
+                plan.cluster, int(aligned), plan.smem_bytes, stream)
     _build.check(code, "solve_segment launch")
     launches += 1
     launches_dual += int(bool(dual))
     launches_split += int(bool(split))
     launches_streaming += int(streaming)
     launches_streaming_dual += int(streaming and bool(dual))
+    launches_unit += int(unit is not None)
     if ablate:
         launches_ablate[ablate] += 1
     last_plan = plan
+    note("segment", held_cols=n_d, cluster=plan.cluster)
     return state

@@ -62,6 +62,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..observability import note
 from . import _build
 from .solve_kernel import (
     SegmentState,
@@ -344,4 +345,5 @@ def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
     launches_dual += int(bool(dual))
     launches_partial += int(bool(partial))
     last_plan = plan
+    note("segment", held_cols=n, cluster=plan.cluster)
     return state

@@ -67,6 +67,13 @@ def _slack_instance(B, m, n, seed, dual, dev, degenerate=True):
     return t(A), t(cs), t(np.zeros((B, n + m), np.float32)), t(h), state
 
 
+def _both_modes(fn):
+    """Parametrize over primal/dual x unpacked/packed."""
+    fn = pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])(fn)
+    return pytest.mark.parametrize("packed", [False, True],
+                                   ids=["unpacked", "packed"])(fn)
+
+
 def _modes(fn):
     """Parametrize over primal/dual x bland/dantzig x unpacked/packed."""
     fn = pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])(fn)
@@ -690,6 +697,249 @@ def test_segment_kernel_refuses_a_plan_that_does_not_fit(cuda):
         with pytest.raises(RuntimeError, match="invalid"):
             solve_kernel.launch_with_plan(bad, A, c, apen, 10, state, **kw)
     assert solve_kernel.launches == before
+
+
+# ---- kernel 1's unit layout against its dense launch -------------------------
+
+# [B, m, n]: the two-phase simplex's Phase-I matrix [G | I | I] at m = 256
+# (rows of h < 0 sign-flipped: -1 slack entries, basic artificials), the
+# crossover's [G | I] (256 held columns in both), and the recovery
+# bucket's [G | I] at m = 512 (512 held)
+_UNIT_SHAPES = {"two_phase": (64, 256, 768), "slack": (64, 256, 512),
+                "recovery": (64, 512, 1024)}
+# the unit layout's planned cluster sizes there
+_UNIT_CLUSTERS = {"two_phase": [4, 8, 16], "slack": [4, 8, 16],
+                  "recovery": [16]}
+# lanes with a planted non-finite dual
+_NONFINITE_LANES = (0, 2)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _unit_instance(shape, dual, dev):
+    """``(A, c, apen, state0)`` at ``_UNIT_SHAPES[shape]`` from the crash or
+    slack basis (``invBT = I``), primal mode feasible; dual mode with |c|
+    and negative basic values.  Lane 0's factor has a NaN row (its dual
+    there is NaN); lane 1's unit column at a row with a zero dual holds -1,
+    so its product is -0; lane 2's dual at row 100 is +inf and every other
+    one finite (one infinite entry of its factor, under a basic cost of 1),
+    so the unit columns of row 100 price to -inf and those of its CTA's
+    other rows to NaN."""
+    from linprog_tpu_torch.engine import slack_crash_state
+    from linprog_tpu_torch.engine_batched import _segment_pack
+    from linprog_tpu_torch.generators import (device_inequality_lps,
+                                              device_standard_form_batch)
+
+    B, m, n = _UNIT_SHAPES[shape]
+    n_g = n - 2 * m if shape == "two_phase" else n - m
+    gen = torch.Generator(device=dev).manual_seed(41 + dual)
+    c, G, h = device_inequality_lps(gen, B, m, n_g, dev)
+    if shape == "two_phase":
+        c_std, A, b = device_standard_form_batch(c, G, h)
+        eye = torch.eye(m, device=dev).expand(B, m, m)
+        A = torch.cat([A, eye], dim=2).contiguous()
+        crash = slack_crash_state(A, b, 2 * m)
+        zeros = torch.zeros((B, m), device=dev)
+        if dual:
+            cost = torch.cat([c_std.abs(), zeros], dim=1)
+            allowed = torch.arange(n, device=dev) < 2 * m
+            crash = crash._replace(bfs=torch.where(
+                torch.arange(m, device=dev) % 3 == 0, -crash.bfs, crash.bfs))
+        else:
+            cost = torch.cat([torch.zeros_like(c_std), zeros + 1.0], dim=1)
+            allowed = torch.ones(n, dtype=torch.bool, device=dev)
+        # lane 1: an artificial of a row whose slack is basic (dual +0)
+        row = int(torch.nonzero(crash.basis[1] < 2 * m)[0])
+        A[1, :, 2 * m + row] *= -1.0
+        apen, state0 = _segment_pack(cost, A, crash, allowed)
+    else:
+        A, cost, apen, _, state0 = _device_slack_instance(B, m, n_g,
+                                                          41 + dual, dual,
+                                                          dev)
+        A[1, :, n - 1] *= -1.0  # a slack of cost 0, basic: dual +0
+    state0.invBT[0, 70, :] = float("nan")
+    state0.cB[2, 5] = 1.0
+    state0.invBT[2, 100, 5] = float("inf")
+    return A, cost.contiguous(), apen, state0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", sorted(_UNIT_SHAPES))
+@pytest.mark.parametrize("pricing", [0, 1, 2],
+                         ids=["bland", "dantzig", "devex"])
+@_both_modes
+def test_segment_kernel_unit_layout_is_the_dense_launch(cuda, dual, packed,
+                                                        pricing, shape):
+    """The unit layout (the structural columns held, the rest as rows and
+    values) gives the dense launch's state bit for bit over 48 pivots, at
+    every built cluster size that holds its lane, in every mode: the NaN
+    lane stops at its first iteration in both, the -0 lane goes on, the
+    +inf-dual lane prices its unit columns as the dense pass does.  Against
+    the plain version: one iteration with the same basis and status, and
+    16 pivots in lockstep on all but 2 lanes (summation order may flip a
+    near tie), off the planted non-finite lanes."""
+    A, c, apen, state0 = _unit_instance(shape, dual, cuda)
+    B, m, n = A.shape
+    unit = solve_kernel.unit_columns(A)
+    assert unit is not None and unit.n_d == n - (2 * m if shape == "two_phase"
+                                                 else m)
+    kw = dict(seg_len=48, pricing=pricing, opt_tol=1e-6, pivot_tol=1e-7,
+              dual=dual, feas_tol=1e-6, stall_limit=24, packed=packed)
+    dense = SegmentState(*(t.clone() for t in state0))
+    before = solve_kernel.launches_unit
+    solve_kernel.launch_with_plan(solve_kernel.segment_plans(B, m, n)[0], A,
+                                  c, apen, 1 << 20, dense, **kw)
+    assert solve_kernel.launches_unit == before
+    torch.cuda.synchronize()
+    assert int(dense.iters[0]) == 1 and int(dense.iters[1]) > 8
+    assert int((dense.iters > 8).sum()) > B // 2
+    plans = solve_kernel.segment_plans(B, m, n, n_d=unit.n_d)
+    assert [p.cluster for p in plans] == _UNIT_CLUSTERS[shape]
+    for plan in plans:
+        s = SegmentState(*(t.clone() for t in state0))
+        solve_kernel.launch_with_plan(plan, A, c, apen, 1 << 20, s, unit=unit,
+                                      **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(SegmentState._fields, s, dense):
+            assert torch.equal(_bits(a), _bits(b)), (plan.cluster, name)
+    assert solve_kernel.launches_unit == before + len(plans)
+
+    keep = torch.ones(B, dtype=torch.bool, device=cuda)
+    keep[list(_NONFINITE_LANES)] = False
+    for pivots, names, allowed in ((1, ("basis", "status"), 0),
+                                   (16, ("basis", "status", "iters", "pen",
+                                         "cB"), 2)):
+        k = SegmentState(*(t.clone() for t in state0))
+        solve_kernel.launch_with_plan(plans[0], A, c, apen, 1 << 20, k,
+                                      unit=unit, **dict(kw, seg_len=pivots))
+        p = solve_kernel.solve_segment_plain(
+            A, c, apen, 1 << 20, SegmentState(*(t.clone() for t in state0)),
+            **dict(kw, seg_len=pivots))
+        torch.cuda.synchronize()
+        same = torch.ones(B, dtype=torch.bool, device=cuda)
+        for name in names:
+            a, b = getattr(k, name), getattr(p, name)
+            same &= (a == b).reshape(B, -1).all(dim=1)
+        assert int((keep & ~same).sum()) <= allowed, (pivots, name)
+
+
+@pytest.mark.card
+def test_unit_layout_plan_at_the_two_phase_shape(cuda):
+    """At [1024, 256, 768] the unit layout's plan takes 4 CTAs a lane (the
+    dense one 8), and the card holds at least 28 of its clusters at once;
+    the wrapper picks it."""
+    B, m, n = 1024, 256, 768
+    plan = solve_kernel.segment_plans(B, m, n, n_d=256)[0]
+    assert plan.cluster == 4 and solve_kernel.clusters_held(plan) >= 28
+    index = torch.cuda.current_device()
+    assert solve_kernel._choose_plan(B, m, n, False, index, True, 256) == plan
+    assert solve_kernel._choose_plan(B, m, n, False, index, True).cluster == 8
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B,m,n,n_d,pays", [
+    (1024, 256, 768, 256, True),    # the two-phase simplex: 4 CTAs, not 8
+    (64, 256, 768, 256, True),
+    (1024, 256, 512, 256, False),   # the crossover's [G | I]: 4 either way
+    (64, 512, 1024, 512, False),    # the recovery bucket: 16 either way
+    (4, 256, 768, 256, False),      # a batch within the SMs: 16 either way
+    (1024, 256, 512, 0, True),      # every column a unit column: 2 CTAs
+    (1024, 256, 768, 768, False),   # nothing left out
+    (0, 256, 768, 256, False),      # no lanes
+    (64, 1024, 2048, 1024, False),  # the streaming branch
+])
+def test_unit_layout_pays_where_it_saves_ctas(cuda, B, m, n, n_d, pays):
+    """The unit layout is taken where its plan on the card has fewer CTAs a
+    lane than the dense launch's, and only there."""
+    assert solve_kernel.unit_pays(B, m, n, n_d, cuda) == pays
+
+
+@pytest.mark.card
+def test_solve_segment_takes_the_unit_layout_where_it_pays(cuda):
+    """``solve_segment`` with a map: the unit layout at the two-phase shape,
+    the dense launch at the crossover's (the same cluster), the same bits
+    either way; the ``segment`` span holds each launch's layout."""
+    from linprog_tpu_torch import observability as obs
+
+    kw = dict(seg_len=8, pricing=1, opt_tol=1e-6, pivot_tol=1e-7,
+              feas_tol=1e-6, stall_limit=24, packed=True)
+    for shape, held, cluster in (("two_phase", 256, 4), ("slack", 512, 4)):
+        A, c, apen, state0 = _unit_instance(shape, False, cuda)
+        B, m, n = A.shape
+        unit = solve_kernel.unit_columns(A)
+        before = solve_kernel.launches_unit
+        rec = obs.start()
+        with obs.span("segment"):
+            s = solve_kernel.solve_segment(
+                A, c, apen, 1 << 20,
+                SegmentState(*(t.clone() for t in state0)), unit=unit, **kw)
+        obs.stop()
+        (call,) = rec.calls()
+        assert call[0].read_counts() == {"held_cols": held,
+                                         "cluster": cluster}
+        assert solve_kernel.launches_unit == before + (held < n)
+        d = solve_kernel.solve_segment(
+            A, c, apen, 1 << 20, SegmentState(*(t.clone() for t in state0)),
+            **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(SegmentState._fields, s, d):
+            assert torch.equal(_bits(a), _bits(b)), (shape, name)
+
+
+@pytest.mark.card
+def test_unit_columns_on_the_card_copy_no_part_of_A(cuda):
+    """The map of the two-phase matrix at [1024, 256, 768] (805 MB) is made
+    with reductions: its peak above what was allocated is a few MB, and its
+    rows and values are the nonzeros'."""
+    from linprog_tpu_torch.generators import (device_inequality_lps,
+                                              device_standard_form_batch)
+
+    B, m = 1024, 256
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    _, A, _ = device_standard_form_batch(*device_inequality_lps(gen, B, m, m,
+                                                                cuda))
+    A = torch.cat([A, torch.eye(m, device=cuda).expand(B, m, m)], dim=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    unit = solve_kernel.unit_columns(A)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 32 * 2**20
+    assert unit.n_d == m
+    tail = A[:64, :, m:]
+    rows = (tail != 0).to(torch.int8).argmax(dim=1)
+    assert torch.equal(unit.rows[:64].long(), rows)
+    assert torch.equal(unit.vals[:64], torch.gather(tail, 1, rows[:, None])[:, 0])
+
+
+@pytest.mark.card
+def test_two_phase_on_card_same_bits_with_and_without_the_unit_layout(
+        cuda, monkeypatch):
+    """The two-phase simplex through the segment loop: its kernel-1
+    launches take the unit layout, and every field of the result is that
+    of the same solve with the layout turned off."""
+    import linprog_tpu_torch.engine_batched as teb
+    from linprog_tpu_torch.batch import solve_batch_two_phase
+    from linprog_tpu_torch.config import SolverConfig
+    from linprog_tpu_torch.generators import (device_inequality_lps,
+                                              device_standard_form_batch)
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c, A, b = device_standard_form_batch(*device_inequality_lps(
+        gen, 64, 256, 256, cuda))
+    cfg = SolverConfig(pricing="dantzig", refactor_every=256, polish_pivots=4)
+    before = solve_kernel.launches_unit
+    on = solve_batch_two_phase(c, A, b, 4000, 4000, cfg)
+    assert solve_kernel.launches_unit > before
+    monkeypatch.setattr(teb, "unit_pays", lambda *args: False)
+    before = solve_kernel.launches_unit
+    off = solve_batch_two_phase(c, A, b, 4000, 4000, cfg)
+    assert solve_kernel.launches_unit == before
+    assert bool((on.status == st.OPTIMAL).all())
+    for name, a, b2 in zip(on._fields, on, off):
+        assert torch.equal(_bits(a), _bits(b2)), name
 
 
 def _mid_solve(A, c, apen, state0, pivots, **kw):

@@ -431,3 +431,136 @@ def test_segment_built_stream_plans_add_the_scalar_branch(m, n):
     assert sorted(p.cluster for p in built if not p.aligned) == [4, 8]
     with pytest.raises(ValueError, match="cluster-resident"):
         sk.built_stream_plans(16, 256, 512)
+
+
+# ---- kernel 1's unit layout ---------------------------------------------------
+
+
+def _trailing_unit(A):
+    """The trailing columns of A with exactly one nonzero in every lane,
+    counted one column at a time."""
+    count = 0
+    for k in range(A.shape[2] - 1, -1, -1):
+        if not bool(((A[:, :, k] != 0).sum(dim=1) == 1).all()):
+            break
+        count += 1
+    return count
+
+
+def _two_phase_matrix(B=3, m=8, n_g=12, seed=0):
+    """[G | I | I] with the rows of h < 0 sign-flipped, as the two-phase
+    simplex builds its Phase-I matrix: -1 entries in the slack block and
+    -0.0 for the zeros of the flipped rows."""
+    gen = torch.Generator().manual_seed(seed)
+    G = torch.randn((B, m, n_g), generator=gen)
+    h = torch.randn((B, m), generator=gen)
+    eye = torch.eye(m).expand(B, m, m)
+    A = torch.cat([G, eye], dim=2)
+    A = torch.where((h < 0)[:, :, None], -A, A)
+    return torch.cat([A, eye], dim=2)
+
+
+def test_unit_columns_map_the_trailing_block():
+    """The two-phase matrix's 2m trailing unit columns: their rows and
+    values, -1 entries of the flipped slack rows included; the block starts
+    at the first multiple of 4 at or past the last dense column."""
+    A = _two_phase_matrix(n_g=10)
+    B, m, n = A.shape
+    assert bool((A == -1).any()) and bool((torch.signbit(A) & (A == 0)).any())
+    u = sk.unit_columns(A)
+    assert _trailing_unit(A) == 2 * m and u.n_d == 12
+    assert u.rows.dtype == torch.int32 and u.vals.dtype == torch.float32
+    assert u.rows.shape == u.vals.shape == (B, n - u.n_d)
+    tail = A[:, :, u.n_d:]
+    want_rows = (tail != 0).to(torch.int8).argmax(dim=1)
+    assert torch.equal(u.rows.long(), want_rows)
+    assert torch.equal(u.vals, torch.gather(tail, 1, want_rows[:, None])[:, 0])
+    assert bool((u.vals == -1).any())
+
+
+@pytest.mark.parametrize("case", ["two_nonzeros", "zero", "one_lane",
+                                  "inside", "nan_entry", "leading_units"])
+def test_unit_columns_fall_back_where_the_block_breaks(case):
+    """A last column with two nonzeros or none, in any one lane, leaves no
+    unit block (the dense launch, n_d = n): the block is common to the
+    batch. A break inside the block shortens it to the columns past the
+    break; a NaN is a nonzero; unit columns before a dense one are held."""
+    A = _two_phase_matrix()
+    B, m, n = A.shape
+    if case == "two_nonzeros":
+        A[:, 0, n - 1] = 2.0
+    elif case == "zero":
+        A[:, :, n - 1] = 0.0
+    elif case == "one_lane":
+        A[1, 3, n - 1] = 0.5
+    elif case == "inside":
+        A[2, 0, n - 5] = 0.5
+    elif case == "nan_entry":
+        A[0, :, n - 2] = 0.0
+        A[0, 4, n - 2] = float("nan")
+    else:  # the structural columns end in a unit column and a dense one
+        A = torch.cat([A[:, :, :12], torch.eye(m)[:, :1].expand(B, m, 1),
+                       A[:, :, :1], A[:, :, 12:]], dim=2)
+        n = A.shape[2]
+    u = sk.unit_columns(A)
+    run = _trailing_unit(A)
+    if case in ("two_nonzeros", "zero", "one_lane"):
+        assert run == 0 and u is None
+        return
+    assert u.n_d == -(-(n - run) // 4) * 4 < n
+    if case == "inside":
+        assert run == 4 and u.n_d == n - 4
+    if case == "nan_entry":
+        assert run == 16
+        k = n - 2 - u.n_d
+        assert int(u.rows[0, k]) == 4 and bool(torch.isnan(u.vals[0, k]))
+    if case == "leading_units":
+        assert run == 16 and n - run == 14 and u.n_d == 16
+
+
+@pytest.mark.parametrize("m,n,n_d", [(256, 768, 256), (256, 512, 256),
+                                     (128, 384, 128), (37, 90, 16),
+                                     (256, 768, 768)])
+def test_unit_layout_plan_bytes(m, n, n_d):
+    """In the unit layout a CTA holds its rows of the leading n_d columns
+    and the row and value of every unit column; the rest is the dense
+    layout's. n_d = n is the dense layout."""
+    for cl in (1, 2, 4, 8, 16):
+        ml = _slice(m, cl)
+        want = 4 * (_r4(ml * n_d) + _r4(ml * m) + _r4(6 * m + 5 * n + 3 * ml)
+                    + _r4(2 * (n - n_d)))
+        assert sk.cluster_bytes(m, n, cl, n_d) == want
+    assert sk.cluster_bytes(m, n, 4, n) == sk.cluster_bytes(m, n, 4)
+    plans = sk.segment_plans(1024, m, n, n_d=n_d)
+    assert all(p.smem_bytes == sk.cluster_bytes(m, n, p.cluster, n_d)
+               for p in plans)
+
+
+def test_unit_layout_halves_the_two_phase_cluster():
+    """The two-phase simplex's Phase-I lanes at m = 256 ([G | I | I], n =
+    768): 8 CTAs a lane of 152,960 bytes dense (a 4-CTA share needs
+    284,416), 4 of 157,440 with the 512 unit columns left out. The branch
+    stays the one (m, n) gives, and the crossover's [G | I] keeps its 4."""
+    dense = sk.segment_plans(1024, 256, 768)
+    unit = sk.segment_plans(1024, 256, 768, n_d=256)
+    assert dense[0] == sk.SegmentPlan(8, 152960)
+    assert sk.cluster_bytes(256, 768, 4) == 284416
+    assert unit[0] == sk.SegmentPlan(4, 157440)
+    assert [p.cluster for p in unit] == [4, 8, 16]
+    assert sk.segment_plans(1024, 256, 512, n_d=256)[0].cluster == 4
+    assert sk.segment_plans(1024, 1024, 3072, n_d=1024) == sk.segment_plans(
+        1024, 1024, 3072)
+
+
+@pytest.mark.parametrize("B,m,n,n_d", [(1024, 256, 768, 256),
+                                       (1024, 256, 512, 256),
+                                       (1024, 256, 768, 768)])
+def test_unit_layout_pays_only_on_a_card(B, m, n, n_d):
+    """Off a CUDA device the segment kernel is the plain version, so no
+    unit layout pays there and the driver makes no map; the count of the
+    trailing unit columns is a device scalar (no host read)."""
+    assert not sk.unit_pays(B, m, n, n_d, "cpu")
+    A = _two_phase_matrix()
+    count = sk.unit_count(A)
+    assert count.shape == () and int(count) == _trailing_unit(A)
+    assert sk.unit_map(A, 0) is None

@@ -196,3 +196,60 @@ def test_spans_are_ranges_nested_in_the_trace(tmp_path):
     # the reads inside the refactorization nest in it
     lu = ranges("batched_lu")
     assert np.sum([inside([r], lu) for r in ranges("host_read")]) >= len(lu)
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_segment_spans_count_the_held_columns_and_the_cluster(entry,
+                                                             monkeypatch):
+    """Each ``segment`` span counts the columns of A the launch held in
+    shared memory and its CTAs a lane: on the CPU the plain version holds
+    nothing back and launches no cluster (``held_cols`` n, ``cluster`` 0),
+    and no map of A's unit columns is made.  Where the unit layout pays (a
+    card, made to hold here), the segment loop hands kernel 1 the map of
+    A's trailing unit columns (the slack and artificial columns of the
+    two-phase and crossover matrices), whose count rides on the loop's
+    first read: the same blocking reads and the same bits as without."""
+    maps = []
+    real = teb.solve_segment
+
+    def spy(A, *args, **kw):
+        maps.append((A, kw.get("unit")))
+        return real(A, *args, **kw)
+    monkeypatch.setattr(teb, "solve_segment", spy)
+
+    def run():
+        maps.clear()
+        rec = obs.start()
+        out = _call(entry)
+        obs.stop()
+        (call,) = rec.calls()
+        return out, call
+
+    (res0, _), call0 = run()
+    plain = list(maps)
+    segments = [s.read_counts() for s in call0 if s.name == "segment"]
+    assert segments and len([s for s in segments if s["kernel"] == 1]) == len(
+        plain)
+    kernel1 = iter(plain)
+    for counts in segments:
+        assert counts["cluster"] == 0
+        if counts["kernel"] == 1:
+            A, unit = next(kernel1)
+            assert counts["held_cols"] == A.shape[2] and unit is None
+
+    monkeypatch.setattr(teb, "unit_pays", lambda *args: True)
+    (res1, _), call1 = run()
+    assert len(maps) == len(plain)
+    for A, unit in maps:
+        n_u = 0
+        while bool(((A[:, :, -1 - n_u] != 0).sum(dim=1) == 1).all()):
+            n_u += 1
+        assert unit.n_d == -(-(A.shape[2] - n_u) // 4) * 4 < A.shape[2]
+        assert bool((torch.gather(A[:, :, unit.n_d:], 1,
+                                  unit.rows.long()[:, None])[:, 0]
+                     == unit.vals).all())
+    reads = lambda call: sum(s.name == "host_read" for s in call)  # noqa: E731
+    assert reads(call1) == reads(call0)
+    _same_bits(res1, res0)
+    if entry == "solve_batch_bounded":
+        assert maps == []

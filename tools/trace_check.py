@@ -9,6 +9,7 @@ Run from the repository root:
     python3 tools/trace_check.py agree SECONDS SEED [SEED ...]
     python3 tools/trace_check.py overhead SECONDS SEED [SEED ...]
     python3 tools/trace_check.py alternate N_EXACT N_COLD N_SIMPLEX
+    python3 tools/trace_check.py layout SECONDS SEED [SEED ...]
 
 ``bits``: one call of each batch of each cell's pool with recording off
 and one with it on: ``x``, ``basis``, ``status``, ``iters``, ``cost``
@@ -27,6 +28,8 @@ on (the order alternating from seed to seed); ``lps_per_s`` of each.
 ``alternate``: calls of each cell in pairs on one batch, recording off
 and on in turn; the median paired difference of their walls, the spans a
 call and the host time a call spent opening and closing them.
+``layout``: a traced run of each cell per seed; its ``segment`` spans by
+kernel, mode, held columns (``held_cols``) and CTAs a lane (``cluster``).
 Every result is one JSON line.
 """
 
@@ -289,6 +292,30 @@ def cmd_agree(seconds, seeds):
                  "device": r["device"], "breakdown": r.get("breakdown")})
 
 
+def cmd_layout(seconds, seeds):
+    info = card()
+    from lpbench.metrics import _program
+
+    man = harness.manifest(ROOT)
+    for name in CELLS:
+        for seed in seeds:
+            r = harness.run_cell(man, name, seed, seconds, True, DEVICE,
+                                 time.time(), OVERRIDES)
+            n = r["calls"]["n"]
+            seen = Counter()
+            for call in _program.REC.calls()[-n:]:
+                for sp in call:
+                    if sp.name == "segment":
+                        c = sp.counts
+                        seen[(c["kernel"], c["mode"], c.get("held_cols"),
+                              c.get("cluster"))] += 1
+            out({"cell": name, "seed": seed, **info, "correct": r["correct"],
+                 "calls": n, "segments": [[*k, v] for k, v in
+                                          sorted(seen.items())],
+                 "metrics": {k: v["value"] for k, v in r["metrics"].items()},
+                 "device": r["device"]})
+
+
 def cmd_overhead(seconds, seeds):
     info = card()
     man = harness.manifest(ROOT)
@@ -366,7 +393,8 @@ def main(argv):
             sys.exit("trace_check: needs a CUDA card")
         cmd_alternate(dict(zip(CELLS, (int(a) for a in argv[1:4]))))
         return
-    if not argv or argv[0] not in ("bits", "sitecost", "agree", "overhead"):
+    if not argv or argv[0] not in ("bits", "sitecost", "agree", "overhead",
+                                   "layout"):
         sys.exit(__doc__)
     if not torch.cuda.is_available():
         sys.exit("trace_check: needs a CUDA card")
@@ -375,7 +403,8 @@ def main(argv):
     elif argv[0] == "sitecost":
         cmd_sitecost()
     else:
-        fn = cmd_agree if argv[0] == "agree" else cmd_overhead
+        fn = {"agree": cmd_agree, "overhead": cmd_overhead,
+              "layout": cmd_layout}[argv[0]]
         fn(float(argv[1]), [int(s) for s in argv[2:]])
 
 
