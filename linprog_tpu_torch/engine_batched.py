@@ -162,16 +162,19 @@ def segment_launch(number: int, mode: str, seg, kernel, *args, **kw):
     """``kernel(*args, **kw)``, one launch of kernel ``number`` on the
     packed state ``seg`` (``args[0]`` is A), as a span ``segment`` with the
     lanes running at the launch and the pivots it did (device counts, no
-    host read), the columns of A it held in shared memory (``held_cols``:
-    kernel 1's ``n_d`` in the unit layout, else n) and its CTAs a lane
-    (``cluster``), which the kernel's wrapper gives the span; a plain
-    version launches nothing (``cluster`` 0)."""
+    host read), A's ``shape``, the columns of A it held in shared memory
+    (``held_cols``: kernel 1's ``n_d`` in the unit layout, else n), its
+    CTAs a lane (``cluster``) and the ``branch`` that ran (kernels 1 and 4
+    ``"resident"`` or ``"stream"``, kernel 3 ``"stream"``), which the kernel's
+    wrapper gives the span; a plain version launches nothing (``cluster``
+    0, ``branch`` ``"plain"``)."""
     sp = span("segment")
     if sp:
         before = seg.iters.clone()
         sp.set(kernel=number, mode=mode,
                running=(seg.status == st.RUNNING).sum(),
-               held_cols=args[0].shape[2], cluster=0)
+               shape=tuple(args[0].shape), held_cols=args[0].shape[2],
+               cluster=0, branch="plain")
     with sp:
         kernel(*args, **kw)
     if sp:

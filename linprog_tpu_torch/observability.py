@@ -52,13 +52,21 @@ Spans (name: where; counts):
   terminal dd solve and its check).
 * ``segment``: one kernel launch of a segment loop; ``kernel`` (1, 3 or
   4), ``mode``, the device counts ``running`` (lanes running at the
-  launch) and ``pivots`` (pivots it did), ``held_cols`` (the columns of A
-  it held in shared memory: kernel 1's ``n_d`` in its unit layout, else
-  n) and ``cluster`` (its CTAs a lane; 0 for a plain version).
+  launch) and ``pivots`` (pivots it did), ``shape`` (A's), ``held_cols``
+  (the columns of A it held in shared memory: kernel 1's ``n_d`` in its
+  unit layout, else n), ``cluster`` (its CTAs a lane; 0 for a plain
+  version) and ``branch`` (kernels 1 and 4: ``"resident"`` for the
+  cluster-resident branch, ``"stream"`` for the streaming one; kernel 3,
+  which streams in every mode: ``"stream"``; ``"plain"`` for a plain
+  version).
 * ``batched_lu``: :func:`engine_batched.refresh_running_lanes`.
 * ``polish`` and ``bounded_polish``: :func:`refine.polish_batch` and
   :func:`refine.polish_bounded_batch`; ``pivots``, the rounds that
   pivoted.
+* ``retry``: the exact router's retry of the uncrossed lanes (the
+  gathered bucket's IPM and crossover, whose ``ipm`` and ``crossover``
+  spans are its children, and the merge); ``lanes`` (uncrossed before
+  it), ``bucket``, ``crossed`` (``info["retry_crossed"]``) and ``guess``.
 * ``fallback``: the exact router's two-phase fallback with its repair
   crossover; ``lanes``, ``bucket`` and ``reason`` (the uncrossed lanes by
   the status code they carry out of the IPM, a device count; the
@@ -237,10 +245,11 @@ class _ThreadState:
 
 class Span:
     """One span: ``name``, ``parent`` (None for a root), ``root`` (the id
-    of its root call), ``counts`` and the ``start`` / ``end`` events."""
+    of its root call), ``counts``, the ``start`` / ``end`` events and
+    ``profiled`` (opened while a ``torch.profiler`` trace was taken)."""
 
     __slots__ = ("name", "parent", "root", "counts", "start", "end",
-                 "_rec", "_state", "_range")
+                 "profiled", "_rec", "_state", "_range")
 
     def __init__(self, rec: Recorder, name: str):
         self._rec = rec
@@ -268,8 +277,8 @@ class Span:
         self._rec = None  # spans kept for reading hold no recorder
         # a range in the torch.profiler trace where one is being taken
         # (record_function costs ~10 us a span and records nothing else)
-        self._range = (annotate(self.name)
-                       if torch._C._autograd._profiler_enabled() else None)
+        self.profiled = torch._C._autograd._profiler_enabled()
+        self._range = annotate(self.name) if self.profiled else None
         if self._range is not None:
             self._range.__enter__()
         self.start, self.end = rec.event(), rec.event()

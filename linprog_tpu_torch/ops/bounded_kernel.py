@@ -537,5 +537,7 @@ def launch_with_plan(plan: SegmentPlan, A, c, lb, ub, maxiters: int,
     _build.check(code, "solve_bounded_segment launch")
     launches += 1
     last_plan = plan
-    note("segment", held_cols=n, cluster=plan.cluster)
+    note("segment", held_cols=n, cluster=plan.cluster,
+         branch="stream" if isinstance(plan, BoundedStreamPlan)
+         else "resident")
     return state

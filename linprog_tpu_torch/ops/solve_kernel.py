@@ -1069,5 +1069,6 @@ def launch_with_plan(plan, A, c, apen, maxiters: int,
     if ablate:
         launches_ablate[ablate] += 1
     last_plan = plan
-    note("segment", held_cols=n_d, cluster=plan.cluster)
+    note("segment", held_cols=n_d, cluster=plan.cluster,
+         branch="stream" if streaming else "resident")
     return state

@@ -345,5 +345,5 @@ def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
     launches_dual += int(bool(dual))
     launches_partial += int(bool(partial))
     last_plan = plan
-    note("segment", held_cols=n, cluster=plan.cluster)
+    note("segment", held_cols=n, cluster=plan.cluster, branch="stream")
     return state

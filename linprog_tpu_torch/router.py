@@ -230,28 +230,34 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         retry = (guess, 2 * budget)
     if retry is not None:
         alt, r_budget = retry
-        idx = _bucket(bad, B)
-        res2, crossed2 = ipm_crossover_batch_canonical(
-            c[idx], G[idx], h[idx], crossover_maxiters=r_budget, cfg=cfg,
-            guess=alt,
-        )
-        # the first crossed occurrence of each lane is written back
-        seen, lanes, rows = set(), [], []
-        for k, (lane, ok) in enumerate(zip(
-                host_read(torch.Tensor.tolist, idx),
-                host_read(torch.Tensor.tolist, crossed2))):
-            if ok and lane not in seen:
-                seen.add(lane)
-                lanes.append(lane)
-                rows.append(k)
-        if lanes:
-            res = _merge(res, torch.tensor(lanes, device=bad.device), res2,
-                         torch.tensor(rows, device=bad.device))
-            info["retry_crossed"] = len(lanes)
-            info["crossed"] += len(lanes)
-            keep = [lane for lane in host_read(torch.Tensor.tolist, bad)
-                    if lane not in seen]
-            bad = torch.tensor(keep, dtype=bad.dtype, device=bad.device)
+        with span("retry") as sp:
+            idx = _bucket(bad, B)
+            if sp:
+                sp.set(lanes=int(bad.numel()), bucket=int(idx.numel()),
+                       guess=alt)
+            res2, crossed2 = ipm_crossover_batch_canonical(
+                c[idx], G[idx], h[idx], crossover_maxiters=r_budget, cfg=cfg,
+                guess=alt,
+            )
+            # the first crossed occurrence of each lane is written back
+            seen, lanes, rows = set(), [], []
+            for k, (lane, ok) in enumerate(zip(
+                    host_read(torch.Tensor.tolist, idx),
+                    host_read(torch.Tensor.tolist, crossed2))):
+                if ok and lane not in seen:
+                    seen.add(lane)
+                    lanes.append(lane)
+                    rows.append(k)
+            if lanes:
+                res = _merge(res, torch.tensor(lanes, device=bad.device),
+                             res2, torch.tensor(rows, device=bad.device))
+                info["retry_crossed"] = len(lanes)
+                info["crossed"] += len(lanes)
+                keep = [lane for lane in host_read(torch.Tensor.tolist, bad)
+                        if lane not in seen]
+                bad = torch.tensor(keep, dtype=bad.dtype, device=bad.device)
+            if sp:
+                sp.set(crossed=info["retry_crossed"])
         if bad.numel() == 0:
             return res, info
     if m >= _LARGE_M:

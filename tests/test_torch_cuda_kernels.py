@@ -878,7 +878,8 @@ def test_solve_segment_takes_the_unit_layout_where_it_pays(cuda):
         obs.stop()
         (call,) = rec.calls()
         assert call[0].read_counts() == {"held_cols": held,
-                                         "cluster": cluster}
+                                         "cluster": cluster,
+                                         "branch": "resident"}
         assert solve_kernel.launches_unit == before + (held < n)
         d = solve_kernel.solve_segment(
             A, c, apen, 1 << 20, SegmentState(*(t.clone() for t in state0)),
@@ -940,6 +941,73 @@ def test_two_phase_on_card_same_bits_with_and_without_the_unit_layout(
     assert bool((on.status == st.OPTIMAL).all())
     for name, a, b2 in zip(on._fields, on, off):
         assert torch.equal(_bits(a), _bits(b2)), name
+
+
+def _noted_branch(run):
+    """The ``branch`` a kernel wrapper notes on the open ``segment`` span
+    for one launch of ``run()``."""
+    from linprog_tpu_torch import observability as obs
+
+    rec = obs.start()
+    try:
+        with obs.span("segment"):
+            run()
+        torch.cuda.synchronize()
+    finally:
+        obs.stop()
+    (call,) = rec.calls()
+    return call[0].read_counts()["branch"]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kernel,B,m,n,branch", [
+    (1, 32, 1024, 1024, "stream"),    # the m = 1024 crossover's [G | I]
+    (1, 1024, 256, 256, "resident"),  # the m = 256 crossover's
+    (4, 16, 1280, 1280, "stream"),    # kernel 4 past its largest cluster
+    (4, 1024, 256, 256, "resident"),
+])
+def test_segment_span_notes_the_branch_that_ran(cuda, kernel, B, m, n,
+                                               branch):
+    """Kernels 1 and 4 note ``"stream"`` for the streaming branch and
+    ``"resident"`` for the cluster-resident one (two pivots a lane)."""
+    kw = dict(seg_len=2, opt_tol=1e-6, pivot_tol=1e-7, packed=True)
+    if kernel == 1:
+        A, c, apen, _, state = _device_slack_instance(B, m, n, 7, False,
+                                                      cuda)
+        noted = _noted_branch(lambda: solve_kernel.solve_segment(
+            A, c, apen, 1 << 20, state, pricing=1, feas_tol=1e-6,
+            stall_limit=24, **kw))
+        streaming = isinstance(solve_kernel.last_plan,
+                               solve_kernel.StreamingPlan)
+    else:
+        A, c, lb, ub, _, state = _bounded_instance(B, m, n, 7, cuda)
+        noted = _noted_branch(lambda: bounded_kernel.solve_bounded_segment(
+            A, c, lb, ub, 1 << 20, state, **kw))
+        streaming = isinstance(bounded_kernel.last_plan,
+                               bounded_kernel.BoundedStreamPlan)
+    assert noted == branch
+    assert streaming == (branch == "stream")
+    assert bool((state.iters == 2).all())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("flags", [
+    {},
+    {"a_resident": False},
+    {"a_resident": False, "factor_blocked": True},
+], ids=["resident", "stream", "blocked"])
+def test_stream_kernel_notes_stream_in_every_mode(cuda, flags):
+    """Kernel 3 at the m = 1024 fallback's Phase I lanes, (1024, 3072),
+    notes ``"stream"`` whatever mode its caller chose: the card runs one
+    streaming body for all three."""
+    A, c, apen, _, state = _device_slack_instance(8, 1024, 2048, 7, False,
+                                                  cuda)
+    noted = _noted_branch(lambda: stream_kernel.solve_segment_stream(
+        A, c, apen, 1 << 20, state, seg_len=2, pricing=1, opt_tol=1e-6,
+        pivot_tol=1e-7, feas_tol=1e-6, stall_limit=24, packed=True,
+        **flags))
+    assert noted == "stream"
+    assert bool((state.iters == 2).all())
 
 
 def _mid_solve(A, c, apen, state0, pivots, **kw):

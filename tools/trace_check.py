@@ -9,7 +9,8 @@ Run from the repository root:
     python3 tools/trace_check.py agree SECONDS SEED [SEED ...]
     python3 tools/trace_check.py overhead SECONDS SEED [SEED ...]
     python3 tools/trace_check.py alternate N_EXACT N_COLD N_SIMPLEX
-    python3 tools/trace_check.py layout SECONDS SEED [SEED ...]
+    python3 tools/trace_check.py layout SECONDS SEED [SEED ...] [CELL ...]
+    python3 tools/trace_check.py phase22
 
 ``bits``: one call of each batch of each cell's pool with recording off
 and one with it on: ``x``, ``basis``, ``status``, ``iters``, ``cost``
@@ -28,8 +29,13 @@ on (the order alternating from seed to seed); ``lps_per_s`` of each.
 ``alternate``: calls of each cell in pairs on one batch, recording off
 and on in turn; the median paired difference of their walls, the spans a
 call and the host time a call spent opening and closing them.
-``layout``: a traced run of each cell per seed; its ``segment`` spans by
-kernel, mode, held columns (``held_cols``) and CTAs a lane (``cluster``).
+``layout``: a traced run of each cell (the three m = 256 cells, or those
+named) per seed; its ``segment`` spans by kernel, mode, held columns
+(``held_cols``), CTAs a lane (``cluster``) and ``branch``, and each call's
+retry (``retry``'s ``lanes`` and ``crossed``) and fallback lanes, and the
+time of each span name a call.
+``phase22``: ``chip_smoke.py`` phase 22 with the recorder on; its kernel-1
+time a run against the program's streaming-branch ``segment`` spans.
 Every result is one JSON line.
 """
 
@@ -292,28 +298,78 @@ def cmd_agree(seconds, seeds):
                  "device": r["device"], "breakdown": r.get("breakdown")})
 
 
-def cmd_layout(seconds, seeds):
+def cmd_layout(seconds, seeds, cells=CELLS):
     info = card()
     from lpbench.metrics import _program
 
     man = harness.manifest(ROOT)
-    for name in CELLS:
+    for name in cells:
         for seed in seeds:
             r = harness.run_cell(man, name, seed, seconds, True, DEVICE,
                                  time.time(), OVERRIDES)
             n = r["calls"]["n"]
             seen = Counter()
+            paths = []  # each call's retry and fallback, in window order
+            span_ms = Counter()  # ms a call by span name (nested included)
             for call in _program.REC.calls()[-n:]:
+                for sp in call:
+                    span_ms[sp.name] += sp.ms() / n
                 for sp in call:
                     if sp.name == "segment":
                         c = sp.counts
                         seen[(c["kernel"], c["mode"], c.get("held_cols"),
-                              c.get("cluster"))] += 1
+                              c.get("cluster"), c.get("branch"))] += 1
+                counts = {sp.name: sp.read_counts() for sp in call
+                          if sp.name in ("retry", "fallback")}
+                paths.append({
+                    "retry_lanes": counts.get("retry", {}).get("lanes", 0),
+                    "retry_crossed": counts.get("retry", {}).get("crossed",
+                                                                 0),
+                    "fallback": counts.get("fallback", {}).get("lanes", 0),
+                    "profiled": getattr(call[0], "profiled", None)})
             out({"cell": name, "seed": seed, **info, "correct": r["correct"],
                  "calls": n, "segments": [[*k, v] for k, v in
                                           sorted(seen.items())],
+                 "paths": paths, "span_ms_a_call": dict(span_ms),
                  "metrics": {k: v["value"] for k, v in r["metrics"].items()},
-                 "device": r["device"]})
+                 "device": r["device"], "breakdown": r.get("breakdown")})
+
+
+def cmd_phase22():
+    """``chip_smoke.py`` phase 22 (the m = 1024 exact leg on its own batch)
+    with the recorder on: each timed run's kernel-1 time as the phase's
+    outside wrapper reads it, against the program's ``segment`` spans of
+    kernel 1's streaming branch in the same call (what ``k1_stream_ms``
+    reads)."""
+    info = card()
+    import chip_smoke
+
+    rec = obs.start()
+    failed = None
+    try:
+        chip_smoke.phase_exact_m1024()
+    except SystemExit as err:  # a guard of the phase failed; it reported
+        failed = str(err)
+    finally:
+        obs.stop()
+    rep = chip_smoke.REPORTS["exact_m1024"]
+    outside = [1e3 * s for s in rep["segment_kernel_s"]]
+    roots = [c for c in rec.calls() if c[0].name == "solve_batch_exact"]
+    inside, branches = [], Counter()
+    for call in roots[-len(outside):]:
+        k1 = [s for s in call if s.name == "segment"
+              and s.counts["kernel"] == 1]
+        branches.update((s.counts["branch"], s.counts["cluster"])
+                        for s in k1)
+        inside.append(sum(s.ms() for s in k1
+                          if s.counts["branch"] == "stream"))
+    out({"phase": 22, **info, "outside_ms": outside, "inside_ms": inside,
+         "ratio": [a / b for a, b in zip(inside, outside)],
+         "kernel1_branch_cluster": [[*k, v] for k, v in branches.items()],
+         "wall_s": rep["wall_s"], "crossed": rep["crossed"],
+         "retry_crossed": rep["retry_crossed"],
+         "fallback": rep["fallback"], "certified": rep["certified"],
+         "phase_failed": failed})
 
 
 def cmd_overhead(seconds, seeds):
@@ -394,7 +450,7 @@ def main(argv):
         cmd_alternate(dict(zip(CELLS, (int(a) for a in argv[1:4]))))
         return
     if not argv or argv[0] not in ("bits", "sitecost", "agree", "overhead",
-                                   "layout"):
+                                   "layout", "phase22"):
         sys.exit(__doc__)
     if not torch.cuda.is_available():
         sys.exit("trace_check: needs a CUDA card")
@@ -402,10 +458,16 @@ def main(argv):
         cmd_bits(argv[1:])
     elif argv[0] == "sitecost":
         cmd_sitecost()
+    elif argv[0] == "phase22":
+        cmd_phase22()
     else:
         fn = {"agree": cmd_agree, "overhead": cmd_overhead,
               "layout": cmd_layout}[argv[0]]
-        fn(float(argv[1]), [int(s) for s in argv[2:]])
+        seeds = [int(a) for a in argv[2:] if a.isdigit()]
+        cells = [a for a in argv[2:] if not a.isdigit()]
+        if cells and argv[0] != "layout":
+            sys.exit(__doc__)
+        fn(float(argv[1]), seeds, *([cells] if cells else []))
 
 
 if __name__ == "__main__":
