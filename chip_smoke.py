@@ -205,7 +205,17 @@ Phases, each printing one JSON line:
      the streaming branch in both; CUDA-event spans of kernel 1, the
      batched LU and the stages), the dd-KKT certificate on every lane
      outside the wall and HiGHS on one lane in a worker process: 32/32
-     OPTIMAL, >= 31 certified, HiGHS gap <= 1e-5.
+     OPTIMAL, >= 31 certified, HiGHS gap <= 1e-5;
+ 23. dd_kernel: the double-word kernel (refine.py's split products and
+     compensated sums in one launch) against refine.py's eager chain on the
+     same card tensors, bit for bit: the residual bvec - y M and the product
+     y M over a row-major M and over the transposed view at [1024, 256,
+     256], the bounded right-hand side's A^T [1024, 512, 256], [32, 1024,
+     1024], [64, 2048, 2048] and [4, 4096, 4096]; the sum-only entry point
+     at the pricing's partials [1024, 32, 768], [32, 128, 2048], [64, 256,
+     4096] and [4, 512, 8192]; each with the median ms of the kernel and of
+     the plain chain and its bound.  Its launches are counted on phase 4's
+     timed run, phases 6 and 8 and every path that counts launches.
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -225,6 +235,7 @@ import numpy as np
 import torch
 
 import linprog_tpu_torch as lt
+from linprog_tpu_torch import refine as lr
 from linprog_tpu_torch import status as st
 from linprog_tpu_torch.config import tuned_config
 from linprog_tpu_torch.engine import (basis_matrix, slack_crash_state,
@@ -238,6 +249,7 @@ from linprog_tpu_torch.generators import (
 from linprog_tpu_torch.ops import _build
 from linprog_tpu_torch.ops import bounded_kernel as bk
 from linprog_tpu_torch.ops import cholinv_kernel as ck
+from linprog_tpu_torch.ops import dd_kernel as ddk
 from linprog_tpu_torch.ops import solve_kernel as sk
 from linprog_tpu_torch.ops import step_kernels as stk
 from linprog_tpu_torch.ops import stream_kernel as ssk
@@ -307,11 +319,22 @@ BLOCK_BOUNDED_MAXITERS = BOUNDED_MAXITERS * (BBM // M) ** 2
 # 2560]: ms a batch-iteration in a 64-pivot segment, packed (PERF.md,
 # section 6, kernel 4's history)
 REPLACED_BLOCK_MS = 3.182
+# phase 23: the double-word kernel at the paths' shapes (lanes, m, n): the
+# m = 256 basis matrices, the bounded right-hand side over A^T, the m = 1024,
+# 2048 and 4096 basis matrices; its sum-only entry point at the partials
+# P[lanes, m / 8, n] of the pricing over each path's [G | I] (m = 256: the
+# two-phase simplex's Phase-I [G | I | I])
+DD_SHAPES = [(B, M, M), (B, 2 * M, M), (XMB, XMM, XMM), (XB, XM, XM),
+             (XLB, XLM, XLM)]
+DD_SUM_SHAPES = [(B, M // 8, 3 * M), (XMB, XMM // 8, 2 * XMM),
+                 (XB, XM // 8, 2 * XM), (XLB, XLM // 8, 2 * XLM)]
+DD_REPS, DD_PLAIN_REPS = 20, 5  # timed calls of the kernel, of the plain chain
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
 REPORTS = {}  # each phase's last printed report, by its name
+DD_PATHS = {}  # the double-word kernel's launches on phase 8's timed run
 MAIN_PATH = {}  # phase 4's exact bases, for phase 19's ranging
 T0 = time.time()  # the script's start: each phase report carries its time
 
@@ -1195,7 +1218,7 @@ def phase_main_path():
     warm = time.time() - t0
 
     sk.launches = sk.launches_unit = 0
-    ck.launches = 0
+    ck.launches = ddk.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     res, info = lt.solve_batch_exact(c, G, h)
@@ -1203,7 +1226,7 @@ def phase_main_path():
     wall = time.time() - t0
     launches = {"solve_segment": sk.launches,
                 "solve_segment_unit": sk.launches_unit,
-                "panel_cholinv": ck.launches}
+                "panel_cholinv": ck.launches, "dd_residual": ddk.launches}
     MAIN_PATH["basis"] = res.basis
 
     walls = [wall]
@@ -1454,7 +1477,7 @@ def phase_exact_m2048():
         return (f"B={A.shape[0]} {tuple(A.shape[1:])} "
                 f"cluster={ssk.last_plan.cluster}")
 
-    sk.launches = ck.launches = ssk.launches = 0
+    sk.launches = ck.launches = ssk.launches = ddk.launches = 0
     with _stage_spans([
             ("ipm", li, "ipm_canonical_state", None),
             ("crossover", lx, "crossover_batch_canonical", None),
@@ -1469,7 +1492,8 @@ def phase_exact_m2048():
         torch.cuda.synchronize()
         wall = time.time() - t0
     launches = {"solve_segment_stream": ssk.launches,
-                "panel_cholinv": ck.launches, "solve_segment": sk.launches}
+                "panel_cholinv": ck.launches, "solve_segment": sk.launches,
+                "dd_residual": ddk.launches}
     stage_s, stream_s = {}, {}
     for name, label, t_a, t_b in spans:
         sec = t_a.elapsed_time(t_b) / 1e3
@@ -1799,13 +1823,14 @@ def phase_bounded_path():
     torch.cuda.synchronize()
     warm = time.time() - t0
 
-    bk.launches = 0
+    bk.launches = ddk.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     res = solve()
     torch.cuda.synchronize()
     walls = [time.time() - t0]
     launches = bk.launches
+    DD_PATHS["bounded_m256"] = ddk.launches
     for _ in range(BOUNDED_REPEATS - 1):
         t0 = time.time()
         solve()
@@ -1845,6 +1870,7 @@ def phase_bounded_path():
            "lane_status": status_counts(res.status),
            "wall_s": wall_med, "walls_s": walls, "warmup_wall_s": warm,
            "lps_per_sec": B / wall_med, "launches": launches,
+           "dd_launches": DD_PATHS["bounded_m256"],
            "iters_total": int(res.iters.sum()),
            "iters_max": int(res.iters.max()),
            "highs_lanes": 4, "max_rel_gap_vs_highs": gap,
@@ -1877,6 +1903,8 @@ def phase_bounded_path():
         fail(f"bounded path: |Ax - b| = {resid_rel:.3e} of scale (> 1e-4)")
     if launches <= 0:
         fail("bounded path: kernel solve_bounded_segment was never launched")
+    if DD_PATHS["bounded_m256"] <= 0:
+        fail("bounded path: kernel dd_residual was never launched")
     return launches
 
 
@@ -2088,6 +2116,7 @@ def _reset_counts():
     sk.launches_streaming = sk.launches_streaming_dual = 0
     sk.launches_unit = 0
     ssk.launches = ssk.launches_dual = bk.launches = 0
+    ddk.launches = 0
 
 
 def _read_counts():
@@ -2104,7 +2133,8 @@ def _read_counts():
             "solve_segment_stream": ssk.launches,
             "solve_segment_stream_dual": ssk.launches_dual,
             "solve_segment_stream_primal": ssk.launches - ssk.launches_dual,
-            "solve_bounded_segment": bk.launches}
+            "solve_bounded_segment": bk.launches,
+            "dd_residual": ddk.launches}
 
 
 def _walled(fn):
@@ -4728,6 +4758,77 @@ def phase_last_modes():
     return {"last_modes": counts}, kernel1_modes, kernel3_modes
 
 
+def _dd_plain(bvec, y, M):
+    """refine.py's eager chain (the plain version) on the same tensors."""
+    s, e = lr._dd_chunk_products(y, M, 8)
+    parts = [s, e] if bvec is None else [bvec[:, None, :], -s, -e]
+    return lr._kahan_sum_chunks(torch.cat(parts, dim=1))
+
+
+def _dd_row(label, got, want, kernel, plain, n_bytes, n_ops):
+    """One case of phase 23: the same bits or a failure, and the times.
+    ``n_ops`` are f32 operations, none an FMA: each costs the card what an
+    FMA's two flops cost."""
+    if not same_bits(got, want):
+        fail(f"dd kernel: {label} differs from the plain chain")
+    b_ms, b_by = bound_ms(n_bytes, 2 * n_ops)
+    ms = cuda_ms(kernel, DD_REPS)
+    return {"max_abs_err": 0.0, "ms": ms,
+            "plain_ms": cuda_ms(plain, DD_PLAIN_REPS), "reps": DD_REPS,
+            "plain_reps": DD_PLAIN_REPS, "bound_ms": b_ms, "bound_by": b_by,
+            "roofline_pct": 100.0 * b_ms / ms}
+
+
+def phase_dd_kernel():
+    """Phase 23: the double-word kernel against refine.py's eager chain at
+    the shapes the paths send it, bit for bit, with its times."""
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for b, m, n in DD_SHAPES:
+        K = -(-m // 8)
+        for transposed in (False, True):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + m + n)
+            y = torch.randn((b, m), generator=gen, device=DEVICE)
+            M_ = (torch.randn((b, n, m), generator=gen,
+                              device=DEVICE).transpose(1, 2)
+                  if transposed else
+                  torch.randn((b, m, n), generator=gen, device=DEVICE))
+            # a rounding-sized residual, as refinement sends it
+            bvec = torch.einsum("bm,bmn->bn", y, M_)
+            for entry in ("residual", "product"):
+                bv = bvec if entry == "residual" else None
+                label = (f"{entry} [{b}, {m}, {n}]"
+                         f"{' transposed view' if transposed else ''}")
+                row = _dd_row(
+                    label, ddk.chunk_products_sum(bv, y, M_),
+                    _dd_plain(bv, y, M_),
+                    lambda: ddk.chunk_products_sum(bv, y, M_),
+                    lambda: _dd_plain(bv, y, M_),
+                    4 * (b * m * n + b * m + (2 if bv is not None else 1)
+                         * b * n),
+                    21 * b * 8 * K * n + 7 * b * n * (2 * K + 1))
+                rows.append({"shape": [b, m, n], "entry": entry,
+                             "transposed_view": transposed, **row})
+            del y, M_, bvec
+    for b, K, n in DD_SUM_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + K + n)
+        P = torch.randn((b, K, n), generator=gen, device=DEVICE)
+        P = P * 10.0 ** torch.randint(-6, 7, P.shape, generator=gen,
+                                      device=DEVICE)
+        row = _dd_row(f"sum [{b}, {K}, {n}]", ddk.kahan_sum(P),
+                      lr._kahan_sum_chunks(P), lambda: ddk.kahan_sum(P),
+                      lambda: lr._kahan_sum_chunks(P),
+                      4 * (b * K * n + b * n), 7 * b * n * K)
+        rows.append({"shape": [b, K, n], "entry": "sum", **row})
+        del P
+    torch.cuda.synchronize()
+    emit({"phase": "dd_kernel", "cases": rows, "same_bits": True,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "seconds": time.time() - t0})
+    return rows
+
+
 def main():
     phase_environment()
     phase_build()
@@ -4754,11 +4855,14 @@ def main():
     last_paths, kernel1_modes, kernel3_modes = phase_last_modes()
     paths.update(last_paths)
     paths["exact_m1024"] = phase_exact_m1024()
+    dd_rows = phase_dd_kernel()
 
     def entry(name, source, replaces, n_launches, rep, new_shapes=None,
               modes=None):
         by_path = {path: counts[name] for path, counts in paths.items()
                    if counts.get(name)}
+        if name == "dd_residual":
+            by_path.update(DD_PATHS)
         if name == "solve_segment_stream":
             by_path["exact_m4096_dual"] = paths["exact_m4096"][
                 "solve_segment_stream_dual"]
@@ -4882,6 +4986,8 @@ def main():
         entry("ratio_eta_pivot", "ratio_eta_pivot.cu",
               "linprog_tpu/ops/pallas_kernels.py:168",
               steps["steps"]["launches"]["ratio_eta_pivot"], ratio),
+        entry("dd_residual", "dd_residual.cu", None,
+              launches["dd_residual"], dd_rows[0], dd_rows[1:]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -62,7 +62,8 @@ Spans (name: where; counts):
 * ``batched_lu``: :func:`engine_batched.refresh_running_lanes`.
 * ``polish`` and ``bounded_polish``: :func:`refine.polish_batch` and
   :func:`refine.polish_bounded_batch`; ``pivots``, the rounds that
-  pivoted.
+  pivoted, and ``dd_launches``, the double-word kernel's launches inside
+  it (0 where a CPU tensor takes the plain version).
 * ``retry``: the exact router's retry of the uncrossed lanes (the
   gathered bucket's IPM and crossover, whose ``ipm`` and ``crossover``
   spans are its children, and the merge); ``lanes`` (uncrossed before

@@ -183,6 +183,18 @@ def _declare(lib):
     # cluster, aligned, smem_bytes
     lib.lp_solve_segment_stream_max_clusters.argtypes = [i, i, i]
     lib.lp_solve_segment_stream_max_clusters.restype = i
+    q = ctypes.c_longlong
+    # bvec and its strides (b, j), y (b, i), M (b, i, j), out, scratch;
+    # B, m, n, chunk; stream
+    lib.lp_dd_rowmat.argtypes = [p, q, q, p, q, q, p, q, q, q, p, p,
+                                 i, i, i, i, p]
+    lib.lp_dd_rowmat.restype = i
+    # B, m, n, chunk -> scratch floats (or a negative error code)
+    lib.lp_dd_rowmat_scratch_floats.argtypes = [i, i, i, i]
+    lib.lp_dd_rowmat_scratch_floats.restype = q
+    # P and its strides (b, k, j), out; B, K, n; stream
+    lib.lp_dd_kahan_sum.argtypes = [p, q, q, q, p, i, i, i, p]
+    lib.lp_dd_kahan_sum.restype = i
     lib.lp_error_string.argtypes = [i]
     lib.lp_error_string.restype = ctypes.c_char_p
 

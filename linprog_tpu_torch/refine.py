@@ -7,10 +7,16 @@ in double-word arithmetic: Dekker-split products (exact in f32), chunked
 compensated sums, iterative refinement of duals and basic values, and a few
 dd-guided cleanup pivots.
 
-Ported faithfully in f32.  Every elementwise step is its own eager op:
-a fused multiply-add (``addcmul``, ``addmm``/``baddbmm``, ``lerp`` or a
-compiled kernel) would round differently and break the error-free
-transformations, and TF32 matmuls would break the exact split products.
+Ported faithfully in f32.  On CPU tensors every elementwise step is its
+own eager op (the plain version): a fused multiply-add (``addcmul``,
+``addmm``/``baddbmm``, ``lerp``, or a compiler free to contract) would round
+differently and break the error-free transformations, and TF32 matmuls
+would break the exact split products.  On float32 CUDA tensors the split
+products and compensated sums run in one hand-written kernel a call
+(:mod:`linprog_tpu_torch.ops.dd_kernel`), built without FMA contraction:
+each output is the same sequence of f32 roundings, so it equals the plain
+version's in every bit.  ``dd_rowmat``'s four einsums stay matmuls (their
+order is cuBLAS's) and only their compensated sum goes to the kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from .calibration import get_table
 from .engine import basis_matrix, in_basis_mask, inv_or_nan, solve_or_nan
 from .observability import current, host_read, spanned
+from .ops import dd_kernel
 
 
 def _split(x):
@@ -29,6 +36,13 @@ def _split(x):
     t = x * c
     hi = t - (t - x)
     return hi, x - hi
+
+
+def _on_card(*ts) -> bool:
+    """Whether the double-word kernel takes these tensors: float32 on a
+    CUDA device (the plain version serves every other case, float64
+    included)."""
+    return all(t.is_cuda and t.dtype == torch.float32 for t in ts)
 
 
 def _kahan_sum_chunks(P):
@@ -69,6 +83,8 @@ def dd_rowmat(y, M, chunk: int = 8):
 
     P = (part(yh, Mh) + part(yh, Ml)) + part(yl, Mh)
     P = P + part(yl, Ml)
+    if _on_card(P):
+        return dd_kernel.kahan_sum(P)
     return _kahan_sum_chunks(P)
 
 
@@ -110,6 +126,8 @@ def _dd_chunk_products(y, M, chunk: int):
 
 def dd_rowmat_dd(y, M, chunk: int = 8):
     """Double-float ``y[B, m] @ M[B, m, n] -> [B, n]``."""
+    if _on_card(y, M):
+        return dd_kernel.chunk_products_sum(None, y, M, chunk)
     s, e = _dd_chunk_products(y, M, chunk)
     return _kahan_sum_chunks(torch.cat([s, e], dim=1))
 
@@ -117,6 +135,8 @@ def dd_rowmat_dd(y, M, chunk: int = 8):
 def dd_residual_rowmat(bvec, y, M, chunk: int = 8):
     """Double-float residual ``bvec[B, n] - y[B, m] @ M[B, m, n]`` with
     ``bvec`` folded into the compensated chain."""
+    if _on_card(bvec, y, M):
+        return dd_kernel.chunk_products_sum(bvec, y, M, chunk)
     s, e = _dd_chunk_products(y, M, chunk)
     return _kahan_sum_chunks(torch.cat([bvec[:, None, :], -s, -e], dim=1))
 
@@ -205,6 +225,7 @@ def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
     scale = torch.clamp_min(torch.abs(c).max(dim=1).values, 1.0)
     ub_fin = torch.where(torch.isfinite(ub), ub, 0.0)
 
+    launched = dd_kernel.launches
     if inv_B is None:
         inv_B = inv_or_nan(basis_matrix(A, basis))
 
@@ -274,7 +295,7 @@ def polish_bounded_batch(c, A, b, lb, ub, basis, var_state, active, *,
     xB = refine_bfs(Bmat, rhs, inv_B, xB, steps=3)
     cB = torch.gather(c, 1, basis.long())
     y = refine_duals(cB, Bmat, inv_B)
-    current().set(pivots=k)
+    current().set(pivots=k, dd_launches=dd_kernel.launches - launched)
     return basis, var_state, xB, y, inv_B
 
 
@@ -298,6 +319,7 @@ def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
         blocked = in_basis_mask(basis, n) | ~allowed[None, :]
         return torch.where(blocked, float("inf"), r)
 
+    launched = dd_kernel.launches
     if inv_B is None:
         inv_B = inv_or_nan(basis_matrix(A, basis))
     act = active
@@ -339,5 +361,5 @@ def polish_batch(c, A, b, basis, allowed, active, *, max_pivots: int = 16,
     xB = refine_bfs(Bmat, b, inv_B, xB, steps=3)
     cB = torch.gather(c, 1, basis.long())
     y = refine_duals(cB, Bmat, inv_B)
-    current().set(pivots=k)
+    current().set(pivots=k, dd_launches=dd_kernel.launches - launched)
     return basis, xB, y, inv_B, k

@@ -12,15 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+from linprog_tpu_torch import observability as obs
+from linprog_tpu_torch import refine
 from linprog_tpu_torch import status as st
 from linprog_tpu_torch.engine import basis_matrix, solve_or_nan
 from linprog_tpu_torch.generators import (
     device_bounded_lps,
+    device_inequality_lps,
+    device_standard_form_batch,
     random_inequality_lps,
 )
 from linprog_tpu_torch.ops import (
     bounded_kernel,
     cholinv_kernel,
+    dd_kernel,
     solve_kernel,
     step_kernels,
     stream_kernel,
@@ -2348,3 +2353,166 @@ def test_two_phase_lane973_on_card_ends_feasible(cuda):
     ref = linprog(d["c"][0].astype(np.float64), A_eq=d["A"][0], b_eq=d["b"][0],
                   method="highs")
     assert abs(float(res.cost[0]) - ref.fun) <= 1e-6 * max(1.0, abs(ref.fun))
+
+
+# ---- the double-word kernel (refine.py's split products and sums) ---------
+
+
+def _dd_plain(bvec, y, M):
+    """refine.py's eager chain on the same tensors: the plain version."""
+    s, e = refine._dd_chunk_products(y, M, 8)
+    parts = [s, e] if bvec is None else [bvec[:, None, :], -s, -e]
+    return refine._kahan_sum_chunks(torch.cat(parts, dim=1))
+
+
+def _same_bits(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _dd_inputs(B, m, n, seed, dev, transposed):
+    """y[B, m], M[B, m, n] (with ``transposed`` the transposed view of a
+    contiguous [B, n, m], as refine.dd_residual passes it) and the f32
+    product as bvec, so the residual is rounding-sized."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((B, m), generator=gen, device=dev)
+    if transposed:
+        M = torch.randn((B, n, m), generator=gen, device=dev).transpose(1, 2)
+    else:
+        M = torch.randn((B, m, n), generator=gen, device=dev)
+    return torch.einsum("bm,bmn->bn", y, M), y, M
+
+
+DD_SHAPES = [(1024, 256, 256), (1024, 512, 256), (32, 1024, 1024),
+             (64, 1000, 1000), (3, 5, 1), (2, 7000, 40)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("transposed", [False, True], ids=["rowmat", "view"])
+@pytest.mark.parametrize("B,m,n", DD_SHAPES,
+                         ids=["1024x256x256", "AT_1024x512x256",
+                              "32x1024x1024", "pad_64x1000x1000", "tiny",
+                              "scratch_2x7000x40"])
+def test_dd_kernel_matches_plain_bit_for_bit(cuda, B, m, n, transposed):
+    """The residual ``bvec - y M`` and the product ``y M``: the kernel's
+    outputs equal the plain chain's in every bit.  [1024, 256, 256] is a
+    basis matrix of the m = 256 cells, row-major (refine_duals) and as the
+    transposed view (refine_bfs); [1024, 512, 256] the bounded cell's
+    ``b - A x_N`` over ``A^T``; [32, 1024, 1024] the m = 1024 cell's; m =
+    1000 ends on padded rows; 7000 rows put the chunks' pairs in the
+    scratch buffer."""
+    bvec, y, M = _dd_inputs(B, m, n, B + m + n, cuda, transposed)
+    assert (dd_kernel.scratch_floats(B, m, n) > 0) == (m >= 7000)
+    before = dd_kernel.launches
+    for bv in (bvec, None):
+        got = dd_kernel.chunk_products_sum(bv, y, M)
+        _same_bits(got, _dd_plain(bv, y, M))
+    torch.cuda.synchronize()
+    assert dd_kernel.launches == before + 2
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("transposed", [False, True], ids=["rowmat", "view"])
+def test_dd_kernel_matches_plain_on_nonfinite_lanes(cuda, transposed):
+    """One lane with an inf in y, one with a NaN in M, one with an inf in
+    M and one with a zero y and signed zeros in bvec: the same bits, NaN
+    and inf positions included (the card's NaN is canonical on both
+    sides)."""
+    bvec, y, M = _dd_inputs(1024, 256, 256, 7, cuda, transposed)
+    y[3, 7] = float("inf")
+    M[5, 2, 9] = float("nan")
+    M[6, 255, 0] = -float("inf")
+    y[8] = 0.0
+    bvec[8, :2] = torch.tensor([-0.0, 0.0], device=cuda)
+    for bv in (bvec, None):
+        got = dd_kernel.chunk_products_sum(bv, y, M)
+        _same_bits(got, _dd_plain(bv, y, M))
+        assert bool(torch.isnan(got[3]).any()) and bool(
+            torch.isnan(got[5, 9]))
+        assert not bool(torch.isnan(got[10]).any())
+
+
+@pytest.mark.card
+def test_dd_kahan_sum_matches_plain_at_the_pricing_shape(cuda, monkeypatch):
+    """``dd_rowmat(y, A)`` at the simplex cell's [1024, 256, 768]: its
+    partials P[1024, 32, 768] summed by the kernel's sum-only entry point
+    against ``_kahan_sum_chunks``, on P itself (with a NaN, an inf and a
+    strided view) and through the public function."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    P = torch.randn((1024, 32, 768), generator=gen, device=cuda)
+    P = P * 10.0 ** torch.randint(-6, 7, P.shape, generator=gen, device=cuda)
+    P[0, 0, 0], P[1, 5, 1], P[2, 31, 2] = -0.0, float("inf"), float("nan")
+    _same_bits(dd_kernel.kahan_sum(P), refine._kahan_sum_chunks(P))
+    Pt = P.transpose(0, 2).contiguous().transpose(0, 2)  # strides (1, ., .)
+    _same_bits(dd_kernel.kahan_sum(Pt), refine._kahan_sum_chunks(P))
+    _, y, A = _dd_inputs(1024, 256, 768, 12, cuda, False)
+    got = refine.dd_rowmat(y, A)
+    monkeypatch.setattr(refine, "_on_card", lambda *ts: False)
+    _same_bits(got, refine.dd_rowmat(y, A))
+
+
+def _polish_both(fn, monkeypatch):
+    """``fn()`` with the kernel (recorded) and with the plain chain on the
+    same CUDA tensors; both results and the kernel run's spans."""
+    obs.stop()
+    rec = obs.start()
+    before = dd_kernel.launches
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    finally:
+        obs.stop()
+    launched = dd_kernel.launches - before
+    monkeypatch.setattr(refine, "_on_card", lambda *ts: False)
+    want = fn()
+    torch.cuda.synchronize()
+    assert dd_kernel.launches == before + launched
+    return got, want, launched, rec.calls()
+
+
+@pytest.mark.card
+def test_polish_batch_with_the_dd_kernel_matches_plain(cuda, monkeypatch):
+    """A whole ``polish_batch`` at the m = 256 cells' [1024, 256, 512] from
+    the slack basis, 3 rounds: the same basis, x_B, y, factor and rounds
+    bit for bit, and the polish span's ``dd_launches`` is the kernel's
+    count."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    c, A, b = device_standard_form_batch(
+        *device_inequality_lps(gen, 1024, 256, 256, cuda))
+    basis = torch.arange(256, 512, dtype=torch.int32,
+                         device=cuda).expand(1024, 256).contiguous()
+    allowed = torch.ones(512, dtype=torch.bool, device=cuda)
+    active = torch.ones(1024, dtype=torch.bool, device=cuda)
+    got, want, launched, calls = _polish_both(
+        lambda: refine.polish_batch(c, A, b, basis, allowed, active,
+                                    max_pivots=3),
+        monkeypatch)
+    for a, w in zip(got[:4], want[:4]):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    assert got[4] == want[4] > 0
+    (call,) = calls
+    assert call[0].name == "polish"
+    assert call[0].counts["dd_launches"] == launched > 0
+
+
+@pytest.mark.card
+def test_polish_bounded_batch_with_the_dd_kernel_matches_plain(cuda,
+                                                              monkeypatch):
+    """A whole ``polish_bounded_batch`` at the bounded cell's [1024, 256,
+    512] from the all-slack start, 3 rounds: the same basis, bound states,
+    x_B, y and factor bit for bit."""
+    A, c, lb, ub, b, state = _bounded_instance(1024, 256, 256, 23, cuda)
+    active = torch.ones(1024, dtype=torch.bool, device=cuda)
+    got, want, launched, calls = _polish_both(
+        lambda: refine.polish_bounded_batch(c, A, b, lb, ub, state.basis,
+                                            state.vstate, active,
+                                            max_pivots=3),
+        monkeypatch)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        if a.dtype == torch.float32:
+            a, w = a.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(a, w)
+    (call,) = calls
+    assert call[0].name == "bounded_polish" and call[0].counts["pivots"] > 0
+    assert call[0].counts["dd_launches"] == launched > 0

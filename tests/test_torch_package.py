@@ -55,6 +55,7 @@ def _imported_modules(path):
                                  REPO / "tools" / "run_calibrate.py",
                                  REPO / "tools" / "time_stream_plans.py",
                                  REPO / "tools" / "time_segment_plans.py",
+                                 REPO / "tools" / "time_dd.py",
                                  REPO / "tools" / "diag_m4096.py",
                                  REPO / "tools" / "diag_pdhg_m4096.py",
                                  REPO / "tools" / "diag_sparse_m2048.py",

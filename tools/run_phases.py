@@ -19,7 +19,8 @@ checkpoints, observability, MPS I/O and the dry run, 21 the reference's last
 modes (split pricing and the ablation switch on kernel 1, sectional pricing
 on kernel 3, Newton-Schulz refactorization, the Gondzio and minv IPM, the
 slack basis guess, the cumsum sparse assembly), 22 the m = 1024 exact
-path on kernel 1's streaming branch.  Each phase prints
+path on kernel 1's streaming branch, 23 the double-word kernel against
+refine.py's eager chain at the paths' shapes.  Each phase prints
 its report and exits nonzero where chip_smoke.py would; the ``kernels``
 line and the last line of chip_smoke.py are not printed.
 """
@@ -41,7 +42,8 @@ PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
           "15": cs.phase_exact_m4096, "16": cs.phase_bounded_block,
           "17": cs.phase_pdhg_m256, "18": cs.phase_sparse_m2048,
           "19": cs.phase_general_form, "20": cs.phase_parallel,
-          "21": cs.phase_last_modes, "22": cs.phase_exact_m1024}
+          "21": cs.phase_last_modes, "22": cs.phase_exact_m1024,
+          "23": cs.phase_dd_kernel}
 
 
 def main():

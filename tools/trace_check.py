@@ -14,7 +14,8 @@ Run from the repository root:
 
 ``bits``: one call of each batch of each cell's pool with recording off
 and one with it on: ``x``, ``basis``, ``status``, ``iters``, ``cost``
-compared bit for bit; then the same calls each way under
+compared bit for bit, and a digest of them a batch (to compare two trees'
+answers on the same card); then the same calls each way under
 ``torch.cuda.set_sync_debug_mode("warn")``, every synchronising operation
 listed by the program line it comes from (the innermost frame of the
 program outside ``observability.py``), whether it goes through
@@ -32,8 +33,9 @@ call and the host time a call spent opening and closing them.
 ``layout``: a traced run of each cell (the three m = 256 cells, or those
 named) per seed; its ``segment`` spans by kernel, mode, held columns
 (``held_cols``), CTAs a lane (``cluster``) and ``branch``, and each call's
-retry (``retry``'s ``lanes`` and ``crossed``) and fallback lanes, and the
-time of each span name a call.
+retry (``retry``'s ``lanes`` and ``crossed``) and fallback lanes, the
+double-word kernel's launches on its ``polish`` and ``bounded_polish``
+spans (``dd_launches``), and the time of each span name a call.
 ``phase22``: ``chip_smoke.py`` phase 22 with the recorder on; its kernel-1
 time a run against the program's streaming-branch ``segment`` spans.
 Every result is one JSON line.
@@ -49,6 +51,7 @@ sys.path.insert(0, ROOT)
 import lpbench.run  # noqa: E402,F401  (one thread, as the benchmark runs)
 
 import gc  # noqa: E402
+import hashlib  # noqa: E402
 import json  # noqa: E402
 import linecache  # noqa: E402
 import statistics  # noqa: E402
@@ -147,6 +150,17 @@ def syncs(cell, recording):
     return seen
 
 
+FIELDS = ("x", "basis", "status", "iters", "cost")
+
+
+def digest(answer):
+    """A hash of one call's answer fields, byte for byte."""
+    h = hashlib.sha256()
+    for f in FIELDS:
+        h.update(getattr(answer, f).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def cmd_bits(cells):
     info = card()
     for name in cells or CELLS:
@@ -154,12 +168,12 @@ def cmd_bits(cells):
         off, on = calls(cell, False), calls(cell, True)
         same = {f: all(bool(torch.equal(getattr(a, f), getattr(b, f)))
                        for a, b in zip(off, on))
-                for f in ("x", "basis", "status", "iters", "cost")}
+                for f in FIELDS}
         s_off, s_on = syncs(cell, False), syncs(cell, True)
         sites = sorted(set(s_off) | set(s_on), key=lambda k: -s_off[k])
         out({"cell": name, **info, "batches": len(off),
              "fallback_lanes": [a.info.get("fallback") for a in off],
-             "same_bits": same,
+             "same_bits": same, "digests": [digest(a) for a in off],
              "syncs_off": sum(s_off.values()), "syncs_on": sum(s_on.values()),
              "sites": [[site, routed, s_off[(site, routed)],
                         s_on[(site, routed)]] for site, routed in sites]})
@@ -311,7 +325,10 @@ def cmd_layout(seconds, seeds, cells=CELLS):
             seen = Counter()
             paths = []  # each call's retry and fallback, in window order
             span_ms = Counter()  # ms a call by span name (nested included)
+            dd = []  # each call's dd kernel launches in its polish spans
             for call in _program.REC.calls()[-n:]:
+                dd.append([sp.counts.get("dd_launches", 0) for sp in call
+                           if sp.name in ("polish", "bounded_polish")])
                 for sp in call:
                     span_ms[sp.name] += sp.ms() / n
                 for sp in call:
@@ -330,7 +347,8 @@ def cmd_layout(seconds, seeds, cells=CELLS):
             out({"cell": name, "seed": seed, **info, "correct": r["correct"],
                  "calls": n, "segments": [[*k, v] for k, v in
                                           sorted(seen.items())],
-                 "paths": paths, "span_ms_a_call": dict(span_ms),
+                 "paths": paths, "dd_launches": dd,
+                 "span_ms_a_call": dict(span_ms),
                  "metrics": {k: v["value"] for k, v in r["metrics"].items()},
                  "device": r["device"], "breakdown": r.get("breakdown")})
 
