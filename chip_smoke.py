@@ -250,6 +250,7 @@ from linprog_tpu_torch.ops import _build
 from linprog_tpu_torch.ops import bounded_kernel as bk
 from linprog_tpu_torch.ops import cholinv_kernel as ck
 from linprog_tpu_torch.ops import dd_kernel as ddk
+from linprog_tpu_torch.ops.plans import StreamingPlan
 from linprog_tpu_torch.ops import solve_kernel as sk
 from linprog_tpu_torch.ops import step_kernels as stk
 from linprog_tpu_torch.ops import stream_kernel as ssk
@@ -428,18 +429,14 @@ def same_bits(a, b):
 
 
 def _branch(plan):
-    """The branch of a whole-segment kernel's plan (kernels 1 and 4); a
-    plan of cluster 0 is the block per lane of a tree before kernel 1's
-    streaming branch (phase 22 runs in a parent checkout to compare)."""
-    if isinstance(plan, getattr(sk, "StreamingPlan", ())):
-        return "streaming"
-    return "cluster" if plan.cluster else "block per lane"
+    """The branch of a whole-segment kernel's plan (kernels 1 and 4)."""
+    return "streaming" if isinstance(plan, StreamingPlan) else "cluster"
 
 
 def _layout(plan):
     """A plan in words: its CTAs a lane, and a streaming plan's CTAs an SM
     and load branch."""
-    if isinstance(plan, sk.StreamingPlan):
+    if isinstance(plan, StreamingPlan):
         return (f"{plan.cluster} CTAs a lane ({plan.ctas_per_sm} an SM, "
                 f"{'ring' if plan.aligned else 'scalar loads'})")
     return f"{plan.cluster} CTAs a lane"
@@ -459,7 +456,7 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False,
     b, m, n = shape
     chosen = kernel.last_plan
     others = []
-    if kernel is sk and isinstance(chosen, sk.StreamingPlan):
+    if kernel is sk and isinstance(chosen, StreamingPlan):
         plans = sk.built_stream_plans(b, m, n, devex=devex)
     elif kernel is sk:
         plans = sk.segment_plans(b, m, n, devex=devex, n_d=n_d)
@@ -474,7 +471,7 @@ def _plan_report(kernel, run_plan, fresh, shape, ref16, label, devex=False,
             if not same_bits(x, y):
                 fail(f"{label} {list(shape)}: {name} after 16 pivots differs "
                      f"between {_layout(plan)} and {_layout(chosen)}")
-        others.append(_layout(plan) if isinstance(plan, sk.StreamingPlan)
+        others.append(_layout(plan) if isinstance(plan, StreamingPlan)
                       else plan.cluster)
         del s
     last = []
@@ -1639,7 +1636,7 @@ def _hold_bounded(b, m, n_g, packed, block=False):
     p16 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
                                          seg_len=16, **kw)
     torch.cuda.synchronize()
-    if isinstance(bk.last_plan, bk.BoundedStreamPlan) != block:
+    if isinstance(bk.last_plan, StreamingPlan) != block:
         fail(f"{label} {shape}: took the {_branch(bk.last_plan)} branch")
     same = _lockstep_lanes(k16, p16, ("basis", "vstate", "status", "iters",
                                       "cB", "lbB", "ubB"))
@@ -3148,7 +3145,7 @@ def phase_bounded_block():
     p1 = bk.solve_bounded_segment_plain(A, c, lb, ub, 1 << 20, fresh(),
                                         seg_len=1, **kw)
     torch.cuda.synchronize()
-    if not isinstance(bk.last_plan, bk.BoundedStreamPlan):
+    if not isinstance(bk.last_plan, StreamingPlan):
         fail("bounded block: [16, 1280, 2560] took the "
              f"{_branch(bk.last_plan)} branch")
     for name, x, y in zip(k1._fields, k1, p1):

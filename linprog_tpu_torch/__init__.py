@@ -34,7 +34,8 @@ has six hand-written CUDA kernels: the whole-segment simplex kernel
 (``ops/cholinv_kernel.py``), the bounded-variable segment kernel
 (``ops/bounded_kernel.py``) and the two per-step kernels
 (``ops/step_kernels.py``).  Each kernel has a plain PyTorch version that a
-CPU tensor takes; a CUDA tensor always launches the kernel.
+CPU tensor takes; a CUDA tensor always launches the kernel.  The launch
+plans of the three cluster kernels share ``ops/plans.py``.
 
 f32 means IEEE f32: the package never enables TF32, which would break the
 exact split products of the double-word arithmetic and pick wrong pivots.

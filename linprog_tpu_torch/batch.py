@@ -406,9 +406,9 @@ def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
     its bounds.  A variable at an infinite upper bound counts as zero.
 
     ``kernels="cuda"`` runs the bounded-variable kernel wherever it has a
-    launch plan (the cluster-resident branch, else one block per lane, up
-    to m ~ 3000 at n = 2m) and raises ``NotImplementedError`` past it,
-    naming ``kernels="torch"``; ``"torch"`` runs the per-lane engine
+    launch plan (the cluster-resident branch, else a streaming cluster a
+    lane, up to m ~ 3000 at n = 2m) and raises ``NotImplementedError`` past
+    it, naming ``kernels="torch"``; ``"torch"`` runs the per-lane engine
     :func:`linprog_tpu_torch.bounded.run_bounded` in plain PyTorch.
     """
     from . import bounded as bnd
@@ -424,7 +424,7 @@ def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
     if cfg.kernels == "cuda" and not has_plan(m, n):
         raise NotImplementedError(
             f"solve_batch_bounded at m={m}, n={n}: a lane is past the "
-            "bounded kernel's block-per-lane branch, so no kernel of "
+            "bounded kernel's streaming branch, so no kernel of "
             "kernels='cuda' runs it; ask for kernels='torch' to run the "
             "per-lane bounded engine in plain PyTorch"
         )

@@ -320,10 +320,10 @@ def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters: int,
 
 def _mega_kernel_fits(m: int, n: int, with_at: bool, itemsize: int = 4,
                       vmem_budget: int = 64 * 1024 * 1024) -> bool:
-    """The reference's size gate for its whole-segment kernel, kept as a
-    routing-parity constant: the port takes the whole-segment kernel where
-    the reference's fits in a v5e's VMEM.  It is not an H100 limit (a
-    calibration on the card replaces it; ROADMAP Queue 1 item 8)."""
+    """The reference's v5e VMEM gate for its whole-segment kernel, kept for
+    routing parity: the port takes the whole-segment kernel where the
+    reference's fits in a v5e's VMEM.  It is not an H100 limit: each kernel
+    applies its own reach line on the card."""
     a_terms = (2 if with_at else 1) * m * n
     per_lane = (a_terms + m * m + 10 * (m + n)) * itemsize
     return 4 * per_lane <= vmem_budget
@@ -334,10 +334,9 @@ def _stream_variant(m: int, n: int, itemsize: int = 4,
     """The reference's choice of streaming-kernel variant for (m, n):
     ``("resident" | "stream" | "stream_blocked", n_blk)`` or None.
 
-    These are the reference's VMEM rules (its scoped-allocation budgets on a
-    v5e), kept as routing-parity constants so the port runs the variant the
-    reference runs; they are not an H100 limit, which waits for
-    ``calibrate()`` (ROADMAP Queue 1 item 8).  On the card the variants
+    These are the reference's v5e VMEM gates (its scoped-allocation budgets
+    on a v5e), kept for routing parity so the port runs the variant the
+    reference runs; they are not an H100 limit.  On the card the variants
     differ only in the plain version's blocked-factor summation order.
     """
     rows = 12 * (m + n) * itemsize

@@ -59,28 +59,13 @@ import torch
 from .. import status as st
 from ..observability import note
 from . import _build
-from .solve_kernel import (
-    _STATIC_BYTES,
-    INTMAX,
-    SM_COUNT,
-    SMEM_LIMIT,
-    SegmentPlan,
-    _nonneg,
-    _round4,
-    check_tensors,
-    estimated_held,
-    pack_min_keys,
-    pick_plan,
-    plan_sms,  # noqa: F401 (the plan interface of this module)
-    rank_plans,
-    resident,
-    resident_plans,
-    slice_len,
-    slices_aligned,
-    streaming_plan,
-)
-from .solve_kernel import StreamingPlan as BoundedStreamPlan
-from .solve_kernel import band_slice_len as _band_slice_len
+from .plans import (RESIDENT_STATIC_BYTES, SM_COUNT, SMEM_LIMIT, SegmentPlan,
+                    StreamingPlan, _round4, aligned_pointers, band_slice_len,
+                    best_ranked, built_streaming, cuda_index, estimated_held,
+                    fewest_waves, held_on, packed_scalar_plan, rank_plans,
+                    resident, resident_plans, scalar_for_unaligned, slice_len,
+                    slices_aligned, streaming_plan)
+from .solve_kernel import INTMAX, _nonneg, check_tensors, pack_min_keys
 
 AT_LB, AT_UB, BASIC = 0, 1, 2
 
@@ -135,41 +120,32 @@ def stream_vector_bytes(m: int, n: int, cluster: int) -> int:
     of m (y, the entering column, the factor's column at the leaving row,
     bfs, lbB, ubB, the basis) and five of n (c, lb, ub, the reduced costs,
     the variable states), slices of whole bands of ``ceil(size / 8)``."""
-    ml, nl = _band_slice_len(m, cluster), _band_slice_len(n, cluster)
+    ml, nl = band_slice_len(m, cluster), band_slice_len(n, cluster)
     return 4 * _round4(3 * m + max(m, n) + 7 * ml + 5 * nl)
 
 
-def stream_plan(cluster: int, ctas_per_sm: int, m: int, n: int,
-                aligned: bool = True,
-                smem_limit: int = SMEM_LIMIT) -> Optional[BoundedStreamPlan]:
-    """The streaming branch at ``cluster`` CTAs a lane sized for
-    ``ctas_per_sm`` CTAs an SM: on the bulk-copy branch the largest ring
-    that fits beside the vectors, on the scalar branch the vectors alone;
-    None where they do not fit."""
-    return streaming_plan(cluster, ctas_per_sm,
-                          stream_vector_bytes(m, n, cluster), m, aligned,
-                          smem_limit)
-
-
 def scalar_plan(cluster: int, m: int, n: int,
-                smem_limit: int = SMEM_LIMIT) -> Optional[BoundedStreamPlan]:
+                smem_limit: int = SMEM_LIMIT) -> Optional[StreamingPlan]:
     """The scalar-load branch at ``cluster`` CTAs a lane, sized for as many
     CTAs an SM as the build allows and its vectors leave room for."""
-    for ctas in range(STREAM_CTAS, 0, -1):
-        plan = stream_plan(cluster, ctas, m, n, False, smem_limit)
-        if plan is not None:
-            return plan
-    return None
+    return packed_scalar_plan(cluster, STREAM_CTAS,
+                              stream_vector_bytes(m, n, cluster), smem_limit)
 
 
 def _stream_candidates(m: int, n: int,
-                       smem_limit: int) -> List[BoundedStreamPlan]:
+                       smem_limit: int) -> List[StreamingPlan]:
     if slices_aligned(m, n):
-        plans = [stream_plan(cl, ctas, m, n, True, smem_limit)
+        plans = [streaming_plan(cl, ctas, stream_vector_bytes(m, n, cl), m,
+                                True, smem_limit)
                  for cl, ctas in STREAM_LAYOUTS]
     else:
         plans = [scalar_plan(cl, m, n, smem_limit) for cl in STREAM_CLUSTERS]
     return [p for p in plans if p is not None]
+
+
+def _line(m: int, n: int) -> int:
+    # the vectors of the block per lane (9m + 5n floats)
+    return 4 * (9 * m + 5 * n) + RESIDENT_STATIC_BYTES
 
 
 def in_reach(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
@@ -177,14 +153,14 @@ def in_reach(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
     one-block-per-lane branch it replaced, whose vectors (9m + 5n floats)
     had to fit one block, m ~ 3000 at n = 2m.  The streaming branch's own
     vectors are smaller; raising the line takes a card test of its own."""
-    return 4 * (9 * m + 5 * n) + _STATIC_BYTES <= smem_limit
+    return _line(m, n) <= smem_limit
 
 
 def has_plan(m: int, n: int, smem_limit: int = SMEM_LIMIT) -> bool:
     """Whether a lane of (m, n) fits one of the kernel's branches (where it
     does not, :func:`segment_plans` raises): the cluster-resident branch, or
     the streaming branch up to :func:`in_reach`."""
-    return (resident(m, n, smem_limit, cluster_bytes)
+    return (resident(m, n, cluster_bytes, smem_limit)
             or (in_reach(m, n, smem_limit)
                 and bool(_stream_candidates(m, n, smem_limit))))
 
@@ -193,57 +169,52 @@ def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
                   smem_limit: int = SMEM_LIMIT) -> list:
     """Candidate launch plans for ``B`` lanes of (m, n), best first.
 
-    The branch follows from (m, n) alone (:func:`resident`).  On the
-    cluster-resident branch the candidates are
-    :func:`~linprog_tpu_torch.ops.solve_kernel.resident_plans`
-    (:class:`~linprog_tpu_torch.ops.solve_kernel.SegmentPlan`).  Past it, up
-    to :func:`in_reach`, the streaming branch's
-    (:class:`BoundedStreamPlan`): on an aligned shape 8 CTAs a lane with
-    half an SM's ring (two CTAs an SM), and 4 and 8 with a ring that fills
-    the SM; on another shape the scalar branch at 8 and 4.  The same set at
-    every batch size; ordered by the fewest waves, then the most SMs
-    (:func:`estimated_held`, :func:`plan_sms`), then that listing, which
-    the wrapper settles with the occupancy query of the built kernel.
+    The branch follows from (m, n) alone (:func:`~.plans.resident`).  On
+    the cluster-resident branch the candidates are
+    :func:`~.plans.resident_plans`, which the wrapper settles with
+    :func:`~.plans.fewest_waves`.  Past it, up to :func:`in_reach`, the
+    streaming branch's: on an aligned shape 8 CTAs a lane with half an
+    SM's ring (two CTAs an SM), and 4 and 8 with a ring that fills the SM;
+    on another shape the scalar branch at 8 and 4.  The same set at every
+    batch size; ordered by the fewest waves, then the most SMs
+    (:func:`~.plans.estimated_held`, :func:`~.plans.plan_sms`), then that
+    listing, which the wrapper settles with :func:`~.plans.best_ranked`.
     Raises ``ValueError`` for a lane that fits neither branch.
     """
     if B < 1 or m < 1 or n < 1:
         raise ValueError("solve_bounded_segment: plans need B, m, n >= 1, "
                          f"got {(B, m, n)}")
-    if resident(m, n, smem_limit, cluster_bytes):
+    if resident(m, n, cluster_bytes, smem_limit):
         return resident_plans(B, m, n, cluster_bytes, sm_count, smem_limit)
     plans = (_stream_candidates(m, n, smem_limit)
              if in_reach(m, n, smem_limit) else [])
     if not plans:
         raise ValueError(
             f"solve_bounded_segment: a lane of m={m}, n={n} is past the "
-            f"streaming branch's line of {4 * (9 * m + 5 * n) + _STATIC_BYTES}"
-            f" bytes of shared memory (9m + 5n floats in one block) and "
-            f"needs {cluster_bytes(m, n, 16) + _STATIC_BYTES} per CTA of a "
+            f"streaming branch's line of {_line(m, n)} bytes of shared memory"
+            f" (9m + 5n floats in one block) and needs "
+            f"{cluster_bytes(m, n, 16) + RESIDENT_STATIC_BYTES} per CTA of a "
             f"16-CTA cluster, past the {smem_limit} a block of the card may "
-            "hold"
-        )
+            "hold")
     return rank_plans(plans, B, lambda p: estimated_held(p, sm_count),
                       sm_count)
 
 
-def built_stream_plans(B: int, m: int, n: int) -> List[BoundedStreamPlan]:
+def built_stream_plans(B: int, m: int, n: int) -> List[StreamingPlan]:
     """Every built layout of the streaming branch at (m, n): the candidates
     of :func:`segment_plans`, then on an aligned shape the scalar-load
     branch at each built cluster size (the card tests hold them against
     each other; ``tools/time_segment_plans.py --bounded`` times them)."""
-    plans = list(segment_plans(B, m, n))
-    if not all(isinstance(p, BoundedStreamPlan) for p in plans):
-        raise ValueError(f"solve_bounded_segment: (m, n) = ({m}, {n}) takes "
-                         "the cluster-resident branch")
-    scalar = [scalar_plan(cl, m, n) for cl in STREAM_CLUSTERS]
-    return plans + [p for p in scalar if p is not None and p not in plans]
+    return built_streaming(
+        "solve_bounded_segment", m, n, segment_plans(B, m, n),
+        [scalar_plan(cl, m, n) for cl in STREAM_CLUSTERS])
 
 
 def clusters_held(plan) -> int:
     """Clusters of ``plan`` the current device holds at once, as the built
     kernel's occupancy query counts them (< 0: a negated CUDA error)."""
     lib = _build.library()
-    if isinstance(plan, BoundedStreamPlan):
+    if isinstance(plan, StreamingPlan):
         return lib.lp_solve_bounded_stream_max_clusters(
             plan.cluster, int(plan.aligned), plan.smem_bytes)
     return lib.lp_solve_bounded_cluster_max_clusters(plan.cluster,
@@ -253,34 +224,20 @@ def clusters_held(plan) -> int:
 @functools.lru_cache(maxsize=None)
 def _choose_plan(B: int, m: int, n: int, device_index: int,
                  pointers_aligned: bool):
-    """The candidate that runs the batch in the fewest waves of resident
-    clusters on this device, then on the most SMs (ties: the earlier
-    candidate).  Unaligned pointers take each candidate's scalar branch."""
+    """:func:`~.plans.fewest_waves` on the cluster-resident branch,
+    :func:`~.plans.best_ranked` on the streaming branch, by the built
+    kernel's occupancy query on this device; unaligned pointers take each
+    streaming candidate's scalar branch."""
     props = torch.cuda.get_device_properties(device_index)
     plans = segment_plans(B, m, n, props.multi_processor_count)
-    if not isinstance(plans[0], BoundedStreamPlan):
-        query = _build.library().lp_solve_bounded_cluster_max_clusters
-        return pick_plan(plans, B, query, device_index,
-                         "solve_bounded_segment")
+    held = held_on(device_index, clusters_held)
+    if not isinstance(plans[0], StreamingPlan):
+        return fewest_waves(plans, B, held, "solve_bounded_segment")
     if not pointers_aligned:
-        plans = list(dict.fromkeys(
-            p if not p.aligned else scalar_plan(p.cluster, m, n)
-            for p in plans))
-    seen = {}
-
-    def held(plan):
-        with torch.cuda.device(device_index):  # the query asks this device
-            seen[plan] = clusters_held(plan)
-        return seen[plan]
-
-    ranked = rank_plans(plans, B, held, props.multi_processor_count)
-    if not ranked:
-        raise RuntimeError(
-            "solve_bounded_segment: the device holds no cluster of any "
-            f"planned streaming layout for m={m}, n={n}: (plan, resident or "
-            f"negated CUDA error) = {list(seen.items())}"
-        )
-    return ranked[0]
+        plans = scalar_for_unaligned(plans,
+                                     lambda cl: scalar_plan(cl, m, n))
+    return best_ranked(plans, B, held, props.multi_processor_count,
+                       "solve_bounded_segment", f" for m={m}, n={n}")
 
 
 def _pick(v, at):
@@ -489,12 +446,8 @@ def solve_bounded_segment(A, c, lb, ub, maxiters: int,
     if B == 0 or seg_len <= 0:
         segment_plans(max(B, 1), m, n)  # a lane too large raises all the same
         return state
-    index = A.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    pointers_aligned = (A.data_ptr() % 16 == 0
-                        and state.invBT.data_ptr() % 16 == 0)
-    plan = _choose_plan(B, m, n, index, pointers_aligned)
+    plan = _choose_plan(B, m, n, cuda_index(A.device),
+                        aligned_pointers(A, state.invBT))
     return launch_with_plan(plan, A, c, lb, ub, maxiters, state, **kw)
 
 
@@ -523,21 +476,19 @@ def launch_with_plan(plan: SegmentPlan, A, c, lb, ub, maxiters: int,
         float(opt_tol), float(pivot_tol), int(bool(packed)),
     )
     with torch.cuda.device(A.device):
-        if isinstance(plan, BoundedStreamPlan):
+        if isinstance(plan, StreamingPlan):
             code = lib.lp_solve_bounded_stream(
                 *args, plan.cluster, int(plan.aligned), plan.stages,
                 plan.stage_floats, plan.warp_stages, plan.chunk_floats,
                 plan.smem_bytes, stream)
         else:
-            aligned = (m % 4 == 0 and n % 4 == 0
-                       and A.data_ptr() % 16 == 0
-                       and state.invBT.data_ptr() % 16 == 0)
+            aligned = (slices_aligned(m, n)
+                       and aligned_pointers(A, state.invBT))
             code = lib.lp_solve_bounded_cluster(
                 *args, plan.cluster, int(aligned), plan.smem_bytes, stream)
     _build.check(code, "solve_bounded_segment launch")
     launches += 1
     last_plan = plan
     note("segment", held_cols=n, cluster=plan.cluster,
-         branch="stream" if isinstance(plan, BoundedStreamPlan)
-         else "resident")
+         branch="stream" if isinstance(plan, StreamingPlan) else "resident")
     return state

@@ -82,6 +82,12 @@ import torch
 from .. import status as st
 from ..observability import host_read, note
 from . import _build
+from .plans import (RESIDENT_STATIC_BYTES, SM_COUNT, SMEM_LIMIT, StreamingPlan,
+                    _round4, aligned_pointers, band_slice_len, built_streaming,
+                    cuda_index, estimated_held, fewest_waves, first_granted,
+                    held_on, packed_scalar_plan, rank_plans, resident,
+                    resident_plans, scalar_for_unaligned, slice_len,
+                    slices_aligned, streaming_plan)
 
 INTMAX = 0x7FFFFFFF
 
@@ -93,23 +99,6 @@ launches_streaming_dual = 0  # those of them in dual mode
 launches_ablate = {k: 0 for k in range(1, 8)}  # those with each ablation mode
 launches_unit = 0  # those of them in the unit layout
 last_plan = None  # the plan of the last launch
-
-SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
-SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
-_STATIC_BYTES = 1024  # a block's static shared memory and a reserve
-_BANDS = 16  # row bands of a lane (csrc/cluster_segment.cuh: kBands)
-CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes the resident branch is built for
-
-# The streaming branches of kernels 1 and 4 (csrc/stream_ring.cuh): a lane's
-# rows in 8 fixed bands, a CTA's share whole bands of them.
-_STREAM_BANDS = 8
-_STREAM_STATIC_BYTES = 2048  # a streaming CTA's static shared memory, reserve
-SMEM_PER_SM = 233472  # bytes of shared memory of one SM (228 KB)
-_BLOCK_RESERVE = 1024  # bytes of it the card reserves for each block
-_WARPS = 8  # warps of a streaming CTA (csrc/common.cuh: kThreads / 32)
-# (stages of a warp's ring, floats per stage), largest ring first
-_RINGS = ((4, 1024), (4, 768), (2, 1024), (2, 768), (2, 512), (2, 256))
-_BLOCK_STAGES = 4  # stages of the same memory seen as the block's ring
 
 # Kernel 1's streaming branch (csrc/solve_segment_large.cuh: the builds of
 # LP_LARGE_RING_BUILDS and LP_LARGE_SCALAR_BUILDS, each capped at the
@@ -188,44 +177,12 @@ def unit_pays(B: int, m: int, n: int, n_d: int, device) -> bool:
     (at [1024, 256, 512] an iteration takes 0.457 against 0.448 ms).  False
     off a CUDA device, off the cluster-resident branch and for no lanes."""
     device = torch.device(device)
-    if device.type != "cuda" or B < 1 or n_d >= n or not resident(m, n):
+    if (device.type != "cuda" or B < 1 or n_d >= n
+            or not resident(m, n, cluster_bytes)):
         return False
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
+    index = cuda_index(device)
     dense = _choose_plan(B, m, n, False, index, True)
     return _choose_plan(B, m, n, False, index, True, n_d).cluster < dense.cluster
-
-
-class SegmentPlan(NamedTuple):
-    """How one launch of the cluster-resident branch is laid out."""
-
-    cluster: int  # CTAs a lane
-    smem_bytes: int  # dynamic shared memory per CTA
-
-
-class StreamingPlan(NamedTuple):
-    """How one launch of a streaming branch (kernel 1's past the largest
-    cluster, kernel 4's too) is laid out: the fields of
-    :class:`~linprog_tpu_torch.ops.stream_kernel.StreamPlan`, and the CTAs
-    an SM its shared memory is sized for."""
-
-    cluster: int  # CTAs a lane
-    aligned: bool  # bulk-copy rings (True) or scalar loads (False)
-    stages: int  # block ring: stages (0 on the scalar branch)
-    stage_floats: int  # block ring: floats per stage
-    warp_stages: int  # warp rings: stages per warp
-    chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
-    smem_bytes: int  # dynamic shared memory per CTA
-    ctas_per_sm: int  # CTAs an SM the plan leaves room for (1 or 2)
-
-
-def slice_len(size: int, cluster: int) -> int:
-    """Entries of a CTA's slice: whole bands of ``ceil(size / 16)``."""
-    return (_BANDS // cluster) * -(-size // _BANDS)
-
-
-def _round4(v: int) -> int:
-    return -(-v // 4) * 4
 
 
 def cluster_bytes(m: int, n: int, cluster: int,
@@ -243,86 +200,9 @@ def cluster_bytes(m: int, n: int, cluster: int,
                 + _round4(6 * m + 5 * n + 3 * ml) + _round4(2 * (n - n_d)))
 
 
-def band_slice_len(size: int, cluster: int) -> int:
-    """Entries of a streaming CTA's slice: whole bands of
-    ``ceil(size / 8)``."""
-    return (_STREAM_BANDS // cluster) * -(-size // _STREAM_BANDS)
-
-
-def slices_aligned(m: int, n: int) -> bool:
-    """Every row of A and of ``B^-T`` starts on a multiple of 4 floats and
-    is a multiple of 4 floats long, so each row segment a CTA streams (a
-    slice is whole rows) can be a 16-byte-aligned bulk copy."""
-    return m % 4 == 0 and n % 4 == 0
-
-
-def ring_layout(m: int, vec_bytes: int, budget: int):
-    """The largest ring of ``_RINGS`` that fits ``budget`` bytes of dynamic
-    shared memory beside ``vec_bytes`` of vectors, as ``(stages,
-    stage_floats, warp_stages, chunk_floats, smem_bytes)``, or None.  The
-    warps' view: ``warp_stages`` chunks of a row of ``B^-T`` a warp; the
-    block's view of the same memory: four stages, each as many row segments
-    of a sweep as fit (a stage costs the same to turn over whatever its
-    size, so few large ones)."""
-    for warp_stages, chunk in _RINGS:
-        chunk = min(chunk, m)
-        ring = _WARPS * warp_stages * chunk
-        smem = vec_bytes + 4 * ring
-        if smem <= budget:
-            stage = ring // _BLOCK_STAGES // 4 * 4
-            return _BLOCK_STAGES, stage, warp_stages, chunk, smem
-    return None
-
-
-def streaming_plan(cluster: int, ctas_per_sm: int, vec_bytes: int, m: int,
-                   aligned: bool, smem_limit: int = SMEM_LIMIT
-                   ) -> Optional[StreamingPlan]:
-    """A streaming branch at ``cluster`` CTAs a lane whose CTA keeps
-    ``vec_bytes`` of vectors, sized for ``ctas_per_sm`` CTAs an SM: on the
-    bulk-copy branch the largest ring that fits beside the vectors, on the
-    scalar branch the vectors alone; None where they do not fit."""
-    # the CTA's share of the SM's shared memory, its static part left out
-    budget = (min(smem_limit, SMEM_PER_SM // ctas_per_sm - _BLOCK_RESERVE)
-              - _STREAM_STATIC_BYTES)
-    if not aligned:
-        if vec_bytes > budget:
-            return None
-        return StreamingPlan(cluster, False, 0, 0, 0, 0, vec_bytes,
-                             ctas_per_sm)
-    ring = ring_layout(m, vec_bytes, budget)
-    if ring is None:
-        return None
-    return StreamingPlan(cluster, True, *ring, ctas_per_sm)
-
-
-def plan_sms(plan: StreamingPlan, B: int, held: int,
-             sm_count: int = SM_COUNT) -> int:
-    """SMs a launch of ``B`` lanes under ``plan`` fills in its first wave
-    when the card holds ``held`` of its clusters at once, its CTAs packed
-    ``plan.ctas_per_sm`` to an SM."""
-    ctas = min(B, held) * plan.cluster
-    return min(sm_count, -(-ctas // plan.ctas_per_sm))
-
-
-def rank_plans(plans, B: int, held, sm_count: int):
-    """``plans`` best first: the fewest waves of resident clusters
-    (``held(plan)`` of them at once), then the most SMs, then the listed
-    order; plans the card cannot hold (``held <= 0``) are left out."""
-    keyed = []
-    for i, plan in enumerate(plans):
-        h = held(plan)
-        if h > 0:
-            keyed.append(((-(-B // h), -plan_sms(plan, B, h, sm_count), i),
-                          plan))
-    return [plan for _, plan in sorted(keyed)]
-
-
-def estimated_held(plan: StreamingPlan, sm_count: int = SM_COUNT) -> int:
-    """Clusters of ``plan`` the card holds at once, estimated without it: a
-    cluster lies within one GPC, which loses about one cluster across the
-    card (an H100 SXM holds 15 clusters of 8 CTAs at one CTA an SM, not
-    16).  The wrappers ask the built kernel instead."""
-    return max(1, sm_count * plan.ctas_per_sm // plan.cluster - 1)
+def _line(m: int, n: int, devex: bool) -> int:
+    # the vectors of the block per lane (7m + 4n floats, 5n with devex)
+    return 4 * (7 * m + (5 if devex else 4) * n) + RESIDENT_STATIC_BYTES
 
 
 def in_reach(m: int, n: int, devex: bool = False,
@@ -332,7 +212,7 @@ def in_reach(m: int, n: int, devex: bool = False,
     floats, 5n with the devex weights) had to fit one block, m ~ 3850 at
     n = 2m.  The streaming branch's own vectors are smaller; raising the
     line takes a card test of its own."""
-    return 4 * (7 * m + (5 if devex else 4) * n) + _STATIC_BYTES <= smem_limit
+    return _line(m, n, devex) <= smem_limit
 
 
 def large_vector_bytes(m: int, n: int, cluster: int,
@@ -348,16 +228,6 @@ def large_vector_bytes(m: int, n: int, cluster: int,
                        + (5 if devex else 4) * nl)
 
 
-def large_plan(cluster: int, ctas_per_sm: int, m: int, n: int,
-               aligned: bool = True, devex: bool = False,
-               smem_limit: int = SMEM_LIMIT) -> Optional[StreamingPlan]:
-    """Kernel 1's streaming branch at ``cluster`` CTAs a lane sized for
-    ``ctas_per_sm`` CTAs an SM, or None."""
-    return streaming_plan(cluster, ctas_per_sm,
-                          large_vector_bytes(m, n, cluster, devex), m,
-                          aligned, smem_limit)
-
-
 def large_scalar_plan(cluster: int, m: int, n: int, devex: bool = False,
                       smem_limit: int = SMEM_LIMIT
                       ) -> Optional[StreamingPlan]:
@@ -366,11 +236,8 @@ def large_scalar_plan(cluster: int, m: int, n: int, devex: bool = False,
     a size the branch is not built at or vectors that do not fit."""
     if cluster not in LARGE_SCALAR_CLUSTERS:
         return None
-    for ctas in range(LARGE_CTAS, 0, -1):
-        plan = large_plan(cluster, ctas, m, n, False, devex, smem_limit)
-        if plan is not None:
-            return plan
-    return None
+    return packed_scalar_plan(cluster, LARGE_CTAS, large_vector_bytes(
+        m, n, cluster, devex), smem_limit)
 
 
 def _large_candidates(m: int, n: int, devex: bool,
@@ -379,35 +246,13 @@ def _large_candidates(m: int, n: int, devex: bool,
     branch on another shape, or where no ring fits beside the vectors."""
     plans = []
     if slices_aligned(m, n):
-        plans = [large_plan(cl, ctas, m, n, True, devex, smem_limit)
+        plans = [streaming_plan(cl, ctas, large_vector_bytes(m, n, cl, devex),
+                                m, True, smem_limit)
                  for cl, ctas in LARGE_LAYOUTS]
-        plans = [p for p in plans if p is not None]
-    if not plans:
+    if not any(plans):
         plans = [large_scalar_plan(cl, m, n, devex, smem_limit)
                  for cl in LARGE_SCALAR_CLUSTERS]
-        plans = [p for p in plans if p is not None]
-    return plans
-
-
-def resident(m: int, n: int, smem_limit: int = SMEM_LIMIT,
-             cbytes=cluster_bytes) -> bool:
-    """Whether a lane of (m, n) takes the cluster-resident branch: its A and
-    ``B^-T`` fit the largest built cluster (``cbytes`` gives a CTA's bytes)."""
-    return cbytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES <= smem_limit
-
-
-def resident_plans(B: int, m: int, n: int, cbytes, sm_count: int,
-                   smem_limit: int) -> List[SegmentPlan]:
-    """The cluster-resident candidates of a lane that :func:`resident` holds:
-    the built cluster sizes whose CTA holds its share, first the largest
-    that keeps the batch within the card's SMs, else the smallest that fits,
-    then the others from the smallest up."""
-    fits = [cl for cl in CLUSTERS
-            if cbytes(m, n, cl) + _STATIC_BYTES <= smem_limit]
-    wide = [cl for cl in fits if B * cl <= sm_count]
-    first = wide[-1] if wide else fits[0]
-    order = [first] + [cl for cl in fits if cl != first]
-    return [SegmentPlan(cl, cbytes(m, n, cl)) for cl in order]
+    return [p for p in plans if p is not None]
 
 
 def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
@@ -415,46 +260,36 @@ def segment_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
                   n_d: Optional[int] = None) -> list:
     """Candidate launch plans for ``B`` lanes of (m, n), best first.
 
-    The branch follows from (m, n) alone (:func:`resident`).  On the
-    cluster-resident branch the candidates are the built cluster sizes whose
-    CTA holds its share of the lane (:class:`SegmentPlan`; in the unit
-    layout its share of the leading ``n_d`` columns): first the largest
-    that keeps the batch within the card's SMs (``B * cluster <=
-    sm_count``), else the smallest that fits, then the others from the
-    smallest up; the wrapper takes the first that runs the batch in the
-    fewest waves of resident clusters, as the occupancy query of the built
-    kernel counts them.  Past the largest cluster, up to :func:`in_reach`,
-    the streaming branch's (:class:`StreamingPlan`): on an aligned shape
-    the layouts of ``LARGE_LAYOUTS`` that fit, else the scalar branch at 4
-    and 8 CTAs a lane; the same set at every batch size, ordered by the
-    fewest waves, then the most SMs (:func:`estimated_held`,
-    :func:`plan_sms`), then that listing.  The wrapper takes the first that
-    the built kernel's occupancy query grants, and not the query's own
-    count of waves: the card holds 30 clusters of 8 CTAs two to an SM
-    where the estimate says 32, yet 32 lanes run faster on them (a tail of
-    2 lanes) than on the 64 SMs of one wave of 2 CTAs a lane (PERF.md,
-    section 6).  ``devex`` moves the reach
-    line and the streaming plans' bytes (the weights' slice).  Raises
-    ``ValueError`` for a lane that fits neither branch.
+    The branch follows from (m, n) alone (:func:`~.plans.resident`).  On
+    the cluster-resident branch the candidates are
+    :func:`~.plans.resident_plans` (in the unit layout each CTA's share of
+    the leading ``n_d`` columns), which the wrapper settles with
+    :func:`~.plans.fewest_waves`.  Past the largest cluster, up to
+    :func:`in_reach`, the streaming branch's: on an aligned shape the
+    layouts of ``LARGE_LAYOUTS`` that fit, else the scalar branch at 4 and 8
+    CTAs a lane; the same set at every batch size, ordered by the fewest
+    waves, then the most SMs (:func:`~.plans.estimated_held`,
+    :func:`~.plans.plan_sms`), then that listing, which the wrapper settles
+    with :func:`~.plans.first_granted`.  ``devex`` moves the reach line and
+    the streaming plans' bytes (the weights' slice).  Raises ``ValueError``
+    for a lane that fits neither branch.
     """
     if B < 1 or m < 1 or n < 1:
         raise ValueError("solve_segment: plans need B, m, n >= 1, got "
                          f"{(B, m, n)}")
-    if resident(m, n, smem_limit):
+    if resident(m, n, cluster_bytes, smem_limit):
         cbytes = functools.partial(cluster_bytes, n_d=n_d)
         return resident_plans(B, m, n, cbytes, sm_count, smem_limit)
     plans = (_large_candidates(m, n, devex, smem_limit)
              if in_reach(m, n, devex, smem_limit) else [])
     if not plans:
-        line = 4 * (7 * m + (5 if devex else 4) * n) + _STATIC_BYTES
         raise ValueError(
             f"solve_segment: a lane of m={m}, n={n} is past the streaming "
-            f"branch's line of {line} bytes of shared memory (the vectors of "
-            f"the block per lane it replaced) and needs "
-            f"{cluster_bytes(m, n, CLUSTERS[-1]) + _STATIC_BYTES} per CTA of "
-            f"a {CLUSTERS[-1]}-CTA cluster, past the {smem_limit} a block of "
-            "the card may hold"
-        )
+            f"branch's line of {_line(m, n, devex)} bytes of shared memory "
+            "(the vectors of the block per lane it replaced) and needs "
+            f"{cluster_bytes(m, n, 16) + RESIDENT_STATIC_BYTES} per CTA of a "
+            f"16-CTA cluster, past the {smem_limit} a block of the card may "
+            "hold")
     return rank_plans(plans, B, lambda p: estimated_held(p, sm_count),
                       sm_count)
 
@@ -465,13 +300,9 @@ def built_stream_plans(B: int, m: int, n: int,
     of :func:`segment_plans`, then on an aligned shape the scalar-load
     branch at each built cluster size (the card tests hold them against
     each other; ``tools/time_segment_plans.py`` times them)."""
-    plans = list(segment_plans(B, m, n, devex=devex))
-    if not all(isinstance(p, StreamingPlan) for p in plans):
-        raise ValueError(f"solve_segment: (m, n) = ({m}, {n}) takes the "
-                         "cluster-resident branch")
-    scalar = [large_scalar_plan(cl, m, n, devex)
-              for cl in LARGE_SCALAR_CLUSTERS]
-    return plans + [p for p in scalar if p is not None and p not in plans]
+    return built_streaming(
+        "solve_segment", m, n, segment_plans(B, m, n, devex=devex),
+        [large_scalar_plan(cl, m, n, devex) for cl in LARGE_SCALAR_CLUSTERS])
 
 
 def clusters_held(plan) -> int:
@@ -485,60 +316,24 @@ def clusters_held(plan) -> int:
                                                      plan.smem_bytes)
 
 
-def pick_plan(plans: List[SegmentPlan], B: int, query, device_index: int,
-              what: str) -> SegmentPlan:
-    """The cluster-resident candidate that runs ``B`` lanes in the fewest
-    waves of resident clusters on the device (ties: the earlier candidate);
-    ``query(cluster, smem_bytes)`` is the built kernel's occupancy query."""
-    best, best_waves, seen = None, None, []
-    for plan in plans:
-        with torch.cuda.device(device_index):  # the query asks this device
-            held = query(plan.cluster, plan.smem_bytes)
-        seen.append((plan.cluster, held))
-        if held <= 0:
-            continue
-        waves = -(-B // held)
-        if best is None or waves < best_waves:
-            best, best_waves = plan, waves
-    if best is None:
-        raise RuntimeError(
-            f"{what}: the device holds no cluster of any planned size: "
-            f"(cluster, resident or negated CUDA error) = {seen}"
-        )
-    return best
-
-
 @functools.lru_cache(maxsize=None)
 def _choose_plan(B: int, m: int, n: int, devex: bool, device_index: int,
                  pointers_aligned: bool, n_d: Optional[int] = None):
-    """On the cluster-resident branch the candidate that runs the batch in
-    the fewest waves of resident clusters on this device (ties: the earlier
-    candidate); on the streaming branch the first candidate the device
-    grants.  Unaligned pointers take each streaming candidate's scalar
-    branch."""
+    """:func:`~.plans.fewest_waves` on the cluster-resident branch,
+    :func:`~.plans.first_granted` on the streaming branch, by the built
+    kernel's occupancy query on this device; unaligned pointers take each
+    streaming candidate's scalar branch."""
     props = torch.cuda.get_device_properties(device_index)
     plans = segment_plans(B, m, n, props.multi_processor_count, devex=devex,
                           n_d=n_d)
+    held = held_on(device_index, clusters_held)
     if not isinstance(plans[0], StreamingPlan):
-        query = _build.library().lp_solve_segment_cluster_max_clusters
-        return pick_plan(plans, B, query, device_index, "solve_segment")
+        return fewest_waves(plans, B, held, "solve_segment")
     if not pointers_aligned:
-        plans = [p if not p.aligned else large_scalar_plan(p.cluster, m, n,
-                                                           devex)
-                 for p in plans]
-        plans = list(dict.fromkeys(p for p in plans if p is not None))
-    seen = []
-    for plan in plans:
-        with torch.cuda.device(device_index):  # the query asks this device
-            held = clusters_held(plan)
-        if held > 0:
-            return plan
-        seen.append((plan, held))
-    raise RuntimeError(
-        "solve_segment: the device holds no cluster of any planned streaming "
-        f"layout for m={m}, n={n}: (plan, resident or negated CUDA error) = "
-        f"{seen}"
-    )
+        plans = scalar_for_unaligned(
+            plans, lambda cl: large_scalar_plan(cl, m, n, devex))
+    return first_granted(plans, held, "solve_segment",
+                         f" for m={m}, n={n}")
 
 
 def pack_min_keys(vals, mask, idx, bits: int, negate: bool):
@@ -943,7 +738,8 @@ def _unit_layout(unit: Optional[UnitColumns], A, split: bool,
     leaves some column out of shared memory; None for the dense launch.
     Raises for a map of the wrong shape, type or device."""
     B, m, n = A.shape
-    if unit is None or unit.n_d >= n or split or ablate or not resident(m, n):
+    if (unit is None or unit.n_d >= n or split or ablate
+            or not resident(m, n, cluster_bytes)):
         return None
     if unit.n_d < 0:
         raise ValueError(f"solve_segment: unit columns from {unit.n_d}")
@@ -994,15 +790,11 @@ def solve_segment(A, c, apen, maxiters: int, state: SegmentState, *,
         # a lane too large raises all the same
         segment_plans(max(B, 1), m, n, devex=pricing == 2)
         return state
-    index = A.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    pointers_aligned = (A.data_ptr() % 16 == 0
-                        and state.invBT.data_ptr() % 16 == 0)
     unit = _unit_layout(unit, A, split, ablate)
     if unit is not None and not unit_pays(B, m, n, unit.n_d, A.device):
         unit = None
-    plan = _choose_plan(B, m, n, pricing == 2, index, pointers_aligned,
+    plan = _choose_plan(B, m, n, pricing == 2, cuda_index(A.device),
+                        aligned_pointers(A, state.invBT),
                         None if unit is None else unit.n_d)
     return launch_with_plan(plan, A, c, apen, maxiters, state, unit=unit,
                             **kw)
@@ -1052,9 +844,8 @@ def launch_with_plan(plan, A, c, apen, maxiters: int,
                 plan.stage_floats, plan.warp_stages, plan.chunk_floats,
                 plan.smem_bytes, stream)
         else:
-            aligned = (m % 4 == 0 and n % 4 == 0 and n_d % 4 == 0
-                       and A.data_ptr() % 16 == 0
-                       and state.invBT.data_ptr() % 16 == 0)
+            aligned = (slices_aligned(m, n) and n_d % 4 == 0
+                       and aligned_pointers(A, state.invBT))
             code = lib.lp_solve_segment_cluster(
                 *args, None if unit is None else unit.rows.data_ptr(),
                 None if unit is None else unit.vals.data_ptr(), n_d,

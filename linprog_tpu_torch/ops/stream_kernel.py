@@ -58,47 +58,25 @@ bulk-copy branch).
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple, Optional
+from typing import List, Optional
 
 import torch
 
 from ..observability import note
 from . import _build
-from .solve_kernel import (
-    SegmentState,
-    check_segment_args,
-    ring_layout,
-    slices_aligned,
-    solve_segment_plain,
-)
+from .plans import (SM_COUNT, SMEM_LIMIT, STREAM_STATIC_BYTES, StreamingPlan,
+                    _round4, aligned_pointers, band_slice_len, cuda_index,
+                    fewest_waves, held_on, scalar_for_unaligned,
+                    slices_aligned, streaming_plan)
+from .solve_kernel import SegmentState, check_segment_args, solve_segment_plain
 
 launches = 0  # CUDA launches of the kernel (never the plain version)
 launches_dual = 0  # those of them in dual mode
 launches_partial = 0  # those of them with sectional pricing
-last_plan = None  # the StreamPlan of the last launch
+last_plan = None  # the StreamingPlan of the last launch
 
-SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
-SM_COUNT = 132  # SMs of an H100 SXM (the default of the plan)
-_STATIC_BYTES = 2048  # the kernel's static shared memory and a block's reserve
-_BANDS = 8  # row bands of a lane (csrc/solve_segment_stream.cu: kBands)
 _CLUSTERS = (8, 2)  # cluster sizes the bulk-copy branch is built for
 _SCALAR_CLUSTERS = (8,)  # cluster sizes the scalar branch is built for
-
-class StreamPlan(NamedTuple):
-    """How one launch of the streaming kernel is laid out."""
-
-    cluster: int  # thread blocks per lane
-    aligned: bool  # bulk-copy rings (True) or scalar loads (False)
-    stages: int  # block ring: stages (0 on the scalar branch)
-    stage_floats: int  # block ring: floats per stage
-    warp_stages: int  # warp rings: stages per warp
-    chunk_floats: int  # warp rings: floats per stage (a chunk of a row)
-    smem_bytes: int  # dynamic shared memory per block
-
-
-def _slice_len(size: int, cluster: int) -> int:
-    """Entries of a block's slice: whole bands of ``ceil(size / 8)``."""
-    return (_BANDS // cluster) * -(-size // _BANDS)
 
 
 def _vector_bytes(m: int, n: int, cluster: int, dual: bool) -> int:
@@ -106,102 +84,79 @@ def _vector_bytes(m: int, n: int, cluster: int, dual: bool) -> int:
     partial of ``y A`` over all n columns (reused for the direction's) and
     in dual mode that of the dual row, five slices of m and four of n,
     rounded to 16 bytes."""
-    floats = (3 * m + max(m, n) + (n if dual else 0)
-              + 5 * _slice_len(m, cluster) + 4 * _slice_len(n, cluster))
-    return 4 * (-(-floats // 4) * 4)
+    return 4 * _round4(3 * m + max(m, n) + (n if dual else 0)
+                       + 5 * band_slice_len(m, cluster)
+                       + 4 * band_slice_len(n, cluster))
 
 
 def scalar_plan(cluster: int, m: int, n: int, dual: bool = False,
-                smem_limit: int = SMEM_LIMIT) -> Optional[StreamPlan]:
+                smem_limit: int = SMEM_LIMIT) -> Optional[StreamingPlan]:
     """The scalar-load branch at ``cluster`` blocks a lane (no ring), or
     None."""
     if cluster not in _SCALAR_CLUSTERS:
         return None
-    vec = _vector_bytes(m, n, cluster, dual)
-    if vec + _STATIC_BYTES > smem_limit:
-        return None
-    return StreamPlan(cluster, False, 0, 0, 0, 0, vec)
-
-
-def _plan_for(cluster: int, m: int, n: int, dual: bool,
-              smem_limit: int) -> Optional[StreamPlan]:
-    """The plan at ``cluster`` blocks a lane: on an aligned shape the
-    largest ring that fits one block on an SM (the bulk-copy branch may use
-    all of a thread's registers, so it counts on no second block)."""
-    if not slices_aligned(m, n):
-        return scalar_plan(cluster, m, n, dual, smem_limit)
-    ring = ring_layout(m, _vector_bytes(m, n, cluster, dual),
-                       smem_limit - _STATIC_BYTES)
-    return None if ring is None else StreamPlan(cluster, True, *ring)
+    return streaming_plan(cluster, 1, _vector_bytes(m, n, cluster, dual), m,
+                          False, smem_limit)
 
 
 def stream_plans(B: int, m: int, n: int, sm_count: int = SM_COUNT,
                  smem_limit: int = SMEM_LIMIT,
-                 dual: bool = False) -> List[StreamPlan]:
+                 dual: bool = False) -> List[StreamingPlan]:
     """Candidate launch plans for ``B`` lanes of ``(m, n)``, best first.
 
     First the largest cluster that keeps the batch within one block per SM
     (``B * cluster <= sm_count``: 8 blocks a lane up to a bucket of 16, 2
-    for a batch of 64), then the other size.  The wrapper takes the first
-    that runs the batch in the fewest waves: a cluster must lie within one
-    GPC, so the card holds fewer clusters of a size than its SM count
-    suggests (15 of 8 blocks, 66 of 2 at one block per SM on an H100 SXM).
-    A shape whose rows are not aligned takes the scalar branch, which is
-    built for 8 blocks a lane only.  Dual mode keeps one more row of n
-    floats; a plan counts on one block per SM.  Raises
-    ``ValueError`` for a lane whose vectors pass the shared memory of a
-    block at every cluster size.
+    for a batch of 64), then the other size.  The wrapper settles them with
+    :func:`~.plans.fewest_waves`: a cluster must lie within one GPC, so the
+    card holds fewer clusters of a size than its SM count suggests (15 of
+    8 blocks, 66 of 2 at one block per SM on an H100 SXM).  On an aligned
+    shape each size's largest ring that fits one block on an SM (the
+    bulk-copy branch may use all of a thread's registers, so a plan counts
+    on no second block); a shape whose rows are not aligned takes the
+    scalar branch, which is built for 8 blocks a lane only.  Dual mode
+    keeps one more row of n floats.  Raises ``ValueError`` for a lane whose
+    vectors pass the shared memory of a block at every cluster size.
     """
     if B < 1 or m < 1 or n < 1:
         raise ValueError(f"stream_plans needs B, m, n >= 1, got {(B, m, n)}")
     first = next((cl for cl in _CLUSTERS if B * cl <= sm_count),
                  _CLUSTERS[-1])
     order = [first] + [cl for cl in _CLUSTERS if cl != first]
-    plans = []
-    for cl in order:
-        plan = _plan_for(cl, m, n, dual, smem_limit)
-        if plan is not None:
-            plans.append(plan)
+    if slices_aligned(m, n):
+        plans = [streaming_plan(cl, 1, _vector_bytes(m, n, cl, dual), m, True,
+                                smem_limit) for cl in order]
+    else:
+        plans = [scalar_plan(cl, m, n, dual, smem_limit) for cl in order]
+    plans = [p for p in plans if p is not None]
     if not plans:
         raise ValueError(
             f"solve_segment_stream: a lane of m={m}, n={n} needs "
-            f"{_vector_bytes(m, n, _CLUSTERS[0], dual) + _STATIC_BYTES} bytes of "
-            f"shared memory per block at {_CLUSTERS[0]} blocks a lane, past "
-            f"the {smem_limit} a block of the card may hold"
+            f"{_vector_bytes(m, n, _CLUSTERS[0], dual) + STREAM_STATIC_BYTES} "
+            f"bytes of shared memory per block at {_CLUSTERS[0]} blocks a "
+            f"lane, past the {smem_limit} a block of the card may hold"
         )
     return plans
 
 
+def clusters_held(plan: StreamingPlan) -> int:
+    """Clusters of ``plan`` the current device holds at once, as the built
+    kernel's occupancy query counts them (< 0: a negated CUDA error)."""
+    return _build.library().lp_solve_segment_stream_max_clusters(
+        plan.cluster, int(plan.aligned), plan.smem_bytes)
+
+
 @functools.lru_cache(maxsize=None)
 def _choose_plan(B: int, m: int, n: int, dual: bool, device_index: int,
-                 pointers_aligned: bool) -> StreamPlan:
-    """The candidate that runs the batch in the fewest waves of resident
-    clusters on this device (ties: the earlier candidate)."""
+                 pointers_aligned: bool) -> StreamingPlan:
+    """:func:`~.plans.fewest_waves` by the built kernel's occupancy query
+    on this device; unaligned pointers take the scalar branch."""
     props = torch.cuda.get_device_properties(device_index)
-    lib = _build.library()
-    best, best_waves, seen = None, None, []
-    for plan in stream_plans(B, m, n, props.multi_processor_count,
-                             dual=dual):
-        if plan.aligned and not pointers_aligned:
-            plan = scalar_plan(plan.cluster, m, n, dual)
-            if plan is None:
-                continue
-        with torch.cuda.device(device_index):  # the query asks this device
-            resident = lib.lp_solve_segment_stream_max_clusters(
-                plan.cluster, int(plan.aligned), plan.smem_bytes)
-        seen.append((plan.cluster, resident))
-        if resident <= 0:
-            continue
-        waves = -(-B // resident)
-        if best is None or waves < best_waves:
-            best, best_waves = plan, waves
-    if best is None:
-        raise RuntimeError(
-            "solve_segment_stream: the device holds no cluster of any "
-            f"planned size for m={m}, n={n}: (cluster, resident or negated "
-            f"CUDA error) = {seen}"
-        )
-    return best
+    plans = stream_plans(B, m, n, props.multi_processor_count, dual=dual)
+    if not pointers_aligned:
+        plans = scalar_for_unaligned(
+            plans, lambda cl: scalar_plan(cl, m, n, dual))
+    return fewest_waves(plans, B, held_on(device_index, clusters_held),
+                        "solve_segment_stream", f" for m={m}, n={n}")
 
 
 def _factor_rb(m: int) -> int:
@@ -295,12 +250,8 @@ def solve_segment_stream(A, c, apen, maxiters: int, state: SegmentState, *,
         # a lane too large raises all the same
         stream_plans(max(B, 1), m, n, dual=bool(dual))
         return state
-    pointers_aligned = (A.data_ptr() % 16 == 0
-                        and state.invBT.data_ptr() % 16 == 0)
-    index = A.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    plan = _choose_plan(B, m, n, bool(dual), index, pointers_aligned)
+    plan = _choose_plan(B, m, n, bool(dual), cuda_index(A.device),
+                        aligned_pointers(A, state.invBT))
     return launch_with_plan(plan, A, c, apen, maxiters, state,
                             seg_len=seg_len, pricing=pricing, opt_tol=opt_tol,
                             pivot_tol=pivot_tol, dual=dual, feas_tol=feas_tol,
@@ -308,7 +259,7 @@ def solve_segment_stream(A, c, apen, maxiters: int, state: SegmentState, *,
                             partial=partial, n_blk=n_blk)
 
 
-def launch_with_plan(plan: StreamPlan, A, c, apen, maxiters: int,
+def launch_with_plan(plan: StreamingPlan, A, c, apen, maxiters: int,
                      state: SegmentState, *, seg_len: int, pricing: int,
                      opt_tol: float, pivot_tol: float, dual: bool = False,
                      feas_tol: float = 1e-6, stall_limit: int = 0,

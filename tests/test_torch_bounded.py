@@ -247,7 +247,7 @@ def test_singular_starting_basis_is_a_status_not_an_exception():
 def test_shapes_off_the_bounded_kernel_are_not_ported():
     """Every shape is in the port now (the name dates from when shapes off
     the v5e's whole-segment gate raised).  ``kernels="cuda"`` raises only
-    past the bounded kernel's block-per-lane branch, naming
+    past the bounded kernel's streaming branch, naming
     ``kernels="torch"`` (zero-stride tensors: nothing is computed before
     the check); a lane past the v5e gate but inside that line has a plan,
     now on the streaming branch that replaced the block per lane;
@@ -255,11 +255,8 @@ def test_shapes_off_the_bounded_kernel_are_not_ported():
     ``"xla"`` vmaps its own (statuses, bases and iterations equal, x within
     2e-4 of the lane's scale)."""
     from linprog_tpu_torch.engine_batched import _mega_kernel_fits
-    from linprog_tpu_torch.ops.bounded_kernel import (
-        BoundedStreamPlan,
-        has_plan,
-        segment_plans,
-    )
+    from linprog_tpu_torch.ops.bounded_kernel import has_plan, segment_plans
+    from linprog_tpu_torch.ops.plans import StreamingPlan
 
     zero = torch.zeros(())
     m, n = 3072, 6144
@@ -271,7 +268,7 @@ def test_shapes_off_the_bounded_kernel_are_not_ported():
     with pytest.raises(NotImplementedError, match="kernels='torch'"):
         lt.solve_batch_bounded(*args)
     assert has_plan(1280, 2560) and not _mega_kernel_fits(1280, 2560, False)
-    assert isinstance(segment_plans(16, 1280, 2560)[0], BoundedStreamPlan)
+    assert isinstance(segment_plans(16, 1280, 2560)[0], StreamingPlan)
 
     prob = bounded_lps(4, 8, 10, seed=5)
     basis, vs = slack_start(4, 8, 10)

@@ -31,6 +31,7 @@ from linprog_tpu_torch.ops import (
     stream_kernel,
 )
 from linprog_tpu_torch.ops.bounded_kernel import BoundedSegmentState
+from linprog_tpu_torch.ops.plans import SegmentPlan, StreamingPlan, resident
 from linprog_tpu_torch.ops.solve_kernel import SegmentState
 
 
@@ -438,7 +439,7 @@ def test_kernels_launch_at_48kb_of_dynamic_shared_memory(cuda, kernel, m, n):
         k, p = _both(A, c, apen, state0, **kw)
         assert solve_kernel.last_plan == plan
     else:
-        plan = solve_kernel.SegmentPlan(2, solve_kernel.cluster_bytes(
+        plan = SegmentPlan(2, solve_kernel.cluster_bytes(
             m, n + m, 2))
         assert plan in solve_kernel.segment_plans(2, m, n + m)
         assert plan.smem_bytes == 48 * 1024
@@ -567,13 +568,13 @@ def test_segment_kernel_block_branch_past_the_largest_cluster(cuda, dual):
     branch runs it (the name dates from the block per lane it replaced),
     16 pivots in lockstep with the plain version."""
     m, n = 1024, 1024
-    assert not solve_kernel.resident(m, n + m)
+    assert not resident(m, n + m, solve_kernel.cluster_bytes)
     A, c, apen, h, state0 = _slack_instance(4, m, n, seed=9, dual=dual,
                                             dev=cuda, degenerate=False)
     k, p = _both(A, c, apen, state0, seg_len=16, pricing=1, opt_tol=1e-6,
                  pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
                  packed=True)
-    assert isinstance(solve_kernel.last_plan, solve_kernel.StreamingPlan)
+    assert isinstance(solve_kernel.last_plan, StreamingPlan)
     assert solve_kernel.last_plan in solve_kernel.segment_plans(4, m, n + m)
     _assert_lockstep(A, h, k, p)
     assert bool((k.iters == 16).all())
@@ -590,7 +591,7 @@ def test_segment_stream_one_iteration_from_the_slack_start(cuda, dual):
     k, p = _both(A, c, apen, state0, seg_len=1, pricing=1, opt_tol=1e-6,
                  pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
                  packed=True)
-    assert isinstance(solve_kernel.last_plan, solve_kernel.StreamingPlan)
+    assert isinstance(solve_kernel.last_plan, StreamingPlan)
     for name, a, q in zip(k._fields, k, p):
         torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
                                    msg=name)
@@ -652,7 +653,7 @@ def test_segment_stream_devex_lockstep_with_plain(cuda, dual):
     k, p = _both(A, c, apen, state0, seg_len=16, pricing=2, opt_tol=1e-6,
                  pivot_tol=1e-7, dual=dual, feas_tol=1e-6, stall_limit=24,
                  packed=True)
-    assert isinstance(solve_kernel.last_plan, solve_kernel.StreamingPlan)
+    assert isinstance(solve_kernel.last_plan, StreamingPlan)
     same = torch.ones(B, dtype=torch.bool, device=cuda)
     for name in ("basis", "status", "iters", "pen", "cB"):
         a, q = getattr(k, name), getattr(p, name)
@@ -673,7 +674,7 @@ def test_segment_stream_exact_path_matches_cpu(cuda):
     import linprog_tpu_torch as lt
 
     B, m = 4, 768
-    assert not solve_kernel.resident(m, 2 * m)
+    assert not resident(m, 2 * m, solve_kernel.cluster_bytes)
     c, G, h = (torch.tensor(a) for a in random_inequality_lps(B, m, m,
                                                                seed=13))
     res_cpu, _ = lt.solve_batch_exact(c, G, h)
@@ -697,7 +698,7 @@ def test_segment_kernel_refuses_a_plan_that_does_not_fit(cuda):
     good = solve_kernel.segment_plans(2, 128, 384)[0]
     before = solve_kernel.launches
     for bad in (good._replace(smem_bytes=16), good._replace(cluster=3),
-                solve_kernel.SegmentPlan(1, solve_kernel.cluster_bytes(
+                SegmentPlan(1, solve_kernel.cluster_bytes(
                     128, 384, 1))):
         with pytest.raises(RuntimeError, match="invalid"):
             solve_kernel.launch_with_plan(bad, A, c, apen, 10, state, **kw)
@@ -983,13 +984,13 @@ def test_segment_span_notes_the_branch_that_ran(cuda, kernel, B, m, n,
             A, c, apen, 1 << 20, state, pricing=1, feas_tol=1e-6,
             stall_limit=24, **kw))
         streaming = isinstance(solve_kernel.last_plan,
-                               solve_kernel.StreamingPlan)
+                               StreamingPlan)
     else:
         A, c, lb, ub, _, state = _bounded_instance(B, m, n, 7, cuda)
         noted = _noted_branch(lambda: bounded_kernel.solve_bounded_segment(
             A, c, lb, ub, 1 << 20, state, **kw))
         streaming = isinstance(bounded_kernel.last_plan,
-                               bounded_kernel.BoundedStreamPlan)
+                               StreamingPlan)
     assert noted == branch
     assert streaming == (branch == "stream")
     assert bool((state.iters == 2).all())
@@ -1328,13 +1329,13 @@ def test_bounded_kernel_launches_at_48kb_of_dynamic_shared_memory(cuda):
     assert 4 * (3 * m + (n + m) + 7 * -(-m // 8) + 5 * -(-(n + m) // 8)
                 + 3) // 16 * 16 == 48 * 1024
     plan = bounded_kernel.segment_plans(2, m, n + m)[0]
-    assert isinstance(plan, bounded_kernel.BoundedStreamPlan)
+    assert isinstance(plan, StreamingPlan)
     assert plan.smem_bytes == 48 * 1024 and not plan.aligned
     A, c, lb, ub, b, state0 = _bounded_instance(2, m, n, seed=1, dev=cuda)
     k, p = _bounded_both(A, c, lb, ub, state0, seg_len=2, opt_tol=1e-6,
                          pivot_tol=1e-7, packed=True)
     assert isinstance(bounded_kernel.last_plan,
-                      bounded_kernel.BoundedStreamPlan)
+                      StreamingPlan)
     assert bounded_kernel.last_plan.smem_bytes == 48 * 1024
     torch.testing.assert_close(k.basis, p.basis, rtol=0, atol=0)
     torch.testing.assert_close(k.vstate, p.vstate, rtol=0, atol=0)
@@ -1346,7 +1347,7 @@ def test_bounded_kernel_cluster_launches_at_48kb_of_dynamic_shared_memory(
     """The cluster-resident branch at (16, 980), 2 CTAs a lane: exactly 48
     KB of dynamic shared memory a CTA."""
     m, n = 16, 964
-    plan = solve_kernel.SegmentPlan(2, bounded_kernel.cluster_bytes(
+    plan = SegmentPlan(2, bounded_kernel.cluster_bytes(
         m, n + m, 2))
     assert plan.smem_bytes == 48 * 1024
     assert plan in bounded_kernel.segment_plans(2, m, n + m)
@@ -1432,13 +1433,13 @@ def test_bounded_kernel_block_branch_past_the_largest_cluster(cuda, packed):
     16 iterations in lockstep with the plain version."""
     m, n = 1024, 1024
     plans = bounded_kernel.segment_plans(4, m, n + m)
-    assert all(isinstance(pl, bounded_kernel.BoundedStreamPlan)
+    assert all(isinstance(pl, StreamingPlan)
                for pl in plans)
     A, c, lb, ub, b, state0 = _bounded_instance(4, m, n, seed=9, dev=cuda)
     k, p = _bounded_both(A, c, lb, ub, state0, seg_len=16, opt_tol=1e-6,
                          pivot_tol=1e-7, packed=packed)
     assert isinstance(bounded_kernel.last_plan,
-                      bounded_kernel.BoundedStreamPlan)
+                      StreamingPlan)
     _assert_bounded_lockstep(k, p)
 
 
@@ -1807,7 +1808,7 @@ def test_bounded_kernel_block_branch_at_1280(cuda, packed):
     m = 1280
     plans = bounded_kernel.segment_plans(4, m, 2 * m)
     assert len(plans) >= 2 and all(
-        isinstance(pl, bounded_kernel.BoundedStreamPlan) for pl in plans)
+        isinstance(pl, StreamingPlan) for pl in plans)
     A, c, lb, ub, b, state0 = _bounded_instance(4, m, m, seed=12, dev=cuda)
     kw = dict(seg_len=16, opt_tol=1e-6, pivot_tol=1e-7, packed=packed)
     k, p = _bounded_both(A, c, lb, ub, state0, **kw)
@@ -1831,7 +1832,7 @@ def test_bounded_stream_one_iteration_from_the_slack_start(cuda, packed):
     k, p = _bounded_both(A, c, lb, ub, state0, seg_len=1, opt_tol=1e-6,
                          pivot_tol=1e-7, packed=packed)
     assert isinstance(bounded_kernel.last_plan,
-                      bounded_kernel.BoundedStreamPlan)
+                      StreamingPlan)
     for name, a, q in zip(k._fields, k, p):
         torch.testing.assert_close(a, q, rtol=0, atol=0, equal_nan=True,
                                    msg=name)
@@ -1900,7 +1901,7 @@ def test_bounded_stream_lockstep_from_mid_solve_with_flips(cuda, packed):
         BoundedSegmentState(*(t.clone() for t in slack)), seg_len=12, **kw)
     k, _ = _bounded_both(A, c, lb, ub, state0, seg_len=16, **kw)
     assert isinstance(bounded_kernel.last_plan,
-                      bounded_kernel.BoundedStreamPlan)
+                      StreamingPlan)
     p, flips = BoundedSegmentState(*(t.clone() for t in state0)), 0
     for _ in range(16):
         before = BoundedSegmentState(*(t.clone() for t in p))
@@ -1928,7 +1929,7 @@ def test_bounded_stream_path_matches_cpu(cuda):
 
     B, m = 4, 640
     assert isinstance(bounded_kernel.segment_plans(B, m, 2 * m)[0],
-                      bounded_kernel.BoundedStreamPlan)
+                      StreamingPlan)
     gen = torch.Generator().manual_seed(7)
     prob = device_bounded_lps(gen, B, m, m, "cpu")
     basis = torch.arange(m, 2 * m, dtype=torch.int32).expand(B, m)
@@ -1942,7 +1943,7 @@ def test_bounded_stream_path_matches_cpu(cuda):
                                  vs.to(cuda), 20000, cfg)
     assert bounded_kernel.launches > before
     assert isinstance(bounded_kernel.last_plan,
-                      bounded_kernel.BoundedStreamPlan)
+                      StreamingPlan)
     assert bool((res.status == st.OPTIMAL).all())
     np.testing.assert_array_equal(res.status.cpu().numpy(),
                                   res_cpu.status.numpy())
@@ -2205,7 +2206,7 @@ def test_segment_kernel_split_pricing_matches_plain(cuda, pricing, m, n):
                  packed=True, split=True)
     assert solve_kernel.launches_split == before + 1
     assert isinstance(solve_kernel.last_plan,
-                      solve_kernel.StreamingPlan) == (m > 512)
+                      StreamingPlan) == (m > 512)
     _assert_lockstep(A, h, k, p)
     assert bool((k.iters > 0).all())
 
@@ -2246,7 +2247,7 @@ def test_segment_kernel_ablation_modes_match_plain(cuda, m, n, ablate):
               stall_limit=2, packed=True)
     k, p = _both(A, c, apen, state0, ablate=ablate, **kw)
     assert isinstance(solve_kernel.last_plan,
-                      solve_kernel.StreamingPlan) == (m > 512)
+                      StreamingPlan) == (m > 512)
     for name in ("basis", "status", "iters", "pen"):
         torch.testing.assert_close(getattr(k, name), getattr(p, name),
                                    rtol=0, atol=0)

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from linprog_tpu_torch.ops import bounded_kernel as bk
+from linprog_tpu_torch.ops import plans as pl
 from linprog_tpu_torch.ops import solve_kernel as sk
 
 KERNELS = {"segment": sk, "bounded": bk}
@@ -68,16 +69,27 @@ def test_first_candidate_at_the_launched_shapes(kernel, B, m, n, cluster):
     assert KERNELS[kernel].segment_plans(B, m, n)[0].cluster == cluster
 
 
-@pytest.mark.parametrize("size", [1, 5, 16, 37, 100, 256, 384, 512, 1000, 1023])
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
-def test_slices_are_whole_bands_at_every_cluster_size(size, cluster):
-    """A CTA's slice is whole bands of a sixteenth of the lane, so the
-    bands, and with them the order of every sum, are the same at every
-    cluster size; the slices cover the lane."""
-    band = sk.slice_len(size, 16)
-    assert band == -(-size // 16) and 16 * band >= size > 16 * (band - 1)
-    assert sk.slice_len(size, cluster) == (16 // cluster) * band
-    assert cluster * sk.slice_len(size, cluster) >= size
+# (bands, size, cluster): the resident branches' 16 bands at every built
+# cluster size, the streaming branches' 8 at 2 CTAs a lane
+BAND_CASES = ([(16, size, cluster)
+               for size in (1, 5, 16, 37, 100, 256, 384, 512, 1000, 1023)
+               for cluster in (1, 2, 4, 8, 16)]
+              + [(8, size, 2)
+                 for size in (1, 5, 8, 100, 1000, 2048, 2999, 6144)])
+
+
+@pytest.mark.parametrize("bands,size,cluster", BAND_CASES)
+def test_slices_are_whole_bands_at_every_cluster_size(bands, size, cluster):
+    """A CTA's slice is whole bands of a sixteenth of the lane (the
+    cluster-resident branches) or of an eighth (the streaming branches),
+    so the bands, and with them the order of every sum, are the same at
+    every cluster size; the slices cover the lane."""
+    slice_len = {16: pl.slice_len, 8: pl.band_slice_len}[bands]
+    band = slice_len(size, bands)
+    assert band == -(-size // bands)
+    assert bands * band >= size > bands * (band - 1)
+    assert slice_len(size, cluster) == (bands // cluster) * band
+    assert cluster * slice_len(size, cluster) >= size
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
@@ -92,11 +104,11 @@ def test_branch_depends_on_the_lane_shape_only(kernel, m, n):
     of both kernels are all of their streaming branches (which replaced
     their blocks per lane)."""
     mod = KERNELS[kernel]
-    resident = sk.resident(m, n, cbytes=mod.cluster_bytes)
+    resident = pl.resident(m, n, mod.cluster_bytes)
     sizes = None
     for B in BATCHES:
         plans = mod.segment_plans(B, m, n)
-        streaming = [isinstance(p, sk.StreamingPlan) for p in plans]
+        streaming = [isinstance(p, pl.StreamingPlan) for p in plans]
         assert all(streaming) if not resident else not any(streaming)
         if kernel == "segment" and not resident:
             assert set(plans) == set(sk.segment_plans(1, m, n))
@@ -129,7 +141,7 @@ def test_bounded_has_plan_is_the_block_branch_line(ratio):
     block branch's line (m ~ 3000 at n = 2m), up to it and past it."""
     for m in range(1, 7000, 13):
         n = max(1, int(m * ratio))
-        want = (sk.resident(m, n, cbytes=bk.cluster_bytes)
+        want = (pl.resident(m, n, bk.cluster_bytes)
                 or _old_block_line(m, n))
         assert bk.has_plan(m, n) == want, (m, n)
         if not want:
@@ -155,17 +167,17 @@ def test_bounded_streaming_plans_fit_and_take_whole_bands(m, n):
     fit the 232,448 a block may use less its static part (two CTAs an SM:
     half of the SM's 228 KB less the card's 1 KB a block); its slices are
     whole bands of an eighth of the lane, which cover it."""
-    assert not sk.resident(m, n, cbytes=bk.cluster_bytes)
+    assert not pl.resident(m, n, bk.cluster_bytes)
     assert _old_block_line(m, n)
     plans = bk.segment_plans(16, m, n)
     aligned = m % 4 == 0 and n % 4 == 0
-    assert all(isinstance(p, bk.BoundedStreamPlan) for p in plans)
+    assert all(isinstance(p, pl.StreamingPlan) for p in plans)
     assert {p.aligned for p in plans} == {aligned}
     if aligned:
         # two CTAs an SM where half the SM holds a CTA's vectors and a ring
         layouts = {(p.cluster, p.ctas_per_sm) for p in plans}
         assert {(4, 1), (8, 1)} <= layouts <= {(4, 1), (8, 1), (8, 2)}
-        smallest = bk.BoundedStreamPlan(8, True, 4, 0, 2, min(256, m), 0, 2)
+        smallest = pl.StreamingPlan(8, True, 4, 0, 2, min(256, m), 0, 2)
         half = _stream_bytes(m, n, 8, smallest) + 2048 + 1024 <= 233472 // 2
         assert ((8, 2) in layouts) == half
     else:
@@ -179,8 +191,8 @@ def test_bounded_streaming_plans_fit_and_take_whole_bands(m, n):
                                                  * p.chunk_floats)
             assert p.chunk_floats % 32 == 0 or p.chunk_floats >= m
         band = -(-m // 8)
-        assert bk._band_slice_len(m, p.cluster) == (8 // p.cluster) * band
-        assert p.cluster * bk._band_slice_len(m, p.cluster) >= m
+        assert pl.band_slice_len(m, p.cluster) == (8 // p.cluster) * band
+        assert p.cluster * pl.band_slice_len(m, p.cluster) >= m
 
 
 @pytest.mark.parametrize("m,n", STREAMED, ids=lambda v: str(v))
@@ -218,11 +230,11 @@ def test_bounded_streaming_order_by_waves_then_sms():
     assert (first.cluster, first.ctas_per_sm, first.aligned) == (8, 2, True)
     (ring8,) = [p for p in bk.segment_plans(16, 1280, 2560)
                 if (p.cluster, p.ctas_per_sm) == (8, 1)]
-    assert bk.estimated_held(ring8) == 15
+    assert pl.estimated_held(ring8) == 15
     assert bk.segment_plans(16, 1280, 2560)[-1] == ring8
     four = bk.segment_plans(4, 1280, 2560)[0]
     assert (four.cluster, four.ctas_per_sm) == (8, 1)
-    assert bk.plan_sms(four, 4, bk.estimated_held(four)) == 32
+    assert pl.plan_sms(four, 4, pl.estimated_held(four)) == 32
 
 
 def test_devex_changes_only_the_block_branch():
@@ -240,7 +252,7 @@ def test_devex_changes_only_the_block_branch():
         for p in dv:
             vec = sk.large_vector_bytes(1024, 2048, p.cluster, devex=True)
             assert vec == sk.large_vector_bytes(1024, 2048, p.cluster) \
-                + 4 * sk.band_slice_len(2048, p.cluster)
+                + 4 * pl.band_slice_len(2048, p.cluster)
             assert p.smem_bytes == vec + 4 * 8 * p.warp_stages * p.chunk_floats
     # the line: 7m + 4n floats, 7m + 5n with devex
     m = 3000
@@ -268,7 +280,7 @@ def test_plans_follow_the_card():
     the streaming branch; more SMs let a batch take larger clusters."""
     assert sk.segment_plans(1024, 256, 512, smem_limit=150 * 1024)[0].cluster == 8
     assert isinstance(sk.segment_plans(8, 512, 1024, smem_limit=150 * 1024)[0],
-                      sk.StreamingPlan)
+                      pl.StreamingPlan)
     assert sk.segment_plans(64, 256, 512, sm_count=264)[0].cluster == 4
     assert sk.segment_plans(64, 128, 384, sm_count=264)[0].cluster == 4
 
@@ -336,7 +348,7 @@ def test_segment_reach_is_the_block_branch_line(ratio, devex):
     memory."""
     for m in range(1, 9000, 17):
         n = max(1, int(m * ratio))
-        want = sk.resident(m, n) or _old_segment_line(m, n, devex)
+        want = pl.resident(m, n, sk.cluster_bytes) or _old_segment_line(m, n, devex)
         try:
             plans = sk.segment_plans(16, m, n, devex=devex)
         except ValueError as e:
@@ -367,9 +379,9 @@ def test_segment_streaming_plans_fit_and_take_whole_bands(m, n, devex):
     static part (two CTAs an SM: half of the SM's 228 KB less the card's 1
     KB a block); its slices are whole bands of an eighth of the lane, which
     cover it."""
-    assert not sk.resident(m, n) and _old_segment_line(m, n, devex)
+    assert not pl.resident(m, n, sk.cluster_bytes) and _old_segment_line(m, n, devex)
     plans = sk.segment_plans(64, m, n, devex=devex)
-    assert all(isinstance(p, sk.StreamingPlan) for p in plans)
+    assert all(isinstance(p, pl.StreamingPlan) for p in plans)
     layouts = {(p.cluster, p.ctas_per_sm) for p in plans}
     if plans[0].aligned:
         assert m % 4 == 0 and n % 4 == 0
@@ -387,8 +399,8 @@ def test_segment_streaming_plans_fit_and_take_whole_bands(m, n, devex):
                                                  * p.chunk_floats)
             assert p.chunk_floats % 32 == 0 or p.chunk_floats >= m
         band = -(-m // 8)
-        assert sk.band_slice_len(m, p.cluster) == (8 // p.cluster) * band
-        assert p.cluster * sk.band_slice_len(m, p.cluster) >= m
+        assert pl.band_slice_len(m, p.cluster) == (8 // p.cluster) * band
+        assert p.cluster * pl.band_slice_len(m, p.cluster) >= m
 
 
 @pytest.mark.parametrize("devex", [False, True], ids=["dantzig", "devex"])
@@ -415,7 +427,7 @@ def test_segment_streaming_first_plan_is_the_measured_one(B, layout, devex):
     bucket of 8 lanes (64 SMs)."""
     first = sk.segment_plans(B, 1024, 2048, devex=devex)[0]
     assert (first.cluster, first.ctas_per_sm, first.aligned) == (*layout, True)
-    assert sk.plan_sms(first, B, sk.estimated_held(first)) == min(
+    assert pl.plan_sms(first, B, pl.estimated_held(first)) == min(
         128, B * first.cluster // first.ctas_per_sm)
 
 
@@ -543,9 +555,9 @@ def test_unit_layout_halves_the_two_phase_cluster():
     stays the one (m, n) gives, and the crossover's [G | I] keeps its 4."""
     dense = sk.segment_plans(1024, 256, 768)
     unit = sk.segment_plans(1024, 256, 768, n_d=256)
-    assert dense[0] == sk.SegmentPlan(8, 152960)
+    assert dense[0] == pl.SegmentPlan(8, 152960)
     assert sk.cluster_bytes(256, 768, 4) == 284416
-    assert unit[0] == sk.SegmentPlan(4, 157440)
+    assert unit[0] == pl.SegmentPlan(4, 157440)
     assert [p.cluster for p in unit] == [4, 8, 16]
     assert sk.segment_plans(1024, 256, 512, n_d=256)[0].cluster == 4
     assert sk.segment_plans(1024, 1024, 3072, n_d=1024) == sk.segment_plans(

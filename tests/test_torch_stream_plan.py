@@ -6,6 +6,7 @@ to the C entry point, so its arithmetic is held here."""
 import pytest
 import torch
 
+from linprog_tpu_torch.ops import plans as pl
 from linprog_tpu_torch.ops import stream_kernel as ssk
 from linprog_tpu_torch.ops.solve_kernel import SegmentState
 
@@ -38,7 +39,7 @@ def test_stream_plans_fit_the_card(m, n, B, dual):
     assert plans and len({p.cluster for p in plans}) == len(plans)
     aligned = m % 4 == 0 and n % 4 == 0
     for p in plans:
-        assert p.smem_bytes + 2048 <= ssk.SMEM_LIMIT
+        assert p.smem_bytes + 2048 <= pl.SMEM_LIMIT
         assert p.aligned == aligned
         vec = 4 * _vector_floats(m, n, p.cluster, dual)
         if not p.aligned:
@@ -74,23 +75,13 @@ def test_stream_plans_prefer_one_block_per_sm(B, first):
                                                 sm_count=264)][0] >= first
 
 
-@pytest.mark.parametrize("size", [1, 5, 8, 100, 1000, 2048, 2999, 6144])
-def test_stream_slices_are_whole_bands_at_every_cluster_size(size):
-    """A block's slice is whole bands of an eighth of the lane, so the
-    bands, and with them the order of every sum, are the same at 8 and at 2
-    blocks a lane; the slices cover the lane."""
-    band = ssk._slice_len(size, 8)
-    assert band == -(-size // 8) and 8 * band >= size > 8 * (band - 1)
-    assert ssk._slice_len(size, 2) == 4 * band
-
-
 def test_stream_plans_ragged_shape_takes_the_scalar_branch():
     for B in BATCHES:
         plans = ssk.stream_plans(B, 1000, 2999)
         assert [p.cluster for p in plans] == [8]
         assert not any(p.aligned for p in plans)
-    assert ssk.slices_aligned(1000, 3000) and not ssk.slices_aligned(1000, 2999)
-    assert not ssk.slices_aligned(1002, 3000)
+    assert pl.slices_aligned(1000, 3000) and not pl.slices_aligned(1000, 2999)
+    assert not pl.slices_aligned(1002, 3000)
     assert ssk.scalar_plan(2, 1000, 2999) is None  # not built for 2 blocks
     assert ssk.scalar_plan(8, 1000, 2999, dual=True).smem_bytes == \
         4 * _vector_floats(1000, 2999, 8, True)

@@ -45,6 +45,7 @@ import chip_smoke as cs  # noqa: E402
 from linprog_tpu_torch.config import tuned_config  # noqa: E402
 from linprog_tpu_torch.ops import bounded_kernel as bk  # noqa: E402
 from linprog_tpu_torch.ops import solve_kernel as sk  # noqa: E402
+from linprog_tpu_torch.ops.plans import StreamingPlan, resident  # noqa: E402
 
 ITERS = 65
 DEFAULT = [(1024, 256, 256), (30, 256, 256), (1, 256, 256),
@@ -199,13 +200,13 @@ def time_plan(launch, kind, state0, plan, seg_len):
 
 def _candidates(bounded, B, m, n):
     mod = bk if bounded else sk
-    if not sk.resident(m, n, cbytes=mod.cluster_bytes):
+    if not resident(m, n, mod.cluster_bytes):
         return mod.built_stream_plans(B, m, n)
     return mod.segment_plans(B, m, n)
 
 
 def _label(plan):
-    if isinstance(plan, sk.StreamingPlan):
+    if isinstance(plan, StreamingPlan):
         return (f"cluster {plan.cluster} ({plan.ctas_per_sm} an SM, "
                 + (f"ring {plan.warp_stages} x {plan.chunk_floats}"
                    if plan.aligned else "scalar loads") + ")")
