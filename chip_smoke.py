@@ -216,6 +216,16 @@ Phases, each printing one JSON line:
      4096] and [4, 512, 8192]; each with the median ms of the kernel and of
      the plain chain and its bound.  Its launches are counted on phase 4's
      timed run, phases 6 and 8 and every path that counts launches.
+ 24. lu_kernel: the batched LU kernel (engine.inv_or_nan / solve_or_nan
+     for float32 lanes up to m = 256, one launch a call) at [1024, 256,
+     256], [8, 256, 256] and [1, 256, 256]: the inverse and the solve
+     against torch.linalg in float64 (the kernel's largest error over lanes
+     at most twice that of torch.linalg in float32) and against the plain
+     version, with the median ms of the kernel, of the plain version and of
+     torch.linalg's inv_ex / solve_ex (library_ms: the yardstick, which the
+     port no longer calls at these shapes) and the bound.  Its launches are
+     counted on phases 4, 6 (none: m = 2048 keeps torch.linalg) and 8 and
+     every path that counts launches.
 The line before the last lists each kernel (launches on its path, error
 against its plain version, times, and the least time the card could take:
 each input byte read once and each output byte written once at 3.35 TB/s,
@@ -250,6 +260,7 @@ from linprog_tpu_torch.ops import _build
 from linprog_tpu_torch.ops import bounded_kernel as bk
 from linprog_tpu_torch.ops import cholinv_kernel as ck
 from linprog_tpu_torch.ops import dd_kernel as ddk
+from linprog_tpu_torch.ops import lu_kernel as luk
 from linprog_tpu_torch.ops.plans import StreamingPlan
 from linprog_tpu_torch.ops import solve_kernel as sk
 from linprog_tpu_torch.ops import step_kernels as stk
@@ -330,12 +341,16 @@ DD_SHAPES = [(B, M, M), (B, 2 * M, M), (XMB, XMM, XMM), (XB, XM, XM),
 DD_SUM_SHAPES = [(B, M // 8, 3 * M), (XMB, XMM // 8, 2 * XMM),
                  (XB, XM // 8, 2 * XM), (XLB, XLM // 8, 2 * XLM)]
 DD_REPS, DD_PLAIN_REPS = 20, 5  # timed calls of the kernel, of the plain chain
+# phase 24: the batched LU kernel at the m = 256 paths' lanes (B, m)
+LU_SHAPES = [(B, M), (8, M), (1, M)]
+LU_REPS, LU_PLAIN_REPS = 10, 2  # timed calls: the kernel, the plain version
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
 REPORTS = {}  # each phase's last printed report, by its name
 DD_PATHS = {}  # the double-word kernel's launches on phase 8's timed run
+LU_PATHS = {}  # the batched LU kernel's launches on phase 8's timed run
 MAIN_PATH = {}  # phase 4's exact bases, for phase 19's ranging
 T0 = time.time()  # the script's start: each phase report carries its time
 
@@ -1215,7 +1230,7 @@ def phase_main_path():
     warm = time.time() - t0
 
     sk.launches = sk.launches_unit = 0
-    ck.launches = ddk.launches = 0
+    ck.launches = ddk.launches = luk.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     res, info = lt.solve_batch_exact(c, G, h)
@@ -1223,7 +1238,8 @@ def phase_main_path():
     wall = time.time() - t0
     launches = {"solve_segment": sk.launches,
                 "solve_segment_unit": sk.launches_unit,
-                "panel_cholinv": ck.launches, "dd_residual": ddk.launches}
+                "panel_cholinv": ck.launches, "dd_residual": ddk.launches,
+                "batched_lu": luk.launches}
     MAIN_PATH["basis"] = res.basis
 
     walls = [wall]
@@ -1475,6 +1491,7 @@ def phase_exact_m2048():
                 f"cluster={ssk.last_plan.cluster}")
 
     sk.launches = ck.launches = ssk.launches = ddk.launches = 0
+    luk.launches = 0
     with _stage_spans([
             ("ipm", li, "ipm_canonical_state", None),
             ("crossover", lx, "crossover_batch_canonical", None),
@@ -1490,7 +1507,7 @@ def phase_exact_m2048():
         wall = time.time() - t0
     launches = {"solve_segment_stream": ssk.launches,
                 "panel_cholinv": ck.launches, "solve_segment": sk.launches,
-                "dd_residual": ddk.launches}
+                "dd_residual": ddk.launches, "batched_lu": luk.launches}
     stage_s, stream_s = {}, {}
     for name, label, t_a, t_b in spans:
         sec = t_a.elapsed_time(t_b) / 1e3
@@ -1542,6 +1559,8 @@ def phase_exact_m2048():
     for name in ("solve_segment_stream", "panel_cholinv"):
         if launches[name] <= 0:
             fail(f"m = 2048 path: kernel {name} was never launched")
+    if launches["batched_lu"] != 0:
+        fail("m = 2048 path: the batched LU kernel ran past its range")
     return launches
 
 
@@ -1820,7 +1839,7 @@ def phase_bounded_path():
     torch.cuda.synchronize()
     warm = time.time() - t0
 
-    bk.launches = ddk.launches = 0
+    bk.launches = ddk.launches = luk.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     res = solve()
@@ -1828,6 +1847,7 @@ def phase_bounded_path():
     walls = [time.time() - t0]
     launches = bk.launches
     DD_PATHS["bounded_m256"] = ddk.launches
+    LU_PATHS["bounded_m256"] = luk.launches
     for _ in range(BOUNDED_REPEATS - 1):
         t0 = time.time()
         solve()
@@ -1868,6 +1888,7 @@ def phase_bounded_path():
            "wall_s": wall_med, "walls_s": walls, "warmup_wall_s": warm,
            "lps_per_sec": B / wall_med, "launches": launches,
            "dd_launches": DD_PATHS["bounded_m256"],
+           "lu_launches": LU_PATHS["bounded_m256"],
            "iters_total": int(res.iters.sum()),
            "iters_max": int(res.iters.max()),
            "highs_lanes": 4, "max_rel_gap_vs_highs": gap,
@@ -1902,6 +1923,8 @@ def phase_bounded_path():
         fail("bounded path: kernel solve_bounded_segment was never launched")
     if DD_PATHS["bounded_m256"] <= 0:
         fail("bounded path: kernel dd_residual was never launched")
+    if LU_PATHS["bounded_m256"] <= 0:
+        fail("bounded path: kernel batched_lu was never launched")
     return launches
 
 
@@ -2113,7 +2136,7 @@ def _reset_counts():
     sk.launches_streaming = sk.launches_streaming_dual = 0
     sk.launches_unit = 0
     ssk.launches = ssk.launches_dual = bk.launches = 0
-    ddk.launches = 0
+    ddk.launches = luk.launches = 0
 
 
 def _read_counts():
@@ -2131,7 +2154,7 @@ def _read_counts():
             "solve_segment_stream_dual": ssk.launches_dual,
             "solve_segment_stream_primal": ssk.launches - ssk.launches_dual,
             "solve_bounded_segment": bk.launches,
-            "dd_residual": ddk.launches}
+            "dd_residual": ddk.launches, "batched_lu": luk.launches}
 
 
 def _walled(fn):
@@ -4826,6 +4849,75 @@ def phase_dd_kernel():
     return rows
 
 
+def _lu_errors(got, want):
+    """max|got - want| / max|want| of each lane against float64."""
+    d = (got.double() - want).abs().reshape(got.shape[0], -1).amax(dim=1)
+    return d / want.abs().reshape(got.shape[0], -1).amax(dim=1)
+
+
+def _lu_library(M, rhs=None):
+    """torch.linalg's f32 inverse or solve, failed lanes NaN (what the
+    helpers called before the kernel)."""
+    if rhs is None:
+        inv, info = torch.linalg.inv_ex(M)
+        return torch.where((info != 0)[:, None, None], float("nan"), inv)
+    x, info = torch.linalg.solve_ex(M, rhs[:, :, None])
+    return torch.where((info != 0)[:, None], float("nan"), x[:, :, 0])
+
+
+def phase_lu_kernel():
+    """Phase 24: the batched LU kernel against torch.linalg and the plain
+    version at the m = 256 paths' batch sizes, with its times."""
+    t0 = time.time()
+    rows = []
+    for b, m in LU_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24 * b + m)
+        Mx = torch.randn((b, m, m), generator=gen, device=DEVICE)
+        rhs = torch.randn((b, m), generator=gen, device=DEVICE)
+        for entry in ("inverse", "solve"):
+            r = None if entry == "inverse" else rhs
+            if r is None:
+                kernel = lambda: luk.inverse(Mx)  # noqa: E731
+                want = torch.linalg.inv(Mx.double())
+                flops, n_bytes = 2 * b * m ** 3, 8 * b * m * m
+            else:
+                kernel = lambda: luk.solve(Mx, rhs)  # noqa: E731
+                want = torch.linalg.solve(Mx.double(),
+                                          rhs.double()[:, :, None])[..., 0]
+                flops, n_bytes = 2 * b * m ** 3 / 3, 4 * b * (m * m + 2 * m)
+            got = kernel()
+            if not torch.isfinite(got).all():
+                fail(f"lu kernel: {entry} [{b}, {m}, {m}] is not finite")
+            err = _lu_errors(got, want)
+            err_lib = _lu_errors(_lu_library(Mx, r), want)
+            err_plain = _lu_errors(luk._plain(Mx, r), want)
+            if err.max() > 2 * err_lib.max():
+                fail(f"lu kernel: {entry} [{b}, {m}, {m}] error "
+                     f"{float(err.max()):.3e} > twice torch.linalg's "
+                     f"{float(err_lib.max()):.3e}")
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            ms = cuda_ms(kernel, LU_REPS)
+            rows.append({
+                "shape": [b, m, m], "entry": entry, "plan": luk.plan(m),
+                "max_abs_err": float((got.double() - luk._plain(Mx, r)
+                                      .double()).abs().max()),
+                "err_max": float(err.max()), "err_median":
+                    float(err.median()),
+                "library_err_max": float(err_lib.max()),
+                "library_err_median": float(err_lib.median()),
+                "plain_err_max": float(err_plain.max()),
+                "ms": ms, "plain_ms": cuda_ms(lambda: luk._plain(Mx, r),
+                                              LU_PLAIN_REPS),
+                "library_ms": cuda_ms(lambda: _lu_library(Mx, r), LU_REPS),
+                "reps": LU_REPS, "plain_reps": LU_PLAIN_REPS,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "roofline_pct": 100.0 * b_ms / ms})
+        del Mx, rhs
+    torch.cuda.synchronize()
+    emit({"phase": "lu_kernel", "cases": rows, "seconds": time.time() - t0})
+    return rows
+
+
 def main():
     phase_environment()
     phase_build()
@@ -4853,6 +4945,7 @@ def main():
     paths.update(last_paths)
     paths["exact_m1024"] = phase_exact_m1024()
     dd_rows = phase_dd_kernel()
+    lu_rows = phase_lu_kernel()
 
     def entry(name, source, replaces, n_launches, rep, new_shapes=None,
               modes=None):
@@ -4860,6 +4953,8 @@ def main():
                    if counts.get(name)}
         if name == "dd_residual":
             by_path.update(DD_PATHS)
+        if name == "batched_lu":
+            by_path.update(LU_PATHS)
         if name == "solve_segment_stream":
             by_path["exact_m4096_dual"] = paths["exact_m4096"][
                 "solve_segment_stream_dual"]
@@ -4985,6 +5080,9 @@ def main():
               steps["steps"]["launches"]["ratio_eta_pivot"], ratio),
         entry("dd_residual", "dd_residual.cu", None,
               launches["dd_residual"], dd_rows[0], dd_rows[1:]),
+        dict(entry("batched_lu", "batched_lu.cu", None,
+                   launches["batched_lu"], lu_rows[0], lu_rows[1:]),
+             library_ms=lu_rows[0]["library_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ import torch
 from . import engine
 from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
-from .engine import basis_matrix, solve_or_nan
+from .engine import basis_matrix, noting_lu, solve_or_nan
 from .observability import host_read, spanned
 from .results import BatchResult
 
@@ -101,6 +101,7 @@ def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
 
 
 @spanned("solve_batch_two_phase")
+@noting_lu
 def solve_batch_two_phase(c, A, b, maxiters1: int = 1000,
                           maxiters2: int = 1000,
                           cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
@@ -396,6 +397,7 @@ def reoptimize_batch_new_rhs(c, A, b_new, basis, maxiters: int,
 
 
 @spanned("solve_batch_bounded")
+@noting_lu
 def solve_batch_bounded(c, A, b, lb, ub, basis, var_state, maxiters: int,
                         cfg: SolverConfig = DEFAULT_CONFIG) -> BatchResult:
     """Batched bounded-variable simplex: ``min c'x, Ax = b, lb <= x <= ub``.

@@ -25,12 +25,15 @@ values, and the terminal solves downstream catch it.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
+from .observability import current
+from .ops import lu_kernel
 
 
 class SimplexState(NamedTuple):
@@ -64,19 +67,59 @@ def _wide(M):
     return M
 
 
+# CUDA calls of inv_or_nan / solve_or_nan that went to torch.linalg (the
+# kernel's own launches are ops.lu_kernel.launches)
+library_calls = 0
+
+
+def _library(W) -> None:
+    global library_calls
+    if W.is_cuda:
+        library_calls += 1
+
+
 def inv_or_nan(M):
-    """Batched inverse; lanes whose factorization fails come back NaN."""
-    inv, info = torch.linalg.inv_ex(_wide(M))
+    """Batched inverse; lanes whose factorization fails come back NaN.
+    float32 CUDA lanes up to ``lu_kernel.MAX_M`` take the batched LU kernel
+    (one launch), every other tensor ``torch.linalg``."""
+    W = _wide(M)
+    if lu_kernel.takes(W.device.type, W.dtype, W.shape[-1]):
+        return lu_kernel.inverse(W)
+    _library(W)
+    inv, info = torch.linalg.inv_ex(W)
     return torch.where((info != 0)[:, None, None], float("nan"),
                        inv.to(M.dtype))
 
 
 def solve_or_nan(M, rhs):
-    """Batched ``M x = rhs`` for ``rhs[B, m]``; failed lanes come back NaN."""
+    """Batched ``M x = rhs`` for ``rhs[B, m]``; failed lanes come back NaN.
+    Routed as :func:`inv_or_nan`; the kernel forms no inverse."""
     W = _wide(M)
+    if lu_kernel.takes(W.device.type, W.dtype, W.shape[-1]):
+        return lu_kernel.solve(W, rhs.to(W.dtype))
+    _library(W)
     x, info = torch.linalg.solve_ex(W, rhs.to(W.dtype)[:, :, None])
     return torch.where((info != 0)[:, None], float("nan"),
                        x[:, :, 0].to(M.dtype))
+
+
+def noting_lu(fn):
+    """``fn`` noting on the span open around each call (the entry point's
+    own) the batched LU's work inside the call: ``lu_launches``, the
+    kernel's launches, and ``lu_library``, the CUDA factorizations that
+    went to ``torch.linalg``."""
+    @functools.wraps(fn)
+    def inner(*args, **kw):
+        sp = current()
+        if not sp:
+            return fn(*args, **kw)
+        launched, library = lu_kernel.launches, library_calls
+        try:
+            return fn(*args, **kw)
+        finally:
+            sp.set(lu_launches=lu_kernel.launches - launched,
+                   lu_library=library_calls - library)
+    return inner
 
 
 def basis_matrix(A, basis):

@@ -195,6 +195,13 @@ def _declare(lib):
     # P and its strides (b, k, j), out; B, K, n; stream
     lib.lp_dd_kahan_sum.argtypes = [p, q, q, q, p, i, i, i, p]
     lib.lp_dd_kahan_sum.restype = i
+    # M and its strides (b, i, j), rhs (null: the inverse) and its strides
+    # (b, i), out; B, m; stream
+    lib.lp_batched_lu.argtypes = [p, q, q, q, p, q, q, p, i, i, p]
+    lib.lp_batched_lu.restype = i
+    # m -> CTAs a lane, shared-memory bytes a CTA
+    lib.lp_batched_lu_plan.argtypes = [i, p, p]
+    lib.lp_batched_lu_plan.restype = i
     lib.lp_error_string.argtypes = [i]
     lib.lp_error_string.restype = ctypes.c_char_p
 

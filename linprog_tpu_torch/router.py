@@ -26,6 +26,7 @@ import torch
 from . import status as st
 from .calibration import get_table
 from .config import SolverConfig, tuned_config
+from .engine import noting_lu
 from .observability import by_status, host_read, span, spanned
 from .results import BatchResult
 
@@ -183,6 +184,7 @@ def _bucket(bad, B: int):
 
 
 @spanned("solve_batch_exact")
+@noting_lu
 def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
                       maxiters: Optional[int] = None, guess: str = "tapia"):
     """Exact vertices of ``min c'x, Gx <= h, x >= 0`` for a batch.

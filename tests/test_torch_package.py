@@ -56,6 +56,7 @@ def _imported_modules(path):
                                  REPO / "tools" / "time_stream_plans.py",
                                  REPO / "tools" / "time_segment_plans.py",
                                  REPO / "tools" / "time_dd.py",
+                                 REPO / "tools" / "time_lu.py",
                                  REPO / "tools" / "diag_m4096.py",
                                  REPO / "tools" / "diag_pdhg_m4096.py",
                                  REPO / "tools" / "diag_sparse_m2048.py",

@@ -20,7 +20,8 @@ modes (split pricing and the ablation switch on kernel 1, sectional pricing
 on kernel 3, Newton-Schulz refactorization, the Gondzio and minv IPM, the
 slack basis guess, the cumsum sparse assembly), 22 the m = 1024 exact
 path on kernel 1's streaming branch, 23 the double-word kernel against
-refine.py's eager chain at the paths' shapes.  Each phase prints
+refine.py's eager chain at the paths' shapes, 24 the batched LU kernel
+against torch.linalg and its plain version.  Each phase prints
 its report and exits nonzero where chip_smoke.py would; the ``kernels``
 line and the last line of chip_smoke.py are not printed.
 """
@@ -43,7 +44,7 @@ PHASES = {"2": cs.phase_cholinv, "3": cs.phase_segment,
           "17": cs.phase_pdhg_m256, "18": cs.phase_sparse_m2048,
           "19": cs.phase_general_form, "20": cs.phase_parallel,
           "21": cs.phase_last_modes, "22": cs.phase_exact_m1024,
-          "23": cs.phase_dd_kernel}
+          "23": cs.phase_dd_kernel, "24": cs.phase_lu_kernel}
 
 
 def main():

@@ -35,7 +35,9 @@ named) per seed; its ``segment`` spans by kernel, mode, held columns
 (``held_cols``), CTAs a lane (``cluster``) and ``branch``, and each call's
 retry (``retry``'s ``lanes`` and ``crossed``) and fallback lanes, the
 double-word kernel's launches on its ``polish`` and ``bounded_polish``
-spans (``dd_launches``), and the time of each span name a call.
+spans (``dd_launches``), the batched LU's kernel launches and library
+calls on each root span (``lu``: ``[lu_launches, lu_library]`` a call),
+and the time of each span name a call.
 ``phase22``: ``chip_smoke.py`` phase 22 with the recorder on; its kernel-1
 time a run against the program's streaming-branch ``segment`` spans.
 Every result is one JSON line.
@@ -326,9 +328,12 @@ def cmd_layout(seconds, seeds, cells=CELLS):
             paths = []  # each call's retry and fallback, in window order
             span_ms = Counter()  # ms a call by span name (nested included)
             dd = []  # each call's dd kernel launches in its polish spans
+            lu = []  # each call's batched LU: kernel launches, library calls
             for call in _program.REC.calls()[-n:]:
                 dd.append([sp.counts.get("dd_launches", 0) for sp in call
                            if sp.name in ("polish", "bounded_polish")])
+                lu.append([call[0].counts.get("lu_launches"),
+                           call[0].counts.get("lu_library")])
                 for sp in call:
                     span_ms[sp.name] += sp.ms() / n
                 for sp in call:
@@ -347,7 +352,7 @@ def cmd_layout(seconds, seeds, cells=CELLS):
             out({"cell": name, "seed": seed, **info, "correct": r["correct"],
                  "calls": n, "segments": [[*k, v] for k, v in
                                           sorted(seen.items())],
-                 "paths": paths, "dd_launches": dd,
+                 "paths": paths, "dd_launches": dd, "lu": lu,
                  "span_ms_a_call": dict(span_ms),
                  "metrics": {k: v["value"] for k, v in r["metrics"].items()},
                  "device": r["device"], "breakdown": r.get("breakdown")})
