@@ -48,6 +48,13 @@ def solve_batch_from_basis(c, A, b, basis, maxiters: int,
     return _to_result(c, states, n)
 
 
+# dual rounds the repair gives a lane: past a few hundred rows the kernel's
+# f32 eta updates can call a basis feasible that float64 does not
+# (ineq_m2048.exact: x_B -4.3e-4 relative after one round, repaired by the
+# second), so such a lane goes round once more from its float64 x_B
+REPAIR_ROUNDS = 2
+
+
 def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
                        cfg: SolverConfig):
     """Dual simplex from exact factors for the OPTIMAL lanes whose basis
@@ -62,9 +69,11 @@ def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
     port's, so the two part at some near-tie, and chance decides which one
     reaches such a basis.  Such a basis is still dual feasible, so dual
     pivots from a fresh factor and the solved ``x_B`` restore primal
-    feasibility.  A lane takes the
-    repaired basis only where the dual phase ends OPTIMAL at a basis that
-    float64 finds feasible; every other lane is left as it was."""
+    feasibility.  A lane whose dual phase ends OPTIMAL at a basis that
+    float64 still finds infeasible goes round again from that basis and
+    its float64 ``x_B``, up to ``REPAIR_ROUNDS`` rounds in all.  A lane
+    takes the repaired basis only where a round ends OPTIMAL at a basis
+    that float64 finds feasible; every other lane is left as it was."""
     tol = cfg.feas_tol * torch.clamp_min(torch.abs(b).amax(dim=1), 1.0)
     bad = ((states.status == st.OPTIMAL)
            & (states.bfs.min(dim=1).values < -tol))
@@ -80,23 +89,41 @@ def _repair_infeasible(c, A, b, states, allowed, maxiters: int,
                     xb.min(dim=1).values < -tol[idx])
     if not idx.numel():
         return states
-    Ai, bi = A[idx], b[idx]
-    sub = engine.make_state(Ai, bi, states.basis[idx])
-    # x_B from the solve, not from the f32 inverse (whose product with b
-    # can put the lane above zero again)
-    sub = sub._replace(bfs=states.bfs[idx])
-    sub = _run_chunked(c[idx], Ai, bi, sub, allowed, maxiters, cfg, "dual")
-    xb = x64(Ai, bi, sub.basis)
-    fixed = ((sub.status == st.OPTIMAL) & torch.isfinite(xb).all(dim=1)
-             & (xb.min(dim=1).values >= -tol[idx]))
-    keep = host_read(torch.nonzero, fixed, as_tuple=True)[0]
-    idx, sub = idx[keep], type(sub)(*(t[keep] for t in sub))
     basis, inv_B, bfs, iters = (t.clone() for t in (
         states.basis, states.inv_B, states.bfs, states.iters))
-    basis[idx] = sub.basis
-    inv_B[idx] = sub.inv_B
-    bfs[idx] = xb[keep].to(bfs.dtype)
-    iters[idx] = iters[idx] + sub.iters
+    # the first round from the terminal solve's x_B (not from the f32
+    # inverse, whose product with b can put the lane above zero again)
+    lane_basis, start = states.basis[idx], states.bfs[idx]
+    spent = torch.zeros_like(states.iters[idx])
+    for rnd in range(REPAIR_ROUNDS):
+        Ai, bi = A[idx], b[idx]
+        sub = engine.make_state(Ai, bi, lane_basis)._replace(bfs=start)
+        sub = _run_chunked(c[idx], Ai, bi, sub, allowed, maxiters, cfg,
+                           "dual")
+        spent = spent + sub.iters
+        xb = x64(Ai, bi, sub.basis)
+        good = (sub.status == st.OPTIMAL) & torch.isfinite(xb).all(dim=1)
+        feasible = xb.min(dim=1).values >= -tol[idx]
+        again = (good & ~feasible if rnd + 1 < REPAIR_ROUNDS
+                 else torch.zeros_like(good))
+        # 1 repaired, 2 another round, 0 left as it was: the lanes sorted
+        # by code (in index order within one) and one read of how many of
+        # each, so the indices stay on the device
+        code = (good & feasible).to(torch.int8) + 2 * again.to(torch.int8)
+        order = torch.sort(code, stable=True).indices
+        n1, n2 = host_read(torch.Tensor.tolist, torch.stack(
+            [(code == 1).sum(), (code == 2).sum()]))
+        n0 = code.numel() - n1 - n2
+        keep, again = order[n0:n0 + n1], order[n0 + n1:]
+        lanes = idx[keep]
+        basis[lanes] = sub.basis[keep]
+        inv_B[lanes] = sub.inv_B[keep]
+        bfs[lanes] = xb[keep].to(bfs.dtype)
+        iters[lanes] = iters[lanes] + spent[keep]
+        if not again.numel():
+            break
+        idx, lane_basis = idx[again], sub.basis[again]
+        start, spent = xb[again].to(bfs.dtype), spent[again]
     return states._replace(basis=basis, inv_B=inv_B, bfs=bfs, iters=iters)
 
 

@@ -32,7 +32,7 @@ import torch
 
 from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
-from .observability import current
+from .observability import current, span
 from .ops import lu_kernel
 
 
@@ -78,6 +78,17 @@ def _library(W) -> None:
         library_calls += 1
 
 
+def _library_span(op: str, W):
+    """A span ``lu_library`` around one factorization that goes to
+    ``torch.linalg``: its ``op`` (``"inv"`` or ``"solve"``), the factored
+    matrices' ``shape``, ``dtype`` and ``device`` type."""
+    sp = span("lu_library")
+    if sp:
+        sp.set(op=op, shape=tuple(W.shape), dtype=str(W.dtype)[6:],
+               device=W.device.type)
+    return sp
+
+
 def inv_or_nan(M):
     """Batched inverse; lanes whose factorization fails come back NaN.
     float32 CUDA lanes up to ``lu_kernel.MAX_M`` take the batched LU kernel
@@ -86,9 +97,10 @@ def inv_or_nan(M):
     if lu_kernel.takes(W.device.type, W.dtype, W.shape[-1]):
         return lu_kernel.inverse(W)
     _library(W)
-    inv, info = torch.linalg.inv_ex(W)
-    return torch.where((info != 0)[:, None, None], float("nan"),
-                       inv.to(M.dtype))
+    with _library_span("inv", W):
+        inv, info = torch.linalg.inv_ex(W)
+        return torch.where((info != 0)[:, None, None], float("nan"),
+                           inv.to(M.dtype))
 
 
 def solve_or_nan(M, rhs):
@@ -98,9 +110,10 @@ def solve_or_nan(M, rhs):
     if lu_kernel.takes(W.device.type, W.dtype, W.shape[-1]):
         return lu_kernel.solve(W, rhs.to(W.dtype))
     _library(W)
-    x, info = torch.linalg.solve_ex(W, rhs.to(W.dtype)[:, :, None])
-    return torch.where((info != 0)[:, None], float("nan"),
-                       x[:, :, 0].to(M.dtype))
+    with _library_span("solve", W):
+        x, info = torch.linalg.solve_ex(W, rhs.to(W.dtype)[:, :, None])
+        return torch.where((info != 0)[:, None], float("nan"),
+                           x[:, :, 0].to(M.dtype))
 
 
 def noting_lu(fn):

@@ -60,6 +60,11 @@ Spans (name: where; counts):
   which streams in every mode: ``"stream"``; ``"plain"`` for a plain
   version).
 * ``batched_lu``: :func:`engine_batched.refresh_running_lanes`.
+* ``lu_library``: each call of :func:`engine.inv_or_nan` or
+  :func:`engine.solve_or_nan` that goes to ``torch.linalg`` (every one
+  the batched LU kernel does not take, wherever it opens); ``op``
+  (``"inv"`` or ``"solve"``), ``shape``, ``dtype`` and ``device`` (type)
+  of the matrices factored.
 * ``polish`` and ``bounded_polish``: :func:`refine.polish_batch` and
   :func:`refine.polish_bounded_batch`; ``pivots``, the rounds that
   pivoted, and ``dd_launches``, the double-word kernel's launches inside

@@ -34,6 +34,10 @@ _FAMILIES = ("simplex", "ipm", "ipm+crossover", "pdhg")
 # from here up: the blocked-factor cleanup settings, a same-guess retry at
 # double budget and no two-phase fallback (the reference's literal 3072)
 _LARGE_M = 3072
+# below this (and past the whole-segment boundary) the uncrossed lanes are
+# retried from the alternate basis guess before the fallback; from here to
+# _LARGE_M they go straight to it (the reference's literal 1536)
+_ALT_RETRY_MAX_M = 1536
 
 
 def _xover_max_m() -> int:
@@ -222,7 +226,7 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         return res, info
 
     retry = None
-    if _xover_max_m() < m < 1536:
+    if _xover_max_m() < m < _ALT_RETRY_MAX_M:
         # past the whole-segment kernel the reference retries the gathered
         # lanes from the other basis guess before any two-phase fallback
         retry = ("magnitude" if guess == "tapia" else "tapia", budget)

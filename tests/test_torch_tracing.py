@@ -72,7 +72,10 @@ def _same_bits(a, b):
             assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-def _children(call, parent, skip=("host_read",)):
+def _children(call, parent, skip=("host_read", "lu_library")):
+    """The layer spans opened directly inside ``parent``: the blocking
+    reads and the library factorizations, leaves that any layer opens, are
+    left out."""
     return [s for s in call if s.parent is parent and s.name not in skip]
 
 
@@ -137,6 +140,9 @@ def test_one_call_gives_its_span_tree_and_counts(entry, monkeypatch):
     assert [s.read_counts()["pivots"] for s in call
             if s.name == "polish"] == polish_k
     assert sum(s.name == "host_read" for s in call) > 0
+    # a library factorization is a leaf (it opens no span)
+    library = [s for s in call if s.name == "lu_library"]
+    assert library and not [s for s in call if s.parent in library]
 
     top = [s.name for s in _children(call, root)]
     if entry == "solve_batch_exact":

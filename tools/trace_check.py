@@ -37,6 +37,8 @@ retry (``retry``'s ``lanes`` and ``crossed``) and fallback lanes, the
 double-word kernel's launches on its ``polish`` and ``bounded_polish``
 spans (``dd_launches``), the batched LU's kernel launches and library
 calls on each root span (``lu``: ``[lu_launches, lu_library]`` a call),
+the ``lu_library`` spans a call by ``op``, ``shape``, ``dtype`` and
+``device`` (``lu_spans``: ``[op, shape, dtype, device, count]``),
 and the time of each span name a call.
 ``phase22``: ``chip_smoke.py`` phase 22 with the recorder on; its kernel-1
 time a run against the program's streaming-branch ``segment`` spans.
@@ -329,11 +331,16 @@ def cmd_layout(seconds, seeds, cells=CELLS):
             span_ms = Counter()  # ms a call by span name (nested included)
             dd = []  # each call's dd kernel launches in its polish spans
             lu = []  # each call's batched LU: kernel launches, library calls
+            lu_spans = []  # each call's lu_library spans, tallied
             for call in _program.REC.calls()[-n:]:
                 dd.append([sp.counts.get("dd_launches", 0) for sp in call
                            if sp.name in ("polish", "bounded_polish")])
                 lu.append([call[0].counts.get("lu_launches"),
                            call[0].counts.get("lu_library")])
+                tally = Counter((sp.counts["op"], sp.counts["shape"],
+                                 sp.counts["dtype"], sp.counts["device"])
+                                for sp in call if sp.name == "lu_library")
+                lu_spans.append([[*k, v] for k, v in sorted(tally.items())])
                 for sp in call:
                     span_ms[sp.name] += sp.ms() / n
                 for sp in call:
@@ -353,6 +360,7 @@ def cmd_layout(seconds, seeds, cells=CELLS):
                  "calls": n, "segments": [[*k, v] for k, v in
                                           sorted(seen.items())],
                  "paths": paths, "dd_launches": dd, "lu": lu,
+                 "lu_spans": lu_spans,
                  "span_ms_a_call": dict(span_ms),
                  "metrics": {k: v["value"] for k, v in r["metrics"].items()},
                  "device": r["device"], "breakdown": r.get("breakdown")})
